@@ -16,7 +16,9 @@ result line if any fails):
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
-   step's logits with the plain path on the card;
+   step's logits with the plain path on the card, and record each side's
+   drift from an fp64-summed path and two controls (TF32 on; the
+   diagonals dropped, which must exceed the limit);
 5. serve the smoke width (fp32) dense, paged and with K=1 cascades;
    greedy streams must be identical with the kernels and with the plain
    versions;
@@ -45,11 +47,13 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 
 #: logits of the full-width model, kernels vs plain versions on the card.
-#: Both round to bf16 at the same places but accumulate in fp32 in other
-#: orders, so a bf16 rounding can flip by one ulp (2^-8 relative); with
-#: random weights the residual stream grows to |x| ~ 1e4 over 28 layers
-#: and such flips compound.  A broken kernel gives O(1) relative error;
-#: the bound on the relative L2 error of the logits is
+#: Both round to bf16 at the same places but sum in fp32 in other orders,
+#: so a bf16 rounding can flip by one ulp (2^-8 relative); with random
+#: weights the residual stream grows to max |x| ~ 1.6e4 over 28 layers
+#: (``residual_by_layer`` in the report) and such flips compound.  The
+#: bound on the relative L2 error of the logits is checked to sit above
+#: what the fp32 orders give and below a faulty path that drops the
+#: diagonals (``compare_full_width_logits``)
 BF16_LOGIT_REL_L2 = 0.1
 
 
@@ -134,6 +138,14 @@ def check_kernels(dev):
                 _fail(f"scaled_matmul N={n} M={m}: max err "
                       f"{max_err(got, want)}")
             xf = x.float()
+            # each side's fp32 summation error against fp64 on fp32 x
+            # (no bf16 output rounding to hide it), relative to max |y|
+            y64 = (xf.double() * pre.double()) @ c.double()
+            scale = float(y64.abs().max())
+            acc_err = {side: float((fn(xf, c, pre=pre).double() - y64)
+                                   .abs().max()) / scale
+                       for side, fn in (("kernel", smm_mod.scaled_matmul),
+                                        ("plain", ref.scaled_matmul_ref))}
             ms = time_ms(lambda: smm_mod.scaled_matmul(x, c, pre=pre))
             pms = time_ms(lambda: ref.scaled_matmul_ref(x, c, pre=pre))
             lms = time_ms(lambda: torch.matmul(xf, c))
@@ -142,7 +154,7 @@ def check_kernels(dev):
             results["scaled_matmul"].append(dict(
                 shape=f"M={m} K=N={n} bf16 x", max_abs_err=max_err(got, want),
                 ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b,
-                bound_by=by))
+                bound_by=by, fp32_err_vs_fp64=acc_err))
 
     # cascade: K=2 with the riffle folded in, N = 128 / 256 (smoke
     # attn_out / mlp) and 1024 (the largest N the fused route takes);
@@ -223,12 +235,12 @@ def check_kernels(dev):
         want = ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables,
                                        positions, 0, 0.0)
         torch.cuda.synchronize()
-        live = positions < virtual
         # bf16 output: fp32 online softmax in another order than the
-        # plain version's softmax; one bf16 ulp of |out| <= ~4
-        if not rel_close(got[live], want[live], rtol=2 ** -7, atol=2e-2):
-            _fail(f"paged_attn T={t}: max err "
-                  f"{max_err(got[live], want[live])}")
+        # plain version's softmax; one bf16 ulp of |out| <= ~4.  Every
+        # row is held, the parked one (which attends to its new tokens
+        # only) too
+        if not rel_close(got, want, rtol=2 ** -7, atol=2e-2):
+            _fail(f"paged_attn T={t}: max err {max_err(got, want)}")
         # the page writes must be the same writes (trash page excluded:
         # parked rows race to it by design and nothing reads it)
         if not (torch.equal(kp[:-1], kp2[:-1])
@@ -249,7 +261,7 @@ def check_kernels(dev):
         b, by = bound_ms(nbytes, flops)
         results["paged_attn"].append(dict(
             shape=f"B={bsz} T={t} Hq={hq} Hkv={hkv} Dh={dh} bs={bs} bf16",
-            max_abs_err=max_err(got[live], want[live]), ms=ms, plain_ms=pms,
+            max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
             library_ms=None, bound_ms=b, bound_by=by))
     return results
 
@@ -317,7 +329,7 @@ def read_counts() -> dict:
     return {name: mod.launches for name, mod in _modules().items()}
 
 
-def serve_path(label, argv, params_cache, totals, require):
+def serve_path(label, argv, params_cache, totals, require, sell_k=2):
     """Drive the launcher's engine once with counts reset just before and
     read just after; ``require`` names kernels that must have launched."""
     import torch
@@ -325,9 +337,9 @@ def serve_path(label, argv, params_cache, totals, require):
     from repro_torch.launch import serve
 
     args = serve.parse_args(argv)
-    key = (args.smoke, args.sell_k)
+    key = (args.smoke, sell_k)
     if key not in params_cache:
-        params_cache[key] = serve.build(args)
+        params_cache[key] = serve.build(args, sell_k=sell_k)
     cfg, model, params = params_cache[key]
     reset_counts()
     eng, reqs, dt = serve.serve(args, cfg, model, params)
@@ -353,48 +365,143 @@ def serve_path(label, argv, params_cache, totals, require):
     return info, streams
 
 
+def scaled_matmul_fp64(x, w, pre=None, post=None, bias=None):
+    """The plain scaled_matmul with fp64 products and sums: rounds to x's
+    dtype at the same place, so it shows each side's fp32 drift."""
+    h = x.double()
+    if pre is not None:
+        h = h * pre.double()
+    y = h @ w.double()
+    if post is not None:
+        y = y * post.double()
+    if bias is not None:
+        y = y + bias.double()
+    return y.to(x.dtype)
+
+
+def scaled_matmul_without_pre(x, w, pre=None, post=None, bias=None):
+    """A deliberately faulty scaled_matmul that drops ``pre`` (so every
+    ACDC layer loses its diagonals): a control for the logit limit."""
+    from repro_torch.kernels import ref
+
+    return ref.scaled_matmul_ref(x, w, None, post, bias)
+
+
+@contextlib.contextmanager
+def scaled_matmul_as(fn):
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    saved = smm_mod.scaled_matmul
+    smm_mod.scaled_matmul = fn
+    try:
+        yield
+    finally:
+        smm_mod.scaled_matmul = saved
+
+
+@contextlib.contextmanager
+def plain_with_tf32():
+    """The plain path with TF32 fp32 matmuls: a lower-precision control."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
 def compare_full_width_logits(params_cache, dev):
-    """One prefill's and one decode step's logits, kernels vs plain."""
+    """One prefill's and one decode step's logits, kernels vs plain, gated
+    at ``BF16_LOGIT_REL_L2``.  Beside it, each side against an fp64-summed
+    path (which side drifts), every layer's residual stream, and two
+    controls read against the same limit: the plain path with TF32 and a
+    faulty path that drops the diagonals."""
     import numpy as np
     import torch
 
-    cfg, model, params = params_cache[(False, None)]
+    from repro_torch.models import transformer
+
+    cfg, model, params = params_cache[(False, 2)]
     rs = np.random.RandomState(3)
     plen, window = 41, 64
     toks = np.zeros((1, window), np.int32)
     toks[0, :plen] = rs.randint(0, cfg.vocab_size, size=plen)
     toks_t = torch.from_numpy(toks).to(dev)
     lengths = torch.tensor([plen], dtype=torch.int32, device=dev)
+    next_tok = torch.tensor([rs.randint(0, cfg.vocab_size)],
+                            dtype=torch.int32, device=dev)
     template = model.init_cache(cfg, 1, 96, dev)
+    ffn = transformer._ffn
 
     def run():
-        logits, cache = model.prefill(params, template, toks_t, cfg, lengths)
-        last = logits[:, plen - 1]
-        tok = torch.argmax(last, dim=-1).to(torch.int32)
-        pos = torch.tensor([plen], dtype=torch.int32, device=dev)
-        dlog, _ = model.decode_step(params, cache, tok, pos, cfg)
-        return last.float(), dlog.float(), tok
+        residuals = []
 
-    reset_counts()
-    k_pre, k_dec, k_tok = run()
-    with plain_kernels():
-        p_pre, p_dec, p_tok = run()
+        def ffn_recording(layer, x, cfg_):
+            y = ffn(layer, x, cfg_)
+            residuals.append(y[0, :plen].float())
+            return y
+
+        transformer._ffn = ffn_recording
+        try:
+            logits, cache = model.prefill(params, template, toks_t, cfg,
+                                          lengths)
+        finally:
+            transformer._ffn = ffn
+        pos = torch.tensor([plen], dtype=torch.int32, device=dev)
+        dlog, _ = model.decode_step(params, cache, next_tok, pos, cfg)
+        return {"prefill": logits[0, plen - 1].float(),
+                "decode": dlog[0].float(), "residuals": residuals}
+
+    runs = {"kernel": run()}
+    for name, ctx in (("plain", plain_kernels),
+                      ("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)),
+                      ("plain_tf32", plain_with_tf32),
+                      ("no_diagonals",
+                       lambda: scaled_matmul_as(scaled_matmul_without_pre))):
+        with ctx():
+            runs[name] = run()
     torch.cuda.synchronize()
-    out = {}
-    for name, got, want in (("prefill", k_pre, p_pre),
-                            ("decode", k_dec, p_dec)):
-        rel = float(torch.linalg.vector_norm(got - want)
-                    / torch.linalg.vector_norm(want))
-        out[name] = dict(rel_l2=rel, max_abs_err=max_err(got, want),
-                         max_abs=float(want.abs().max()))
-        print(f"[logits] full width {name}: rel L2 {rel:.3e} max abs err "
-              f"{out[name]['max_abs_err']:.3e} (|logit| <= "
-              f"{out[name]['max_abs']:.2f}; limit rel L2 "
-              f"{BF16_LOGIT_REL_L2})", flush=True)
-        if not rel <= BF16_LOGIT_REL_L2:
-            _fail(f"full-width {name} logits: rel L2 {rel} > "
-                  f"{BF16_LOGIT_REL_L2}")
-    out["first_token_agrees"] = bool(torch.equal(k_tok, p_tok))
+    pairs = (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"),
+             ("plain_tf32", "plain"), ("no_diagonals", "plain"))
+    out = {"limit_rel_l2": BF16_LOGIT_REL_L2}
+    for where in ("prefill", "decode"):
+        rels = {f"{a}_vs_{b}": _rel_l2(runs[a][where], runs[b][where])
+                for a, b in pairs}
+        got, want = runs["kernel"][where], runs["plain"][where]
+        out[where] = dict(rel_l2=rels, max_abs_err=max_err(got, want),
+                          max_abs=float(want.abs().max()))
+        print(f"[logits] full width {where}: rel L2 " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (|logit| <= {out[where]['max_abs']:.2f}; limit "
+            f"{BF16_LOGIT_REL_L2} on kernel_vs_plain)", flush=True)
+        if not rels["kernel_vs_plain"] <= BF16_LOGIT_REL_L2:
+            _fail(f"full-width {where} logits: rel L2 "
+                  f"{rels['kernel_vs_plain']} > {BF16_LOGIT_REL_L2}")
+        if not rels["no_diagonals_vs_plain"] > BF16_LOGIT_REL_L2:
+            _fail(f"full-width {where} logits: the limit "
+                  f"{BF16_LOGIT_REL_L2} does not catch the faulty control "
+                  f"(rel L2 {rels['no_diagonals_vs_plain']})")
+    layers = []
+    for i in range(cfg.n_layers):
+        row = {f"{a}_vs_{b}": _rel_l2(runs[a]["residuals"][i],
+                                      runs[b]["residuals"][i])
+               for a, b in pairs[:3]}
+        row["max_abs"] = float(runs["plain"]["residuals"][i].abs().max())
+        layers.append(row)
+        if i % 9 == 0 or i == cfg.n_layers - 1:
+            print(f"[residual] layer {i}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in row.items()), flush=True)
+    out["residual_by_layer"] = layers
     return out
 
 
@@ -453,23 +560,23 @@ def main() -> int:
         paths.append(info)
     report["full_width_logits"] = compare_full_width_logits(
         params_cache, dev)
-    del params_cache[(False, None)]
+    del params_cache[(False, 2)]
     torch.cuda.empty_cache()
 
     smoke = ["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
              "--sell-method", "pallas", "--slots", "4", "--prompt-len",
              "12", "--gen", "8", "--requests", "8", "--device", "cuda"]
-    for label, extra, need in (
-            ("smoke dense", [], ("acdc_cascade",)),
-            ("smoke paged", ["--paged", "--block-size", "4"],
+    for label, extra, sell_k, need in (
+            ("smoke dense", [], 2, ("acdc_cascade",)),
+            ("smoke paged", ["--paged", "--block-size", "4"], 2,
              ("acdc_cascade", "paged_attn")),
-            ("smoke K=1", ["--sell-k", "1"], ("acdc_fused",))):
+            ("smoke K=1", [], 1, ("acdc_fused",))):
         info, streams = serve_path(label, smoke + extra, params_cache,
-                                   totals, need)
+                                   totals, need, sell_k)
         with plain_kernels():
             _, plain_streams = serve_path(
                 label + " (plain)", smoke + extra, params_cache,
-                {k: 0 for k in KERNEL_MODULES}, ())
+                {k: 0 for k in KERNEL_MODULES}, (), sell_k)
         if streams != plain_streams:
             _fail(f"{label}: greedy streams differ between kernels and "
                   f"plain versions")

@@ -20,8 +20,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 
-def to_torch(flat: Dict[str, np.ndarray], device="cpu") -> dict:
+
+def to_torch(flat: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> dict:
     """Nested dict of tensors from ``{"a/b/c": array}``; arrays keep their
     dtype (float64 input is not expected: masters are float32)."""
     tree: dict = {}

@@ -25,6 +25,7 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import families as families_mod
 
 Method = Literal["auto", "fft", "matmul", "pallas"]
@@ -75,7 +76,7 @@ class ACDCConfig:
 
 
 def init_acdc_params(gen: torch.Generator, cfg: ACDCConfig,
-                     dtype=torch.float32, device="cpu") -> dict:
+                     dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
     """Stacked cascade parameters, each leaf with leading dim ``k``."""
     fam = families_mod.get_family(cfg.family)
     a, d = fam.init_diagonals(gen, cfg.k, cfg.n, cfg.init_mean,

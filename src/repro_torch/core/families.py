@@ -20,6 +20,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import transforms
 
 __all__ = [
@@ -33,7 +34,8 @@ __all__ = [
 
 def default_init_diagonals(gen: torch.Generator, k: int, n: int,
                            mean: float, std: float, dtype=torch.float32,
-                           device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+                           device=DEFAULT_DEVICE
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paper section 6.2 identity+noise: a, d ~ N(mean, std^2), stacked
     ``(k, n)``, drawn from ``gen`` (a, then d)."""
     a = mean + std * torch.randn((k, n), generator=gen, dtype=dtype,
@@ -68,7 +70,7 @@ class TransformFamily:
     #: rounds a requested size up to one the transform supports
     valid_size: Callable[[int], int] = _identity_size
 
-    def matrices(self, n: int, dtype=torch.float32, device="cpu"
+    def matrices(self, n: int, dtype=torch.float32, device=DEFAULT_DEVICE
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ``(C, C^-1)`` operand pair at size ``n``."""
         return (self.matrix(n, dtype, device),

@@ -16,6 +16,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import acdc as acdc_mod
 from repro_torch.core import families as families_mod
 
@@ -88,7 +89,7 @@ def _acdc_cfg(cfg: SellConfig) -> acdc_mod.ACDCConfig:
 
 
 def init_sell_params(gen: torch.Generator, cfg: SellConfig,
-                     dtype=torch.float32, device="cpu") -> dict:
+                     dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
     if cfg.kind == "dense":
         scale = cfg.dense_init_scale / np.sqrt(cfg.n_in)
         p = {"w": scale * torch.randn((cfg.n_in, cfg.n_out), generator=gen,

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
+
 __all__ = [
     "dct_matrix",
     "idct_matrix",
@@ -46,12 +48,14 @@ def _dct_matrix_np(n: int) -> np.ndarray:
     return mat  # (n_in, n_freq): y = x @ mat  is the DCT-II of x
 
 
-def dct_matrix(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def dct_matrix(n: int, dtype=torch.float32,
+               device=DEFAULT_DEVICE) -> torch.Tensor:
     """Orthonormal DCT-II matrix ``C`` with ``y = x @ C``; ``C^-1 = C.T``."""
     return _to_torch(_dct_matrix_np(n), dtype, device)
 
 
-def idct_matrix(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def idct_matrix(n: int, dtype=torch.float32,
+                device=DEFAULT_DEVICE) -> torch.Tensor:
     """Inverse (DCT-III) matrix, the transpose of :func:`dct_matrix`."""
     return _to_torch(_dct_matrix_np(n).T, dtype, device)
 
@@ -72,13 +76,13 @@ def _real_fft_matrix_np(n: int) -> np.ndarray:
 
 
 def real_fft_matrix(n: int, dtype=torch.float32,
-                    device="cpu") -> torch.Tensor:
+                    device=DEFAULT_DEVICE) -> torch.Tensor:
     """Orthonormal real-DFT basis ``F`` with ``y = x @ F``."""
     return _to_torch(_real_fft_matrix_np(n), dtype, device)
 
 
 def real_ifft_matrix(n: int, dtype=torch.float32,
-                     device="cpu") -> torch.Tensor:
+                     device=DEFAULT_DEVICE) -> torch.Tensor:
     """Inverse of :func:`real_fft_matrix`, i.e. its transpose."""
     return _to_torch(_real_fft_matrix_np(n).T, dtype, device)
 
@@ -95,7 +99,7 @@ def _hadamard_matrix_np(n: int) -> np.ndarray:
 
 
 def hadamard_matrix(n: int, dtype=torch.float32,
-                    device="cpu") -> torch.Tensor:
+                    device=DEFAULT_DEVICE) -> torch.Tensor:
     """Orthonormal Hadamard matrix; symmetric and involutive."""
     return _to_torch(_hadamard_matrix_np(n), dtype, device)
 

@@ -17,8 +17,12 @@
 // a BM x BN output tile; per BK-deep step it stages x (scaled by pre as it
 // loads, transposed so the inner loop reads it by broadcast) and w into
 // shared memory, then each of the 256 threads accumulates a TM x TN
-// micro-tile in fp32 registers with FMAs (no TF32 tensor cores).  post and
-// bias are applied in the epilogue.  Ragged M/N/K edges are masked on
+// micro-tile in fp32 registers with FMAs (no TF32 tensor cores).  Each
+// thread sums one BK-deep slice into a fresh register and adds it to its
+// running total once per slice (two-level summation): a rounding error
+// then grows with about BK + K/BK terms instead of K (K = 6144 on the
+// main path; chip_smoke.py reads each side's fp32 error against fp64 as
+// fp32_err_vs_fp64).  post and bias are applied in the epilogue.  Ragged M/N/K edges are masked on
 // load and store, never padded by copies.  Two tile shapes: a skinny one
 // (16 x 32) for M <= 16 so the decode call still spreads over the SMs, a
 // square one (64 x 64) otherwise.  Every w element is read from device
@@ -82,6 +86,11 @@ smm_kernel(const T* __restrict__ x, const float* __restrict__ w,
       ws[r][c] = (gk < K && gn < N) ? w[(long long)gk * N + gn] : 0.f;
     }
     __syncthreads();
+    float part[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float av[TM], bv[TN];
@@ -92,8 +101,13 @@ smm_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
     __syncthreads();
   }
 

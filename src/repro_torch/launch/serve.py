@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.configs import registry
 from repro_torch.models import get_model
 from repro_torch.serving import Engine
@@ -38,9 +39,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["auto", "fft", "matmul", "pallas"],
                     help="transform backend; only 'pallas' (the hand-written "
                          "kernels) is ported")
-    ap.add_argument("--sell-k", type=int, default=None,
-                    help="cascade depth K of each SELL (default: the "
-                         "config's sell_k, 2); K=1 runs single layers")
     ap.add_argument("--sell-transform", default="acdc",
                     help="transform family (acdc | circulant | hadamard)")
     ap.add_argument("--slots", type=int, default=4)
@@ -59,18 +57,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pool size in pages; default = dense parity")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the sampler")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=DEFAULT_DEVICE)
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
-    """(cfg, model, params) for the launcher flags."""
+def build(args: argparse.Namespace, **overrides):
+    """(cfg, model, params) for the launcher flags; ``overrides`` replace
+    fields of the resulting config (e.g. ``sell_k=1``)."""
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     cfg = registry.with_sell(cfg, args.sell, method=args.sell_method,
                              transform=args.sell_transform)
-    if args.sell_k is not None:
-        cfg = dataclasses.replace(cfg, sell_k=args.sell_k)
+    cfg = dataclasses.replace(cfg, **overrides)
     model = get_model(cfg)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = model.init(gen, cfg, args.device)

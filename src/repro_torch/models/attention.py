@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attn as paged_attn_mod
 from repro_torch.models import linear
@@ -30,7 +31,7 @@ from repro_torch.models.common import (
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype=torch.float32, device="cpu") -> dict:
+                   dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
     dh = cfg.head_dim_
     d = cfg.d_model
     p = {
@@ -163,14 +164,14 @@ def scatter_prefill_kv(k: torch.Tensor, v: torch.Tensor,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  n_layers: int, dtype, device="cpu") -> dict:
+                  n_layers: int, dtype, device=DEFAULT_DEVICE) -> dict:
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_kv_cache_paged(cfg: ModelConfig, n_blocks: int, block_size: int,
-                        n_layers: int, dtype, device="cpu") -> dict:
+                        n_layers: int, dtype, device=DEFAULT_DEVICE) -> dict:
     """Global page pool; page ``n_blocks`` is the write sink (trash)."""
     shape = (n_layers, n_blocks + 1, block_size, cfg.n_kv_heads,
              cfg.head_dim_)

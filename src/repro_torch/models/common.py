@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -125,12 +127,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(dt)
 
 
-def init_rms_norm(d: int, dtype=torch.float32, device="cpu") -> dict:
+def init_rms_norm(d: int, dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype=torch.float32, device="cpu") -> dict:
+               dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
     return {"table": torch.randn((vocab, d), generator=gen, dtype=dtype,
                                  device=device) * (d ** -0.5)}
 
@@ -147,7 +149,7 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float,
-                     device="cpu") -> torch.Tensor:
+                     device=DEFAULT_DEVICE) -> torch.Tensor:
     rot_dim = int(head_dim * fraction) // 2 * 2
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
                         device=device) / rot_dim

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import sell as sell_mod
 from repro_torch.models.common import ModelConfig
 
@@ -41,7 +42,7 @@ def uses_sell(cfg: ModelConfig, role: str) -> bool:
 
 def linear_init(gen: torch.Generator, n_in: int, n_out: int,
                 cfg: ModelConfig, role: str, dtype=torch.float32,
-                device="cpu") -> dict:
+                device=DEFAULT_DEVICE) -> dict:
     if uses_sell(cfg, role):
         scfg = _sell_cfg(cfg, n_in, n_out)
         return {"sell": sell_mod.init_sell_params(gen, scfg, dtype, device)}

@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import linear
 from repro_torch.models.common import ModelConfig
 
@@ -23,7 +24,7 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
              d_ff: Optional[int] = None, dtype=torch.float32,
-             device="cpu") -> dict:
+             device=DEFAULT_DEVICE) -> dict:
     d_ff = d_ff or cfg.d_ff
     return {
         "wg": linear.linear_init(gen, cfg.d_model, d_ff, cfg, "mlp_in",

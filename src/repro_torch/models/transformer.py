@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
@@ -45,7 +46,7 @@ def layer_params(layers: dict, i: int) -> dict:
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
-               device="cpu") -> dict:
+               device=DEFAULT_DEVICE) -> dict:
     return {
         "norm1": init_rms_norm(cfg.d_model, dtype, device),
         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
@@ -54,7 +55,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> dict:
+def init(gen: torch.Generator, cfg: ModelConfig,
+         device=DEFAULT_DEVICE) -> dict:
     """Random parameters (same shapes and distributions as the reference,
     different numbers: the draws come from ``gen``)."""
     _check_family(cfg)
@@ -90,13 +92,13 @@ def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cpu") -> dict:
+               device=DEFAULT_DEVICE) -> dict:
     return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers,
                                   cfg.compute_dtype, device)
 
 
 def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
-                     block_size: int, device="cpu") -> dict:
+                     block_size: int, device=DEFAULT_DEVICE) -> dict:
     """One global page pool shared by all slots (``batch`` unused)."""
     del batch
     return attn_mod.init_kv_cache_paged(cfg, n_blocks, block_size,

@@ -62,7 +62,7 @@ def test_registry_and_permutations():
 def test_identity_init_statistics():
     g = torch.Generator().manual_seed(0)
     cfg = tacdc.ACDCConfig(n=256, k=3, init_std=0.061)
-    p = tacdc.init_acdc_params(g, cfg)
+    p = tacdc.init_acdc_params(g, cfg, device="cpu")
     assert p["a"].shape == p["d"].shape == p["bias"].shape == (3, 256)
     assert abs(float(p["a"].mean()) - 1.0) < 0.01
     assert abs(float(p["d"].std()) - 0.061) < 0.01

@@ -40,7 +40,7 @@ def models():
     jp = jm.init(jax.random.PRNGKey(0), jcfg)
     flat = dict(zip(jax.tree.leaves(tree_paths(jp)),
                     (np.asarray(x) for x in jax.tree.leaves(jp))))
-    return jcfg, tcfg, jm, tm, jp, bridge.to_torch(flat)
+    return jcfg, tcfg, jm, tm, jp, bridge.to_torch(flat, device="cpu")
 
 
 def _prompts(vocab):

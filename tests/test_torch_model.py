@@ -59,7 +59,7 @@ def _pair(**over):
     jp = jm.init(jax.random.PRNGKey(0), jcfg)
     flat = dict(zip(jax.tree.leaves(tree_paths(jp)),
                     (np.asarray(x) for x in jax.tree.leaves(jp))))
-    tp = bridge.to_torch(flat)
+    tp = bridge.to_torch(flat, device="cpu")
     return jcfg, tcfg, jm, tm, jp, tp, flat
 
 
@@ -85,7 +85,7 @@ def test_prefill_and_decode_match_reference(variant):
     lens = np.array([12, 7], np.int32)
     jl, jc = jm.prefill(jp, jm.init_cache(jcfg, b, smax), jnp.asarray(toks),
                         jcfg, jnp.asarray(lens))
-    tl, tc = tm.prefill(tp, tm.init_cache(tcfg, b, smax),
+    tl, tc = tm.prefill(tp, tm.init_cache(tcfg, b, smax, device="cpu"),
                         torch.from_numpy(toks), tcfg, torch.from_numpy(lens))
     for r in range(b):   # logits at the real positions of each row
         _close(tl[r, :lens[r]], np.asarray(jl)[r, :lens[r]], bf16)
@@ -118,9 +118,9 @@ def test_paged_prefill_and_decode_match_reference(variant):
     tables = np.arange(nb, dtype=np.int32).reshape(b, mb)
     tables[0, 4:] = -1                          # unmapped tail
     jcache = jm.init_cache_paged(jcfg, b, nb, bs)
-    tcache = tm.init_cache_paged(tcfg, b, nb, bs)
+    tcache = tm.init_cache_paged(tcfg, b, nb, bs, device="cpu")
     jtpl = jm.init_cache(jcfg, 1, mb * bs)
-    ttpl = tm.init_cache(tcfg, 1, mb * bs)
+    ttpl = tm.init_cache(tcfg, 1, mb * bs, device="cpu")
     jpre = jsteps.make_prefill_step(jm, jcfg, paged=True)
     tpre = tsteps.make_prefill_step(tm, tcfg, paged=True)
     lens = [9, 5]
@@ -169,7 +169,36 @@ def test_bridge_roundtrip_and_param_paths():
     assert set(back) == set(flat)
     assert all(np.array_equal(back[k], flat[k]) for k in flat)
     # the port's own init builds the same tree of shapes
-    own = tm.init(torch.Generator().manual_seed(0), tcfg)
+    own = tm.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     shapes = {k: v.shape for k, v in bridge.to_numpy(own).items()}
     assert shapes == {k: v.shape for k, v in flat.items()}
     assert "layers/attn/wo/sell/a" in flat
+
+
+def _device_defaults():
+    import inspect
+
+    from repro_torch.core import acdc, families, sell, transforms
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, common, linear, mlp
+    from repro_torch.models import transformer
+
+    fns = [bridge.to_torch, transforms.dct_matrix, transforms.idct_matrix,
+           transforms.real_fft_matrix, transforms.real_ifft_matrix,
+           transforms.hadamard_matrix, families.default_init_diagonals,
+           families.TransformFamily.matrices, acdc.init_acdc_params,
+           sell.init_sell_params, common.init_rms_norm, common.embed_init,
+           linear.linear_init, mlp.init_mlp, attention.init_attention,
+           attention.init_kv_cache, attention.init_kv_cache_paged,
+           transformer.init_layer, transformer.init, transformer.init_cache,
+           transformer.init_cache_paged]
+    out = {f.__qualname__: inspect.signature(f).parameters["device"].default
+           for f in fns}
+    out["launch.serve --device"] = serve.parse_args([]).device
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_device_defaults()))
+def test_entry_points_default_to_cuda(name):
+    # the tests pass device="cpu"; a caller who passes nothing gets the card
+    assert _device_defaults()[name] == "cuda"

@@ -10,7 +10,10 @@ path is its keys joined by ``/`` — the strings
 * :func:`to_torch` builds the port's nested parameter dict from a flat
   dict of arrays (e.g. ``dict(zip(leaves(tree_paths(p)), leaves(p)))`` on
   the reference side);
-* :func:`to_numpy` flattens the port's parameters back.
+* :func:`to_numpy` flattens the port's parameters back;
+* :func:`state_to_torch` / :func:`state_to_numpy` do the same for a
+  whole train state (``params/...``, ``opt/m/...``, ``opt/v/...`` and
+  ``step``), so both trainers can start from one state, mid-run too.
 """
 
 from __future__ import annotations
@@ -37,12 +40,33 @@ def to_torch(flat: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> dict:
 
 
 def to_numpy(params: dict, prefix: str = "") -> Dict[str, np.ndarray]:
-    """``{"a/b/c": array}`` for every tensor leaf of ``params``."""
+    """``{"a/b/c": array}`` for every tensor leaf of ``params``; bfloat16
+    leaves come out as float32 (numpy has no bfloat16)."""
     out: Dict[str, np.ndarray] = {}
     for key, val in params.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, dict):
             out.update(to_numpy(val, path))
         else:
-            out[path] = val.detach().cpu().numpy()
+            t = val.detach()
+            out[path] = (t.float() if t.dtype == torch.bfloat16
+                         else t).cpu().numpy()
+    return out
+
+
+def state_to_torch(flat: Dict[str, np.ndarray],
+                   device=DEFAULT_DEVICE) -> dict:
+    """A train state ``{"params", "opt", "step"}`` from the flat paths of
+    the reference's state tree; ``step`` becomes a Python int."""
+    step = int(np.asarray(flat["step"]))
+    state = to_torch({k: v for k, v in flat.items() if k != "step"},
+                     device)
+    state["step"] = step
+    return state
+
+
+def state_to_numpy(state: dict) -> Dict[str, np.ndarray]:
+    """Flat ``{path: array}`` of a train state, ``step`` as int32."""
+    out = to_numpy({k: v for k, v in state.items() if k != "step"})
+    out["step"] = np.asarray(state["step"], np.int32)
     return out

@@ -22,60 +22,21 @@
 //
 // Design, simple first: one block of 256 threads owns BM rows and keeps
 // h and h2 (BM x N fp32 each) in dynamic shared memory (cudaFuncSetAttribute
-// above 48 KB).  BM is sized from the 227 KB budget: 2 * BM * 4N bytes,
-// so BM = 16 at N = 1024 (128 KB) and BM = 32 up to N = 256 (64 KB).  Each
-// thread owns up to CPT = ceil(N/256) output columns for all BM rows and
-// accumulates them in registers with fp32 FMAs; the C / C^T / ct_mid row k
-// it needs is read coalesced from global memory while h[r][k] is a shared
-// memory broadcast.  The D scale, bias, ReLU and the next layer's A scale
-// are applied in the epilogues.  No tensor cores (TF32 would cost digits).
+// above 48 KB), with the tiling of acdc_common.cuh (BM = 16 at N = 1024,
+// 128 KB; BM = 32 up to N = 256, 64 KB).  The C / C^T / ct_mid row k a
+// thread needs is read coalesced from global memory while h[r][k] is a
+// shared memory broadcast.  The D scale, bias, ReLU and the next layer's
+// A scale are applied in the epilogues.  No tensor cores (TF32 would cost
+// digits).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "acdc_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-  return __float2bfloat16(v);
-}
-
-constexpr int kThreads = 256;
-
-// acc[r][cc] = sum_k src[r][k] * W[k][tid + cc*256]
-template <int BM, int CPT>
-__device__ __forceinline__ void row_block_matmul(const float* src,
-                                                 const float* __restrict__ W,
-                                                 int N, float (&acc)[BM][CPT]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < BM; ++r)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[r][cc] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < N; ++k) {
-    float wv[CPT];
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int j = tid + cc * kThreads;
-      wv[cc] = (j < N) ? W[(long long)k * N + j] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      const float hv = src[r * N + k];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc)
-        acc[r][cc] = fmaf(hv, wv[cc], acc[r][cc]);
-    }
-  }
-}
+using acdc::from_f;
+using acdc::kThreads;
+using acdc::row_block_matmul;
+using acdc::to_f;
 
 template <typename T, int BM, int CPT>
 __global__ void __launch_bounds__(kThreads)

@@ -1,10 +1,17 @@
-"""Serving step builders (port of the serving half of
-:mod:`repro.dist.steps`): prefill (dense and paged), the decode step
-with on-device sampling, and the dense slot insert.
+"""Train and serve step builders (port of :mod:`repro.dist.steps`): the
+train state and train step with gradient accumulation, prefill (dense
+and paged), the decode step with on-device sampling, and the dense slot
+insert.
 
-PyTorch runs eagerly, so a "step" is a plain closure over (model, cfg);
-there is nothing to compile.  Caches are updated in place.  The training
-step, the verify step and the sharding rules wait (ROADMAP.md).
+PyTorch runs eagerly, so a "step" is a plain closure over (model, cfg,
+opt); there is nothing to compile.  Parameters, optimizer moments and
+caches are updated in place.  The compressed gradient all-reduce, the
+verify step and the sharding rules wait (ROADMAP.md).
+
+Train state layout (the reference's, so checkpoints and
+:mod:`repro_torch.bridge` carry it between the packages)::
+
+    {"params": <model params>, "opt": <optimizer state>, "step": int}
 """
 
 from __future__ import annotations
@@ -13,8 +20,80 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import attention as attn_mod
+from repro_torch.optim.optimizers import (global_norm, tree_flatten,
+                                          tree_map, tree_unflatten)
 from repro_torch.serving import sampler as sampler_mod
+
+
+def init_state(model, cfg, opt, gen: torch.Generator,
+               device=DEFAULT_DEVICE) -> dict:
+    """Train state: random params from ``gen``, zero moments, step 0."""
+    params = model.init(gen, cfg, device)
+    return {"params": params, "opt": opt.init(params), "step": 0}
+
+
+def loss_and_grads(model, cfg, params: dict, batch: dict):
+    """(loss, grads) of ``model.loss_fn`` at ``params``: grads a tree
+    shaped like ``params`` (zeros for an unused leaf)."""
+    paths, leaves = tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(paths, grads)
+
+
+def make_train_step(model, cfg, opt, accum_steps: int = 1) -> Callable:
+    """``step(state, batch) -> (state, metrics)`` with metrics ``{loss,
+    grad_norm, update_norm}`` (fp32 scalars).
+
+    The parameters and moments of ``state`` are updated IN PLACE (the
+    returned state holds the same tensors).  ``accum_steps > 1`` splits
+    the global batch into equal micro-batches run one after another
+    (live memory: one micro-batch's activations) and returns the mean
+    loss and mean grads, summed in fp32 as the reference sums them.
+    The gradients of the SELL projections come from the ACDC ops'
+    ``autograd.Function``s (:mod:`repro_torch.kernels.ops`).
+    """
+    def grads_of(params, batch):
+        if accum_steps <= 1:
+            return loss_and_grads(model, cfg, params, batch)
+        b = batch["tokens"].shape[0]
+        if b % accum_steps:
+            raise ValueError(
+                f"global batch {b} not divisible by accum {accum_steps}")
+        mb = b // accum_steps
+        loss = grads = None
+        for i in range(accum_steps):
+            micro = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
+            l, g = loss_and_grads(model, cfg, params, micro)
+            g = tree_map(lambda t: t.float(), g)
+            loss = l if loss is None else loss + l
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+        inv = 1.0 / accum_steps
+        return loss * inv, tree_map(lambda t: t * inv, grads)
+
+    def step(state, batch):
+        params = state["params"]
+        loss, grads = grads_of(params, batch)
+        updates, new_opt = opt.update(grads, state["opt"], params,
+                                      state["step"])
+        with torch.no_grad():
+            tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
+        metrics = {"loss": loss.float(), "grad_norm": global_norm(grads),
+                   "update_norm": global_norm(updates)}
+        return ({"params": params, "opt": new_opt,
+                 "step": state["step"] + 1}, metrics)
+
+    return step
 
 
 def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

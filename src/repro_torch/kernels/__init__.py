@@ -8,10 +8,12 @@ module                kernel source               replaces (JAX/Pallas)
 ``acdc_fused``        ``csrc/acdc_cascade.cu``    ``acdc_fused_pallas``
                       (K=1, no mid matrix)
 ``paged_attn``        ``csrc/paged_attn.cu``      ``paged_attention``
+``acdc_bwd``          ``csrc/acdc_bwd.cu``        ``acdc_bwd_pallas``
+``acdc_cascade_bwd``  ``csrc/acdc_cascade_bwd.cu``  ``acdc_cascade_bwd_pallas``
 ====================  ==========================  ==========================
 
 ``ref`` holds the plain PyTorch version of each, ``build`` compiles the
 sources with nvcc and binds them with ctypes, and ``ops`` routes the
-ACDC layer and cascade exactly as the reference does.  The two backward
-kernels (``acdc_bwd``, ``acdc_cascade_bwd``) are not ported yet.
+ACDC layer and cascade, forward and backward, exactly as the reference
+does.  ``csrc/acdc_common.cuh`` holds what the ACDC kernels share.
 """

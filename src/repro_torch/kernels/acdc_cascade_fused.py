@@ -46,10 +46,6 @@ def launch_cascade(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     if n > KERNEL_MAX_N:
         raise ValueError(f"acdc cascade kernel takes N <= {KERNEL_MAX_N}, "
                          f"got {n}")
-    if any(t is not None and t.requires_grad
-           for t in (x, a, d, bias)):
-        raise NotImplementedError(
-            "the ACDC cascade has no backward kernel yet (training slice)")
     for name, t, shape in (("a", a, (k, n)), ("d", d, (k, n)),
                            ("bias", bias, (k, n)), ("c", c, (n, n)),
                            ("ct", ct, (n, n)), ("ct_mid", ct_mid, (n, n))):

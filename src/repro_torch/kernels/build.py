@@ -9,8 +9,9 @@ repository root::
          -Xcompiler -fPIC -Xptxas -v \\
          -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-``<hash>`` is a digest of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  A library is built at
+``<hash>`` is a digest of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and a stale library is
+never loaded.  A library is built at
 its first use (or all at once, in parallel, by :func:`build_all`) and
 loaded once per process.  No PyTorch header is included, so each source
 builds in seconds.
@@ -37,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]   # report registers / shared memory / spills
 #: every source under csrc/, one library each
-SOURCES = ("scaled_matmul", "acdc_cascade", "paged_attn")
+SOURCES = ("scaled_matmul", "acdc_cascade", "paged_attn", "acdc_bwd",
+           "acdc_cascade_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -59,6 +61,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

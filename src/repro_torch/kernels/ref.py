@@ -64,6 +64,82 @@ def acdc_cascade_ref(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     return h.to(x.dtype)
 
 
+def acdc_bwd_ref(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                 d: torch.Tensor, c: torch.Tensor, ct: torch.Tensor,
+                 with_bias: bool = True):
+    """One layer's backward (the paper's eqs. 10-14) over 2-D x, g (M, N)
+    in fp32: returns ``(dx, da, dd, db)`` with dx in x's dtype, the
+    diagonal grads (N,) fp32 and ``db`` None without bias::
+
+        gc = g C,  h2 = (x a) C,  dd = sum h2 gc,  db = sum gc,
+        dh1 = (gc d) C^T,  da = sum x dh1,  dx = a dh1
+    """
+    xf, gf = x.float(), g.float()
+    a, d = a.float(), d.float()
+    gc = gf @ c.float()
+    h2 = (xf * a) @ c.float()
+    dd = torch.sum(h2 * gc, dim=0)
+    db = torch.sum(gc, dim=0) if with_bias else None
+    dh1 = (gc * d) @ ct.float()
+    da = torch.sum(xf * dh1, dim=0)
+    return (a * dh1).to(x.dtype), da, dd, db
+
+
+def acdc_cascade_bwd_ref(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                         d: torch.Tensor, bias: Optional[torch.Tensor],
+                         c: torch.Tensor, ct: torch.Tensor,
+                         ct_mid: Optional[torch.Tensor], relu: bool = False):
+    """Reverse-sweep backward of an order-K cascade (K >= 2) over 2-D x, g
+    (M, N), all in fp32, as the kernel computes it:
+
+    1. re-walk layers 0 .. K-2 and stash their outputs h_1 .. h_{K-1} (the
+       next layers' inputs, ReLU applied, riffle folded into ``ct_mid``);
+    2. sweep layers K-1 .. 0 with eqs. 10-14; between layers the ReLU mask
+       is taken in h-space against the stashed next input and the
+       un-permute is a contraction against ``ct_mid``'s second axis
+       (``w @ ct_mid^T == w[:, p^-1] @ C``).
+
+    Returns ``(dx, da, dd, db)``: dx in x's dtype, (K, N) fp32 grads,
+    ``db`` None without bias.
+    """
+    k, n = a.shape
+    c, ct = c.float(), ct.float()
+    mid = ct_mid.float() if ct_mid is not None else ct
+    a, d = a.float(), d.float()
+    xf = x.float()
+    stash = []
+    h = xf
+    for i in range(k - 1):
+        h3 = ((h * a[i]) @ c) * d[i]
+        if bias is not None:
+            h3 = h3 + bias[i].float()
+        h = h3 @ mid
+        if relu:
+            h = torch.clamp_min(h, 0.0)
+        stash.append(h)
+    da = torch.zeros((k, n), dtype=torch.float32, device=x.device)
+    dd = torch.zeros_like(da)
+    db = torch.zeros_like(da) if bias is not None else None
+    gcur = g.float()
+    for i in range(k - 1, -1, -1):
+        h_i = stash[i - 1] if i > 0 else xf
+        if i == k - 1:
+            gc = gcur @ c
+        else:
+            if relu:
+                gcur = torch.where(stash[i] > 0, gcur,
+                                   torch.zeros_like(gcur))
+            gc = gcur @ mid.T if ct_mid is not None else gcur @ c
+        if db is not None:
+            db[i] = torch.sum(gc, dim=0)
+        h2 = (h_i * a[i]) @ c
+        dd[i] = torch.sum(h2 * gc, dim=0)
+        dh1 = (gc * d[i]) @ ct
+        da[i] = torch.sum(h_i * dh1, dim=0)
+        gcur = a[i] * dh1
+    return gcur.to(x.dtype), da, dd, db
+
+
 def paged_write_targets(tables: torch.Tensor, position: torch.Tensor,
                         t: int, bs: int, n_pages: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:

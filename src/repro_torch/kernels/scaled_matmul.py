@@ -2,8 +2,8 @@
 ``csrc/scaled_matmul.cu``.
 
 Port of :mod:`repro.kernels.scaled_matmul` (``scaled_matmul_pallas``).
-Two calls make the large-N ACDC layer (``ops.acdc_fused_op`` above
-``MAX_FUSED_N``).  The output dtype is x's dtype, so at bf16 the
+Two calls make the large-N ACDC layer's forward and three fp32 calls its
+backward (``ops.acdc_fused_op`` above ``MAX_FUSED_N``).  The output dtype is x's dtype, so at bf16 the
 intermediate ``h2`` rounds to bf16 between the two calls, exactly where
 the reference rounds it.
 
@@ -53,9 +53,6 @@ def scaled_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"scaled_matmul: x on {x.device}, w on {w.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"scaled_matmul: x dtype {x.dtype} not in {_DTYPES}")
-    if x.requires_grad or w.requires_grad:
-        raise NotImplementedError(
-            "scaled_matmul has no backward kernel yet (training slice)")
     m, k = x.shape
     n = w.shape[1]
     x = x.contiguous()

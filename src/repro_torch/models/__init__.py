@@ -4,6 +4,7 @@
 
     model.init(gen, cfg, device)                -> params
     model.apply(params, tokens, cfg)            -> logits (B, S, V)
+    model.loss_fn(params, batch, cfg)           -> scalar loss
     model.init_cache(cfg, batch, max_len, device)
     model.prefill(params, cache, tokens, cfg, lengths)
                                                 -> (logits (B,S,V), cache)
@@ -12,8 +13,8 @@
     model.decode_step_paged(params, cache, t, pos, tables, cfg)
                                                 -> (logits, cache)
 
-The ssm, hybrid and encdec families, the training loss and the verify
-steps are not ported yet (ROADMAP.md).
+The ssm, hybrid and encdec families and the verify steps are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.models.common import ModelConfig
 class Model:
     init: Callable
     apply: Callable
+    loss_fn: Optional[Callable] = None
     init_cache: Optional[Callable] = None
     decode_step: Optional[Callable] = None
     prefill: Optional[Callable] = None
@@ -49,6 +51,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         init=mod.init,
         apply=mod.apply,
+        loss_fn=mod.loss_fn,
         init_cache=mod.init_cache,
         decode_step=mod.decode_step,
         prefill=mod.prefill,

@@ -176,6 +176,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
     return torch.cat([rotated.to(x.dtype), x[..., rot_dim:]], dim=-1)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Masked next-token cross-entropy (positions with label < 0 carry no
+    loss), mean over the unmasked positions.  ``cfg.ce_impl``:
+
+    * ``"onehot"`` (the default) — ``lse(logits) - sum(logits * onehot)``
+      in fp32 with the max shift held constant, as the reference writes it;
+    * ``"gather"`` — ``-log_softmax(logits)`` at the label.
+    """
+    mask = (labels >= 0).float()
+    labels = torch.clamp_min(labels.long(), 0)
+    if cfg.ce_impl == "onehot":
+        lf = logits.float()
+        m = torch.amax(lf, dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+        onehot = torch.zeros_like(lf).scatter_(-1, labels[..., None], 1.0)
+        nll = lse - torch.sum(lf * onehot, dim=-1)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                        window: int) -> torch.Tensor:
     """Boolean mask (..., Sq, Sk): causal AND within the sliding window

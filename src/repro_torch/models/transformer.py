@@ -5,7 +5,10 @@ Layer parameters are stacked with a leading L axis, keyed like the
 reference pytree (``layers/attn/wo/sell/a`` is ``(L, K, N)``), so
 weights cross between the packages one-to-one
 (:mod:`repro_torch.bridge`).  The layer loop is a Python loop over views
-of the stacked tensors.  Caches are updated in place.
+of the stacked tensors.  With ``cfg.remat`` and grad enabled, each layer
+runs under ``torch.utils.checkpoint`` and is recomputed whole in the
+backward (the reference's ``nothing_saveable`` policy).  Caches are
+updated in place.
 """
 
 from __future__ import annotations
@@ -13,12 +16,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
     ModelConfig,
+    cross_entropy,
     embed_init,
     embed_lookup,
     init_rms_norm,
@@ -73,22 +78,58 @@ def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + mlp_mod.mlp(layer["mlp"], h, cfg)
 
 
+def _layer_fn(layer: dict, x: torch.Tensor, positions: torch.Tensor,
+              window: int, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
+    out, _, _ = attn_mod.attention_prefill(layer["attn"], h, positions,
+                                           window, cfg)
+    return _ffn(layer, x + out, cfg)
+
+
+def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """The stacked layers and the final norm over x (B, S, D).  Under
+    ``cfg.remat`` with grad enabled each layer saves only its input and is
+    recomputed whole in the backward (no early stop), as the reference's
+    ``jax.checkpoint(..., nothing_saveable)``."""
+    windows = cfg.layer_windows()
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        layer = layer_params(params["layers"], i)
+        if remat:
+            x = checkpoint(_layer_fn, layer, x, positions, int(windows[i]),
+                           cfg, use_reentrant=False, early_stop=False)
+        else:
+            x = _layer_fn(layer, x, positions, int(windows[i]), cfg)
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
     """Full-sequence forward -> fp32 logits (B, S, V)."""
     _check_family(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    windows = cfg.layer_windows()
-    for i in range(cfg.n_layers):
-        layer = layer_params(params["layers"], i)
-        h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
-        out, _, _ = attn_mod.attention_prefill(layer["attn"], h, positions,
-                                               int(windows[i]), cfg)
-        x = _ffn(layer, x + out, cfg)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = backbone(params, x, _positions(tokens), cfg)
     return unembed(params["embed"], x)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]``; positions with label < 0 are masked."""
+    _check_family(cfg)
+    if batch.get("frontend_embeds") is not None:
+        raise NotImplementedError(
+            "modality frontends are not ported yet (ROADMAP.md)")
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = backbone(params, x, _positions(tokens), cfg)
+    logits = unembed(params["embed"], x)
+    return cross_entropy(logits, batch["labels"], cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

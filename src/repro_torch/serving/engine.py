@@ -17,21 +17,27 @@ tick loop:
 
 Paged mode (``paged=True``) draws ``block_size``-token pages from one
 pool (:class:`repro_torch.serving.blocks.BlockAllocator`, default size =
-dense parity): admission is gated on free pages for the prompt plus one
+dense parity): admission is gated on free pages for the context plus one
 token, decode maps pages lazily, and a slot whose next page cannot be
-mapped stalls (parks for the tick).  When every active slot is stalled
-the lowest-priority slot holding the most pages is evicted as
-``cache_full``.
+mapped stalls (parks for the tick).  When every active slot is stalled,
+the lowest-priority stalled request holding the most pages is preempted
+and requeued, chosen among those that may requeue (budget
+``max_preemptions`` left and a context that fits ``max_prompt_len``);
+only when none may is one evicted, as ``cache_full`` or
+``preempted_limit``.  A requeued request waits ``1 << min(n - 1, 6)``
+ticks after its n-th preemption, then is re-prefilled over its prompt
+plus the tokens generated so far, so a greedy stream continues
+unchanged.  :meth:`Engine.preempt` requeues a slot on demand.
 
-Not ported yet (their constructor arguments raise when set):
-preempt-and-requeue, deadlines, the degradation ladder, fault injection,
-observability hooks and speculative decoding (ROADMAP.md).
+Not ported yet (their constructor arguments raise when set): deadlines,
+the degradation ladder, fault injection, observability hooks and
+speculative decoding (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence, Set
+from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +50,8 @@ from repro_torch.serving.scheduler import Scheduler
 
 #: keys of ``Engine.stats`` (the reference's names for the same counts)
 STATS_KEYS = ("prefill_dispatches", "decode_ticks", "tokens_out",
-              "finished", "preempted", "stalled_slot_ticks", "prefill_s",
-              "decode_s")
+              "finished", "preempted", "requeued", "stalled_slot_ticks",
+              "prefill_s", "decode_s")
 
 
 class Engine:
@@ -135,6 +141,10 @@ class Engine:
         self._tokens = np.zeros((n_slots,), np.int32)
         self._positions = np.full((n_slots,), self._park, np.int32)
         self._stalled: Set[int] = set()
+        # preempted requests wait out a backoff in ticks before they
+        # re-enter the queue: (eligible tick, request)
+        self._backoff: List[Tuple[int, Request]] = []
+        self._tick_no = 0
         self.stats = {k: 0 for k in STATS_KEYS}
         self.stats["prefill_s"] = self.stats["decode_s"] = 0.0
 
@@ -176,9 +186,19 @@ class Engine:
             for slot, req in self.scheduler.admit():
                 self._admit(slot, req)
 
+    def _release_backoff(self) -> None:
+        """Re-enter preempted requests whose backoff has elapsed."""
+        ready = [r for t, r in self._backoff if t <= self._tick_no]
+        self._backoff = [(t, r) for t, r in self._backoff
+                         if t > self._tick_no]
+        for req in ready:
+            self.scheduler.submit(req)
+
     def tick(self) -> int:
-        """Admit + (paged) map this tick's pages + one decode step;
-        returns the number of active slots."""
+        """Backoff release + admit + (paged) map this tick's pages + one
+        decode step; returns the number of active slots."""
+        self._tick_no += 1
+        self._release_backoff()
         self._admit_pass()
         if self.paged:
             self._ensure_blocks()
@@ -215,7 +235,8 @@ class Engine:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.has_work
+        """Queued, active, or backoff-parked work remains."""
+        return self.scheduler.has_work or bool(self._backoff)
 
     def run(self, requests: Sequence[Request],
             max_ticks: Optional[int] = None) -> List[Request]:
@@ -232,10 +253,54 @@ class Engine:
 
     # -- internals --------------------------------------------------------
 
+    # -- preemption ---------------------------------------------------------
+
+    def _can_requeue(self, req: Request) -> bool:
+        """Requeue budget left, and a context short enough to re-prefill
+        (prompt plus generated-so-far within the prefill window)."""
+        return (req.n_preemptions < req.max_preemptions
+                and req.ctx_len <= self.max_prompt_len)
+
+    def _evict_reason(self, req: Request) -> str:
+        return ("preempted_limit"
+                if req.n_preemptions >= req.max_preemptions
+                else "cache_full")
+
+    def _preempt(self, slot: int, req: Request) -> None:
+        """Release the slot (and its pages), park the row and send the
+        request back to the queue after an exponential tick backoff; its
+        generated tokens fold into the re-prefill at readmission."""
+        req.n_preemptions += 1
+        self.scheduler.release(slot)
+        if self.paged:
+            self.allocator.free_slot(slot)
+        self._positions[slot] = self._park      # park: no cache writes
+        self._stalled.discard(slot)
+        req.status = RequestStatus.QUEUED
+        self.stats["preempted"] += 1
+        self.stats["requeued"] += 1
+        backoff = 1 << min(req.n_preemptions - 1, 6)
+        self._backoff.append((self._tick_no + backoff, req))
+
+    def preempt(self, slot: int) -> None:
+        """Preempt-and-requeue the request in ``slot``; raises when the
+        slot is free or the request may not requeue."""
+        req = self.scheduler.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is free")
+        if not self._can_requeue(req):
+            raise ValueError(
+                f"request {req.rid} cannot requeue (preemptions "
+                f"{req.n_preemptions}/{req.max_preemptions}, ctx "
+                f"{req.ctx_len} vs max_prompt_len {self.max_prompt_len})")
+        self._preempt(slot, req)
+
     def _admit(self, slot: int, req: Request) -> None:
-        clen = req.prompt_len
+        # the prompt plus (after a preemption) every token generated so far
+        ctx = list(req.prompt) + [int(t) for t in req.generated]
+        clen = len(ctx)
         toks = np.zeros((1, self.max_prompt_len), np.int32)
-        toks[0, :clen] = np.asarray(req.prompt, np.int32)
+        toks[0, :clen] = np.asarray(ctx, np.int32)
         lengths = self._dev(np.asarray([clen], np.int32))
         t0 = time.perf_counter()
         if self.paged:
@@ -253,7 +318,8 @@ class Engine:
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_dispatches"] += 1
         now = time.time()
-        req.t_first_token = now
+        if req.t_first_token is None:       # readmissions keep the mark
+            req.t_first_token = now
         req.generated.append(tok)
         self.stats["tokens_out"] += 1
         self._tokens[slot] = tok
@@ -262,22 +328,28 @@ class Engine:
 
     def _ensure_blocks(self) -> None:
         """Map each active slot's next write page; stall the slots the
-        pool cannot serve.  If every active slot stalls, evict the
-        lowest-priority one holding the most pages (``cache_full``) and
-        retry the rest."""
+        pool cannot serve.  If every active slot stalls, preempt and
+        requeue the lowest-priority stalled request holding the most
+        pages, choosing among the requeueable ones first (eviction only
+        when none may requeue), and retry the rest."""
         self._stalled = set()
         active = self.scheduler.active()
         for slot, _ in active:
             if not self.allocator.ensure(slot, int(self._positions[slot])):
                 self._stalled.add(slot)
         if self._stalled and len(self._stalled) == len(active):
-            slot, req = max(
-                ((s, r) for s, r in active),
-                key=lambda sr: (-sr[1].priority,
-                                self.allocator.blocks_held(sr[0])))
-            self.stats["preempted"] += 1
-            self._finish(slot, req, "cache_full", time.time())
-            self._stalled.discard(slot)
+            stalled = [(s, r) for s, r in active if s in self._stalled]
+            requeueable = [(s, r) for s, r in stalled
+                           if self._can_requeue(r)]
+            slot, req = max(requeueable or stalled, key=lambda sr: (
+                -sr[1].priority, self.allocator.blocks_held(sr[0])))
+            if requeueable:
+                self._preempt(slot, req)
+            else:
+                self.stats["preempted"] += 1
+                self._finish(slot, req, self._evict_reason(req),
+                             time.time())
+                self._stalled.discard(slot)
             for slot2 in sorted(self._stalled):
                 if self.allocator.ensure(slot2, int(self._positions[slot2])):
                     self._stalled.discard(slot2)

@@ -136,13 +136,6 @@ def test_fused_gate_agrees_with_reference(n, k, permute, bias):
         jcascade.fits_vmem(n, k, permute=permute, bias=bias)
 
 
-def test_ops_are_forward_only():
-    x = torch.zeros(2, 128, requires_grad=True)
-    a = torch.ones(2, 128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tops.acdc_cascade_op(x, a, a)
-
-
 def test_paged_route_counts_cpu_decisions():
     before = dict(tops.PAGED_ATTN_DISPATCHES)
     assert tops.paged_attn_route(8, 128, 2, 1,

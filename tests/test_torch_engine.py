@@ -6,8 +6,11 @@ The setup is the one tests/test_families.py:237 pins (qwen3 smoke,
 ``max_prompt_len`` 12, 5 ragged requests of 8 tokens).  Greedy streams
 must be TOKEN-IDENTICAL, dense and paged (``block_size=4``), and so must
 the finish reasons.  A pool tighter than dense parity checks stalls and
-the deadlock eviction; the allocator and request-stream copies are held
-against the reference's.
+the deadlock breaker: with a prefill window wide enough to re-prefill, it
+preempts and requeues exactly as the reference does (streams, finish
+reasons and counts identical), and evicts once the requeue budget is
+spent.  The allocator and request-stream copies are held against the
+reference's.
 """
 
 import jax
@@ -96,6 +99,87 @@ def test_tight_pool_stalls_and_ceiling(models):
             assert paged.generated == dense.generated
     eng.allocator.audit()
     assert eng.allocator.in_use == 0
+
+
+@pytest.mark.parametrize("max_preemptions", [4, 0])
+def test_tight_pool_requeues_like_reference(models, max_preemptions):
+    """2 slots, ``max_len`` 24, a prefill window of 23 (so a stalled
+    request's context still fits a re-prefill) and 8 pages of 4 tokens:
+    the all-stalled breaker preempts and requeues (default budget 4) or,
+    with no budget, evicts as ``preempted_limit``, as the reference."""
+    jcfg, tcfg, jm, tm, jp, tp = models
+    prompts = _prompts(jcfg.vocab_size)
+    kw = dict(n_slots=2, max_len=24, max_prompt_len=23, paged=True,
+              block_size=4, n_blocks=8)
+    jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=16,
+                      max_preemptions=max_preemptions)
+             for i, p in enumerate(prompts)]
+    treqs = [TRequest(rid=i, prompt=p, max_new_tokens=16,
+                      max_preemptions=max_preemptions)
+             for i, p in enumerate(prompts)]
+    jeng = JEngine(jm, jcfg, jp, **kw)
+    jeng.run(jreqs, max_ticks=400)
+    eng = TEngine(tm, tcfg, tp, **kw)
+    eng.run(treqs, max_ticks=400)
+    assert [list(map(int, r.generated)) for r in treqs] == \
+        [list(map(int, r.generated)) for r in jreqs]
+    reasons = [r.finish_reason for r in treqs]
+    assert reasons == [r.finish_reason for r in jreqs]
+    for key in ("preempted", "requeued", "tokens_out", "finished",
+                "prefill_dispatches", "decode_ticks"):
+        assert eng.stats[key] == jeng.stats[key], key
+    assert [r.n_preemptions for r in treqs] == \
+        [r.n_preemptions for r in jreqs]
+    if max_preemptions:
+        assert reasons == ["cache_full", "length", "length", "cache_full",
+                           "length"]
+        assert [len(r.generated) for r in treqs] == [14, 16, 16, 14, 16]
+        assert eng.stats["requeued"] == 3
+    else:
+        assert "preempted_limit" in reasons
+        assert eng.stats["requeued"] == 0
+    eng.allocator.audit()
+    assert eng.allocator.in_use == 0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_public_preempt_requeues_like_reference(models, paged):
+    """``Engine.preempt(slot)`` mid-run: the request waits out its backoff,
+    is re-prefilled over prompt + generated, and its greedy stream
+    continues unchanged, as the reference."""
+    jcfg, tcfg, jm, tm, jp, tp = models
+    prompts = _prompts(jcfg.vocab_size)
+    kw = dict(n_slots=2, max_len=24, max_prompt_len=20)
+    if paged:
+        kw.update(paged=True, block_size=4)
+    runs = []
+    for eng_cls, req_cls, model, cfg, params in (
+            (JEngine, JRequest, jm, jcfg, jp),
+            (TEngine, TRequest, tm, tcfg, tp)):
+        eng = eng_cls(model, cfg, params, **kw)
+        reqs = [req_cls(rid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(3):
+            eng.tick()
+        eng.preempt(0)
+        with pytest.raises(ValueError):
+            eng.preempt(0)          # the slot is free now
+        ticks = 0
+        while eng.has_work:
+            eng.tick()
+            ticks += 1
+            assert ticks < 400
+        runs.append((eng, reqs))
+    (jeng, jreqs), (teng, treqs) = runs
+    assert [list(map(int, r.generated)) for r in treqs] == \
+        [list(map(int, r.generated)) for r in jreqs]
+    assert [r.finish_reason for r in treqs] == \
+        [r.finish_reason for r in jreqs]
+    assert teng.stats["requeued"] == jeng.stats["requeued"] == 1
+    assert sum(r.n_preemptions for r in treqs) == 1
+    assert teng.stats["decode_ticks"] == jeng.stats["decode_ticks"]
 
 
 def test_eos_stops_the_stream(models):

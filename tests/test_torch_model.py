@@ -179,7 +179,8 @@ def _device_defaults():
     import inspect
 
     from repro_torch.core import acdc, families, sell, transforms
-    from repro_torch.launch import serve
+    from repro_torch.dist import steps
+    from repro_torch.launch import serve, train
     from repro_torch.models import attention, common, linear, mlp
     from repro_torch.models import transformer
 
@@ -191,10 +192,12 @@ def _device_defaults():
            linear.linear_init, mlp.init_mlp, attention.init_attention,
            attention.init_kv_cache, attention.init_kv_cache_paged,
            transformer.init_layer, transformer.init, transformer.init_cache,
-           transformer.init_cache_paged]
+           transformer.init_cache_paged, bridge.state_to_torch,
+           steps.init_state]
     out = {f.__qualname__: inspect.signature(f).parameters["device"].default
            for f in fns}
     out["launch.serve --device"] = serve.parse_args([]).device
+    out["launch.train --device"] = train.parse_args([]).device
     return out
 
 

@@ -24,12 +24,17 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+need = {"repro_torch.kernels.acdc_bwd", "repro_torch.kernels.acdc_cascade_bwd",
+        "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+        "repro_torch.launch.train", "repro_torch.dist.steps"}
+missing = sorted(need - set(names))
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-print(len(names), "modules;", "forbidden:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+print(len(names), "modules;", "forbidden:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 

@@ -13,12 +13,19 @@ result line if any fails):
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes, and time kernel, plain version and (where one
    PyTorch call computes the same function) the library call;
+   ``scaled_matmul`` at M = 4, 16, 64 (bf16 x) and the M = 512 fp32
+   backward triple, N = 2048 and 6144: also bitwise repeat, its fp32
+   error against fp64 within 2 x cuBLAS fp32's, every time warm and with
+   L2 flushed, a tensor-core bound beside the fp32 one, and both of its
+   regimes timed at M = 4, 16, 32, 64 (the regime boundary);
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
    step's logits with the plain path on the card, and record each side's
    drift from an fp64-summed path and two controls (TF32 on; the
-   diagonals dropped, which must exceed the limit);
+   diagonals dropped, which must exceed the limit); and hold
+   ``scaled_matmul``'s fp32 error on the prefill's own inputs within 2 x
+   cuBLAS fp32's;
 5. serve the smoke width (fp32) dense, paged and with K=1 cascades;
    greedy streams must be identical with the kernels and with the plain
    versions;
@@ -56,10 +63,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and fp32
-#: (non-tensor-core) FLOP/s -- the kernels use fp32 FMAs only
+#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32
+#: (non-tensor-core) FLOP/s, and dense TF32 tensor-core FLOP/s (the
+#: 3xTF32 regime of scaled_matmul runs three TF32 products per fp32 one)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
+
+#: the H100's L2 is 50 MB: a write of this many bytes between two timed
+#: launches evicts what the first left there
+L2_FLUSH_BYTES = 128 * 2 ** 20
 
 #: logits of the full-width model, kernels vs plain versions on the card.
 #: Both round to bf16 at the same places but sum in fp32 in other orders,
@@ -119,9 +132,32 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def time_cold_ms(fn, reps: int = 10) -> float:
+    """Median device time of single launches of ``fn``, each after an
+    ``L2_FLUSH_BYTES`` write, so ``fn`` finds its inputs in HBM as a
+    caller that touched other data in between does (and drains the
+    write's dirty lines from L2 as it runs)."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def bound_ms(nbytes: float, flops: float, flop_s: float = FP32_FLOP_S):
     tb = nbytes / HBM_BYTES_S * 1e3
-    tf = flops / FP32_FLOP_S * 1e3
+    tf = flops / flop_s * 1e3
     return (max(tb, tf), "bytes" if tb >= tf else "operations")
 
 
@@ -146,7 +182,6 @@ def check_kernels(dev):
     from repro_torch.kernels import acdc_fused as fused_mod
     from repro_torch.kernels import paged_attn as pa_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels import scaled_matmul as smm_mod
 
     g = torch.Generator(device=dev).manual_seed(1234)
     results = {"scaled_matmul": [], "acdc_cascade": [], "acdc_fused": [],
@@ -155,39 +190,7 @@ def check_kernels(dev):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    # scaled_matmul: the two-call ACDC layer at N = 2048 (attn_out) and
-    # 6144 (mlp), M = 4 (decode, 4 slots) and 64 (prefill window), bf16 x
-    for n in (2048, 6144):
-        c, _ = families.get_family("acdc").matrices(n, torch.float32, dev)
-        for m in (4, 64):
-            x = randn(m, n, dtype=torch.bfloat16)
-            pre = 1.0 + 0.061 * randn(n)
-            got = smm_mod.scaled_matmul(x, c, pre=pre)
-            want = ref.scaled_matmul_ref(x, c, pre=pre)
-            torch.cuda.synchronize()
-            # bf16 output: different fp32 summation orders may round one
-            # bf16 ulp (2^-8 relative) apart
-            if not rel_close(got, want, rtol=2 ** -7, atol=1e-2):
-                _fail(f"scaled_matmul N={n} M={m}: max err "
-                      f"{max_err(got, want)}")
-            xf = x.float()
-            # each side's fp32 summation error against fp64 on fp32 x
-            # (no bf16 output rounding to hide it), relative to max |y|
-            y64 = (xf.double() * pre.double()) @ c.double()
-            scale = float(y64.abs().max())
-            acc_err = {side: float((fn(xf, c, pre=pre).double() - y64)
-                                   .abs().max()) / scale
-                       for side, fn in (("kernel", smm_mod.scaled_matmul),
-                                        ("plain", ref.scaled_matmul_ref))}
-            ms = time_ms(lambda: smm_mod.scaled_matmul(x, c, pre=pre))
-            pms = time_ms(lambda: ref.scaled_matmul_ref(x, c, pre=pre))
-            lms = time_ms(lambda: torch.matmul(xf, c))
-            nbytes = m * n * 2 + n * n * 4 + n * 4 + m * n * 2
-            b, by = bound_ms(nbytes, 2.0 * m * n * n)
-            results["scaled_matmul"].append(dict(
-                shape=f"M={m} K=N={n} bf16 x", max_abs_err=max_err(got, want),
-                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b,
-                bound_by=by, fp32_err_vs_fp64=acc_err))
+    sweep = check_scaled_matmul(dev, randn, results)
 
     # cascade: K=2 with the riffle folded in, N = 128 / 256 (smoke
     # attn_out / mlp) and 1024 (the largest N the fused route takes);
@@ -296,7 +299,141 @@ def check_kernels(dev):
             shape=f"B={bsz} T={t} Hq={hq} Hkv={hkv} Dh={dh} bs={bs} bf16",
             max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
             library_ms=None, bound_ms=b, bound_by=by))
-    return results, check_backward_kernels(dev, randn, results)
+    return results, check_backward_kernels(dev, randn, results), sweep
+
+
+def check_scaled_matmul(dev, randn, results):
+    """scaled_matmul at the main path's shapes: the two-call layer's
+    products at N = 2048 (attn_out) and 6144 (mlp) with bf16 x at M = 4
+    (decode, 4 slots), 16 (the weight stream's largest M) and 64 (the
+    prefill window), and the two-call backward's three fp32 products at
+    the full-width training M = 512.  Each against its plain version, run
+    twice for identical bits, its fp32 error against fp64 held within
+    2 x the plain version's (cuBLAS fp32), and timed warm and with L2
+    flushed; then both regimes timed at M = 4, 16, 32, 64 (N = 6144), the
+    times that set ``STREAM_MAX_M``."""
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    fam = families.get_family("acdc")
+
+    def fp32_err(fn, x, w, pre, y64, scale):
+        return float((fn(x, w, pre=pre).double() - y64).abs().max()) / scale
+
+    def gate(label, err, bits_same):
+        if not err["kernel"] <= 2 * err["plain"]:
+            _fail(f"scaled_matmul {label}: fp32 error vs fp64 {err['kernel']}"
+                  f" > 2 x the plain version's {err['plain']}")
+        if not bits_same:
+            _fail(f"scaled_matmul {label}: two runs differ in bits")
+
+    def row(label, p, m, n, nbytes, flops, fn, plain, library, err, got,
+            want, reps=20):
+        simt, simt_by = bound_ms(nbytes, flops)
+        tc, tc_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_S)
+        own, own_by = (tc, tc_by) if p.regime == "tc" else (simt, simt_by)
+        return dict(
+            shape=label, plan=dataclasses.asdict(p),
+            max_abs_err=max_err(got, want), ms=time_ms(fn, reps=reps),
+            ms_cold=time_cold_ms(fn), plain_ms=time_ms(plain, reps=reps),
+            plain_ms_cold=time_cold_ms(plain),
+            library_ms=time_ms(library, reps=reps),
+            library_ms_cold=time_cold_ms(library), bound_ms=own,
+            bound_by=own_by, bound_simt_ms=simt, bound_tc_ms=tc,
+            bound_tc_by=tc_by, fp32_err_vs_fp64=err, bitwise_repeat=True)
+
+    for n in (2048, 6144):
+        c, ct = fam.matrices(n, torch.float32, dev)
+        for m in (4, 16, 64):
+            x = randn(m, n, dtype=torch.bfloat16)
+            pre = 1.0 + 0.061 * randn(n)
+            got = smm_mod.scaled_matmul(x, c, pre=pre)
+            want = ref.scaled_matmul_ref(x, c, pre=pre)
+            torch.cuda.synchronize()
+            # bf16 output: different fp32 summation orders may round one
+            # bf16 ulp (2^-8 relative) apart
+            if not rel_close(got, want, rtol=2 ** -7, atol=1e-2):
+                _fail(f"scaled_matmul N={n} M={m}: max err "
+                      f"{max_err(got, want)}")
+            xf = x.float()
+            # each side's fp32 summation error against fp64 on fp32 x
+            # (no bf16 output rounding to hide it), relative to max |y|
+            y64 = (xf.double() * pre.double()) @ c.double()
+            scale = float(y64.abs().max())
+            err = {side: fp32_err(fn, xf, c, pre, y64, scale)
+                   for side, fn in (("kernel", smm_mod.scaled_matmul),
+                                    ("plain", ref.scaled_matmul_ref))}
+            label = f"M={m} K=N={n} bf16 x"
+            gate(label, err, torch.equal(
+                got, smm_mod.scaled_matmul(x, c, pre=pre)))
+            results["scaled_matmul"].append(row(
+                label, smm_mod.plan(m, n, n, x.dtype), m, n,
+                m * n * 2 + n * n * 4 + n * 4 + m * n * 2, 2.0 * m * n * n,
+                lambda: smm_mod.scaled_matmul(x, c, pre=pre),
+                lambda: ref.scaled_matmul_ref(x, c, pre=pre),
+                lambda: torch.matmul(xf, c), err, got, want))
+
+        # the two-call backward at the full-width training shape: three
+        # fp32 launches (gc = g C, h2 = (x a) C, dh1 = (gc d) C^T)
+        m = 512
+        x, g = randn(m, n), randn(m, n)
+        a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
+
+        def three(fn):
+            gc = fn(g, c)
+            fn(x, c, pre=a)
+            return fn(gc, ct, pre=d)
+
+        def three_library():
+            gc = torch.matmul(g, c)
+            torch.matmul(x * a, c)
+            return torch.matmul(gc * d, ct)
+
+        got, want = three(smm_mod.scaled_matmul), three(ref.scaled_matmul_ref)
+        torch.cuda.synchronize()
+        label = f"M={m} K=N={n} fp32, x3 (two-call backward)"
+        if not rel_close(got, want, rtol=1e-3, atol=2e-4 * float(
+                want.abs().max())):
+            _fail(f"scaled_matmul {label}: max err {max_err(got, want)}")
+        y64 = (x.double() * a.double()) @ c.double()
+        scale = float(y64.abs().max())
+        err = {side: fp32_err(fn, x, c, a, y64, scale)
+               for side, fn in (("kernel", smm_mod.scaled_matmul),
+                                ("plain", ref.scaled_matmul_ref))}
+        gate(label, err, torch.equal(got, three(smm_mod.scaled_matmul)))
+        results["scaled_matmul"].append(row(
+            label, smm_mod.plan(m, n, n, x.dtype), m, n,
+            3 * (m * n * 4 + n * n * 4 + m * n * 4) + 2 * n * 4,
+            3 * 2.0 * m * n * n, lambda: three(smm_mod.scaled_matmul),
+            lambda: three(ref.scaled_matmul_ref), three_library, err, got,
+            want, reps=5))
+
+    # the regime boundary: both designs at M = 4 .. 64, N = 6144, bf16 x
+    n = 6144
+    c, _ = fam.matrices(n, torch.float32, dev)
+    pre = 1.0 + 0.061 * randn(n)
+    sweep = []
+    for m in (4, 16, 32, 64):
+        x = randn(m, n, dtype=torch.bfloat16)
+        entry = dict(m=m, n=n, stream_max_m=smm_mod.STREAM_MAX_M)
+        for name, planner in (("stream", smm_mod.plan_stream),
+                              ("tc", smm_mod.plan_tc)):
+            p = planner(m, n, n, x.dtype)
+
+            def run():
+                return smm_mod.launch(x, c, pre, None, None, p)
+
+            entry[name] = dict(plan=dataclasses.asdict(p), ms=time_ms(run),
+                               ms_cold=time_cold_ms(run))
+        sweep.append(entry)
+        print(f"[regime] M={m} N={n}: stream {entry['stream']['ms']:.4f} / "
+              f"{entry['stream']['ms_cold']:.4f} ms, tensor cores "
+              f"{entry['tc']['ms']:.4f} / {entry['tc']['ms_cold']:.4f} ms "
+              f"(warm / L2 flushed)", flush=True)
+    return sweep
 
 
 def _grads_err(got, want):
@@ -349,9 +486,7 @@ def check_backward_kernels(dev, randn, results):
     with the full-width step's M = 512; each run twice for identical bits.
     A ReLU cascade gets inputs from ``relu_margin_input`` (K = 2).
     Then the per-layer cascade backward on the card (N = 1024, K = 24:
-    only the backward gate fails; its report is returned) and the two-call
-    backward's three fp32 scaled_matmul products at the full-width
-    training shape."""
+    only the backward gate fails; its report is returned)."""
     import torch
 
     from repro_torch.core import families
@@ -359,7 +494,6 @@ def check_backward_kernels(dev, randn, results):
     from repro_torch.kernels import acdc_cascade_bwd as cbwd_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
-    from repro_torch.kernels import scaled_matmul as smm_mod
 
     fam = families.get_family("acdc")
     for m, n, bias in ((256, 128, False), (256, 256, False),
@@ -455,40 +589,6 @@ def check_backward_kernels(dev, randn, results):
         shape=f"M=64 N={n} K={k} riffle fp32", max_abs_err=err,
         per_layer_scan=counts["kernel"][0], acdc_bwd_launches=k)
 
-    # the two-call backward at the full-width training shape: three fp32
-    # scaled_matmul launches (gc = g C, h2 = (x a) C, dh1 = (gc d) C^T)
-    m, n = 512, 6144
-    c, ct = fam.matrices(n, torch.float32, dev)
-    x, g = randn(m, n), randn(m, n)
-    a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
-
-    def three_kernel():
-        gc = smm_mod.scaled_matmul(g, c)
-        smm_mod.scaled_matmul(x, c, pre=a)
-        return smm_mod.scaled_matmul(gc, ct, pre=d)
-
-    def three_plain():
-        gc = ref.scaled_matmul_ref(g, c)
-        ref.scaled_matmul_ref(x, c, pre=a)
-        return ref.scaled_matmul_ref(gc, ct, pre=d)
-
-    def three_library():
-        gc = torch.matmul(g, c)
-        torch.matmul(x * a, c)
-        return torch.matmul(gc * d, ct)
-
-    got, want = three_kernel(), three_plain()
-    torch.cuda.synchronize()
-    if not rel_close(got, want, rtol=1e-3, atol=2e-4 * float(
-            want.abs().max())):
-        _fail(f"two-call backward M={m} N={n}: max err {max_err(got, want)}")
-    nbytes = 3 * (m * n * 4 + n * n * 4 + m * n * 4) + 2 * n * 4
-    b, by = bound_ms(nbytes, 3 * 2.0 * m * n * n)
-    results["scaled_matmul"].append(dict(
-        shape=f"M={m} K=N={n} fp32, x3 (two-call backward)",
-        max_abs_err=max_err(got, want), ms=time_ms(three_kernel, reps=5),
-        plain_ms=time_ms(three_plain, reps=5),
-        library_ms=time_ms(three_library, reps=5), bound_ms=b, bound_by=by))
     return per_layer
 
 
@@ -641,6 +741,21 @@ def scaled_matmul_as(fn):
 
 
 @contextlib.contextmanager
+def stream_regime_only():
+    """The kernel path with scaled_matmul's weight stream at every M: as
+    accurate a path as the kernel's own, summed in another order -- a
+    control for how far the logits move on the order of the sums alone."""
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    saved = smm_mod.plan
+    smm_mod.plan = smm_mod.plan_stream
+    try:
+        yield
+    finally:
+        smm_mod.plan = saved
+
+
+@contextlib.contextmanager
 def plain_with_tf32():
     """The plain path with TF32 fp32 matmuls: a lower-precision control."""
     import torch
@@ -666,7 +781,9 @@ def compare_full_width_logits(params_cache, dev):
     at ``BF16_LOGIT_REL_L2``.  Beside it, each side against an fp64-summed
     path (which side drifts), every layer's residual stream, and two
     controls read against the same limit: the plain path with TF32 and a
-    faulty path that drops the diagonals."""
+    faulty path that drops the diagonals; and, reported only, the kernel
+    path with the weight stream at every M.  Then scaled_matmul's own fp32
+    error on the prefill's first inputs (``real_input_errors``)."""
     import numpy as np
     import torch
 
@@ -703,8 +820,22 @@ def compare_full_width_logits(params_cache, dev):
         return {"prefill": logits[0, plen - 1].float(),
                 "decode": dlog[0].float(), "residuals": residuals}
 
-    runs = {"kernel": run()}
+    # the kernel prefill's first scaled_matmul calls, inputs kept: each
+    # side's fp32 error on the model's own activations (below)
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    recorded = []
+    kernel_fn = smm_mod.scaled_matmul
+
+    def recording(x, w, pre=None, post=None, bias=None):
+        if len(recorded) < REAL_INPUT_CALLS:
+            recorded.append((x.float(), w, pre, post, bias))
+        return kernel_fn(x, w, pre, post, bias)
+
+    with scaled_matmul_as(recording):
+        runs = {"kernel": run()}
     for name, ctx in (("plain", plain_kernels),
+                      ("kernel_stream_only", stream_regime_only),
                       ("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)),
                       ("plain_tf32", plain_with_tf32),
                       ("no_diagonals",
@@ -713,7 +844,8 @@ def compare_full_width_logits(params_cache, dev):
             runs[name] = run()
     torch.cuda.synchronize()
     pairs = (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"),
-             ("plain_tf32", "plain"), ("no_diagonals", "plain"))
+             ("kernel_stream_only", "plain"), ("plain_tf32", "plain"),
+             ("no_diagonals", "plain"))
     out = {"limit_rel_l2": BF16_LOGIT_REL_L2}
     for where in ("prefill", "decode"):
         rels = {f"{a}_vs_{b}": _rel_l2(runs[a][where], runs[b][where])
@@ -743,6 +875,57 @@ def compare_full_width_logits(params_cache, dev):
             print(f"[residual] layer {i}: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in row.items()), flush=True)
     out["residual_by_layer"] = layers
+    out["scaled_matmul_on_prefill_inputs"] = real_input_errors(recorded)
+    return out
+
+
+#: scaled_matmul calls of the full-width prefill whose inputs are kept
+#: (layers 0-3: the 16 projections' two-call forwards)
+REAL_INPUT_CALLS = 64
+
+
+def real_input_errors(recorded) -> dict:
+    """Each side's fp32 error against fp64 on the prefill's own
+    scaled_matmul inputs (fp32 x, the bf16 rounding of h2 not applied):
+    max |err| / max |y| and rel. L2, the median and the worst over the
+    calls.  The kernel's worst must stay within 2 x cuBLAS fp32's, as on
+    the random inputs of phase 3."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    if not recorded:
+        _fail("the full-width prefill made no scaled_matmul call")
+    errs = {"kernel": [], "plain": []}
+    for x, w, pre, post, bias in recorded:
+        y64 = scaled_matmul_fp64(x.double(), w, pre, post, bias)
+        scale = float(y64.abs().max())
+        for side, fn in (("kernel", smm_mod.scaled_matmul),
+                         ("plain", ref.scaled_matmul_ref)):
+            d = fn(x, w, pre, post, bias).double() - y64
+            errs[side].append((float(d.abs().max()) / scale,
+                               float(torch.linalg.vector_norm(d)
+                                     / torch.linalg.vector_norm(y64))))
+    out = {"calls": len(recorded)}
+    for side, rows in errs.items():
+        out[side] = {f"{stat}_{name}": fn(r[i] for r in rows)
+                     for i, name in enumerate(("max_err", "rel_l2"))
+                     for stat, fn in (("median", lambda v: statistics.median(
+                         list(v))), ("worst", max))}
+    print(f"[logits] scaled_matmul on the prefill's {len(recorded)} first "
+          f"inputs, fp32 vs fp64: " + "; ".join(
+              f"{side} rel L2 median {v['median_rel_l2']:.2e} worst "
+              f"{v['worst_rel_l2']:.2e}, max err worst "
+              f"{v['worst_max_err']:.2e}" for side, v in out.items()
+              if side != "calls"), flush=True)
+    if not (out["kernel"]["worst_max_err"]
+            <= 2 * out["plain"]["worst_max_err"]):
+        _fail("scaled_matmul on the prefill's inputs: fp32 error "
+              f"{out['kernel']['worst_max_err']} > 2 x the plain version's "
+              f"{out['plain']['worst_max_err']}")
     return out
 
 
@@ -1009,14 +1192,21 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}")
     report["build_s"] = build_s
 
-    kern, per_layer = check_kernels(dev)
+    kern, per_layer, sweep = check_kernels(dev)
     for name, rows in kern.items():
         for r in rows:
+            cold = (f" | L2 flushed {r['ms_cold']:.4f} ms (plain "
+                    f"{r['plain_ms_cold']:.4f}, library "
+                    f"{r['library_ms_cold']:.4f}), fp32 err vs fp64 "
+                    f"{r['fp32_err_vs_fp64']['kernel']:.2e} (plain "
+                    f"{r['fp32_err_vs_fp64']['plain']:.2e})"
+                    if "ms_cold" in r else "")
             print(f"[kernel] {name} {r['shape']}: err {r['max_abs_err']:.2e}"
                   f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
                   f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']})", flush=True)
+                  f"{r['bound_by']}){cold}", flush=True)
     report["kernels"] = kern
+    report["scaled_matmul_regimes"] = sweep
     report["per_layer_backward"] = per_layer
     totals = {name: 0 for name in KERNEL_MODULES}
 
@@ -1067,7 +1257,8 @@ def main() -> int:
     report["launches"] = totals
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",
-                                 "src/repro/kernels/scaled_matmul.py:59", 2),
+                                 "src/repro/kernels/scaled_matmul.py:59",
+                                 "M=4 K=N=6144 bf16 x"),
                "acdc_cascade": ("src/repro_torch/csrc/acdc_cascade.cu",
                                 "src/repro/kernels/acdc_cascade_fused.py:104",
                                 3),
@@ -1082,7 +1273,8 @@ def main() -> int:
                                     1)}
     line = []
     for name, (src, replaces, pick) in sources.items():
-        r = kern[name][pick]
+        r = (next(r for r in kern[name] if r["shape"] == pick)
+             if isinstance(pick, str) else kern[name][pick])
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": totals[name],
                      "shape": r["shape"], "max_abs_err": r["max_abs_err"],

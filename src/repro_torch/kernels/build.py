@@ -139,6 +139,10 @@ def ptr(t: Optional["object"]) -> Optional[int]:
 
 
 def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (the
+    launch path's cheapest way to it: a few hundred ns, against ~4 us
+    for ``torch.cuda.current_stream(device).cuda_stream``)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda._get_device_index(device, optional=True))

@@ -49,10 +49,18 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+#: both regimes of scaled_matmul and the boundary between them (M <= 16
+#: streams w, above runs 3xTF32 on the tensor cores), against K and N
+#: that are aligned to 16 bytes and that are not, one K slice and many
+SMM_SHAPES = [(3, 100, 72), (70, 257, 130)] + [
+    (m, k, n) for m in (1, 4, 16, 17, 64, 512)
+    for k, n in ((100, 72), (257, 130), (24, 136), (512, 384))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pre,post,bias",
                          list(itertools.product([False, True], repeat=3)))
-@pytest.mark.parametrize("m,k,n", [(3, 100, 72), (70, 257, 130)])
+@pytest.mark.parametrize("m,k,n", SMM_SHAPES)
 def test_scaled_matmul(dev, m, k, n, pre, post, bias, dtype):
     g = torch.Generator(device=dev).manual_seed(m + k + n)
 
@@ -67,6 +75,61 @@ def test_scaled_matmul(dev, m, k, n, pre, post, bias, dtype):
     want = ref.scaled_matmul_ref(x, w, **vec)
     assert got.dtype == dtype
     _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+
+
+@pytest.mark.parametrize("regime", ["stream", "tc"])
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (16, 257, 130),
+                                   (17, 2048, 384), (64, 6144, 256),
+                                   (512, 1024, 512)])
+def test_scaled_matmul_both_regimes_repeat_bitwise(dev, m, k, n, regime):
+    # each design at each shape (the plan picks one; the other is forced):
+    # right, and the same bits on a repeat (fixed split order, no atomics)
+    g = torch.Generator(device=dev).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+    pre = 1 + 0.061 * torch.randn(k, generator=g, device=dev)
+    bias = torch.randn(n, generator=g, device=dev)
+    planner = smm_mod.plan_stream if regime == "stream" else smm_mod.plan_tc
+    p = planner(m, n, k, x.dtype)
+    before = smm_mod.launches
+    got = smm_mod.launch(x, w, pre, None, bias, p)
+    assert smm_mod.launches == before + 1   # one call, whatever it launched
+    _close(got, ref.scaled_matmul_ref(x, w, pre, None, bias), F32)
+    assert torch.equal(got, smm_mod.launch(x, w, pre, None, bias, p))
+
+
+@pytest.mark.parametrize("m", [4, 16, 17, 64, 512])
+def test_scaled_matmul_bf16_x_sums_as_fp32_x(dev, m):
+    # bf16 x is widened exactly, so its sums are those of fp32 x holding
+    # the same values: the bf16 output is the fp32 output rounded, to the
+    # bit, in both regimes
+    n = 2048
+    g = torch.Generator(device=dev).manual_seed(m + 1)
+    x = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(n, n, generator=g, device=dev) / n ** 0.5
+    pre = 1 + 0.061 * torch.randn(n, generator=g, device=dev)
+    got = smm_mod.scaled_matmul(x, w, pre=pre)
+    want = smm_mod.scaled_matmul(x.float(), w, pre=pre).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 16, 64, 512])
+def test_scaled_matmul_fp32_error_within_cublas(dev, m):
+    # K = 6144 (the full-width d_ff): the kernel's fp32 error against an
+    # fp64 product, relative to max |y|, within 2 x cuBLAS fp32's
+    from repro_torch.core import families as fam_mod
+
+    n = 6144
+    c, _ = fam_mod.get_family("acdc").matrices(n, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn(m, n, generator=g, device=dev)
+    pre = 1 + 0.061 * torch.randn(n, generator=g, device=dev)
+    y64 = (x.double() * pre.double()) @ c.double()
+    scale = float(y64.abs().max())
+    err = {name: float((fn(x, c, pre=pre).double() - y64).abs().max())
+           / scale for name, fn in (("kernel", smm_mod.scaled_matmul),
+                                    ("cublas", ref.scaled_matmul_ref))}
+    assert err["kernel"] <= 2 * err["cublas"], err
 
 
 @pytest.mark.parametrize("n", [128, 384, 1024])

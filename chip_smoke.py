@@ -18,6 +18,13 @@ result line if any fails):
    error against fp64 within 2 x cuBLAS fp32's, every time warm and with
    L2 flushed, a tensor-core bound beside the fp32 one, and both of its
    regimes timed at M = 4, 16, 32, 64 (the regime boundary);
+   ``acdc_cascade`` / ``acdc_fused`` / ``acdc_cascade_bwd``: also bitwise
+   repeat and their fp32 error against an fp64 cascade (and fp64
+   gradients) within 2 x the plain version's, timed by device time
+   (launches queued behind a ``torch.cuda._sleep``) beside the call time
+   and the host's us a call, with each row's cluster plan and
+   ``cudaOccupancyMaxActiveClusters``; the forward's library call is one
+   fp32 ``torch.matmul`` with the cascade's composed dense matrix;
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
@@ -132,6 +139,41 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: GPU clock cycles of the ``torch.cuda._sleep`` preamble of
+#: :func:`device_ms` (~10 ms at the H100's 1.98 GHz boost clock)
+SLEEP_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3):
+    """``(device ms, host us)`` a call of ``fn``: the ``reps`` calls are
+    queued behind a ``torch.cuda._sleep`` preamble, so the events between
+    them time the device alone, back to back, however slowly the host
+    enqueues them; the host's enqueue time a call is returned beside it.
+    The preamble doubles until it outlasts the enqueue."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        # the sleep lasted cycles / 2e9 s at most; the enqueue must end
+        # well inside it, or the device idled between calls
+        if host_s < 0.5 * cycles / 2.0e9 or cycles >= 64 * SLEEP_CYCLES:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e6
+        cycles *= 4
+
+
 def time_cold_ms(fn, reps: int = 10) -> float:
     """Median device time of single launches of ``fn``, each after an
     ``L2_FLUSH_BYTES`` write, so ``fn`` finds its inputs in HBM as a
@@ -177,9 +219,6 @@ def rel_close(got, want, rtol: float, atol: float) -> bool:
 def check_kernels(dev):
     import torch
 
-    from repro_torch.core import families
-    from repro_torch.kernels import acdc_cascade_fused as cascade_mod
-    from repro_torch.kernels import acdc_fused as fused_mod
     from repro_torch.kernels import paged_attn as pa_mod
     from repro_torch.kernels import ref
 
@@ -192,62 +231,7 @@ def check_kernels(dev):
 
     sweep = check_scaled_matmul(dev, randn, results)
 
-    # cascade: K=2 with the riffle folded in, N = 128 / 256 (smoke
-    # attn_out / mlp) and 1024 (the largest N the fused route takes);
-    # M = 4 (decode) and 64 (prefill), fp32 as the smoke model
-    fam = families.get_family("acdc")
-    for n in (128, 256, 1024):
-        c, ct = fam.matrices(n, torch.float32, dev)
-        perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
-        ct_mid = ct[:, perm].contiguous()
-        for m in (4, 64):
-            x = randn(m, n)
-            a = 1.0 + 0.061 * randn(2, n)
-            d = 1.0 + 0.061 * randn(2, n)
-            got = cascade_mod.acdc_cascade(x, a, d, None, c, ct, ct_mid)
-            want = ref.acdc_cascade_ref(x, a, d, None, c, ct, ct_mid)
-            torch.cuda.synchronize()
-            if not rel_close(got, want, rtol=1e-3, atol=2e-4):
-                _fail(f"acdc_cascade N={n} M={m}: max err "
-                      f"{max_err(got, want)}")
-            ms = time_ms(lambda: cascade_mod.acdc_cascade(
-                x, a, d, None, c, ct, ct_mid))
-            pms = time_ms(lambda: ref.acdc_cascade_ref(
-                x, a, d, None, c, ct, ct_mid))
-            nbytes = 2 * m * n * 4 + 2 * 2 * n * 4 + 3 * n * n * 4
-            b, by = bound_ms(nbytes, 2 * 4.0 * m * n * n)
-            results["acdc_cascade"].append(dict(
-                shape=f"M={m} N={n} K=2 riffle fp32",
-                max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
-                library_ms=None, bound_ms=b, bound_by=by))
-
-    # acdc_fused (K=1 branch) at N = 256, with and without bias
-    n = 256
-    c, ct = fam.matrices(n, torch.float32, dev)
-    for m in (4, 64):
-        for with_bias in (False, True):
-            x = randn(m, n)
-            a = 1.0 + 0.061 * randn(n)
-            d = 1.0 + 0.061 * randn(n)
-            bias = 0.1 * randn(n) if with_bias else None
-            got = fused_mod.acdc_fused(x, a, d, bias, c, ct)
-            b2 = None if bias is None else bias[None]
-            want = ref.acdc_cascade_ref(x, a[None], d[None], b2, c, ct,
-                                        None)
-            torch.cuda.synchronize()
-            if not rel_close(got, want, rtol=1e-3, atol=2e-4):
-                _fail(f"acdc_fused N={n} M={m} bias={with_bias}: max err "
-                      f"{max_err(got, want)}")
-            ms = time_ms(lambda: fused_mod.acdc_fused(x, a, d, bias, c, ct))
-            pms = time_ms(lambda: ref.acdc_cascade_ref(
-                x, a[None], d[None], b2, c, ct, None))
-            nbytes = 2 * m * n * 4 + (3 if with_bias else 2) * n * 4 \
-                + 2 * n * n * 4
-            b, by = bound_ms(nbytes, 4.0 * m * n * n)
-            results["acdc_fused"].append(dict(
-                shape=f"M={m} N={n} bias={with_bias} fp32",
-                max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
-                library_ms=None, bound_ms=b, bound_by=by))
+    check_cascade_forward(dev, randn, results)
 
     # paged attention: qwen3 heads (16 q / 8 kv, Dh 128), 16-token pages,
     # bf16 pools, 4 slots at ragged positions (one parked), T = 1 and 5
@@ -300,6 +284,205 @@ def check_kernels(dev):
             max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
             library_ms=None, bound_ms=b, bound_by=by))
     return results, check_backward_kernels(dev, randn, results), sweep
+
+
+def cascade_fp64(x, a, d, bias, c, ct, ct_mid, relu=False):
+    """The order-K cascade of ``ref.acdc_cascade_ref`` in fp64: each
+    side's fp32 drift is measured against it."""
+    k = a.shape[0]
+    h, c64, ct64 = x.double(), c.double(), ct.double()
+    mid = ct64 if ct_mid is None else ct_mid.double()
+    for i in range(k):
+        h = ((h * a[i].double()) @ c64) * d[i].double()
+        if bias is not None:
+            h = h + bias[i].double()
+        h = h @ (ct64 if i == k - 1 else mid)
+        if relu and i < k - 1:
+            h = h.clamp_min(0.0)
+    return h
+
+
+def cascade_bwd_fp64(x, g, a, d, bias, c, ct, ct_mid, relu=False):
+    """``ref.acdc_cascade_bwd_ref`` in fp64: (dx, da, dd, db)."""
+    import torch
+
+    k, n = a.shape
+    c64, ct64 = c.double(), ct.double()
+    mid = ct64 if ct_mid is None else ct_mid.double()
+    a64, d64 = a.double(), d.double()
+    xf = x.double()
+    stash, h = [], xf
+    for i in range(k - 1):
+        h3 = ((h * a64[i]) @ c64) * d64[i]
+        if bias is not None:
+            h3 = h3 + bias[i].double()
+        h = h3 @ mid
+        if relu:
+            h = h.clamp_min(0.0)
+        stash.append(h)
+    da = torch.zeros((k, n), dtype=torch.float64, device=x.device)
+    dd, db = torch.zeros_like(da), torch.zeros_like(da)
+    gcur = g.double()
+    for i in range(k - 1, -1, -1):
+        h_i = stash[i - 1] if i > 0 else xf
+        if i < k - 1 and relu:
+            gcur = torch.where(stash[i] > 0, gcur, torch.zeros_like(gcur))
+        gc = gcur @ c64 if (i == k - 1 or ct_mid is None) else gcur @ mid.T
+        db[i] = gc.sum(0)
+        dd[i] = (((h_i * a64[i]) @ c64) * gc).sum(0)
+        dh1 = (gc * d64[i]) @ ct64
+        da[i] = (h_i * dh1).sum(0)
+        gcur = a64[i] * dh1
+    return gcur, da, dd, (db if bias is not None else None)
+
+
+def composed_matrix(a, d, c, ct, ct_mid):
+    """The dense N x N matrix of a cascade without ReLU (fp64, rounded to
+    fp32): ``x @ W`` is the cascade's function without bias, the paper's
+    yardstick of a dense layer of the same width."""
+    k = a.shape[0]
+    c64, ct64 = c.double(), ct.double()
+    mid = ct64 if ct_mid is None else ct_mid.double()
+    w = None
+    for i in range(k):
+        layer = (a[i].double()[:, None] * c64 * d[i].double()[None, :]) \
+            @ (ct64 if i == k - 1 else mid)
+        w = layer if w is None else w @ layer
+    return w.float()
+
+
+def drift(got, want64) -> float:
+    """max |got - want| / max |want| (0 for an all-zero want)."""
+    scale = float(want64.abs().max())
+    return float((got.double() - want64).abs().max()) / scale \
+        if scale > 0 else 0.0
+
+
+def grads_drift(got, want64) -> float:
+    """:func:`drift` over (dx, da, dd, db), the worst of them."""
+    return max(drift(u, w) for u, w in zip(got, want64)
+               if u is not None and w is not None)
+
+
+def timed_row(shape, p, clusters, fn, plain, library, got, want, err,
+              nbytes, flops, extra=None):
+    """One kernels row: device time of kernel / plain / library (ms, with
+    the host's enqueue us a call), the call time back to back as PR 13
+    timed it, and the bound."""
+    ms, host_us = device_ms(fn)
+    pms, phost_us = device_ms(plain)
+    b, by = bound_ms(nbytes, flops)
+    row = dict(shape=shape, plan=dataclasses.asdict(p),
+               max_clusters=clusters, max_abs_err=max_err(got, want),
+               ms=ms, host_us=host_us, call_ms=time_ms(fn), plain_ms=pms,
+               plain_host_us=phost_us, plain_call_ms=time_ms(plain),
+               library_ms=None if library is None else device_ms(
+                   library)[0],
+               bound_ms=b, bound_by=by, fp32_err_vs_fp64=err,
+               bitwise_repeat=True)
+    row.update(extra or {})
+    return row
+
+
+def fp32_gate(name, label, err):
+    if not err["kernel"] <= 2 * err["plain"]:
+        _fail(f"{name} {label}: fp32 error vs fp64 {err['kernel']} > 2 x "
+              f"the plain version's {err['plain']}")
+
+
+def check_cascade_forward(dev, randn, results):
+    """acdc_cascade (K=2 with the riffle, fp32 as the smoke model) at N =
+    128 / 256 (smoke attn_out / mlp) and 1024 (the largest N the fused
+    route takes), M = 4 (decode) and 64 (prefill), plus the smoke train
+    step's M = 256 at N = 256 and M = 512 at N = 1024; acdc_fused (the
+    K=1 kernel) at N = 256, M = 4 / 64, with and without bias.  Each
+    against its plain version, repeated for identical bits, its fp32
+    error against an fp64 cascade within 2 x the plain version's, timed
+    by device time beside the library call: one fp32 ``torch.matmul`` of
+    x with the cascade's composed N x N matrix (``addmm`` with a bias)."""
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.kernels import acdc_cascade_fused as cascade_mod
+    from repro_torch.kernels import acdc_fused as fused_mod
+    from repro_torch.kernels import ref
+
+    fam = families.get_family("acdc")
+    shapes = [(m, n) for n in (128, 256, 1024) for m in (4, 64)]
+    shapes += [(256, 256), (512, 1024)]
+    for m, n in shapes:
+        c, ct = fam.matrices(n, torch.float32, dev)
+        perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
+        ct_mid = ct[:, perm].contiguous()
+        x = randn(m, n)
+        a = 1.0 + 0.061 * randn(2, n)
+        d = 1.0 + 0.061 * randn(2, n)
+        label = f"M={m} N={n} K=2 riffle fp32"
+
+        def kernel():
+            return cascade_mod.acdc_cascade(x, a, d, None, c, ct, ct_mid)
+
+        def plain():
+            return ref.acdc_cascade_ref(x, a, d, None, c, ct, ct_mid)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not rel_close(got, want, rtol=1e-3, atol=2e-4):
+            _fail(f"acdc_cascade {label}: max err {max_err(got, want)}")
+        if not torch.equal(got, kernel()):
+            _fail(f"acdc_cascade {label}: two runs differ in bits")
+        y64 = cascade_fp64(x, a, d, None, c, ct, ct_mid)
+        err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
+        fp32_gate("acdc_cascade", label, err)
+        w = composed_matrix(a, d, c, ct, ct_mid)
+        p = cascade_mod.plan(m, n, 2, True)
+        results["acdc_cascade"].append(timed_row(
+            label, p, cascade_mod.max_clusters(p, m, 2, True), kernel,
+            plain, lambda: torch.matmul(x, w), got, want, err,
+            2 * m * n * 4 + 2 * 2 * n * 4 + 3 * n * n * 4,
+            2 * 4.0 * m * n * n))
+
+    n = 256
+    c, ct = fam.matrices(n, torch.float32, dev)
+    for m in (4, 64):
+        for with_bias in (False, True):
+            x = randn(m, n)
+            a = 1.0 + 0.061 * randn(n)
+            d = 1.0 + 0.061 * randn(n)
+            bias = 0.1 * randn(n) if with_bias else None
+            b2 = None if bias is None else bias[None]
+            label = f"M={m} N={n} bias={with_bias} fp32"
+
+            def kernel():
+                return fused_mod.acdc_fused(x, a, d, bias, c, ct)
+
+            def plain():
+                return ref.acdc_cascade_ref(x, a[None], d[None], b2, c, ct,
+                                            None)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not rel_close(got, want, rtol=1e-3, atol=2e-4):
+                _fail(f"acdc_fused {label}: max err {max_err(got, want)}")
+            if not torch.equal(got, kernel()):
+                _fail(f"acdc_fused {label}: two runs differ in bits")
+            y64 = cascade_fp64(x, a[None], d[None], b2, c, ct, None)
+            err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
+            fp32_gate("acdc_fused", label, err)
+            w = composed_matrix(a[None], d[None], c, ct, None)
+            bvec = None if bias is None else (bias.double()
+                                              @ ct.double()).float()
+
+            def library():
+                return (torch.matmul(x, w) if bvec is None
+                        else torch.addmm(bvec, x, w))
+
+            p = cascade_mod.plan(m, n, 1, False)
+            results["acdc_fused"].append(timed_row(
+                label, p, cascade_mod.max_clusters(p, m, 1, False), kernel,
+                plain, library, got, want, err,
+                2 * m * n * 4 + (3 if with_bias else 2) * n * 4
+                + 2 * n * n * 4, 4.0 * m * n * n))
 
 
 def check_scaled_matmul(dev, randn, results):
@@ -535,29 +718,39 @@ def check_backward_kernels(dev, randn, results):
         if relu:
             x = relu_margin_input(margin_draw(randn, m, n), a[0], d[0],
                                   None if bb is None else bb[0], c, ct_mid)
-        got = cbwd_mod.acdc_cascade_bwd(x, g, a, d, bb, c, ct, ct_mid,
-                                        relu=relu)
-        want = ref.acdc_cascade_bwd_ref(x, g, a, d, bb, c, ct, ct_mid, relu)
+        label = f"M={m} N={n} K={k} riffle relu={relu} bias={bias} fp32"
+
+        def kernel():
+            return cbwd_mod.acdc_cascade_bwd(x, g, a, d, bb, c, ct, ct_mid,
+                                             relu=relu)
+
+        def plain():
+            return ref.acdc_cascade_bwd_ref(x, g, a, d, bb, c, ct, ct_mid,
+                                            relu)
+
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
         err, ok = _grads_err(got, want)
         if not ok:
             _fail(f"acdc_cascade_bwd M={m} N={n} K={k}: max err {err}")
-        if not _same_bits(got, cbwd_mod.acdc_cascade_bwd(
-                x, g, a, d, bb, c, ct, ct_mid, relu=relu)):
+        if not _same_bits(got, kernel()):
             _fail(f"acdc_cascade_bwd M={m} N={n}: two runs differ in bits")
-        ms = time_ms(lambda: cbwd_mod.acdc_cascade_bwd(
-            x, g, a, d, bb, c, ct, ct_mid, relu=relu))
-        pms = time_ms(lambda: ref.acdc_cascade_bwd_ref(
-            x, g, a, d, bb, c, ct, ct_mid, relu))
+        w64 = cascade_bwd_fp64(x, g, a, d, bb, c, ct, ct_mid, relu)
+        ferr = {"kernel": grads_drift(got, w64),
+                "plain": grads_drift(want, w64)}
+        fp32_gate("acdc_cascade_bwd", label, ferr)
+        p = cbwd_mod.plan_bwd(m, n, k, True)
+        stash_shape, part_shape = cbwd_mod.workspaces(p, m, n, k)
         diags = 3 if bias else 2
-        nbytes = 3 * m * n * 4 + 2 * diags * k * n * 4 + 3 * n * n * 4
-        b, by = bound_ms(nbytes, 2.0 * m * n * n * (5 * k - 2))
-        results["acdc_cascade_bwd"].append(dict(
-            shape=f"M={m} N={n} K={k} riffle relu={relu} bias={bias} fp32",
-            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-            bound_ms=b, bound_by=by, bitwise_repeat=True,
-            workspace_bytes=4 * (k - 1) * m * n
-            + 12 * k * n * -(-m // (32 if n <= 256 else 16))))
+        row = timed_row(
+            label, p, cbwd_mod.max_clusters(p, m, k, True), kernel, plain,
+            None, got[0], want[0], ferr,
+            3 * m * n * 4 + 2 * diags * k * n * 4 + 3 * n * n * 4,
+            2.0 * m * n * n * (5 * k - 2),
+            dict(workspace_bytes=4 * (math.prod(stash_shape or (0,))
+                                      + math.prod(part_shape))))
+        row["max_abs_err"] = err
+        results["acdc_cascade_bwd"].append(row)
 
     # the per-layer cascade backward where only the backward gate fails
     # (no ReLU: 23 masks of 64 x 1024 could flip, see relu_margin_input)
@@ -1195,6 +1388,12 @@ def main() -> int:
     kern, per_layer, sweep = check_kernels(dev)
     for name, rows in kern.items():
         for r in rows:
+            dev_t = (f" | device {r['ms']:.4f} ms ({r['host_us']:.1f} us "
+                     f"host), call {r['call_ms']:.4f}; plain call "
+                     f"{r['plain_call_ms']:.4f}; fp32 err vs fp64 "
+                     f"{r['fp32_err_vs_fp64']['kernel']:.2e} (plain "
+                     f"{r['fp32_err_vs_fp64']['plain']:.2e}); clusters "
+                     f"{r['max_clusters']}" if "call_ms" in r else "")
             cold = (f" | L2 flushed {r['ms_cold']:.4f} ms (plain "
                     f"{r['plain_ms_cold']:.4f}, library "
                     f"{r['library_ms_cold']:.4f}), fp32 err vs fp64 "
@@ -1204,7 +1403,7 @@ def main() -> int:
             print(f"[kernel] {name} {r['shape']}: err {r['max_abs_err']:.2e}"
                   f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
                   f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}){cold}", flush=True)
+                  f"{r['bound_by']}){cold}{dev_t}", flush=True)
     report["kernels"] = kern
     report["scaled_matmul_regimes"] = sweep
     report["per_layer_backward"] = per_layer
@@ -1261,16 +1460,18 @@ def main() -> int:
                                  "M=4 K=N=6144 bf16 x"),
                "acdc_cascade": ("src/repro_torch/csrc/acdc_cascade.cu",
                                 "src/repro/kernels/acdc_cascade_fused.py:104",
-                                3),
+                                "M=64 N=256 K=2 riffle fp32"),
                "acdc_fused": ("src/repro_torch/csrc/acdc_cascade.cu",
-                              "src/repro/kernels/acdc_fused.py:64", 0),
+                              "src/repro/kernels/acdc_fused.py:64",
+                              "M=4 N=256 bias=False fp32"),
                "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                               "src/repro/kernels/paged_attn.py:225", 0),
                "acdc_bwd": ("src/repro_torch/csrc/acdc_bwd.cu",
                             "src/repro/kernels/acdc_bwd.py:102", 1),
                "acdc_cascade_bwd": ("src/repro_torch/csrc/acdc_cascade_bwd.cu",
                                     "src/repro/kernels/acdc_cascade_bwd.py:179",
-                                    1)}
+                                    "M=256 N=256 K=2 riffle relu=False "
+                                    "bias=False fp32")}
     line = []
     for name, (src, replaces, pick) in sources.items():
         r = (next(r for r in kern[name] if r["shape"] == pick)

@@ -15,5 +15,8 @@ module                kernel source               replaces (JAX/Pallas)
 ``ref`` holds the plain PyTorch version of each, ``build`` compiles the
 sources with nvcc and binds them with ctypes, and ``ops`` routes the
 ACDC layer and cascade, forward and backward, exactly as the reference
-does.  ``csrc/acdc_common.cuh`` holds what the ACDC kernels share.
+does.  ``csrc/acdc_common.cuh`` holds what the ACDC kernels share,
+among it the thread block cluster machinery of the two cascade kernels,
+whose launches ``acdc_cascade_fused.plan`` and
+``acdc_cascade_bwd.plan_bwd`` decide.
 """

@@ -132,28 +132,85 @@ def test_scaled_matmul_fp32_error_within_cublas(dev, m):
     assert err["kernel"] <= 2 * err["cublas"], err
 
 
-@pytest.mark.parametrize("n", [128, 384, 1024])
-@pytest.mark.parametrize("k,relu,permute,bias",
-                         [(1, False, False, True), (2, True, True, False),
-                          (3, True, True, True)])
-@pytest.mark.parametrize("family", ["acdc", "circulant"])
-def test_cascade(dev, n, k, relu, permute, bias, family):
+def _cascade_case(dev, m, n, k, relu, permute, bias, family):
     fam = families.get_family(family)
     c, ct = fam.matrices(n, torch.float32, dev)
     mid = ct[:, torch.as_tensor(fam.riffle(n), device=dev).long()] \
         if permute else None
     g = torch.Generator(device=dev).manual_seed(n + k)
-    x = torch.randn(37, n, generator=g, device=dev)
+    x = torch.randn(m, n, generator=g, device=dev)
     a = 1 + 0.061 * torch.randn(k, n, generator=g, device=dev)
     d = 1 + 0.061 * torch.randn(k, n, generator=g, device=dev)
     b = 0.1 * torch.randn(k, n, generator=g, device=dev) if bias else None
+    return x, a, d, b, c, ct, mid
+
+
+# M: ragged (37), one row, the decode tick (4), the train step (256); N:
+# ragged column slices (100, 1000: 4-column multiples that S does not
+# divide; 384: S = 12) beside the main path's and the largest
+@pytest.mark.parametrize("m", [37, 1, 4, 256])
+@pytest.mark.parametrize("n", [100, 128, 384, 1000, 1024])
+@pytest.mark.parametrize("k,relu,permute,bias",
+                         [(1, False, False, True), (2, True, True, False),
+                          (3, True, True, True)])
+@pytest.mark.parametrize("family", ["acdc", "circulant"])
+def test_cascade(dev, m, n, k, relu, permute, bias, family):
+    x, a, d, b, c, ct, mid = _cascade_case(dev, m, n, k, relu, permute,
+                                           bias, family)
     got = cascade_mod.acdc_cascade(x, a, d, b, c, ct, mid, relu=relu)
     want = ref.acdc_cascade_ref(x, a, d, b, c, ct, mid, relu)
     _close(got, want, F32)
+    # fixed summation order: the same bits on a repeat
+    assert torch.equal(got, cascade_mod.acdc_cascade(x, a, d, b, c, ct, mid,
+                                                     relu=relu))
     if k == 1:
         got1 = fused_mod.acdc_fused(x, a[0], d[0], None if b is None
                                     else b[0], c, ct)
         _close(got1, want, F32)
+
+
+@pytest.mark.parametrize("m", [4, 37])
+def test_cascade_deep(dev, m):
+    # K = 24 at N = 1024: the streamed slices over 48 products
+    x, a, d, b, c, ct, mid = _cascade_case(dev, m, 1024, 24, False, True,
+                                           False, "acdc")
+    got = cascade_mod.acdc_cascade(x, a, d, b, c, ct, mid)
+    _close(got, ref.acdc_cascade_ref(x, a, d, b, c, ct, mid), F32)
+    assert torch.equal(got, cascade_mod.acdc_cascade(x, a, d, b, c, ct, mid))
+
+
+def _drift(got, want64):
+    return float((got.double() - want64).abs().max()
+                 / want64.abs().max())
+
+
+@pytest.mark.parametrize("m,n", [(4, 128), (64, 256), (256, 256),
+                                 (4, 1024), (512, 1024)])
+def test_cascade_fp32_error_within_plain(dev, m, n):
+    # the kernel's fp32 error against an fp64 cascade, relative to max |y|,
+    # within 2 x the plain version's (cuBLAS fp32 products)
+    x, a, d, _, c, ct, mid = _cascade_case(dev, m, n, 2, False, True,
+                                           False, "acdc")
+    h = x.double()
+    for i, w in enumerate((mid, ct)):
+        h = ((h * a[i].double()) @ c.double()) * d[i].double() @ w.double()
+    err = {name: _drift(fn(x, a, d, None, c, ct, mid), h)
+           for name, fn in (("kernel", cascade_mod.acdc_cascade),
+                            ("plain", ref.acdc_cascade_ref))}
+    assert err["kernel"] <= 2 * err["plain"], err
+
+
+def test_cascade_plan_unschedulable_raises(dev):
+    # a plan whose cluster the card cannot hold raises; there is no
+    # fallback to another launch or to the plain version
+    import dataclasses
+
+    x, a, d, _, c, ct, mid = _cascade_case(dev, 4, 256, 2, False, True,
+                                           False, "acdc")
+    p = cascade_mod.plan(4, 256, 2, True)
+    bad = dataclasses.replace(p, smem_bytes=p.smem_bytes + 4)
+    with pytest.raises((ValueError, RuntimeError)):
+        cascade_mod.launch_cascade(x, a, d, None, c, ct, mid, False, bad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -241,7 +298,8 @@ def test_acdc_bwd(dev, m, n, bias, dtype):
                          [(2, False, False, False), (2, True, True, False),
                           (2, True, True, True), (2, True, False, True),
                           (3, False, False, True), (3, False, True, False)])
-@pytest.mark.parametrize("m,n", [(37, 128), (512, 256), (512, 1024)])
+@pytest.mark.parametrize("m,n", [(37, 128), (512, 256), (512, 1024),
+                                 (4, 256), (37, 100), (4, 100)])
 def test_acdc_cascade_bwd(dev, m, n, k, relu, permute, bias, dtype):
     fam = families.get_family("acdc")
     c, ct = fam.matrices(n, torch.float32, dev)
@@ -256,6 +314,46 @@ def test_acdc_cascade_bwd(dev, m, n, k, relu, permute, bias, dtype):
     _close_grads(got, want, dtype)
     again = cbwd_mod.acdc_cascade_bwd(x, gy, a, d, b, c, ct, mid, relu=relu)
     assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
+
+
+def _cascade_bwd_fp64(x, g, a, d, c, ct, mid):
+    """(dx, da, dd) of the riffled cascade without bias or ReLU, in fp64
+    (``ref.acdc_cascade_bwd_ref``'s steps)."""
+    k = a.shape[0]
+    x, g, a, d, c, ct, mid = (t.double() for t in (x, g, a, d, c, ct, mid))
+    hs = [x]
+    for i in range(k - 1):
+        hs.append((((hs[-1] * a[i]) @ c) * d[i]) @ mid)
+    da, dd = torch.zeros_like(a), torch.zeros_like(d)
+    gcur = g
+    for i in range(k - 1, -1, -1):
+        gc = gcur @ c if i == k - 1 else gcur @ mid.T
+        dd[i] = (((hs[i] * a[i]) @ c) * gc).sum(0)
+        dh1 = (gc * d[i]) @ ct
+        da[i] = (hs[i] * dh1).sum(0)
+        gcur = a[i] * dh1
+    return gcur, da, dd
+
+
+@pytest.mark.parametrize("m,n,k", [(256, 128, 2), (256, 256, 2),
+                                   (256, 256, 3), (512, 1024, 2)])
+def test_acdc_cascade_bwd_fp32_error_within_plain(dev, m, n, k):
+    # every gradient's fp32 error against fp64 gradients, relative to its
+    # max |.|, within 2 x the plain version's (the worst of dx, da, dd)
+    fam = families.get_family("acdc")
+    c, ct = fam.matrices(n, torch.float32, dev)
+    mid = ct[:, torch.as_tensor(fam.riffle(n), device=dev).long()] \
+        .contiguous()
+    x, gy, a, d, _ = _bwd_inputs(dev, m + n + k, m, n, k, torch.float32,
+                                 False)
+    want = _cascade_bwd_fp64(x, gy, a, d, c, ct, mid)
+    err = {}
+    for name, fn in (("kernel", cbwd_mod.acdc_cascade_bwd),
+                     ("plain", ref.acdc_cascade_bwd_ref)):
+        got = fn(x, gy, a, d, None, c, ct, mid)
+        err[name] = max(_drift(u, w.double()) for u, w in zip(got[:3],
+                                                              want[:3]))
+    assert err["kernel"] <= 2 * err["plain"], err
 
 
 @pytest.mark.parametrize("n,k", [(256, 2), (1024, 24), (2048, 2)])

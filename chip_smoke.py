@@ -18,13 +18,18 @@ result line if any fails):
    error against fp64 within 2 x cuBLAS fp32's, every time warm and with
    L2 flushed, a tensor-core bound beside the fp32 one, and both of its
    regimes timed at M = 4, 16, 32, 64 (the regime boundary);
-   ``acdc_cascade`` / ``acdc_fused`` / ``acdc_cascade_bwd``: also bitwise
-   repeat and their fp32 error against an fp64 cascade (and fp64
-   gradients) within 2 x the plain version's, timed by device time
+   ``acdc_cascade`` / ``acdc_fused`` / ``acdc_cascade_bwd`` / ``acdc_bwd``:
+   also bitwise repeat and their fp32 error against an fp64 cascade (and
+   fp64 gradients) within 2 x the plain version's, timed by device time
    (launches queued behind a ``torch.cuda._sleep``) beside the call time
-   and the host's us a call, with each row's cluster plan and
-   ``cudaOccupancyMaxActiveClusters``; the forward's library call is one
+   and the host's us a call, with each row's cluster plan (and
+   ``cudaOccupancyMaxActiveClusters``); the forward's library call is one
    fp32 ``torch.matmul`` with the cascade's composed dense matrix;
+   ``paged_attn`` at the main path's decode and verify rows (L2 flushed
+   too) and at long rows a - d (67 MB of K/V each: 4 x 4096, 16 x 1024,
+   1 x 16384 keys at T = 1, 4 x 4096 at T = 5), bitwise on a repeat, its
+   split plan recorded, the T = 1 long rows beside one
+   ``scaled_dot_product_attention`` call over a contiguous cache;
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
@@ -233,57 +238,165 @@ def check_kernels(dev):
 
     check_cascade_forward(dev, randn, results)
 
-    # paged attention: qwen3 heads (16 q / 8 kv, Dh 128), 16-token pages,
-    # bf16 pools, 4 slots at ragged positions (one parked), T = 1 and 5
-    hq, hkv, dh, bs, mb, bsz = 16, 8, 128, 16, 6, 4
+    check_paged_attn(dev, randn, results)
+    return results, check_backward_kernels(dev, randn, results), sweep
+
+
+#: paged attention rows: qwen3 heads (16 q / 8 kv, Dh 128), 16-token
+#: pages, bf16 pools.  (label, slots, position of each, T): the main
+#: path's decode and verify rows (4 slots at ragged positions, one
+#: parked, tables of 6 pages: the full-width paged server's 81-token
+#: rows), then the long rows a - d, each streaming the same 67.1 MB of
+#: K/V at another parallelism
+PAGED_ROWS = (("main T=1", 4, None, 1), ("main T=5", 4, None, 5),
+              ("a", 4, 4096, 1), ("b", 16, 1024, 1), ("c", 1, 16384, 1),
+              ("d", 4, 4096, 5))
+
+
+def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0):
+    """Inputs of one paged row: q, new k/v, pools, tables, positions.
+    ``length`` None: the main path's 6-page tables, slot 0's tail
+    unmapped beyond its frontier, positions 5, 37, 63 - T and parked;
+    else every slot at ``length`` with just enough pages, its pages
+    scattered over the pool as an allocator leaves them."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    hq, hkv, dh, bs = 16, 8, 128, 16
+    mb = 6 if length is None else -(-(length + t) // bs)
     nb = bsz * mb
-    virtual = mb * bs
-    for t in (1, 5):
+    if length is None:
         tables = torch.arange(nb, dtype=torch.int32,
                               device=dev).reshape(bsz, mb)
         tables[0, 3:] = -1          # unmapped tail beyond the frontier
-        positions = torch.tensor([5, 37, 63 - t, virtual],
+        positions = torch.tensor([5, 37, 63 - t, mb * bs],
                                  dtype=torch.int32, device=dev)
-        q = randn(bsz, t, hq, dh, dtype=torch.bfloat16)
-        kn = randn(bsz, t, hkv, dh, dtype=torch.bfloat16)
-        vn = randn(bsz, t, hkv, dh, dtype=torch.bfloat16)
-        kp = randn(nb + 1, bs, hkv, dh, dtype=torch.bfloat16)
-        vp = randn(nb + 1, bs, hkv, dh, dtype=torch.bfloat16)
+    else:
+        gen = torch.Generator().manual_seed(seed)
+        tables = torch.randperm(nb, generator=gen).to(
+            device=dev, dtype=torch.int32).reshape(bsz, mb)
+        positions = torch.full((bsz,), length, dtype=torch.int32,
+                               device=dev)
+    q = randn(bsz, t, hq, dh, dtype=dtype)
+    kn = randn(bsz, t, hkv, dh, dtype=dtype)
+    vn = randn(bsz, t, hkv, dh, dtype=dtype)
+    kp = randn(nb + 1, bs, hkv, dh, dtype=dtype)
+    vp = randn(nb + 1, bs, hkv, dh, dtype=dtype)
+    return q, kn, vn, kp, vp, tables, positions
+
+
+def paged_bytes_flops(q, kp, tables, positions):
+    """Bytes a paged call must move (q in, out, new K/V in and written,
+    the streamed prefix's K/V read once) and its flops (q.k and p.v over
+    every attended key)."""
+    bsz, t, hq, dh = q.shape
+    hkv, bs, item = kp.shape[2], kp.shape[1], kp.element_size()
+    virtual = tables.shape[1] * bs
+    pos = [int(p) for p in positions.tolist()]
+    streamed = sum(p for p in pos if p < virtual)
+    attended = sum((p if p < virtual else 0) + t for p in pos)
+    nbytes = (2 * bsz * t * hq * dh * item        # q in, out
+              + 4 * bsz * t * hkv * dh * item     # new k/v in, written
+              + 2 * streamed * hkv * dh * item)   # streamed k/v
+    return nbytes, 4.0 * attended * t * hq * dh, 2 * streamed * hkv * dh * item
+
+
+def sdpa_library(q, kp, vp, tables, positions, kn, vn):
+    """One ``scaled_dot_product_attention`` call over a contiguous cache
+    holding the same keys and values as the paged call (prefix plus the
+    new token; T = 1, every slot at one position), ``enable_gqa``, no
+    mask: the library's time for the attention without the paging.
+    Returns (the call, its inputs gathered outside it)."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, t, hq, dh = q.shape
+    bs = kp.shape[1]
+    length = int(positions[0])
+    kpos = torch.arange(length, device=q.device)
+    pages = tables.long()[:, kpos // bs]                  # (B, L)
+    kc = torch.cat([kp[pages, kpos % bs], kn], dim=1)     # (B, L+1, Hkv, Dh)
+    vc = torch.cat([vp[pages, kpos % bs], vn], dim=1)
+    qs = q.transpose(1, 2).contiguous()                   # (B, Hq, 1, Dh)
+    kc = kc.transpose(1, 2).contiguous()
+    vc = vc.transpose(1, 2).contiguous()
+
+    def call():
+        return F.scaled_dot_product_attention(qs, kc, vc, enable_gqa=True)
+
+    return call
+
+
+def check_paged_attn(dev, randn, results):
+    """paged_attn at ``PAGED_ROWS``: against the plain version (every row,
+    the parked one too; pool writes equal, trash page excluded), timed by
+    device time beside the call time and the host's us a call, the main
+    rows also with L2 flushed (the long rows' 67 MB exceed the 50 MB L2),
+    the T = 1 long rows beside one SDPA call over a contiguous cache."""
+    import torch
+
+    from repro_torch.kernels import paged_attn as pa_mod
+    from repro_torch.kernels import ref
+
+    for label, bsz, length, t in PAGED_ROWS:
+        q, kn, vn, kp, vp, tables, positions = paged_case(
+            dev, randn, bsz, length, t)
         kp2, vp2 = kp.clone(), vp.clone()
-        got = pa_mod.paged_attention(q, kn, vn, kp, vp, tables, positions,
-                                     0, softcap=0.0)
-        want = ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables,
-                                       positions, 0, 0.0)
+
+        def kernel():
+            return pa_mod.paged_attention(q, kn, vn, kp, vp, tables,
+                                          positions, 0, softcap=0.0)
+
+        def plain():
+            return ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables,
+                                           positions, 0, 0.0)
+
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
+        shape = (f"{label}: B={bsz} T={t} pos="
+                 f"{'5/37/' + str(63 - t) + '/parked' if length is None else length}"
+                 f" Hq=16 Hkv=8 Dh=128 bs=16 bf16")
         # bf16 output: fp32 online softmax in another order than the
         # plain version's softmax; one bf16 ulp of |out| <= ~4.  Every
         # row is held, the parked one (which attends to its new tokens
         # only) too
         if not rel_close(got, want, rtol=2 ** -7, atol=2e-2):
-            _fail(f"paged_attn T={t}: max err {max_err(got, want)}")
+            _fail(f"paged_attn {shape}: max err {max_err(got, want)}")
         # the page writes must be the same writes (trash page excluded:
         # parked rows race to it by design and nothing reads it)
         if not (torch.equal(kp[:-1], kp2[:-1])
                 and torch.equal(vp[:-1], vp2[:-1])):
-            _fail(f"paged_attn T={t}: pool writes differ")
-        ms = time_ms(lambda: pa_mod.paged_attention(
-            q, kn, vn, kp, vp, tables, positions, 0, softcap=0.0))
-        pms = time_ms(lambda: ref.paged_attention_ref(
-            q, kn, vn, kp2, vp2, tables, positions, 0, 0.0), reps=5)
-        streamed = sum(int(p) for p in positions.tolist() if p < virtual)
-        attended = sum((int(p) if p < virtual else 0) + t
-                       for p in positions.tolist())
-        item = 2
-        nbytes = (2 * bsz * t * hq * dh * item        # q in, out
-                  + 4 * bsz * t * hkv * dh * item     # new k/v in, written
-                  + 2 * streamed * hkv * dh * item)   # streamed k/v
-        flops = 4.0 * attended * t * hq * dh
+            _fail(f"paged_attn {shape}: pool writes differ")
+        if not torch.equal(got, kernel()):
+            _fail(f"paged_attn {shape}: two runs differ in bits")
+        nbytes, flops, streamed = paged_bytes_flops(q, kp, tables,
+                                                    positions)
         b, by = bound_ms(nbytes, flops)
-        results["paged_attn"].append(dict(
-            shape=f"B={bsz} T={t} Hq={hq} Hkv={hkv} Dh={dh} bs={bs} bf16",
-            max_abs_err=max_err(got, want), ms=ms, plain_ms=pms,
-            library_ms=None, bound_ms=b, bound_by=by))
-    return results, check_backward_kernels(dev, randn, results), sweep
+        ms, host_us = device_ms(kernel)
+        pms, phost_us = device_ms(plain, reps=3, warmup=1)
+        row = dict(shape=shape, max_abs_err=max_err(got, want), ms=ms,
+                   host_us=host_us, call_ms=time_ms(kernel), plain_ms=pms,
+                   plain_host_us=phost_us, library_ms=None, bound_ms=b,
+                   bound_by=by, bytes=nbytes, streamed_bytes=streamed,
+                   bitwise_repeat=True)
+        row["plan"] = dataclasses.asdict(pa_mod.plan_of(q, kp, tables))
+        if length is None:
+            row["ms_cold"] = time_cold_ms(kernel)
+        elif t == 1:
+            lib = sdpa_library(q, kp, vp, tables, positions, kn, vn)
+            row["library_ms"] = device_ms(lib)[0]
+            row["library_max_abs_err"] = max_err(
+                lib().transpose(1, 2), got)
+        results["paged_attn"].append(row)
+        print(f"[paged_attn] {shape}: device {ms:.4f} ms ({host_us:.1f} us "
+              f"host), call {row['call_ms']:.4f}, bound {b:.4f} ({by}), "
+              f"{streamed / ms / 1e6:.0f} GB/s streamed"
+              + (f", L2 flushed {row['ms_cold']:.4f}" if "ms_cold" in row
+                 else "")
+              + f"; plain {pms:.4f}; library {row['library_ms']}",
+              flush=True)
+        del q, kn, vn, kp, vp, kp2, vp2
+        torch.cuda.empty_cache()
 
 
 def cascade_fp64(x, a, d, bias, c, ct, ct_mid, relu=False):
@@ -662,6 +775,69 @@ def margin_draw(randn, m, n, margin=0.05):
     return u.sign() * (margin + u.abs())
 
 
+def check_acdc_bwd(dev, randn, results):
+    """acdc_bwd at the smoke K=1 train step's shapes (M = 256, N = 128 /
+    256), ragged M with bias, and N = 1024 at the full-width M = 512:
+    against its plain version, bitwise on a repeat, its fp32 error against
+    fp64 gradients within 2 x the plain version's; timed by device time
+    beside the call time, the host's us a call and with L2 flushed."""
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.kernels import acdc_bwd as bwd_mod
+    from repro_torch.kernels import ref
+
+    fam = families.get_family("acdc")
+    for m, n, bias in ((256, 128, False), (256, 256, False),
+                       (37, 256, True), (512, 1024, False)):
+        c, ct = fam.matrices(n, torch.float32, dev)
+        x, g = randn(m, n), randn(m, n)
+        a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
+        label = f"M={m} N={n} bias={bias} fp32"
+
+        def kernel():
+            return bwd_mod.acdc_bwd(x, g, a, d, c, ct, with_bias=bias)
+
+        def plain():
+            return ref.acdc_bwd_ref(x, g, a, d, c, ct, bias)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok = _grads_err(got, want)
+        if not ok:
+            _fail(f"acdc_bwd {label}: max err {err}")
+        if not _same_bits(got, kernel()):
+            _fail(f"acdc_bwd {label}: two runs differ in bits")
+        # one layer is the K = 1 cascade: its fp64 gradients (db from a
+        # zero bias, whose value the backward never reads)
+        bb = torch.zeros(1, n, device=dev) if bias else None
+        w64 = cascade_bwd_fp64(x, g, a[None], d[None], bb, c, ct, None)
+        w64 = (w64[0], w64[1][0], w64[2][0],
+               None if w64[3] is None else w64[3][0])
+        ferr = {"kernel": grads_drift(got, w64),
+                "plain": grads_drift(want, w64)}
+        fp32_gate("acdc_bwd", label, ferr)
+        nbytes = 3 * m * n * 4 + 2 * n * 4 + 2 * n * n * 4 \
+            + (3 if bias else 2) * n * 4
+        b, by = bound_ms(nbytes, 6.0 * m * n * n)
+        ms, host_us = device_ms(kernel)
+        pms, phost_us = device_ms(plain)
+        row = dict(shape=label, max_abs_err=err, ms=ms, host_us=host_us,
+                   call_ms=time_ms(kernel), ms_cold=time_cold_ms(kernel),
+                   plain_ms=pms, plain_host_us=phost_us,
+                   plain_ms_cold=time_cold_ms(plain), library_ms=None,
+                   bound_ms=b, bound_by=by, fp32_err_vs_fp64=ferr,
+                   bitwise_repeat=True)
+        row["plan"] = dataclasses.asdict(bwd_mod.plan(m, n))
+        results["acdc_bwd"].append(row)
+        print(f"[acdc_bwd] {label}: device {ms:.4f} ms ({host_us:.1f} us "
+              f"host), call {row['call_ms']:.4f}, L2 flushed "
+              f"{row['ms_cold']:.4f}; plain {pms:.4f} (flushed "
+              f"{row['plain_ms_cold']:.4f}); bound {b:.4f} ({by}); fp32 err "
+              f"vs fp64 {ferr['kernel']:.2e} (plain {ferr['plain']:.2e})",
+              flush=True)
+
+
 def check_backward_kernels(dev, randn, results):
     """acdc_bwd and acdc_cascade_bwd against their plain versions at the
     smoke train step's shapes (M = 4 x 64 rows, N = 128 / 256, K = 2 with
@@ -679,31 +855,7 @@ def check_backward_kernels(dev, randn, results):
     from repro_torch.kernels import ref
 
     fam = families.get_family("acdc")
-    for m, n, bias in ((256, 128, False), (256, 256, False),
-                       (37, 256, True), (512, 1024, False)):
-        c, ct = fam.matrices(n, torch.float32, dev)
-        x, g = randn(m, n), randn(m, n)
-        a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
-        got = bwd_mod.acdc_bwd(x, g, a, d, c, ct, with_bias=bias)
-        want = ref.acdc_bwd_ref(x, g, a, d, c, ct, bias)
-        torch.cuda.synchronize()
-        err, ok = _grads_err(got, want)
-        if not ok:
-            _fail(f"acdc_bwd M={m} N={n} bias={bias}: max err {err}")
-        if not _same_bits(got, bwd_mod.acdc_bwd(x, g, a, d, c, ct,
-                                                with_bias=bias)):
-            _fail(f"acdc_bwd M={m} N={n}: two runs differ in bits")
-        ms = time_ms(lambda: bwd_mod.acdc_bwd(x, g, a, d, c, ct,
-                                              with_bias=bias))
-        pms = time_ms(lambda: ref.acdc_bwd_ref(x, g, a, d, c, ct, bias))
-        nbytes = 3 * m * n * 4 + 2 * n * 4 + 2 * n * n * 4 \
-            + (3 if bias else 2) * n * 4
-        b, by = bound_ms(nbytes, 6.0 * m * n * n)
-        results["acdc_bwd"].append(dict(
-            shape=f"M={m} N={n} bias={bias} fp32", max_abs_err=err, ms=ms,
-            plain_ms=pms, library_ms=None, bound_ms=b, bound_by=by,
-            bitwise_repeat=True))
-
+    check_acdc_bwd(dev, randn, results)
     for m, n, k, relu, bias in ((256, 128, 2, False, False),
                                 (256, 256, 2, False, False),
                                 (37, 256, 2, True, True),
@@ -1387,6 +1539,8 @@ def main() -> int:
 
     kern, per_layer, sweep = check_kernels(dev)
     for name, rows in kern.items():
+        if name in ("paged_attn", "acdc_bwd"):
+            continue    # printed as they were measured
         for r in rows:
             dev_t = (f" | device {r['ms']:.4f} ms ({r['host_us']:.1f} us "
                      f"host), call {r['call_ms']:.4f}; plain call "
@@ -1466,7 +1620,7 @@ def main() -> int:
                               "M=4 N=256 bias=False fp32"),
                "paged_attn": ("src/repro_torch/csrc/paged_attn.cu",
                               "src/repro/kernels/paged_attn.py:225", 0),
-               "acdc_bwd": ("src/repro_torch/csrc/acdc_bwd.cu",
+               "acdc_bwd": ("src/repro_torch/csrc/acdc_cascade_bwd.cu",
                             "src/repro/kernels/acdc_bwd.py:102", 1),
                "acdc_cascade_bwd": ("src/repro_torch/csrc/acdc_cascade_bwd.cu",
                                     "src/repro/kernels/acdc_cascade_bwd.py:179",

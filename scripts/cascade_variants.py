@@ -5,7 +5,8 @@
 
 For each main-path shape of ``acdc_cascade`` (forward, K = 2 with the
 riffle; K = 1 is ``acdc_fused``) and ``acdc_cascade_bwd`` (the reverse
-sweep), every candidate launch of ``kernels/acdc_cascade_fused.candidates``
+sweep, K = 2 and 3 with the riffle; K = 1 is ``acdc_bwd``), every
+candidate launch of ``kernels/acdc_cascade_fused.candidates``
 (column split x row block, slices resident or streamed) is held against
 the plain version (fp32 atol 2e-4, rtol 1e-3; bitwise on a repeat) and
 timed by device time (``chip_smoke.device_ms``), beside
@@ -30,7 +31,8 @@ sys.path.insert(0, str(ROOT))
 
 FWD_SHAPES = ((4, 128, 2), (4, 256, 2), (64, 256, 2), (256, 256, 2),
               (4, 1024, 2), (64, 1024, 2), (512, 1024, 2), (4, 256, 1))
-BWD_SHAPES = ((256, 128, 2), (256, 256, 2), (256, 256, 3), (512, 1024, 2))
+BWD_SHAPES = ((256, 128, 2), (256, 256, 2), (256, 256, 3), (512, 1024, 2),
+              (256, 128, 1), (256, 256, 1), (512, 1024, 1))
 
 
 def main() -> int:
@@ -116,12 +118,16 @@ def main() -> int:
 
     for m, n, k in BWD_SHAPES:
         c, ct, mid = mats(n)
+        riffle = k > 1        # K = 1, one layer (acdc_bwd), has no mid
+        mid = mid if riffle else None
         x, g = randn(m, n), randn(m, n)
         a, d = 1 + 0.061 * randn(k, n), 1 + 0.061 * randn(k, n)
-        want = ref.acdc_cascade_bwd_ref(x, g, a, d, None, c, ct, mid)
-        chosen = bwd.plan_bwd(m, n, k, True)
+        want = (ref.acdc_cascade_bwd_ref(x, g, a, d, None, c, ct, mid)
+                if riffle else ref.acdc_bwd_ref(x, g, a[0], d[0], c, ct,
+                                                False))
+        chosen = bwd.plan_bwd(m, n, k, riffle)
         plans = [chosen] if args.quick else list(fwd.candidates(
-            m, n, chosen.vec, bwd.smem_of(k, True)))
+            m, n, chosen.vec, bwd.smem_of(k, riffle)))
         pms, _ = chip_smoke.device_ms(
             lambda: ref.acdc_cascade_bwd_ref(x, g, a, d, None, c, ct, mid))
         for p in plans:
@@ -129,12 +135,16 @@ def main() -> int:
                        chosen=p == chosen,
                        model_us=fwd.cost_s(p, 5 * k - 2) * 1e6, plain_ms=pms)
             try:
-                row["max_clusters"] = bwd.max_clusters(p, m, k, True)
+                row["max_clusters"] = bwd.max_clusters(p, m, k, riffle)
                 got = bwd.launch_bwd(x, g, a, d, None, c, ct, mid, False, p)
                 again = bwd.launch_bwd(x, g, a, d, None, c, ct, mid, False, p)
                 torch.cuda.synchronize()
+                got = tuple(u.reshape(w.shape) for u, w in zip(got[:3],
+                                                               want[:3]))
+                again = tuple(u.reshape(w.shape) for u, w in zip(again[:3],
+                                                                 want[:3]))
                 row["ok"] = all(close(u, w) and torch.equal(u, v) for u, v, w
-                                in zip(got[:3], again[:3], want[:3]))
+                                in zip(got, again, want[:3]))
                 row["max_abs_err"] = max(float((u - w).abs().max())
                                          for u, w in zip(got[:3], want[:3]))
                 row["ms"], row["host_us"] = chip_smoke.device_ms(

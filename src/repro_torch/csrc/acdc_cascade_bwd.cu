@@ -1,5 +1,6 @@
-// Reverse-sweep backward of a whole order-K ACDC cascade (K >= 2), one
-// pass per row block:
+// Reverse-sweep backward of a whole order-K ACDC cascade, one pass per row
+// block (K = 1, without the riffle or ReLU, is one layer's backward, the
+// paper's eqs. (10)-(14): acdc_bwd launches it so):
 //
 // 1. forward re-walk: the x block goes through layers 0 .. K-2 as in the
 //    forward kernel (fp32 activation, ReLU, riffle folded into
@@ -18,8 +19,10 @@
 //    kernel runs no gather.
 //
 // Replaces: src/repro/kernels/acdc_cascade_bwd.py, _cascade_bwd_kernel via
-// acdc_cascade_bwd_pallas.  Which cascades come here (the reference's
-// VMEM gate, copied as arithmetic) is decided in kernels/ops.py.
+// acdc_cascade_bwd_pallas (K >= 2), and src/repro/kernels/acdc_bwd.py,
+// _acdc_bwd_kernel via acdc_bwd_pallas (K = 1: three products, no re-walk,
+// no stash).  Which cascades come here (the reference's VMEM gate, copied
+// as arithmetic) is decided in kernels/ops.py.
 //
 // What bounds it on the H100: 5K - 2 dependent N x N products (two in the
 // re-walk of layers 0 .. K-2, three in the sweep of every layer), i.e.
@@ -65,7 +68,8 @@ struct BwdSeq {
   }
 };
 
-// floats of the own-column buffers: x, gc, the stash (or two slots of it)
+// floats of the own-column buffers: x, gc, the stash (or two slots of it;
+// none at K = 1 with the stash on chip)
 inline long long own_floats(int BM, int LW, int K, bool stash_smem) {
   return (long long)BM * LW * (2 + (stash_smem ? K - 1 : 2));
 }
@@ -78,7 +82,8 @@ cascade_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                    const float* __restrict__ c, const float* __restrict__ ct,
                    const float* __restrict__ ct_mid, float* __restrict__ dx,
                    float* __restrict__ stash_g, float* __restrict__ part,
-                   int M, int K, int relu, int stash_smem, cl::Geo g) {
+                   int M, int K, int relu, int with_db, int stash_smem,
+                   cl::Geo g) {
   constexpr int LW = 32 * CPT;
   constexpr int RPW = cl::Rows<BM>::RPW;
   constexpr int OWN = BM * LW;
@@ -230,6 +235,8 @@ cascade_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
         }
       }
     }
+    // K = 1 has no re-walk: this is the first remote write
+    if (K == 1) cl::cluster_wait();
     cl::broadcast<BM, CPT>(s1, v, rows, g);
     cl::cluster_sync();
 
@@ -272,7 +279,7 @@ cascade_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
     // this cluster's (da, dd, db) of layer i, warps summed in order
     for (int e = tid; e < 3 * LW; e += kThreads) {
       const int which = e / LW, jj = e % LW;
-      if (jj >= g.w || (which == 2 && bias == nullptr)) continue;
+      if (jj >= g.w || (which == 2 && !with_db)) continue;
       float s = colp[which * cl::kWarps * LW + jj];
       for (int w8 = 1; w8 < cl::kWarps; ++w8)
         s = __fadd_rn(s, colp[(which * cl::kWarps + w8) * LW + jj]);
@@ -303,9 +310,9 @@ struct Bufs {
 // Launch both kernels (or, with `max_clusters`, ask how many clusters of
 // the first fit the card)
 template <int BM, int CPT, bool STREAM>
-cudaError_t run(const Bufs& b, int M, int K, int relu, int stash_smem,
-                const cl::Geo& g, size_t smem, cudaStream_t stream,
-                int* max_clusters) {
+cudaError_t run(const Bufs& b, int M, int K, int relu, int with_db,
+                int stash_smem, const cl::Geo& g, size_t smem,
+                cudaStream_t stream, int* max_clusters) {
   auto kern = cascade_bwd_kernel<BM, CPT, STREAM>;
   static const cudaError_t prepared = cl::prepare(kern);
   if (prepared != cudaSuccess) return prepared;
@@ -316,76 +323,81 @@ cudaError_t run(const Bufs& b, int M, int K, int relu, int stash_smem,
   cudaError_t err = cudaLaunchKernelEx(&lc.cfg, kern, b.x, b.g, b.a, b.d,
                                        b.bias, b.c, b.ct, b.ct_mid, b.dx,
                                        b.stash, b.part, M, K, relu,
-                                       stash_smem, g);
+                                       with_db, stash_smem, g);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int N = g.N;
   return cl::launch_sum_partials_pairwise(
       b.part, b.out, clusters, 3 * K * N,
-      (b.bias != nullptr ? 3 : 2) * K * N, stream);
+      (with_db ? 3 : 2) * K * N, stream);
 }
 
 template <int BM, int CPT>
 cudaError_t by_mode(bool resident, const Bufs& b, int M, int K, int relu,
-                    int ss, const cl::Geo& g, size_t smem, cudaStream_t s,
-                    int* mc) {
-  return resident ? run<BM, CPT, false>(b, M, K, relu, ss, g, smem, s, mc)
-                  : run<BM, CPT, true>(b, M, K, relu, ss, g, smem, s, mc);
+                    int db, int ss, const cl::Geo& g, size_t smem,
+                    cudaStream_t s, int* mc) {
+  return resident
+             ? run<BM, CPT, false>(b, M, K, relu, db, ss, g, smem, s, mc)
+             : run<BM, CPT, true>(b, M, K, relu, db, ss, g, smem, s, mc);
 }
 
 template <int BM>
 cudaError_t by_cpt(int CPT, bool resident, const Bufs& b, int M, int K,
-                   int relu, int ss, const cl::Geo& g, size_t smem,
+                   int relu, int db, int ss, const cl::Geo& g, size_t smem,
                    cudaStream_t s, int* mc) {
   switch (CPT) {
-    case 1: return by_mode<BM, 1>(resident, b, M, K, relu, ss, g, smem, s,
-                                     mc);
-    case 2: return by_mode<BM, 2>(resident, b, M, K, relu, ss, g, smem, s,
-                                     mc);
-    case 4: return by_mode<BM, 4>(resident, b, M, K, relu, ss, g, smem, s,
-                                     mc);
+    case 1: return by_mode<BM, 1>(resident, b, M, K, relu, db, ss, g, smem,
+                                     s, mc);
+    case 2: return by_mode<BM, 2>(resident, b, M, K, relu, db, ss, g, smem,
+                                     s, mc);
+    case 4: return by_mode<BM, 4>(resident, b, M, K, relu, db, ss, g, smem,
+                                     s, mc);
   }
   return cudaErrorInvalidValue;
 }
 
 cudaError_t by_bm(int BM, int CPT, bool resident, const Bufs& b, int M,
-                  int K, int relu, int ss, const cl::Geo& g, size_t smem,
-                  cudaStream_t s, int* mc) {
+                  int K, int relu, int db, int ss, const cl::Geo& g,
+                  size_t smem, cudaStream_t s, int* mc) {
   switch (BM) {
-    case 4: return by_cpt<4>(CPT, resident, b, M, K, relu, ss, g, smem, s,
-                                mc);
-    case 8: return by_cpt<8>(CPT, resident, b, M, K, relu, ss, g, smem, s,
-                                mc);
-    case 16: return by_cpt<16>(CPT, resident, b, M, K, relu, ss, g, smem,
-                                  s, mc);
+    case 4: return by_cpt<4>(CPT, resident, b, M, K, relu, db, ss, g, smem,
+                                s, mc);
+    case 8: return by_cpt<8>(CPT, resident, b, M, K, relu, db, ss, g, smem,
+                                s, mc);
+    case 16: return by_cpt<16>(CPT, resident, b, M, K, relu, db, ss, g,
+                                  smem, s, mc);
   }
   return cudaErrorInvalidValue;
 }
 
-cudaError_t entry(const Bufs& b, int M, int N, int K, int relu, int S,
-                  int W, int CPT, int BM, int NK, int KT, int resident,
-                  int vec, int stash_smem, int smem, void* stream, int* mc) {
+// K = 1 (one layer) has no re-walk, so no mid matrix and no ReLU
+cudaError_t entry(const Bufs& b, int M, int N, int K, int relu, int with_db,
+                  int S, int W, int CPT, int BM, int NK, int KT,
+                  int resident, int vec, int stash_smem, int smem,
+                  void* stream, int* mc) {
   cl::Geo g;
   const bool riffle = b.ct_mid != nullptr;
-  if (M < 1 || K < 2 ||
+  if (M < 1 || K < 1 || (K == 1 && (riffle || relu)) ||
       !cl::make_geo(g, N, S, W, 32 * CPT, NK, KT, resident, vec, riffle) ||
       smem != smem_bytes(BM, 32 * CPT, NK, KT, K, riffle, resident != 0,
                          stash_smem != 0) ||
       smem > 232448)
     return cudaErrorInvalidValue;
-  return by_bm(BM, CPT, resident != 0, b, M, K, relu, stash_smem, g,
-               (size_t)smem, static_cast<cudaStream_t>(stream), mc);
+  return by_bm(BM, CPT, resident != 0, b, M, K, relu, with_db, stash_smem,
+               g, (size_t)smem, static_cast<cudaStream_t>(stream), mc);
 }
 
 }  // namespace
 
 // x, g (M, N) fp32 (the wrapper widens bf16 exactly and rounds dx back
-// once); a, d, bias (K, N) fp32 (bias may be NULL); c, ct, ct_mid (N, N)
-// fp32 row-major (ct_mid NULL = no riffle); dx (M, N) fp32; stash the
-// (K-1, M, N) fp32 workspace (unused, may be NULL, when the plan keeps the
-// stash on chip); part the (clusters, 3, K, N) fp32 workspace; out
-// (3, K, N) fp32 receives da, dd, db (db left unwritten without bias).
+// once); a, d, bias (K, N) fp32 (bias may be NULL: no bias in the
+// re-walk); c, ct, ct_mid (N, N) fp32 row-major (ct_mid NULL = no
+// riffle); dx (M, N) fp32; stash the (K-1, M, N) fp32 workspace (unused,
+// may be NULL, when the plan keeps the stash on chip); part the
+// (clusters, 3, K, N) fp32 workspace; out (3, K, N) fp32 receives da, dd
+// and, with `with_db`, db (left unwritten without).  K = 1 takes neither
+// ct_mid nor relu.
 // The geometry is the wrapper's plan (see acdc_cascade.cu), plus where the
 // stash lives; a geometry that is not a plan is refused
 // (cudaErrorInvalidValue).  Launches on `stream`, allocates nothing,
@@ -394,8 +406,8 @@ extern "C" int acdc_cascade_bwd_launch(
     const void* x, const void* g, const void* a, const void* d,
     const void* bias, const void* c, const void* ct, const void* ct_mid,
     void* dx, void* stash, void* part, void* out, int M, int N, int K,
-    int relu, int S, int W, int CPT, int BM, int NK, int KT, int resident,
-    int vec, int stash_smem, int smem, void* stream) {
+    int relu, int with_db, int S, int W, int CPT, int BM, int NK, int KT,
+    int resident, int vec, int stash_smem, int smem, void* stream) {
   const Bufs b{static_cast<const float*>(x),    static_cast<const float*>(g),
                static_cast<const float*>(a),    static_cast<const float*>(d),
                static_cast<const float*>(bias), static_cast<const float*>(c),
@@ -403,8 +415,8 @@ extern "C" int acdc_cascade_bwd_launch(
                static_cast<const float*>(ct_mid), static_cast<float*>(dx),
                static_cast<float*>(stash),      static_cast<float*>(part),
                static_cast<float*>(out)};
-  cudaError_t err = entry(b, M, N, K, relu, S, W, CPT, BM, NK, KT, resident,
-                          vec, stash_smem, smem, stream, nullptr);
+  cudaError_t err = entry(b, M, N, K, relu, with_db, S, W, CPT, BM, NK, KT,
+                          resident, vec, stash_smem, smem, stream, nullptr);
   cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -422,8 +434,8 @@ extern "C" int acdc_cascade_bwd_max_clusters(int M, int N, int K, int riffle,
   const Bufs b{&dummy, &dummy, &dummy, &dummy, nullptr, &dummy,
                &dummy, riffle ? &dummy : nullptr, nullptr, nullptr,
                nullptr, nullptr};
-  cudaError_t err = entry(b, M, N, K, 0, S, W, CPT, BM, NK, KT, resident, vec,
-                          stash_smem, smem, nullptr, &n);
+  cudaError_t err = entry(b, M, N, K, 0, 1, S, W, CPT, BM, NK, KT, resident,
+                          vec, stash_smem, smem, nullptr, &n);
   cudaGetLastError();
   return err != cudaSuccess ? -static_cast<int>(err) : n;
 }

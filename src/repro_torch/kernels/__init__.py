@@ -8,15 +8,16 @@ module                kernel source               replaces (JAX/Pallas)
 ``acdc_fused``        ``csrc/acdc_cascade.cu``    ``acdc_fused_pallas``
                       (K=1, no mid matrix)
 ``paged_attn``        ``csrc/paged_attn.cu``      ``paged_attention``
-``acdc_bwd``          ``csrc/acdc_bwd.cu``        ``acdc_bwd_pallas``
+``acdc_bwd``          ``csrc/acdc_cascade_bwd.cu``  ``acdc_bwd_pallas``
+                      (K=1, no mid matrix)
 ``acdc_cascade_bwd``  ``csrc/acdc_cascade_bwd.cu``  ``acdc_cascade_bwd_pallas``
 ====================  ==========================  ==========================
 
 ``ref`` holds the plain PyTorch version of each, ``build`` compiles the
 sources with nvcc and binds them with ctypes, and ``ops`` routes the
 ACDC layer and cascade, forward and backward, exactly as the reference
-does.  ``csrc/acdc_common.cuh`` holds what the ACDC kernels share,
-among it the thread block cluster machinery of the two cascade kernels,
-whose launches ``acdc_cascade_fused.plan`` and
-``acdc_cascade_bwd.plan_bwd`` decide.
+does.  ``csrc/acdc_common.cuh`` holds the thread block cluster machinery
+of the two cascade kernels, whose launches ``acdc_cascade_fused.plan``
+and ``acdc_cascade_bwd.plan_bwd`` decide; ``paged_attn.plan`` decides
+how the paged-attention kernel splits the keys.
 """

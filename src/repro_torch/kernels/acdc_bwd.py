@@ -1,5 +1,5 @@
-"""Single ACDC layer backward (the paper's eqs. 10-14) — wrapper of
-``csrc/acdc_bwd.cu``.
+"""Single ACDC layer backward (the paper's eqs. 10-14) — the K = 1 launch
+of ``csrc/acdc_cascade_bwd.cu``.
 
 Port of :mod:`repro.kernels.acdc_bwd` (``acdc_bwd_pallas``): for x, g
 (M, N) with N <= ``KERNEL_MAX_N`` it returns ``(dx, da, dd, db)``, dx in
@@ -8,9 +8,14 @@ parameter dtype), ``db`` None when ``with_bias`` is False.  ``h2`` is
 recomputed, never stored by the forward.  Larger N takes the two-call
 backward of :mod:`repro_torch.kernels.ops` on ``scaled_matmul``.
 
-The kernel writes per-block partial sums to a workspace and a second
-pass sums them in block order (no float atomics: identical bits run to
-run).
+One layer's backward is the reverse sweep of a one-layer cascade: gc =
+g C, h2 = (x a) C, dh1 = (gc d) C^T, three products and no re-walk.  So
+the wrapper launches the cluster kernel of
+:mod:`repro_torch.kernels.acdc_cascade_bwd` at K = 1 (its plan,
+:func:`plan`; the per-cluster partial sums reduced in a fixed order, no
+float atomics: identical bits run to run), under its own launch count,
+as :mod:`repro_torch.kernels.acdc_fused` launches the forward cascade
+kernel at K = 1.
 
 For a CUDA tensor :func:`acdc_bwd` launches the kernel (or raises); for a
 CPU tensor it takes :func:`repro_torch.kernels.ref.acdc_bwd_ref`.
@@ -18,24 +23,25 @@ CPU tensor it takes :func:`repro_torch.kernels.ref.acdc_bwd_ref`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
-
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import acdc_cascade_bwd as cascade_bwd_mod
+from repro_torch.kernels import acdc_cascade_fused as fwd
+from repro_torch.kernels import ref
+from repro_torch.kernels.acdc_cascade_bwd import Grads
 
-#: largest N the kernel takes (two (BM, N) fp32 row blocks in shared
-#: memory, BM = 16 at N = 1024), the reference's ``MAX_FUSED_N``
-KERNEL_MAX_N = 1024
+#: largest N the kernel takes, the reference's ``MAX_FUSED_N``
+KERNEL_MAX_N = cascade_bwd_mod.KERNEL_MAX_N
 
 #: kernel launches since the last reset (plain int; chip_smoke resets it)
 launches = 0
 
-_ARGS = [build.VP] * 9 + [build.I32] * 4 + [build.VP]
 _DTYPES = (torch.float32, torch.bfloat16)
 
-Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-              Optional[torch.Tensor]]
+
+def plan(m: int, n: int) -> fwd.Plan:
+    """The cluster launch of one layer's backward at x (m, n)."""
+    return cascade_bwd_mod.plan_bwd(m, n, 1, False)
 
 
 def _check(x: torch.Tensor, g: torch.Tensor, mats, vecs) -> None:
@@ -65,20 +71,8 @@ def acdc_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"acdc_bwd: unsupported device {x.device}")
     _check(x, g, (c, ct), (a, d))
-    m, n = x.shape
-    x = x.contiguous()
-    g = g.to(x.dtype).contiguous()
-    a, d, c, ct = (t.float().contiguous() for t in (a, d, c, ct))
-    rows = build.bind("acdc_bwd", "acdc_bwd_rows_per_block", [build.I32])(n)
-    part = torch.empty((-(-m // rows), 3, n), dtype=torch.float32,
-                       device=x.device)
-    out = torch.zeros((3, n), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    fn = build.bind("acdc_bwd", "acdc_bwd_launch", _ARGS)
-    err = fn(x.data_ptr(), g.data_ptr(), a.data_ptr(), d.data_ptr(),
-             c.data_ptr(), ct.data_ptr(), dx.data_ptr(), part.data_ptr(),
-             out.data_ptr(), m, n, int(with_bias),
-             int(x.dtype == torch.bfloat16), build.stream_of(x.device))
-    build.check(err, "acdc_bwd")
+    dx, da, dd, db = cascade_bwd_mod.launch_bwd(
+        x, g, a.reshape(1, -1), d.reshape(1, -1), None, c, ct, None, False,
+        with_db=with_bias)
     launches += 1
-    return dx, out[0], out[1], out[2] if with_bias else None
+    return dx, da[0], dd[0], None if db is None else db[0]

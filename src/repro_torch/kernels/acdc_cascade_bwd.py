@@ -1,5 +1,6 @@
 """Reverse-sweep backward of a whole order-K ACDC cascade — wrapper of
-``csrc/acdc_cascade_bwd.cu``.
+``csrc/acdc_cascade_bwd.cu``, whose K = 1 launch is one layer's backward
+(:mod:`repro_torch.kernels.acdc_bwd` calls :func:`launch_bwd` so).
 
 Port of :mod:`repro.kernels.acdc_cascade_bwd` (``acdc_cascade_bwd_pallas``):
 one launch re-walks layers 0 .. K-2 stashing each layer input, then runs
@@ -35,7 +36,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import acdc_cascade_fused as fwd
-from repro_torch.kernels.acdc_bwd import Grads
 
 #: largest N the kernel takes, the reference's ``MAX_FUSED_N``
 KERNEL_MAX_N = 1024
@@ -43,8 +43,13 @@ KERNEL_MAX_N = 1024
 #: kernel launches since the last reset (plain int; chip_smoke resets it)
 launches = 0
 
-_ARGS = [build.VP] * 12 + [build.I32] * 14 + [build.VP]
+_ARGS = [build.VP] * 12 + [build.I32] * 15 + [build.VP]
 _DTYPES = (torch.float32, torch.bfloat16)
+
+#: (dx, da, dd, db): dx in x's dtype, the diagonal grads fp32, db None
+#: without bias
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+              Optional[torch.Tensor]]
 
 
 def smem_floats(bm: int, lw: int, nk: int, kt: int, k: int, riffle: bool,
@@ -62,11 +67,13 @@ def smem_floats(bm: int, lw: int, nk: int, kt: int, k: int, riffle: bool,
 @functools.lru_cache(maxsize=1024)
 def plan_bwd(m: int, n: int, k: int, riffle: bool,
              vec_ok: bool = True) -> fwd.Plan:
-    """The launch of the reverse sweep at x (m, n), K >= 2 layers: as
-    the forward's plan, over 5K - 2 products; the stash's own columns stay
-    in shared memory where they fit (``stash_smem``).  Pure Python and
-    cached."""
-    if not (1 <= n <= KERNEL_MAX_N and m >= 1 and k >= 2):
+    """The launch of the reverse sweep at x (m, n), K layers: as the
+    forward's plan, over 5K - 2 products; the stash's own columns stay in
+    shared memory where they fit (``stash_smem``).  K = 1 (one layer's
+    backward: three products, no re-walk, no stash) has no mid matrix.
+    Pure Python and cached."""
+    if not (1 <= n <= KERNEL_MAX_N and m >= 1
+            and (k >= 2 or (k == 1 and not riffle))):
         raise ValueError(f"acdc_cascade_bwd: no plan for M={m} N={n} K={k}")
     return fwd.choose(m, n, 5 * k - 2, fwd.vec_width(n, vec_ok),
                       smem_of(k, riffle))
@@ -159,11 +166,16 @@ def launch_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                d: torch.Tensor, bias: Optional[torch.Tensor],
                c: torch.Tensor, ct: torch.Tensor,
                ct_mid: Optional[torch.Tensor], relu: bool,
-               p: Optional[fwd.Plan] = None) -> Grads:
+               p: Optional[fwd.Plan] = None, *,
+               with_db: Optional[bool] = None) -> Grads:
     """Launch both kernels with :func:`plan_bwd`'s launch unless ``p`` is
     given (shapes already checked).  The kernels run in fp32: bf16 x and g
     (g rounded to x's dtype first) are widened exactly and dx is rounded
-    back once, where the kernel would round it."""
+    back once, where the kernel would round it.  db is computed when
+    ``with_db`` (default: a bias is given; at K = 1, whose backward never
+    reads the bias, the caller says so without one)."""
+    if with_db is None:
+        with_db = bias is not None
     m, n = x.shape
     k = a.shape[0]
     xf = fwd._f32(x)
@@ -188,7 +200,7 @@ def launch_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
         xf.data_ptr(), gf.data_ptr(), a.data_ptr(), d.data_ptr(),
         build.ptr(bias), c.data_ptr(), ct.data_ptr(), build.ptr(ct_mid),
         dx.data_ptr(), build.ptr(stash), part.data_ptr(), out.data_ptr(), m,
-        n, k, int(relu), *geo, build.stream_of(dev))
+        n, k, int(relu), int(with_db), *geo, build.stream_of(dev))
     build.check(err, f"acdc_cascade_bwd {p}")
     return (dx if x.dtype == torch.float32 else dx.to(x.dtype), out[0],
-            out[1], out[2] if bias is not None else None)
+            out[1], out[2] if with_db else None)

@@ -38,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]   # report registers / shared memory / spills
 #: every source under csrc/, one library each
-SOURCES = ("scaled_matmul", "acdc_cascade", "paged_attn", "acdc_bwd",
+SOURCES = ("scaled_matmul", "acdc_cascade", "paged_attn",
            "acdc_cascade_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

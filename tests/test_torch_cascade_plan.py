@@ -12,12 +12,14 @@ the backward's stash lives and the workspace shapes.  Held here:
   exactly one CTA, shared memory is at most 232,448 bytes and is what
   the sources' layout takes, S <= 16, the tiles cover the depth, the
   stash sits in shared memory exactly when its bytes fit, and the
-  workspaces have the shapes the C side indexes;
+  workspaces have the shapes the C side indexes (the backward at K = 1,
+  one layer's and ``acdc_bwd``'s launch, without the riffle);
 * the plans' dataflow, emulated in PyTorch (column slices, each warp's
   share of k, partials summed in warp order, the backward's own-column
   stash, ReLU mask and per-cluster column sums written at the C side's
   workspace offsets), against the JAX Pallas kernels in interpret mode on
-  numpy-seeded inputs, fp32 atol 2e-4, rtol 1e-3.
+  numpy-seeded inputs, fp32 atol 2e-4, rtol 1e-3; the backward's K = 1
+  launch against ``acdc_bwd_pallas``.
 """
 
 import math
@@ -28,6 +30,7 @@ import pytest
 import torch
 
 from repro.core import families as jfam
+from repro.kernels import acdc_bwd as jbwd
 from repro.kernels import acdc_cascade_bwd as jcbwd
 from repro.kernels import acdc_cascade_fused as jcascade
 from repro_torch.core import families as tfam
@@ -92,8 +95,8 @@ def test_plans(n, m, k):
         p = tcascade.plan(m, n, k, riffle)
         _check_geometry(p, m, n)
         assert p.smem_bytes == _fwd_smem(p, k, riffle)
-        if k < 2:
-            continue
+        if k < 2 and riffle:
+            continue      # one layer has no mid matrix
         q = tcbwd.plan_bwd(m, n, k, riffle)
         _check_geometry(q, m, n)
         assert q.smem_bytes == _bwd_smem(q, k, riffle, q.stash_smem)
@@ -290,6 +293,12 @@ DATAFLOW = [(4, 128, 2, False, True, False, False),
             (13, 128, 2, True, True, True, False),
             (37, 100, 3, True, True, True, False),
             (9, 96, 2, False, False, True, True)]
+# one layer's backward (K = 1, acdc_bwd's launch): the smoke K=1 train
+# step's rows, ragged M with and without bias, a streamed plan
+LAYER = [(256, 128, 1, False, False, False, False),
+         (37, 256, 1, False, False, True, False),
+         (13, 100, 1, False, False, False, False),
+         (9, 96, 1, False, False, True, True)]
 
 
 @pytest.mark.parametrize("m,n,k,relu,permute,bias,streamed", DATAFLOW)
@@ -306,7 +315,8 @@ def test_forward_dataflow_matches_pallas(m, n, k, relu, permute, bias,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-@pytest.mark.parametrize("m,n,k,relu,permute,bias,streamed", DATAFLOW)
+@pytest.mark.parametrize("m,n,k,relu,permute,bias,streamed",
+                         DATAFLOW + LAYER)
 def test_backward_dataflow_matches_pallas(m, n, k, relu, permute, bias,
                                           streamed):
     x, gy, a, d, b, jm, tm = _inputs(m * n + k, m, n, k, bias, permute)
@@ -315,13 +325,19 @@ def test_backward_dataflow_matches_pallas(m, n, k, relu, permute, bias,
         import dataclasses
         p = dataclasses.replace(p, kt=32, resident=False, stash_smem=False)
     got = _emulate_bwd(_t(x), _t(gy), _t(a), _t(d), _t(b), *tm, relu, p)
-    want = jcbwd.acdc_cascade_bwd_pallas(
-        _j(x), _j(gy), _j(a), _j(d), _j(b), *jm, relu=relu, bm=16,
-        interpret=True)
+    if k == 1:      # no re-walk: the bias is never read, only db made
+        want = jbwd.acdc_bwd_pallas(
+            _j(x), _j(gy), _j(a[0]), _j(d[0]), jm[0], jm[1],
+            with_bias=bias, interpret=True)
+    else:
+        want = jcbwd.acdc_cascade_bwd_pallas(
+            _j(x), _j(gy), _j(a), _j(d), _j(b), *jm, relu=relu, bm=16,
+            interpret=True)
     for name, u, w in zip(("dx", "da", "dd", "db"), got, want):
         if w is None:
             assert u is None
             continue
-        scale = max(float(np.abs(np.asarray(w)).max()), 1.0)
-        np.testing.assert_allclose(u.numpy(), np.asarray(w), rtol=1e-3,
+        w = np.asarray(w).reshape(u.shape)
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(u.numpy(), w, rtol=1e-3,
                                    atol=2e-4 * scale, err_msg=name)

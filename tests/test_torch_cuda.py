@@ -213,6 +213,41 @@ def test_cascade_plan_unschedulable_raises(dev):
         cascade_mod.launch_cascade(x, a, d, None, c, ct, mid, False, bad)
 
 
+def _long_paged_case(dev, b, length, t, dtype, seed, hkv=8, group=2,
+                     dh=128, bs=16):
+    """Every slot at ``length`` with just enough pages, scattered over
+    the pool; returns q, new k/v, pools, tables, positions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+
+    mb = -(-(length + t) // bs)
+    nb = b * mb
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
+    tables = perm.to(device=dev, dtype=torch.int32).reshape(b, mb)
+    pos = torch.full((b,), length, device=dev, dtype=torch.int32)
+    return (r(b, t, hkv * group, dh), r(b, t, hkv, dh), r(b, t, hkv, dh),
+            r(nb + 1, bs, hkv, dh), r(nb + 1, bs, hkv, dh), tables, pos)
+
+
+def _paged_pair(args, window=0, softcap=0.0, p=None):
+    """(kernel out, plain out, pools equal) on one set of inputs; the
+    kernel under plan ``p`` when given."""
+    q, kn, vn, kp, vp, tables, pos = args
+    kp2, vp2 = kp.clone(), vp.clone()
+    if p is None:
+        got = pa_mod.paged_attention(q, kn, vn, kp, vp, tables, pos, window,
+                                     softcap=softcap)
+    else:
+        got = pa_mod.launch(q, kn, vn, kp, vp, tables, pos, window, softcap,
+                            p)
+    want = ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables, pos, window,
+                                   softcap)
+    same = torch.equal(kp[:-1], kp2[:-1]) and torch.equal(vp[:-1], vp2[:-1])
+    return got, want, same
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,window,softcap", [(1, 0, 0.0), (3, 6, 30.0),
                                               (5, 0, 0.0)])
@@ -238,6 +273,98 @@ def test_paged_attention(dev, t, window, softcap, dtype):
     assert pa_mod.launches == before + 1
     _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
     assert torch.equal(kp[:-1], kp2[:-1]) and torch.equal(vp[:-1], vp2[:-1])
+
+
+# the long rows of chip_smoke.py (a - d) at fewer slots, one row of each
+# shape: (slots, position, T)
+LONG_ROWS = [(2, 4096, 1), (4, 1024, 1), (1, 16384, 1), (2, 4096, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,length,t", LONG_ROWS)
+def test_paged_attention_long(dev, b, length, t, dtype):
+    args = _long_paged_case(dev, b, length, t, dtype, b + length + t)
+    before = pa_mod.launches
+    got, want, same = _paged_pair(args)
+    assert pa_mod.launches == before + 1
+    _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+    assert same
+    # fixed merge orders: the same bits on a repeat
+    assert torch.equal(got, _paged_pair(args)[0])
+
+
+@pytest.mark.parametrize("window,softcap", [(1000, 0.0), (0, 30.0),
+                                            (3000, 50.0)])
+def test_paged_attention_long_window_softcap(dev, window, softcap):
+    # a window skips whole splits before its start
+    args = _long_paged_case(dev, 2, 4096, 3, torch.float32, window)
+    got, want, same = _paged_pair(args, window, softcap)
+    _close(got, want, F32)
+    assert same
+
+
+@pytest.mark.parametrize("b,length,t", LONG_ROWS)
+def test_paged_combine_routes_agree_bitwise(dev, b, length, t):
+    # the cluster combine and the workspace's second pass merge the same
+    # split states in the same order: identical bits, and the plain
+    # version's result
+    args = _long_paged_case(dev, b, length, t, torch.bfloat16, length + t)
+    q, _, _, kp, _, tables, _ = args
+    base = pa_mod.plan_of(q, kp, tables)
+    outs = []
+    for cluster in (True, False):
+        p = pa_mod.make_plan(b, 8, tables.shape[1], 16, 2, t, 128, 2, 4,
+                             base.kt, cluster=cluster)
+        assert p.route == ("cluster" if cluster else "two_pass")
+        got, want, same = _paged_pair(args, p=p)
+        _close(got, want, BF16)
+        assert same
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("b,length,t", LONG_ROWS[:1] + LONG_ROWS[3:])
+def test_paged_attention_fp32_error_within_plain(dev, b, length, t):
+    # fp32 pools: the kernel's error against an fp64 attention, relative
+    # to max |out|, within 2 x the plain version's
+    args = _long_paged_case(dev, b, length, t, torch.float32, 7 * b + t)
+    got, want, _ = _paged_pair(args)
+    want64 = _paged_fp64(*args)
+    err = {name: _drift(o, want64) for name, o in (("kernel", got),
+                                                   ("plain", want))}
+    assert err["kernel"] <= 2 * err["plain"], err
+
+
+def _paged_fp64(q, kn, vn, kp, vp, tables, pos):
+    """Attention of every slot (all at one position, no window or
+    softcap) over its prefix and new tokens, in fp64."""
+    b, t, hq, dh = q.shape
+    hkv, bs = kn.shape[2], kp.shape[1]
+    length = int(pos[0])
+    kpos = torch.arange(length, device=q.device)
+    pages = tables.long()[:, kpos // bs]
+    keys = torch.cat([kp[pages, kpos % bs], kn], 1).double()  # (B, L+T, .)
+    vals = torch.cat([vp[pages, kpos % bs], vn], 1).double()
+    qg = q.double().reshape(b, t, hkv, hq // hkv, dh)
+    s = torch.einsum("bthgd,bkhd->bhgtk", qg, keys) * dh ** -0.5
+    causal = torch.arange(length + t, device=q.device)[None, :] \
+        <= length + torch.arange(t, device=q.device)[:, None]
+    s = s.masked_fill(~causal, float("-inf"))
+    o = torch.einsum("bhgtk,bkhd->bthgd", torch.softmax(s, -1), vals)
+    return o.reshape(b, t, hq, dh)
+
+
+def test_paged_smem_layout_matches_the_source(dev):
+    from repro_torch.kernels import build
+
+    fn = build.bind("paged_attn", "paged_attn_smem_bytes", [build.I32] * 6)
+    for group, t in ((1, 1), (2, 1), (1, 3), (2, 2), (2, 5), (8, 2), (1, 16)):
+        for dh, item in ((16, 4), (48, 2), (64, 2), (128, 2), (128, 4)):
+            for kt in (16, 32, 64, 128):
+                for pps in (1, 6, 29, 1025):
+                    rows = group * t
+                    assert fn(rows, t, dh, item, kt, pps) == \
+                        pa_mod.smem_bytes(rows, t, dh, item, kt, pps)
 
 
 def _bwd_inputs(dev, seed, m, n, k, dtype, bias, relu_mid=None):
@@ -281,11 +408,16 @@ def _close_grads(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("m,n", [(37, 128), (512, 256), (37, 384),
-                                 (512, 1024)])
+                                 (512, 1024), (256, 128), (256, 256),
+                                 (4, 1024)])
 def test_acdc_bwd(dev, m, n, bias, dtype):
     c, ct = families.get_family("acdc").matrices(n, torch.float32, dev)
     x, gy, a, d, _ = _bwd_inputs(dev, m + n, m, n, 1, dtype, False)
+    before = (bwd_mod.launches, cbwd_mod.launches)
     got = bwd_mod.acdc_bwd(x, gy, a[0], d[0], c, ct, with_bias=bias)
+    # its own count: the cascade backward's is not moved
+    assert (bwd_mod.launches, cbwd_mod.launches) == (before[0] + 1,
+                                                     before[1])
     want = ref.acdc_bwd_ref(x, gy, a[0], d[0], c, ct, bias)
     assert got[0].dtype == dtype
     _close_grads(got, want, dtype)
@@ -314,6 +446,45 @@ def test_acdc_cascade_bwd(dev, m, n, k, relu, permute, bias, dtype):
     _close_grads(got, want, dtype)
     again = cbwd_mod.acdc_cascade_bwd(x, gy, a, d, b, c, ct, mid, relu=relu)
     assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("m,n", [(256, 128), (256, 256), (512, 1024)])
+def test_acdc_bwd_fp32_error_within_plain(dev, m, n):
+    # one layer is the K = 1 cascade: every gradient's fp32 error against
+    # fp64 within 2 x the plain version's
+    c, ct = families.get_family("acdc").matrices(n, torch.float32, dev)
+    x, gy, a, d, _ = _bwd_inputs(dev, m + n + 1, m, n, 1, torch.float32,
+                                 False)
+    x64, g64, a64, d64 = (t.double() for t in (x, gy, a[0], d[0]))
+    gc = g64 @ c.double()
+    dh1 = (gc * d64) @ ct.double()
+    want = (a64 * dh1, (x64 * dh1).sum(0),
+            (((x64 * a64) @ c.double()) * gc).sum(0), gc.sum(0))
+    err = {}
+    for name, fn in (("kernel", bwd_mod.acdc_bwd), ("plain", ref.acdc_bwd_ref)):
+        got = (fn(x, gy, a[0], d[0], c, ct, with_bias=True)
+               if name == "kernel" else fn(x, gy, a[0], d[0], c, ct, True))
+        err[name] = max(_drift(u, w) for u, w in zip(got, want))
+    assert err["kernel"] <= 2 * err["plain"], err
+
+
+def test_per_layer_cascade_backward_launches_acdc_bwd(dev):
+    # N = 1024, K = 24 fails only the reverse sweep's gate: the cascade's
+    # backward runs one acdc_bwd launch a layer
+    n, k = 1024, 24
+    assert ops.cascade_fits(n, k, permute=True, bias=False)
+    assert not ops.cascade_bwd_fits(n, k, permute=True, bias=False)
+    g = torch.Generator(device=dev).manual_seed(k)
+    ts = [torch.randn(64, n, generator=g, device=dev).requires_grad_(),
+          (1 + 0.061 * torch.randn(k, n, generator=g, device=dev))
+          .requires_grad_(),
+          (1 + 0.061 * torch.randn(k, n, generator=g, device=dev))
+          .requires_grad_()]
+    before = (bwd_mod.launches, cbwd_mod.launches)
+    ops.acdc_cascade_op(*ts, permute=True).backward(
+        torch.randn(64, n, generator=g, device=dev))
+    assert (bwd_mod.launches - before[0], cbwd_mod.launches - before[1]) \
+        == (k, 0)
 
 
 def _cascade_bwd_fp64(x, g, a, d, c, ct, mid):

@@ -28,16 +28,18 @@ result line if any fails):
    ``paged_attn`` at the main path's decode and verify rows (L2 flushed
    too) and at long rows a - d (67 MB of K/V each: 4 x 4096, 16 x 1024,
    1 x 16384 keys at T = 1, 4 x 4096 at T = 5), bitwise on a repeat, its
-   split plan recorded, the T = 1 long rows beside one
-   ``scaled_dot_product_attention`` call over a contiguous cache;
+   split plan recorded, every row beside one
+   ``scaled_dot_product_attention`` call over a contiguous cache (with a
+   boolean mask where slots differ or T > 1);
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
-   step's logits with the plain path on the card, and record each side's
-   drift from an fp64-summed path and two controls (TF32 on; the
-   diagonals dropped, which must exceed the limit); and hold
-   ``scaled_matmul``'s fp32 error on the prefill's own inputs within 2 x
-   cuBLAS fp32's;
+   step's logits with the plain path on the card, in bf16 and in fp32
+   compute, and record each side's drift from an fp64-summed path and two
+   controls (TF32 on; the diagonals dropped, which must exceed the
+   limit); and hold ``scaled_matmul``'s fp32 error on every call of the
+   prefill within 2 x cuBLAS fp32's (the first call where it passes 2 x
+   the plain version's is recorded);
 5. serve the smoke width (fp32) dense, paged and with K=1 cascades;
    greedy streams must be identical with the kernels and with the plain
    versions;
@@ -52,7 +54,20 @@ result line if any fails):
    against the plain versions, ``acdc_cascade_bwd`` / ``acdc_bwd`` launched
    12 times a step, and a checkpoint-and-resume run that continues the
    uninterrupted one;
-8. print ``{"kernels": [...]}`` (six kernels), then the final
+8. overload at full width (paged, 16-token pages) through the serve
+   launcher's functions: deadlines on half the requests, two priority
+   bands, metrics JSONL and a span trace, under a ``FaultPlan`` (corrupt
+   ticks, denied pages, slow ticks): every request terminal, the pool
+   clean, corrupt ticks healed by requeue, the ladder stepped down, the
+   normal finishes' streams equal to a fault-free run's, one terminal a
+   request in the trace, the last JSONL snapshot equal to the stats;
+9. ``torch.profiler`` windows at full width (8 decode ticks dense and
+   paged through ``obs.prof.ProfileWindow``, one prefill admission, one
+   train step): device busy share, host time and kernels a step, the ten
+   kernels with the most device time; the window must hold kernels, and
+   ``scaled_matmul`` / ``paged_attn`` kernels in the trace must equal the
+   wrappers' counts;
+10. print ``{"kernels": [...]}`` (six kernels), then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX
@@ -303,28 +318,43 @@ def paged_bytes_flops(q, kp, tables, positions):
 
 def sdpa_library(q, kp, vp, tables, positions, kn, vn):
     """One ``scaled_dot_product_attention`` call over a contiguous cache
-    holding the same keys and values as the paged call (prefix plus the
-    new token; T = 1, every slot at one position), ``enable_gqa``, no
-    mask: the library's time for the attention without the paging.
-    Returns (the call, its inputs gathered outside it)."""
+    holding the same keys and values as the paged call: each slot's
+    streamed prefix (padded to the longest) then its T new tokens,
+    ``enable_gqa``.  Where the slots' prefixes differ or T > 1, a boolean
+    ``attn_mask`` keeps each slot's prefix and its new tokens causally; a
+    parked slot (which the paged call averages over its new tokens) then
+    attends to its new tokens causally.  Returns (the call, the rows that
+    compute the paged call's function: the slots that are not parked)."""
     import torch
     import torch.nn.functional as F
 
     bsz, t, hq, dh = q.shape
     bs = kp.shape[1]
-    length = int(positions[0])
-    kpos = torch.arange(length, device=q.device)
-    pages = tables.long()[:, kpos // bs]                  # (B, L)
-    kc = torch.cat([kp[pages, kpos % bs], kn], dim=1)     # (B, L+1, Hkv, Dh)
-    vc = torch.cat([vp[pages, kpos % bs], vn], dim=1)
-    qs = q.transpose(1, 2).contiguous()                   # (B, Hq, 1, Dh)
+    virtual = tables.shape[1] * bs
+    pos = [int(p) for p in positions.tolist()]
+    prefix = torch.tensor([p if p < virtual else 0 for p in pos],
+                          device=q.device)
+    lmax = int(prefix.max())
+    kpos = torch.arange(lmax, device=q.device)
+    valid = kpos[None, :] < prefix[:, None]                    # (B, L)
+    idx = torch.where(valid, kpos[None, :], 0)
+    pages = tables.long().clamp_min(0).gather(1, idx // bs)   # (B, L)
+    kc = torch.cat([kp[pages, idx % bs], kn], dim=1)          # (B, L+T, ..)
+    vc = torch.cat([vp[pages, idx % bs], vn], dim=1)
+    qs = q.transpose(1, 2).contiguous()                        # (B, Hq, T, Dh)
     kc = kc.transpose(1, 2).contiguous()
     vc = vc.transpose(1, 2).contiguous()
+    mask = None
+    if t > 1 or not bool(valid.all()):
+        causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        mask = torch.cat([valid[:, None, :].expand(bsz, t, lmax),
+                          causal[None].expand(bsz, t, t)], dim=2)[:, None]
 
     def call():
-        return F.scaled_dot_product_attention(qs, kc, vc, enable_gqa=True)
+        return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                              enable_gqa=True)
 
-    return call
+    return call, [b for b, p in enumerate(pos) if p < virtual]
 
 
 def check_paged_attn(dev, randn, results):
@@ -332,7 +362,8 @@ def check_paged_attn(dev, randn, results):
     the parked one too; pool writes equal, trash page excluded), timed by
     device time beside the call time and the host's us a call, the main
     rows also with L2 flushed (the long rows' 67 MB exceed the 50 MB L2),
-    the T = 1 long rows beside one SDPA call over a contiguous cache."""
+    every row beside one SDPA call over a contiguous cache (a boolean
+    mask where the slots' prefixes differ or T > 1)."""
     import torch
 
     from repro_torch.kernels import paged_attn as pa_mod
@@ -382,11 +413,10 @@ def check_paged_attn(dev, randn, results):
         row["plan"] = dataclasses.asdict(pa_mod.plan_of(q, kp, tables))
         if length is None:
             row["ms_cold"] = time_cold_ms(kernel)
-        elif t == 1:
-            lib = sdpa_library(q, kp, vp, tables, positions, kn, vn)
-            row["library_ms"] = device_ms(lib)[0]
-            row["library_max_abs_err"] = max_err(
-                lib().transpose(1, 2), got)
+        lib, live = sdpa_library(q, kp, vp, tables, positions, kn, vn)
+        row["library_ms"] = device_ms(lib)[0]
+        row["library_max_abs_err"] = max_err(
+            lib().transpose(1, 2)[live], got[live])
         results["paged_attn"].append(row)
         print(f"[paged_attn] {shape}: device {ms:.4f} ms ({host_us:.1f} us "
               f"host), call {row['call_ms']:.4f}, bound {b:.4f} ({by}), "
@@ -1121,20 +1151,27 @@ def _rel_l2(got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
-def compare_full_width_logits(params_cache, dev):
+def compare_full_width_logits(params_cache, dev, dtype=None):
     """One prefill's and one decode step's logits, kernels vs plain, gated
     at ``BF16_LOGIT_REL_L2``.  Beside it, each side against an fp64-summed
     path (which side drifts), every layer's residual stream, and two
     controls read against the same limit: the plain path with TF32 and a
     faulty path that drops the diagonals; and, reported only, the kernel
     path with the weight stream at every M.  Then scaled_matmul's own fp32
-    error on the prefill's first inputs (``real_input_errors``)."""
+    error on every one of the prefill's calls (``real_input_errors``).
+    ``dtype`` overrides the compute dtype: "float32" rounds nothing to
+    bf16 between layers, so the kernel path's drift from fp64 is summation
+    order alone and is reported against the plain path's
+    (``drift_ratio``)."""
     import numpy as np
     import torch
 
     from repro_torch.models import transformer
 
     cfg, model, params = params_cache[(False, 2)]
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    n_calls = prefill_smm_calls(cfg)
     rs = np.random.RandomState(3)
     plen, window = 41, 64
     toks = np.zeros((1, window), np.int32)
@@ -1165,15 +1202,16 @@ def compare_full_width_logits(params_cache, dev):
         return {"prefill": logits[0, plen - 1].float(),
                 "decode": dlog[0].float(), "residuals": residuals}
 
-    # the kernel prefill's first scaled_matmul calls, inputs kept: each
-    # side's fp32 error on the model's own activations (below)
+    # the kernel prefill's scaled_matmul calls (the first ``n_calls`` of
+    # the run), inputs kept: each side's fp32 error on the model's own
+    # activations (below)
     from repro_torch.kernels import scaled_matmul as smm_mod
 
     recorded = []
     kernel_fn = smm_mod.scaled_matmul
 
     def recording(x, w, pre=None, post=None, bias=None):
-        if len(recorded) < REAL_INPUT_CALLS:
+        if len(recorded) < n_calls:
             recorded.append((x.float(), w, pre, post, bias))
         return kernel_fn(x, w, pre, post, bias)
 
@@ -1191,17 +1229,20 @@ def compare_full_width_logits(params_cache, dev):
     pairs = (("kernel", "plain"), ("kernel", "fp64"), ("plain", "fp64"),
              ("kernel_stream_only", "plain"), ("plain_tf32", "plain"),
              ("no_diagonals", "plain"))
-    out = {"limit_rel_l2": BF16_LOGIT_REL_L2}
+    out = {"limit_rel_l2": BF16_LOGIT_REL_L2, "compute": cfg.dtype}
     for where in ("prefill", "decode"):
         rels = {f"{a}_vs_{b}": _rel_l2(runs[a][where], runs[b][where])
                 for a, b in pairs}
         got, want = runs["kernel"][where], runs["plain"][where]
         out[where] = dict(rel_l2=rels, max_abs_err=max_err(got, want),
-                          max_abs=float(want.abs().max()))
-        print(f"[logits] full width {where}: rel L2 " + ", ".join(
-            f"{k} {v:.3e}" for k, v in rels.items())
-            + f" (|logit| <= {out[where]['max_abs']:.2f}; limit "
-            f"{BF16_LOGIT_REL_L2} on kernel_vs_plain)", flush=True)
+                          max_abs=float(want.abs().max()),
+                          drift_ratio=rels["kernel_vs_fp64"]
+                          / rels["plain_vs_fp64"])
+        print(f"[logits] full width {cfg.dtype} {where}: rel L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f" (|logit| <= {out[where]['max_abs']:.2f}; limit "
+              f"{BF16_LOGIT_REL_L2} on kernel_vs_plain; kernel/plain drift "
+              f"from fp64 {out[where]['drift_ratio']:.2f})", flush=True)
         if not rels["kernel_vs_plain"] <= BF16_LOGIT_REL_L2:
             _fail(f"full-width {where} logits: rel L2 "
                   f"{rels['kernel_vs_plain']} > {BF16_LOGIT_REL_L2}")
@@ -1220,21 +1261,26 @@ def compare_full_width_logits(params_cache, dev):
             print(f"[residual] layer {i}: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in row.items()), flush=True)
     out["residual_by_layer"] = layers
-    out["scaled_matmul_on_prefill_inputs"] = real_input_errors(recorded)
+    out["scaled_matmul_on_prefill_inputs"] = real_input_errors(
+        recorded, n_calls // cfg.n_layers)
     return out
 
 
-#: scaled_matmul calls of the full-width prefill whose inputs are kept
-#: (layers 0-3: the 16 projections' two-call forwards)
-REAL_INPUT_CALLS = 64
+def prefill_smm_calls(cfg) -> int:
+    """scaled_matmul calls of one full-width prefill: every SELL projection
+    (attn_out and the three MLP ones per layer) is K two-call ACDC layers,
+    2 calls each."""
+    return cfg.n_layers * 4 * cfg.sell_k * 2
 
 
-def real_input_errors(recorded) -> dict:
+def real_input_errors(recorded, calls_per_layer: int) -> dict:
     """Each side's fp32 error against fp64 on the prefill's own
-    scaled_matmul inputs (fp32 x, the bf16 rounding of h2 not applied):
-    max |err| / max |y| and rel. L2, the median and the worst over the
-    calls.  The kernel's worst must stay within 2 x cuBLAS fp32's, as on
-    the random inputs of phase 3."""
+    scaled_matmul inputs, every layer's calls (fp32 x, the bf16 rounding
+    of h2 not applied): max |err| / max |y| and rel. L2, the median and
+    the worst over the calls, and the first call (and its layer) where
+    the kernel's max error exceeds 2 x the plain version's.  The kernel's
+    worst must stay within 2 x cuBLAS fp32's worst, as on the random
+    inputs of phase 3."""
     import statistics
 
     import torch
@@ -1254,18 +1300,25 @@ def real_input_errors(recorded) -> dict:
             errs[side].append((float(d.abs().max()) / scale,
                                float(torch.linalg.vector_norm(d)
                                      / torch.linalg.vector_norm(y64))))
-    out = {"calls": len(recorded)}
+    out = {"calls": len(recorded), "first_departure": None}
+    for i, (k, p) in enumerate(zip(errs["kernel"], errs["plain"])):
+        if k[0] > 2 * p[0]:
+            out["first_departure"] = dict(call=i, layer=i // calls_per_layer,
+                                          kernel_max_err=k[0],
+                                          plain_max_err=p[0])
+            break
     for side, rows in errs.items():
         out[side] = {f"{stat}_{name}": fn(r[i] for r in rows)
                      for i, name in enumerate(("max_err", "rel_l2"))
                      for stat, fn in (("median", lambda v: statistics.median(
                          list(v))), ("worst", max))}
-    print(f"[logits] scaled_matmul on the prefill's {len(recorded)} first "
-          f"inputs, fp32 vs fp64: " + "; ".join(
+    print(f"[logits] scaled_matmul on the prefill's {len(recorded)} "
+          f"calls, fp32 vs fp64: " + "; ".join(
               f"{side} rel L2 median {v['median_rel_l2']:.2e} worst "
               f"{v['worst_rel_l2']:.2e}, max err worst "
               f"{v['worst_max_err']:.2e}" for side, v in out.items()
-              if side != "calls"), flush=True)
+              if side in errs) + f"; first call over 2 x plain: "
+          f"{out['first_departure']}", flush=True)
     if not (out["kernel"]["worst_max_err"]
             <= 2 * out["plain"]["worst_max_err"]):
         _fail("scaled_matmul on the prefill's inputs: fp32 error "
@@ -1511,6 +1564,299 @@ def train_smoke(totals, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: overload at full width (deadlines, priorities, faults, obs)
+# ---------------------------------------------------------------------------
+
+#: the overload phase's fault plan: two corrupt-logit ticks (every slot's
+#: ids are garbage and heal by requeue), a few denied pages, and three
+#: consecutive simulated slow ticks after the watchdog's warm-up (not
+#: slept: 30 s is added to what the watchdog sees), so the ladder must
+#: step down to ``shed``
+OVERLOAD_FAULTS = dict(seed=7, nan_ticks=(5, 13), p_alloc_fail=0.03,
+                       slow_ticks=(8, 9, 10), slow_extra_s=30.0)
+
+
+def overload_full_width(dev, totals):
+    """Serve full-width Qwen3-1.7B with ACDC projections, paged with
+    16-token pages, through the launcher's ``build``/``serve``: 4 slots, 10
+    requests (prompts <= 64, 16 new tokens), a 600 s deadline on half of
+    them (wide: no request may time out however slow the host), two
+    priority bands, a metrics JSONL and a span trace, under
+    ``OVERLOAD_FAULTS``.  Fails unless every request is terminal, the pool
+    audits clean, a corrupt tick was healed by requeue, the ladder stepped
+    down, the trace holds one terminal per request, the last JSONL
+    snapshot equals ``eng.stats``, and every ``eos``/``length`` stream is,
+    segment by segment, what a fault-free, deadline-free run on the same
+    weights generates from the same context: the segments are cut at the
+    request's prefills (from the trace), the first from its prompt, each
+    later one from its prompt plus the tokens before it.  (A re-prefill
+    rounds in bf16 otherwise than the decode steps it replaces, so a
+    requeued stream need not continue the undisturbed one token for token;
+    how many do is reported.)"""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine, FaultPlan, Request
+    from repro_torch.serving.engine import STATS_METRICS
+
+    out_dir = ROOT / "build" / "chip_smoke_obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    metrics_path, trace_path = out_dir / "metrics.jsonl", out_dir / "trace.json"
+    args = serve.parse_args([
+        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
+        "--slots", "4", "--prompt-len", "64", "--gen", "16", "--requests",
+        "10", "--paged", "--block-size", "16", "--deadline-s", "600",
+        "--priorities", "2", "--metrics-jsonl", str(metrics_path),
+        "--metrics-every", "5", "--trace-out", str(trace_path),
+        "--device", str(dev)])
+    cfg, model, params = serve.build(args)
+    fault = FaultPlan(**OVERLOAD_FAULTS)
+    reset_counts()
+    eng, reqs, dt = serve.serve(args, cfg, model, params, fault=fault)
+    counts = read_counts()
+    for name in ("scaled_matmul", "paged_attn"):
+        if counts[name] == 0:
+            _fail(f"overload: kernel {name} never launched on this path")
+    for name, n in counts.items():
+        totals[name] += n
+    s = dict(eng.stats)
+    print(f"[overload] stats {json.dumps(s)} | faults {fault.injected} | "
+          f"{dt:.3f}s | launches {counts}", flush=True)
+    serve.report(eng, reqs, dt, args.trace_out)
+
+    if not all(r.done for r in reqs):
+        _fail(f"overload: requests left unfinished: "
+              f"{[r.rid for r in reqs if not r.done]}")
+    eng.allocator.audit()
+    if eng.allocator.n_free != eng.allocator.n_blocks:
+        _fail("overload: pages leaked")
+    if not (s["corrupt_ticks"] >= 1 and s["requeued"] >= 1):
+        _fail(f"overload: no corrupt tick healed by requeue ({s})")
+    if not s["degrade_down"] >= 1:
+        _fail(f"overload: the ladder never stepped down ({s})")
+
+    trace = json.loads(trace_path.read_text())
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M"}
+    # each request's prefills in order: their contexts cut its stream into
+    # segments, each the greedy continuation of the prompt plus the tokens
+    # before it
+    contexts = {}
+    for e in sorted((e for e in trace["traceEvents"]
+                     if e["ph"] == "X" and e["name"] == "prefill"),
+                    key=lambda e: e["ts"]):
+        contexts.setdefault(names[e["tid"]], []).append(e["args"]["ctx_len"])
+    fresh = []
+    for r in reqs:
+        if r.finish_reason not in ("eos", "length"):
+            continue
+        starts = [c - r.prompt_len for c in contexts[f"req {r.rid}"]]
+        for i, k in enumerate(starts):
+            end = starts[i + 1] if i + 1 < len(starts) else len(r.generated)
+            fresh.append((r, k, end, Request(
+                rid=len(fresh), prompt=list(r.prompt) + r.generated[:k],
+                max_new_tokens=r.max_new_tokens - k)))
+    Engine(model, cfg, params, n_slots=args.slots,
+           max_len=args.prompt_len + args.gen + 1,
+           max_prompt_len=args.prompt_len, paged=True,
+           block_size=args.block_size).run([f for *_, f in fresh],
+                                           max_ticks=4000)
+    torch.cuda.synchronize(dev)
+    for r, k, end, f in fresh:
+        if r.generated[k:end] != f.generated[:end - k]:
+            _fail(f"overload: rid {r.rid} tokens {k}:{end} "
+                  f"{r.generated[k:end]} != a fault-free run from the same "
+                  f"context {f.generated[:end - k]}")
+    if not fresh:
+        _fail("overload: no request finished normally")
+    # the fault-free, deadline-free run of each prompt is its first
+    # segment's run: how many whole streams it reproduces (a requeued
+    # stream need not: a bf16 re-prefill rounds unlike the decode steps)
+    undisturbed = sum(k == 0 and r.generated == f.generated
+                      for r, k, _, f in fresh)
+    requeued = [r for r in reqs if r.n_preemptions]
+
+    terminals = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "i" and e["name"].startswith("terminal:"):
+            terminals[e["tid"]] = terminals.get(e["tid"], 0) + 1
+    per_req = {names[t]: n for t, n in terminals.items()}
+    if per_req != {f"req {r.rid}": 1 for r in reqs}:
+        _fail(f"overload: terminals per request {per_req}")
+    last = json.loads(metrics_path.read_text().splitlines()[-1])["metrics"]
+    snap = {key: (last["gauges"] if kind == "gauge" else
+                  last["counters"])[name][""]
+            for key, (name, kind) in STATS_METRICS.items()
+            if kind != "derived"}
+    if any(snap[k] != s[k] for k in snap):
+        _fail(f"overload: last JSONL snapshot {snap} != stats {s}")
+    return dict(stats=s, faults=dict(fault.injected), wall_s=dt,
+                launches=counts, segments_checked=len(fresh),
+                streams_equal_undisturbed=undisturbed,
+                requeued_rids=[r.rid for r in requeued],
+                finish_reasons=[r.finish_reason for r in reqs],
+                degrade_level=eng.degrade_level,
+                snapshots=len(metrics_path.read_text().splitlines()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: where the time goes (torch.profiler, full width)
+# ---------------------------------------------------------------------------
+
+#: kernel names of each wrapper's one primary launch a call (a split-K
+#: ``smm_reduce`` and a two-pass ``paged_combine`` follow some of them)
+PRIMARY_KERNELS = {"scaled_matmul": ("smm_stream", "smm_tc"),
+                   "paged_attn": ("paged_split",)}
+
+
+def check_profile(label, logdir, summary, wrapper_counts) -> dict:
+    """A window's digest, held to its kernel events: the window must hold
+    CUDA kernels, and each wrapper's primary kernels in the trace must
+    number the wrapper's own launch count over the same window."""
+    if summary["kernels"] == 0:
+        _fail(f"profile {label}: no CUDA kernel events in the window")
+    trace = json.loads((Path(logdir) / "trace.json").read_text())
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = {name: sum(any(k in n for k in keys) for n in kernels)
+            for name, keys in PRIMARY_KERNELS.items()}
+    for name, n in seen.items():
+        if n != wrapper_counts[name]:
+            _fail(f"profile {label}: {n} {name} kernels in the trace, the "
+                  f"wrapper counted {wrapper_counts[name]}")
+    keep = ROOT / "chiprun_out" / "profile" / label.replace(" ", "_")
+    keep.mkdir(parents=True, exist_ok=True)
+    for name in ("key_averages.txt", "summary.json"):
+        shutil.copy(Path(logdir) / name, keep / name)
+    s = summary
+    print(f"[profile] {label} ({smi_line()}): {s['steps']} steps, host "
+          f"{s['host_s_per_step'] * 1e3:.3f} ms a step, device busy "
+          f"{s['device_busy_s'] / max(s['steps'], 1) * 1e3:.3f} ms a step "
+          f"({s['device_busy_share']:.1%}), {s['kernels_per_step']:.1f} "
+          f"kernels a step; wrappers {seen}", flush=True)
+    for name, cnt, sec in s["top"]:
+        print(f"[profile]   {sec * 1e3:9.3f} ms {cnt:6d} x {name[:110]}",
+              flush=True)
+    return dict(summary, wrapper_launches=wrapper_counts)
+
+
+def profile_full_width(dev):
+    """``torch.profiler`` windows at full width: 8 steady decode ticks
+    (ticks 4..11, every slot decoding, no admission) dense and paged
+    through the ported ``ProfileWindow``, one 64-token prefill admission
+    (a one-token request: its tick admits, samples and finishes), and one
+    AdamW train step (B.S = 512) after two unprofiled ones.  Each window's
+    digest (``obs.prof.summarize``) is printed and kept; the tick times
+    outside the windows are kept beside them (the profiler's own host
+    cost shows as the difference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+    from repro_torch.launch import serve, train
+    from repro_torch.obs import Observability, Prof, ProfileWindow
+    from repro_torch.obs.prof import profiler_for, write_profile
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving.request import make_ragged_requests
+
+    root = ROOT / "build" / "chip_smoke_profile"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    args = serve.parse_args([
+        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
+        "--device", str(dev)])
+    cfg, model, params = serve.build(args)
+    first, last = 4, 11
+    for paged in (False, True):
+        label = "decode " + ("paged" if paged else "dense")
+        window = ProfileWindow(f"{first}:{last}", str(root / label), dev)
+        obs = Observability(window=window, prof=Prof(enabled=True))
+        eng = Engine(model, cfg, params, n_slots=4, max_len=81,
+                     max_prompt_len=64, paged=paged, block_size=16, obs=obs)
+        for r in make_ragged_requests(cfg.vocab_size, 8, 64, 16):
+            eng.submit(r)
+        tick, counts, tick_s = 0, {}, []
+        while eng.has_work:
+            if tick in (first, last + 1):
+                counts[tick] = read_counts()
+            t0 = time.perf_counter()
+            eng.tick()
+            tick_s.append(time.perf_counter() - t0)
+            tick += 1
+        obs.close(tick)
+        wrappers = {k: counts[last + 1][k] - counts[first][k]
+                    for k in counts[first]}
+        info = check_profile(label, window.logdir, window.summary, wrappers)
+        # ticks 1..3 and 13..14: decode only, outside the window (tick 12
+        # pays the window's stop and trace export)
+        outside = tick_s[1:first] + tick_s[last + 2:last + 4]
+        info["unprofiled_tick_s"] = outside
+        out[label] = info
+
+    label = "prefill admission"
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, cfg.vocab_size, 64).tolist() for _ in range(2)]
+    # the same admission unprofiled first: its wall time sits beside the
+    # window's
+    eng = Engine(model, cfg, params, n_slots=4, max_len=81,
+                 max_prompt_len=64)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    eng.run([Request(rid=0, prompt=prompts[0], max_new_tokens=1)])
+    torch.cuda.synchronize(dev)
+    unprofiled = time.perf_counter() - t0
+    window = ProfileWindow("0:0", str(root / label), dev)
+    obs = Observability(window=window, prof=Prof(enabled=True))
+    eng = Engine(model, cfg, params, n_slots=4, max_len=81,
+                 max_prompt_len=64, obs=obs)
+    before = read_counts()
+    eng.run([Request(rid=1, prompt=prompts[1], max_new_tokens=1)])
+    obs.close(1)
+    after = read_counts()
+    info = check_profile(label, window.logdir, window.summary,
+                         {k: after[k] - before[k] for k in after})
+    info["unprofiled_tick_s"] = [unprofiled]
+    out[label] = info
+    del eng, params
+    torch.cuda.empty_cache()
+
+    label = "train step"
+    targs = train.parse_args([
+        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
+        "--global-batch", "4", "--seq-len", "128", "--steps", "3",
+        "--device", str(dev)])
+    tcfg, tmodel, opt, train_step, pipeline = train.build(targs)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_state(tmodel, tcfg, opt, gen, dev)
+    unprofiled = []
+    for step in range(2):           # set-up, then one unprofiled step
+        t0 = time.perf_counter()
+        state, _ = train_step(state, train.batch_on(pipeline, step, dev))
+        torch.cuda.synchronize(dev)
+        unprofiled.append(time.perf_counter() - t0)
+    batch = train.batch_on(pipeline, 2, dev)
+    torch.cuda.synchronize(dev)
+    before = read_counts()
+    prof = profiler_for(dev)
+    prof.start()
+    t0 = time.perf_counter()
+    state, _ = train_step(state, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    prof.stop()
+    after = read_counts()
+    summary = write_profile(prof, str(root / label), 1, wall)
+    info = check_profile(label, root / label, summary,
+                         {k: after[k] - before[k] for k in after})
+    info["unprofiled_tick_s"] = unprofiled[1:]
+    out[label] = info
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1582,6 +1928,8 @@ def main() -> int:
         paths.append(info)
     report["full_width_logits"] = compare_full_width_logits(
         params_cache, dev)
+    report["full_width_logits_fp32"] = compare_full_width_logits(
+        params_cache, dev, dtype="float32")
     del params_cache[(False, 2)]
     torch.cuda.empty_cache()
 
@@ -1607,6 +1955,8 @@ def main() -> int:
     report["paths"] = paths
     report["train_full_width"] = train_full_width(dev, totals)
     report["train_smoke"] = train_smoke(totals)
+    report["overload"] = overload_full_width(dev, totals)
+    report["profile"] = profile_full_width(dev)
     report["launches"] = totals
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",

@@ -46,6 +46,7 @@ from repro_torch.kernels import acdc_cascade_fused as cascade_mod
 from repro_torch.kernels import acdc_fused as fused_mod
 from repro_torch.kernels import paged_attn as paged_attn_mod
 from repro_torch.kernels import scaled_matmul as smm_mod
+from repro_torch.obs.metrics import REGISTRY, CounterDict
 
 #: the reference's fused-vs-two-call threshold (acdc_fused.py:672): it
 #: decides where bf16 rounding happens, so the port keeps the same value
@@ -64,13 +65,25 @@ _REF_ROW_BLOCKS = (256, 128, 64, 32)
 #: the reference's reverse-sweep row blocks (acdc_cascade_bwd.py:59)
 CANDIDATE_BMS = (256, 128, 64, 32, 16)
 
-#: paged-attention routing decisions: ``kernel`` (CUDA) or ``plain`` (CPU)
-PAGED_ATTN_DISPATCHES = {"kernel": 0, "plain": 0}
+#: paged-attention routing decisions: ``kernel`` (CUDA) or ``plain`` (CPU).
+#: A dict shim over ``kernel_paged_attn_dispatches_total{route=}`` in the
+#: process-global obs registry, so exporters report it beside the engine's
+#: metrics
+PAGED_ATTN_DISPATCHES = CounterDict(
+    REGISTRY.counter("kernel_paged_attn_dispatches_total",
+                     "paged-attention routing decisions",
+                     labels=("route",)),
+    ("kernel", "plain"))
 
 #: fused-cascade backward routing decisions, one per backward call:
 #: ``reverse_sweep`` (the ``acdc_cascade_bwd`` kernel) or
-#: ``per_layer_scan`` (:func:`_cascade_bwd_core`)
-CASCADE_BWD_DISPATCHES = {"reverse_sweep": 0, "per_layer_scan": 0}
+#: ``per_layer_scan`` (:func:`_cascade_bwd_core`); registry metric
+#: ``kernel_cascade_bwd_dispatches_total{route=}``
+CASCADE_BWD_DISPATCHES = CounterDict(
+    REGISTRY.counter("kernel_cascade_bwd_dispatches_total",
+                     "cascade-backward routing decisions",
+                     labels=("route",)),
+    ("reverse_sweep", "per_layer_scan"))
 
 
 def cascade_fits(n: int, k: int, *, permute: bool, bias: bool) -> bool:

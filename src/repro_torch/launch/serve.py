@@ -7,9 +7,20 @@ Each request gets a random ragged-length prompt (``--prompt-len`` is the
 longest); the engine admits them into ``--slots`` batch slots with one
 prefill each, advances all active slots with one decode step per tick,
 and evicts finished requests so the batch stays full.  ``--paged
---block-size 16 [--blocks N]`` serves from the paged KV pool.  Weights
-are random, drawn from ``--seed``.  Runs on ``--device cuda`` (the
-default) or ``cpu``.
+--block-size 16 [--blocks N]`` serves from the paged KV pool.
+``--static`` runs one batched prefill and a lockstep decode instead (no
+slot reuse), for A/B runs.  Weights are random, drawn from ``--seed``.
+Runs on ``--device cuda`` (the default) or ``cpu``.
+
+Overload and observability (engine path only): ``--deadline-s S`` gives
+a ``--deadline-frac`` share of the requests a latency SLO (admission turns
+earliest-deadline-first, expired requests finish as ``timeout``),
+``--priorities N`` draws priority bands, ``--wall-clock-limit-s`` bounds
+the serve loop, ``--metrics-jsonl PATH`` appends registry snapshots every
+``--metrics-every`` ticks, ``--trace-out PATH`` writes per-request spans
+as Chrome trace JSON, and ``--profile-ticks A:B`` captures a
+``torch.profiler`` window over engine ticks A..B into
+``--profile-logdir`` (default ``build/profile``, not committed).
 """
 
 from __future__ import annotations
@@ -17,15 +28,25 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.configs import registry
+from repro_torch.dist import steps as steps_mod
 from repro_torch.models import get_model
-from repro_torch.serving import Engine
+from repro_torch.obs import (REGISTRY, JsonlExporter, Observability, Prof,
+                             ProfileWindow, Registry, SpanTracer,
+                             set_global_tracer)
+from repro_torch.serving import Engine, sampler as sampler_mod
 from repro_torch.serving.request import make_ragged_requests
+
+#: default profile capture directory: build/profile at the repository
+#: root (``build/`` is not committed)
+DEFAULT_PROFILE_DIR = str(Path(__file__).resolve().parents[3] / "build"
+                          / "profile")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -49,16 +70,51 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--static", action="store_true",
+                    help="batched prefill + lockstep decode, no slot reuse")
     ap.add_argument("--paged", action="store_true",
                     help="paged block KV cache (one global page pool)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="token positions per KV page (paged mode)")
     ap.add_argument("--blocks", type=int, default=None,
                     help="pool size in pages; default = dense parity")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="give a fraction of requests this latency SLO; "
+                         "admission turns earliest-deadline-first and "
+                         "requests past the deadline finish as timeouts")
+    ap.add_argument("--deadline-frac", type=float, default=0.5,
+                    help="fraction of requests carrying --deadline-s")
+    ap.add_argument("--priorities", type=int, default=1,
+                    help="priority bands drawn uniformly per request "
+                         "(ties in deadline order; shed order under "
+                         "overload)")
+    ap.add_argument("--wall-clock-limit-s", type=float, default=None,
+                    help="hard bound on the serve loop's real time; exits "
+                         "with partial results instead of hanging")
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="append periodic registry snapshots (JSON lines) "
+                         "to PATH; off when unset")
+    ap.add_argument("--metrics-every", type=int, default=50,
+                    help="ticks between --metrics-jsonl snapshots")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write per-request span tracing as Chrome "
+                         "trace-event JSON to PATH; off when unset")
+    ap.add_argument("--profile-ticks", default=None, metavar="A:B",
+                    help="capture a torch.profiler window across engine "
+                         "ticks A..B inclusive (see --profile-logdir)")
+    ap.add_argument("--profile-logdir", default=DEFAULT_PROFILE_DIR,
+                    help="destination of the --profile-ticks capture")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the sampler")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.paged and args.static:
+        ap.error("--paged applies to the engine path, not --static")
+    if args.static and (args.metrics_jsonl or args.trace_out
+                        or args.profile_ticks or args.deadline_s):
+        ap.error("--metrics-jsonl/--trace-out/--profile-ticks/--deadline-s "
+                 "apply to the engine path, not --static")
+    return args
 
 
 def build(args: argparse.Namespace, **overrides):
@@ -75,28 +131,74 @@ def build(args: argparse.Namespace, **overrides):
     return cfg, model, params
 
 
-def serve(args: argparse.Namespace, cfg, model, params):
-    """Run the engine over the synthetic request stream; returns
-    (engine, requests, wall seconds)."""
+def build_obs(args: argparse.Namespace) -> Observability:
+    """The observability bundle of the launcher flags:
+    ``Observability.off()`` (the engine's no-op path) when none is set.
+    The JSON-lines exporter merges in the process-global ``REGISTRY`` so
+    the kernels' dispatch counters ride along; a tracer is also installed
+    as the global one (allocator audits, straggler flags)."""
+    if not (args.metrics_jsonl or args.trace_out or args.profile_ticks):
+        return Observability.off()
+    reg = Registry()
+    tracer = None
+    if args.trace_out:
+        # clock=None: the tracer adopts the engine's clock at attach
+        tracer = SpanTracer()
+        set_global_tracer(tracer)
+    exporter = None
+    if args.metrics_jsonl:
+        exporter = JsonlExporter(args.metrics_jsonl, reg,
+                                 every=args.metrics_every, clock=time.time,
+                                 extra_snapshots=(REGISTRY.snapshot,))
+    window = prof = None
+    if args.profile_ticks:
+        window = ProfileWindow(args.profile_ticks, args.profile_logdir,
+                               device=args.device)
+        prof = Prof(enabled=True)
+    return Observability(registry=reg, tracer=tracer, exporter=exporter,
+                         prof=prof, window=window)
+
+
+def serve(args: argparse.Namespace, cfg, model, params, fault=None):
+    """Run the engine over the synthetic request stream (deadlines and
+    priorities from the flags; ``fault`` a ``FaultPlan``); then flush the
+    observability bundle and write the trace.  Returns (engine, requests,
+    wall seconds)."""
+    obs = build_obs(args)
     eng = Engine(model, cfg, params, n_slots=args.slots,
                  max_len=args.prompt_len + args.gen + 1,
                  max_prompt_len=args.prompt_len, sample=args.sample,
                  temperature=args.temperature, top_k=args.top_k,
                  top_p=args.top_p, seed=args.seed, paged=args.paged,
-                 block_size=args.block_size, n_blocks=args.blocks)
+                 block_size=args.block_size, n_blocks=args.blocks,
+                 fault=fault, obs=obs)
+    deadline_range = None
+    if args.deadline_s is not None:
+        deadline_range = (args.deadline_s, args.deadline_s)
     reqs = make_ragged_requests(cfg.vocab_size, args.requests,
-                                args.prompt_len, args.gen, seed=args.seed)
+                                args.prompt_len, args.gen, seed=args.seed,
+                                deadline_range=deadline_range,
+                                deadline_frac=args.deadline_frac,
+                                n_priorities=args.priorities)
     t0 = time.perf_counter()
     eng.run(reqs, max_ticks=4 * args.requests * (args.prompt_len + args.gen)
-            + 64)
+            + 64, wall_clock_limit_s=args.wall_clock_limit_s)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
-    return eng, reqs, time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    obs.close()
+    if obs.tracer is not None:
+        obs.tracer.write(args.trace_out)
+        set_global_tracer(None)
+    return eng, reqs, dt
 
 
-def report(eng: Engine, reqs, dt: float) -> None:
+def report(eng: Engine, reqs, dt: float, trace_out=None) -> None:
     s = eng.stats
     toks = s["tokens_out"]
+    if eng.wall_clock_exceeded:
+        print(f"[engine] wall clock limit hit after {dt:.3f}s: partial "
+              f"results")
     print(f"[engine] {len(reqs)} ragged requests | "
           f"{s['prefill_dispatches']} prefills in {s['prefill_s']:.3f}s | "
           f"{s['decode_ticks']} decode ticks in {s['decode_s']:.3f}s | "
@@ -105,7 +207,15 @@ def report(eng: Engine, reqs, dt: float) -> None:
         print(f"[paged] block_size={eng.block_size} "
               f"peak {eng.allocator.peak_in_use}/{eng.allocator.n_blocks} "
               f"blocks | {s['stalled_slot_ticks']} stalled slot-ticks | "
-              f"cache {eng.cache_bytes / 1e6:.2f} MB")
+              f"{s['preempted']} preempted | cache "
+              f"{eng.cache_bytes / 1e6:.2f} MB")
+    if (s["requeued"] or s["timeout"] or s["rejected"]
+            or s["degrade_down"]):
+        print(f"[resilience] {s['requeued']} requeued "
+              f"({s['deadline_preempts']} for deadlines) | "
+              f"{s['timeout']} timed out | {s['rejected']} shed | "
+              f"ladder down/up {s['degrade_down']}/{s['degrade_up']} "
+              f"(now {eng.degrade_level})")
     ttft = [r.t_first_token - r.t_submit for r in reqs
             if r.t_first_token is not None]
     if ttft:
@@ -114,15 +224,77 @@ def report(eng: Engine, reqs, dt: float) -> None:
     for r in reqs[:2]:
         print(f"   rid={r.rid} len={r.prompt_len} "
               f"finish={r.finish_reason}: {r.generated[:16]}")
+    obs = eng.obs
+    if obs.tracer is not None:
+        print(f"[obs] chrome trace -> {trace_out} (load in "
+              f"chrome://tracing or ui.perfetto.dev)")
+    if obs.exporter is not None:
+        print(f"[obs] metrics jsonl -> {obs.exporter.path} "
+              f"({obs.exporter.exports} snapshots)")
+    if obs.window is not None:
+        sm = obs.window.summary
+        print(f"[obs] profiler capture -> {obs.window.logdir} (ticks "
+              f"{obs.window.start_tick}:{obs.window.stop_tick})"
+              + (f" | device busy {sm['device_busy_share']:.1%}, host "
+                 f"{sm['host_s_per_step'] * 1e3:.2f} ms a tick, "
+                 f"{sm['kernels_per_step']:.0f} kernels a tick"
+                 if sm else ""))
+
+
+def run_static(args: argparse.Namespace, cfg, model, params):
+    """Batched prefill of ``--slots`` prompts of ``--prompt-len`` tokens,
+    then ``--gen - 1`` lockstep decode steps (no slot reuse); returns
+    (tokens (slots, gen), prefill seconds, decode seconds)."""
+    dev = torch.device(args.device)
+    b, p, g = args.slots, args.prompt_len, args.gen
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=gen,
+                            device=dev, dtype=torch.int32)
+    cache = model.init_cache(cfg, b, p + g + 1, dev)
+    prefill = steps_mod.make_prefill_step(model, cfg)
+    serve_step = steps_mod.make_serve_step(
+        model, cfg, sample=args.sample, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    lengths = torch.full((b,), p, dtype=torch.int32, device=dev)
+    last, cache = prefill(params, cache, prompts, lengths)
+    tok = sampler_mod.sample(last, method=args.sample,
+                             temperature=args.temperature, top_k=args.top_k,
+                             top_p=args.top_p, generator=gen)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(g - 1):
+        pos = torch.full((b,), p + i, dtype=torch.int32, device=dev)
+        tok, cache = serve_step(params, cache, tok, pos, gen)
+        out.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+    toks = torch.stack(out, dim=1).cpu()
+    print(f"[static] prefill {p}x{b} tokens in one call: {t_prefill:.3f}s | "
+          f"decode {g - 1} steps: {t_decode:.3f}s "
+          f"({b * (g - 1) / max(t_decode, 1e-9):.1f} tok/s)")
+    for row in toks[: min(b, 2)]:
+        print("  ", row[:16].tolist())
+    return toks, t_prefill, t_decode
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg, model, params = build(args)
     print(f"arch={cfg.name} sell={cfg.sell_kind}/{cfg.sell_method} "
-          f"slots={args.slots} paged={args.paged} device={args.device}")
+          f"slots={args.slots} paged={args.paged} static={args.static} "
+          f"device={args.device}")
+    if args.static:
+        return run_static(args, cfg, model, params)
     eng, reqs, dt = serve(args, cfg, model, params)
-    report(eng, reqs, dt)
+    report(eng, reqs, dt, args.trace_out)
     return eng, reqs
 
 

@@ -7,7 +7,10 @@ checkpoints (async, atomic, keep-3).
 
 Prints ``step N loss ... |g| ... ms`` lines (every ``--log-every`` steps
 and the last), ``resumed from step N`` when ``--resume`` finds a
-checkpoint, and ``done.``.  Weights are random (seed 0), batches
+checkpoint, ``[straggler]`` lines for steps a ``StragglerMonitor`` flags,
+and ``done.``.  The step loss, tokens/s, step time and every cascade's
+diagonal norms go to the process-global obs registry; ``--metrics-jsonl
+PATH`` appends its snapshot on the ``--log-every`` cadence.  Weights are random (seed 0), batches
 synthetic (:class:`repro_torch.data.SyntheticLM`).  Runs on ``--device
 cuda`` (the default) or ``cpu``.
 """
@@ -26,9 +29,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist import steps as steps_mod
+from repro_torch.dist.elastic import StragglerMonitor
 from repro_torch.models import get_model
+from repro_torch.obs import REGISTRY, JsonlExporter
 from repro_torch.optim import (OptimizerConfig, cosine_schedule,
                                make_optimizer)
+from repro_torch.optim.optimizers import tree_flatten
 
 # The paper's per-group treatment of the SELL diagonals (section 6.2):
 # lr x24 on A, x12 on D, no weight decay on either; norms/bias undecayed.
@@ -67,6 +73,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="append registry snapshots (JSON lines) to PATH "
+                         "on the --log-every cadence; off when unset")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     return ap.parse_args(argv)
 
@@ -107,12 +116,44 @@ def batch_on(pipeline: SyntheticLM, step: int, device) -> dict:
     return {k: t.to(device) for k, t in pipeline.batch_at(step).items()}
 
 
+def _train_metrics() -> dict:
+    """Training diagnostics in the process-global registry (names as in
+    the ``repro_torch/obs/__init__.py`` glossary)."""
+    return {
+        "loss": REGISTRY.gauge("train_step_loss", "last step loss"),
+        "tps": REGISTRY.gauge("train_tokens_per_s",
+                              "last step token throughput"),
+        "step_s": REGISTRY.histogram("train_step_seconds",
+                                     "step wall time (incl. the first "
+                                     "step's set-up)"),
+        "diag": REGISTRY.gauge("train_cascade_diag_norm",
+                               "per-cascade SELL diagonal l2 norm",
+                               labels=("param", "cascade")),
+    }
+
+
+def _emit_diag_norms(gauge, params) -> None:
+    """Per-cascade ||A||_2 / ||D||_2 gauges, labelled by the parameter
+    path: the paper's init/depth sensitivity lives in these diagonals."""
+    for path, leaf in zip(*tree_flatten(params)):
+        for suffix in ("a", "d"):
+            if path.endswith(f"sell/{suffix}"):
+                cascade = path[: -len(f"/sell/{suffix}")]
+                gauge.labels(param=suffix, cascade=cascade).set(
+                    float(torch.linalg.vector_norm(leaf.float())))
+
+
 def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
     """The training loop over ``build``'s pieces; returns (state, one dict
     per step of its metrics as floats and its wall time ``ms``)."""
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)
     state, start = init_or_resume(args, cfg, model, opt, ckpt)
     cuda = torch.device(args.device).type == "cuda"
+    monitor = StragglerMonitor()
+    obs = _train_metrics()
+    exporter = (JsonlExporter(args.metrics_jsonl, REGISTRY,
+                              every=args.log_every, clock=time.time)
+                if args.metrics_jsonl else None)
     history = []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
@@ -123,14 +164,29 @@ def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
         dt = time.perf_counter() - t0
         history.append({**{k: float(v) for k, v in metrics.items()},
                         "ms": dt * 1e3})
+        obs["loss"].set(history[-1]["loss"])
+        obs["tps"].set(args.global_batch * args.seq_len / max(dt, 1e-9))
+        obs["step_s"].observe(dt)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
                   f"|g| {history[-1]['grad_norm']:.3f} {dt * 1e3:.0f}ms",
                   flush=True)
+            _emit_diag_norms(obs["diag"], state["params"])
+            if exporter is not None:
+                exporter.export(step)
+        # the first step pays the set-up (kernel loads, allocator growth):
+        # seeding the EWMA with it would mask real stragglers
+        if step > start and monitor.observe(step, dt):
+            print(f"[straggler] step {step} exceeded {monitor.factor}x "
+                  f"EWMA", flush=True)
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(step + 1, state, extra={"arch": args.arch})
     ckpt.wait()
     ckpt.save(args.steps, state, extra={"arch": args.arch})
+    if exporter is not None:
+        exporter.close()
+        print(f"[obs] metrics jsonl -> {args.metrics_jsonl} "
+              f"({exporter.exports} snapshots)", flush=True)
     print("done.")
     return state, history
 

@@ -1,6 +1,5 @@
 """Paged block KV cache: host-side allocator + block tables (a copy of
-:mod:`repro.serving.blocks` without the fault-injection hook and the
-tracing instant, which wait with the engine's resilience features).
+:mod:`repro.serving.blocks`).
 
 Why: ACDC makes the projections nearly free, so at serving time the
 dominant allocation is the KV cache — and the dense layout pays worst-case
@@ -37,19 +36,25 @@ corrupting another slot's pages, and resumes once an eviction frees pages.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.obs import trace
 
 
 class BlockAllocator:
     """Fixed-size block pool with a global free list and per-slot tables.
 
-    Invariants are checkable any time via :meth:`audit`.
+    ``fault`` (a :class:`repro_torch.serving.faults.FaultPlan`, default
+    None = no-op) lets chaos tests make capacity checks and page mapping
+    report a dry pool even when pages are free — injected *before* any
+    page is handed out, so the allocator's own invariants (checkable any
+    time via :meth:`audit`) hold under any plan.
     """
 
     def __init__(self, n_blocks: int, block_size: int, n_slots: int,
-                 max_blocks_per_slot: int):
+                 max_blocks_per_slot: int, fault: Optional[object] = None):
         if n_blocks < 1 or block_size < 1:
             raise ValueError("need at least one block of at least one token")
         if max_blocks_per_slot < 1:
@@ -58,6 +63,7 @@ class BlockAllocator:
         self.block_size = block_size
         self.n_slots = n_slots
         self.max_blocks_per_slot = max_blocks_per_slot
+        self.fault = fault
         #: physical index of the write-sink page (pool allocates one extra)
         self.trash = n_blocks
         # LIFO free list: recently freed pages are remapped first, which
@@ -82,6 +88,8 @@ class BlockAllocator:
 
     def can_admit(self, prompt_len: int) -> bool:
         """Enough free pages for the prompt plus the first decode token?"""
+        if self.fault is not None and self.fault.alloc_fail():
+            return False
         need = min(self.blocks_for(prompt_len + 1), self.max_blocks_per_slot)
         return self.n_free >= need
 
@@ -134,6 +142,8 @@ class BlockAllocator:
         a partially-mapped window would verify against trash).  Positions
         beyond the virtual row length are trash-routed and need no map.
         """
+        if self.fault is not None and self.fault.alloc_fail():
+            return False    # injected dry pool: caller stalls the slot
         newly: List[int] = []
         for pos in range(start, start + count):
             if pos >= self.max_blocks_per_slot * self.block_size:
@@ -221,8 +231,10 @@ class BlockAllocator:
                 f"table/held mismatch: stale maps "
                 f"{sorted(set(mapped) - self._held)}, leaked holds "
                 f"{sorted(self._held - set(mapped))}")
-        return {"free": len(free), "held": len(self._held),
-                "mapped": len(mapped)}
+        summary = {"free": len(free), "held": len(self._held),
+                   "mapped": len(mapped)}
+        trace.instant_global("allocator", "audit", **summary)
+        return summary
 
     # -- device view -------------------------------------------------------
 

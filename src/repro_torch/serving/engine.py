@@ -1,57 +1,103 @@
-"""Continuous-batching serving engine (port of :mod:`repro.serving.engine`,
-the FIFO core).
+"""Continuous-batching serving engine (port of :mod:`repro.serving.engine`).
 
 The engine owns a fixed-shape cache with ``n_slots`` batch rows and runs a
 tick loop:
 
-1. **admit** — while a slot is free and requests are queued, the next
-   request (arrival order; the scheduler copy keeps the reference's
-   priority/lookahead rules) runs ONE batch-1 prefill of its prompt
-   right-padded to ``max_prompt_len``, its KV is written into the slot's
-   cache row (dense) or pages (paged), and the first token is sampled;
+1. **admit** — while a slot is free and requests are queued, the most
+   urgent request (earliest deadline, then priority, then arrival order;
+   :mod:`repro_torch.serving.scheduler`) runs ONE batch-1 prefill of its
+   context right-padded to ``max_prompt_len``, its KV is written into the
+   slot's cache row (dense) or pages (paged), and the first token is
+   sampled (the time-to-first-token mark);
 2. **decode** — one decode step advances every active slot by one token;
    free slots ride along parked at the row length, where the cache write
    lands nowhere (dense) or in the trash page (paged);
-3. **evict** — requests that hit EOS, their ``max_new_tokens`` budget or
-   the cache ceiling release their slot at once.
+3. **evict** — requests that hit EOS, their ``max_new_tokens`` budget,
+   the cache ceiling or their deadline release their slot at once.
 
 Paged mode (``paged=True``) draws ``block_size``-token pages from one
 pool (:class:`repro_torch.serving.blocks.BlockAllocator`, default size =
 dense parity): admission is gated on free pages for the context plus one
 token, decode maps pages lazily, and a slot whose next page cannot be
-mapped stalls (parks for the tick).  When every active slot is stalled,
-the lowest-priority stalled request holding the most pages is preempted
-and requeued, chosen among those that may requeue (budget
-``max_preemptions`` left and a context that fits ``max_prompt_len``);
-only when none may is one evicted, as ``cache_full`` or
-``preempted_limit``.  A requeued request waits ``1 << min(n - 1, 6)``
-ticks after its n-th preemption, then is re-prefilled over its prompt
-plus the tokens generated so far, so a greedy stream continues
-unchanged.  :meth:`Engine.preempt` requeues a slot on demand.
+mapped stalls (parks for the tick).
 
-Not ported yet (their constructor arguments raise when set): deadlines,
-the degradation ladder, fault injection, observability hooks and
-speculative decoding (ROADMAP.md).
+**Preemption with recompute**: when every active slot is stalled, or a
+deadline demands the capacity, the victim's pages are released and the
+request is requeued after ``1 << min(n - 1, 6)`` ticks of backoff; it is
+re-prefilled over its prompt plus the tokens generated so far, so a
+greedy stream continues unchanged.  Past its ``max_preemptions`` budget
+it finishes as ``preempted_limit``.  The same path heals corrupt decode
+output: every sampled id outside ``[0, vocab_size)`` is requeued, never
+committed.
+
+**Deadlines**: queued requests past their deadline finish as
+``timeout`` without a prefill, active ones are evicted on expiry, and a
+queued request about to miss its deadline may preempt the active request
+with the most slack.
+
+**Graceful degradation**: a tick-latency watchdog
+(:class:`repro_torch.dist.elastic.StragglerMonitor`) plus pool-pressure and
+queue-depth signals step a reversible ladder — without speculative
+decoding it has two rungs, ``full`` and ``shed`` (the admission queue is
+bounded at ``queue_bound`` and the lowest-priority arrivals finish as
+``rejected``) — and step back up after sustained calm.
+
+Fault injection (``fault=FaultPlan(...)``,
+:mod:`repro_torch.serving.faults`) and observability (``obs=``,
+:mod:`repro_torch.obs`: the metrics registry behind ``stats``, span
+tracing, profiler ranges and windows) are the reference's, each a single
+``None`` check when off.  With a ``clock``, every duration and timestamp
+comes from it, so a virtual-clock run is deterministic.
+
+Not ported yet: speculative decoding (``spec_k``, ``draft``; ROADMAP.md
+§1 item 4).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.dist import steps as steps_mod
+from repro_torch.dist.elastic import StragglerMonitor
+from repro_torch.obs import Observability
+from repro_torch.obs.metrics import StatsView
 from repro_torch.serving import sampler as sampler_mod
 from repro_torch.serving.blocks import BlockAllocator
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.request import Request, RequestStatus
 from repro_torch.serving.scheduler import Scheduler
 
-#: keys of ``Engine.stats`` (the reference's names for the same counts)
-STATS_KEYS = ("prefill_dispatches", "decode_ticks", "tokens_out",
-              "finished", "preempted", "requeued", "stalled_slot_ticks",
-              "prefill_s", "decode_s")
+#: ``Engine.stats`` key -> (registry metric name, kind), the reference's
+#: table.  Kinds: ``counter`` (int-valued), ``seconds`` (float counter),
+#: ``gauge``, ``derived`` (computed at read/snapshot time, never stored).
+#: The glossary lives in ``repro_torch/obs/__init__.py``.
+STATS_METRICS = {
+    "prefill_dispatches": ("serve_prefill_dispatches_total", "counter"),
+    "decode_ticks": ("serve_decode_ticks_total", "counter"),
+    "tokens_out": ("serve_tokens_out_total", "counter"),
+    "finished": ("serve_finished_total", "counter"),
+    "preempted": ("serve_preempted_total", "counter"),
+    "requeued": ("serve_requeued_total", "counter"),
+    "timeout": ("serve_timeout_total", "counter"),
+    "rejected": ("serve_rejected_total", "counter"),
+    "deadline_preempts": ("serve_deadline_preempts_total", "counter"),
+    "corrupt_ticks": ("serve_corrupt_ticks_total", "counter"),
+    "stalled_slot_ticks": ("serve_stalled_slot_ticks_total", "counter"),
+    "degrade_level": ("serve_degrade_level", "gauge"),
+    "degrade_down": ("serve_degrade_down_total", "counter"),
+    "degrade_up": ("serve_degrade_up_total", "counter"),
+    "prefill_s": ("serve_prefill_seconds_total", "seconds"),
+    "decode_s": ("serve_decode_seconds_total", "seconds"),
+    "drafted": ("serve_spec_drafted_total", "counter"),
+    "accepted": ("serve_spec_accepted_total", "counter"),
+    "acceptance_rate": ("serve_acceptance_rate", "derived"),
+    "attn_gather_bytes": ("serve_attn_gather_bytes_total", "counter"),
+    "attn_kernel_bytes": ("serve_attn_kernel_bytes_total", "counter"),
+}
 
 
 class Engine:
@@ -71,20 +117,22 @@ class Engine:
         paged: bool = False,
         block_size: int = 16,
         n_blocks: Optional[int] = None,
+        admit_window: int = 4,
+        age_limit: int = 16,
         spec_k: int = 0,
         draft=None,
-        clock=None,
-        fault=None,
-        obs=None,
+        clock: Optional[Callable[[], float]] = None,
+        fault: Optional[FaultPlan] = None,
+        obs: Optional[Observability] = None,
+        deadline_margin_s: float = 0.05,
         queue_bound: Optional[int] = None,
+        degrade_down_after: int = 3,
+        degrade_up_after: int = 12,
     ):
-        waiting = {"spec_k": spec_k or None, "draft": draft, "clock": clock,
-                   "fault": fault, "obs": obs, "queue_bound": queue_bound}
-        unported = sorted(k for k, v in waiting.items() if v is not None)
-        if unported:
+        if spec_k or draft is not None:
             raise NotImplementedError(
-                f"Engine options {unported} are not ported yet "
-                "(ROADMAP.md)")
+                "speculative decoding (spec_k, draft) is not ported yet "
+                "(ROADMAP.md §1 item 4)")
         if model.prefill is None or model.decode_step is None:
             raise ValueError(f"family {cfg.family!r} cannot serve")
         self.model = model
@@ -95,6 +143,15 @@ class Engine:
         self.max_len = max_len
         self.max_prompt_len = max_prompt_len or max_len // 2
         self.paged = paged
+        self._clock = clock if clock is not None else time.time
+        # duration source: wall time by default, the INJECTED clock when
+        # one is supplied, so a virtual-clock run has deterministic
+        # tick/prefill/decode timings (trace and snapshot replays match)
+        self._timer = clock if clock is not None else time.perf_counter
+        self._fault = fault
+        self.deadline_margin_s = deadline_margin_s
+        self.queue_bound = queue_bound if queue_bound is not None \
+            else 4 * n_slots
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._decode = steps_mod.make_serve_step(
             model, cfg, sample=sample, temperature=temperature, top_k=top_k,
@@ -115,10 +172,13 @@ class Engine:
                     f"max_prompt_len={self.max_prompt_len} request "
                     f"(needs {min_pool})")
             self.allocator = BlockAllocator(n_blocks, block_size, n_slots,
-                                            self.max_blocks)
+                                            self.max_blocks, fault=fault)
+            # capacity check on ctx_len: a requeued request re-prefills its
+            # prompt PLUS generated-so-far tokens
             self.scheduler = Scheduler(
                 n_slots,
-                admit_ok=lambda r: self.allocator.can_admit(r.ctx_len))
+                admit_ok=lambda r: self.allocator.can_admit(r.ctx_len),
+                window=admit_window, age_limit=age_limit)
             self._park = self._virtual
             self._cache = model.init_cache_paged(cfg, n_slots, n_blocks,
                                                  block_size, self.device)
@@ -129,7 +189,7 @@ class Engine:
             self._insert = None
         else:
             self.allocator = None
-            self.scheduler = Scheduler(n_slots)
+            self.scheduler = Scheduler(n_slots, age_limit=age_limit)
             self._park = max_len
             self._cache = model.init_cache(cfg, n_slots, max_len,
                                            self.device)
@@ -141,17 +201,96 @@ class Engine:
         self._tokens = np.zeros((n_slots,), np.int32)
         self._positions = np.full((n_slots,), self._park, np.int32)
         self._stalled: Set[int] = set()
+        # observability: the registry is ALWAYS live (it backs ``stats``);
+        # tracing / export / profiling are optional, each a single None
+        # check when off.  A bundle must not be shared between engines:
+        # the get-or-create registry would silently merge their stats.
+        self.obs = obs if obs is not None else Observability.off()
+        self._tracer = self.obs.tracer
+        if self._tracer is not None and self._tracer.clock is None:
+            self._tracer.clock = self._clock  # adopt the engine clock
+        if self.obs.window is not None and self.obs.window.device is None:
+            self.obs.window.device = self.device
+        self._obs_tick = self.obs.tick_hook()
+        self._prof = self.obs.prof
+        self.stats = self._build_stats()
+        reg = self.obs.registry
+        self._h_ttft = reg.histogram(
+            "serve_ttft_seconds", "submit -> first token latency")
+        self._h_tpot = reg.histogram(
+            "serve_tpot_seconds",
+            "per-output-token decode latency: (t_finish - ttft)/(n-1)")
+        self._h_tick = reg.histogram(
+            "serve_tick_seconds", "engine tick wall latency")
+        self.wall_clock_exceeded = False
         # preempted requests wait out a backoff in ticks before they
         # re-enter the queue: (eligible tick, request)
         self._backoff: List[Tuple[int, Request]] = []
         self._tick_no = 0
-        self.stats = {k: 0 for k in STATS_KEYS}
-        self.stats["prefill_s"] = self.stats["decode_s"] = 0.0
+
+        # graceful-degradation ladder (the reference's, without the
+        # speculative rungs): shedding is the only step down
+        self._levels = ["full", "shed"]
+        self._level = 0
+        self._hot = 0
+        self._calm = 0
+        self.degrade_down_after = degrade_down_after
+        self.degrade_up_after = degrade_up_after
+        self._watchdog = StragglerMonitor(alpha=0.2, factor=3.0, warmup=3,
+                                          adapt_after=5)
+
+    # -- accounting --------------------------------------------------------
+
+    def _build_stats(self) -> StatsView:
+        """Bind every ``stats`` key to its registry metric
+        (``STATS_METRICS``); ``acceptance_rate`` is derived from the
+        drafted/accepted counters at read time."""
+        reg = self.obs.registry
+        view = StatsView()
+        for key, (name, kind) in STATS_METRICS.items():
+            if kind == "counter":
+                m = reg.counter(name)
+                view.bind(key, lambda m=m: int(m.value), m.set)
+            elif kind == "seconds":
+                m = reg.counter(name)
+                view.bind(key, lambda m=m: float(m.value), m.set)
+            elif kind == "gauge":
+                m = reg.gauge(name)
+                view.bind(key, lambda m=m: int(m.value), m.set)
+        drafted = reg.counter(STATS_METRICS["drafted"][0])
+        accepted = reg.counter(STATS_METRICS["accepted"][0])
+        rate = reg.derived_gauge(
+            STATS_METRICS["acceptance_rate"][0],
+            lambda: (accepted.value / drafted.value) if drafted.value
+            else 0.0,
+            "accepted/drafted, computed at snapshot time (never stale)")
+        view.bind("acceptance_rate", rate)
+        return view
 
     @property
     def cache_bytes(self) -> int:
         """Bytes held by the decode cache (dense slabs or the page pool)."""
         return sum(t.numel() * t.element_size() for t in self._cache.values())
+
+    def _attn_bytes_tick(self, pos: np.ndarray) -> None:
+        """Analytic attention K/V traffic of one paged decode tick (a
+        model, not a measurement), the reference's: ``attn_gather_bytes``
+        is what a gather of every slot's whole virtual row reads,
+        ``attn_kernel_bytes`` what the streaming kernel reads (each live
+        row's mapped prefix; parked and stalled rows cost nothing)."""
+        gather = kernel = 0
+        for name, pages in self._cache.items():
+            if "pages" not in name:
+                continue
+            n_layers, bs = pages.shape[0], pages.shape[2]
+            tok_bytes = int(np.prod(pages.shape[3:])) * pages.element_size()
+            gather += n_layers * self.n_slots * self._virtual * tok_bytes
+            for p in pos:
+                p = int(p)
+                if p < self._virtual:
+                    kernel += n_layers * (-(-p // bs) * bs) * tok_bytes
+        self.stats["attn_gather_bytes"] += gather
+        self.stats["attn_kernel_bytes"] += kernel
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -165,13 +304,49 @@ class Engine:
             raise ValueError(
                 f"request {request.rid}: prompt {request.prompt_len} > "
                 f"max_prompt_len {self.max_prompt_len}")
-        if request.deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported yet (ROADMAP.md)")
-        request.t_submit = time.time()
+        if request.deadline_s is not None and request.deadline_s <= 0:
+            raise ValueError(
+                f"request {request.rid}: deadline_s must be positive")
+        now = self._clock()
+        request.t_submit = now
+        tr = self._tracer
+        if tr is not None:
+            tr.req_phase(request.rid, "queued")
+        # the ladder's last rung: the admission queue is bounded and the
+        # lowest-priority request (newest on ties) is shed
+        if (self._levels[self._level] == "shed"
+                and len(self.scheduler.queue) >= self.queue_bound):
+            victim = min(
+                [request] + list(self.scheduler.queue),
+                key=lambda r: (r.priority,
+                               -(r.seq if r.seq is not None else 1 << 62)))
+            if victim is not request:
+                self.scheduler.queue.remove(victim)
+            victim.status = RequestStatus.FINISHED
+            victim.finish_reason = "rejected"
+            victim.t_finish = now
+            self.stats["rejected"] += 1
+            self.stats["finished"] += 1
+            if tr is not None:
+                tr.req_terminal(victim.rid, "rejected",
+                                shed_for=request.rid)
+            if victim is request:
+                return
         self.scheduler.submit(request)
 
     # -- tick loop --------------------------------------------------------
+
+    def _release_backoff(self) -> None:
+        """Re-enter preempted requests whose backoff has elapsed."""
+        if not self._backoff:
+            return
+        ready = [r for t, r in self._backoff if t <= self._tick_no]
+        self._backoff = [(t, r) for t, r in self._backoff
+                         if t > self._tick_no]
+        for req in ready:
+            self.scheduler.submit(req)
+            if self._tracer is not None:
+                self._tracer.req_phase(req.rid, "queued", requeue=True)
 
     def _admit_pass(self) -> None:
         if self.paged:
@@ -186,46 +361,78 @@ class Engine:
             for slot, req in self.scheduler.admit():
                 self._admit(slot, req)
 
-    def _release_backoff(self) -> None:
-        """Re-enter preempted requests whose backoff has elapsed."""
-        ready = [r for t, r in self._backoff if t <= self._tick_no]
-        self._backoff = [(t, r) for t, r in self._backoff
-                         if t > self._tick_no]
-        for req in ready:
-            self.scheduler.submit(req)
-
-    def tick(self) -> int:
-        """Backoff release + admit + (paged) map this tick's pages + one
-        decode step; returns the number of active slots."""
-        self._tick_no += 1
+    def _admit_and_map(self) -> None:
+        """Backoff release + admission + deadline preemption + (paged)
+        mapping of this tick's write page."""
         self._release_backoff()
         self._admit_pass()
+        if self._deadline_preempt(self._clock()):
+            self._admit_pass()
         if self.paged:
             self._ensure_blocks()
+
+    def tick(self) -> int:
+        """Deadline sweep + admit + one decode step; returns the number of
+        active slots."""
+        tick_no = self._tick_no
+        self._tick_no += 1
+        if self._obs_tick is not None:    # exporter cadence + profile
+            self._obs_tick(tick_no)       # window; None when neither set
+        self._expire_deadlines(self._clock())
+        t0 = self._timer()
+        n = self._tick_decode(tick_no)
+        dt = self._timer() - t0
+        if self._fault is not None:
+            extra = self._fault.extra_tick_s(tick_no)
+            if extra and self._tracer is not None:
+                self._tracer.instant("engine", "fault:slow_tick",
+                                     tick=tick_no, extra_s=extra)
+            dt += extra
+        self._h_tick.observe(dt)
+        self._observe_pressure(dt, tick_no)
+        return n
+
+    def _tick_decode(self, tick_no: int) -> int:
+        self._admit_and_map()
         active = self.scheduler.active()
         if not active:
             return 0
-        t0 = time.perf_counter()
-        if self.paged:
-            pos = self._positions.copy()
-            for slot in self._stalled:
-                pos[slot] = self._park  # no write, no token this tick
-            tok, self._cache = self._decode(
-                self.params, self._cache, self._dev(self._tokens),
-                self._dev(pos), self._dev(self.allocator.table), self._gen)
-        else:
-            tok, self._cache = self._decode(
-                self.params, self._cache, self._dev(self._tokens),
-                self._dev(self._positions), self._gen)
-        tok_np = tok.cpu().numpy()
-        self.stats["decode_s"] += time.perf_counter() - t0
+        t0 = self._timer()
+        with self._prof.annotate("decode"):
+            if self.paged:
+                pos = self._positions.copy()
+                for slot in self._stalled:
+                    pos[slot] = self._park  # no write, no token this tick
+                self._attn_bytes_tick(pos)
+                tok, self._cache = self._decode(
+                    self.params, self._cache, self._dev(self._tokens),
+                    self._dev(pos), self._dev(self.allocator.table),
+                    self._gen)
+            else:
+                tok, self._cache = self._decode(
+                    self.params, self._cache, self._dev(self._tokens),
+                    self._dev(self._positions), self._gen)
+            tok_np = tok.cpu().numpy()
+        self.stats["decode_s"] += self._timer() - t0
         self.stats["decode_ticks"] += 1
         self.stats["stalled_slot_ticks"] += len(self._stalled)
-        now = time.time()
+        if self._fault is not None and self._fault.logits_corrupt(tick_no):
+            # simulated NaN/inf logits: every sampled id is garbage
+            tok_np = np.full_like(tok_np, -1)
+            self.stats["corrupt_ticks"] += 1
+            if self._tracer is not None:
+                self._tracer.instant("engine", "fault:corrupt_logits",
+                                     tick=tick_no)
+        now = self._clock()
         for slot, req in active:
             if slot in self._stalled:
                 continue
             t = int(tok_np[slot])
+            if not 0 <= t < self.cfg.vocab_size:
+                # corrupt decode output: heal by recompute (requeue and
+                # re-prefill) rather than commit a garbage token
+                self._heal_or_kill(slot, req, now)
+                continue
             req.generated.append(t)
             self.stats["tokens_out"] += 1
             self._positions[slot] += 1
@@ -239,21 +446,47 @@ class Engine:
         return self.scheduler.has_work or bool(self._backoff)
 
     def run(self, requests: Sequence[Request],
-            max_ticks: Optional[int] = None) -> List[Request]:
-        """Submit everything, tick until drained, return the requests."""
+            max_ticks: Optional[int] = None,
+            wall_clock_limit_s: Optional[float] = None) -> List[Request]:
+        """Submit everything, tick until drained, return the requests.
+
+        ``wall_clock_limit_s`` bounds the real time spent in the loop: the
+        run then stops with partial results (``wall_clock_exceeded`` set,
+        unfinished requests left as they are).  ``max_ticks`` bounds the
+        tick count and raises, as a logic-error guard.
+        """
         for r in requests:
             self.submit(r)
         ticks = 0
+        t0 = time.perf_counter()
         while self.has_work:
+            if (wall_clock_limit_s is not None
+                    and time.perf_counter() - t0 > wall_clock_limit_s):
+                self.wall_clock_exceeded = True
+                break
             if max_ticks is not None and ticks >= max_ticks:
                 raise RuntimeError(f"engine not drained after {ticks} ticks")
             self.tick()
             ticks += 1
         return list(requests)
 
-    # -- internals --------------------------------------------------------
+    # -- deadlines / preemption -------------------------------------------
 
-    # -- preemption ---------------------------------------------------------
+    def _expire_deadlines(self, now: float) -> None:
+        """Sweep queued and active requests past their deadline to
+        ``finish_reason="timeout"``."""
+        for req in self.scheduler.expire(now):
+            req.status = RequestStatus.FINISHED
+            req.finish_reason = "timeout"
+            req.t_finish = now
+            self.stats["timeout"] += 1
+            self.stats["finished"] += 1
+            if self._tracer is not None:
+                self._tracer.req_terminal(req.rid, "timeout", queued=True)
+        for slot, req in self.scheduler.active():
+            if now >= req.deadline_abs():
+                self.stats["timeout"] += 1
+                self._finish(slot, req, "timeout", now)
 
     def _can_requeue(self, req: Request) -> bool:
         """Requeue budget left, and a context short enough to re-prefill
@@ -281,6 +514,10 @@ class Engine:
         self.stats["requeued"] += 1
         backoff = 1 << min(req.n_preemptions - 1, 6)
         self._backoff.append((self._tick_no + backoff, req))
+        if self._tracer is not None:
+            self._tracer.req_instant(req.rid, "preempt", slot=slot,
+                                     n_preemptions=req.n_preemptions)
+            self._tracer.req_phase(req.rid, "backoff", ticks=backoff)
 
     def preempt(self, slot: int) -> None:
         """Preempt-and-requeue the request in ``slot``; raises when the
@@ -295,6 +532,94 @@ class Engine:
                 f"{req.ctx_len} vs max_prompt_len {self.max_prompt_len})")
         self._preempt(slot, req)
 
+    def _heal_or_kill(self, slot: int, req: Request, now: float) -> None:
+        """Corrupt decode output for this slot: requeue-with-recompute if
+        the budget allows, terminal eviction otherwise."""
+        if self._can_requeue(req):
+            self._preempt(slot, req)
+        else:
+            self.stats["preempted"] += 1
+            self._finish(slot, req, self._evict_reason(req), now)
+
+    def _deadline_preempt(self, now: float) -> bool:
+        """A queued request about to miss its deadline may evict-with-
+        requeue the active request with the most slack: at most one a
+        tick, and only a requeueable victim strictly less urgent."""
+        starving = self.scheduler.most_urgent()
+        if starving is None or starving.deadline_s is None:
+            return False
+        slack = starving.slack(now)
+        if slack > self.deadline_margin_s:
+            return False
+        cands = [(s, r) for s, r in self.scheduler.active()
+                 if self._can_requeue(r) and r.slack(now) > slack]
+        if not cands:
+            return False
+        slot, req = max(
+            cands,
+            key=lambda sr: (sr[1].slack(now), -sr[1].priority,
+                            self.allocator.blocks_held(sr[0])
+                            if self.paged else 0))
+        self.stats["deadline_preempts"] += 1
+        if self._tracer is not None:
+            self._tracer.instant("engine", "deadline_preempt",
+                                 victim=req.rid, starving=starving.rid)
+        self._preempt(slot, req)
+        return True
+
+    # -- degradation ladder ------------------------------------------------
+
+    @property
+    def degrade_level(self) -> str:
+        """Current ladder rung name (``full`` when healthy)."""
+        return self._levels[self._level]
+
+    def _observe_pressure(self, dt: float, tick_no: int) -> None:
+        """Feed the tick-latency watchdog and the pool/queue pressure
+        signals; step the ladder down after ``degrade_down_after``
+        consecutive hot ticks, back up after ``degrade_up_after``
+        consecutive calm ones."""
+        straggler = self._watchdog.observe(tick_no, dt)
+        if straggler and self._tracer is not None:
+            self._tracer.instant("engine", "straggler", tick=tick_no,
+                                 dt_s=dt)
+        pool_dry = (self.paged and bool(self._stalled)
+                    and self.allocator.n_free == 0)
+        queue_over = len(self.scheduler.queue) > self.queue_bound
+        if straggler or pool_dry or queue_over:
+            self._hot += 1
+            self._calm = 0
+            if (self._hot >= self.degrade_down_after
+                    and self._level < len(self._levels) - 1):
+                self._set_level(self._level + 1)
+                self._hot = 0
+        else:
+            self._calm += 1
+            self._hot = 0
+            if self._calm >= self.degrade_up_after and self._level > 0:
+                self._set_level(self._level - 1)
+                self._calm = 0
+
+    def _set_level(self, level: int) -> None:
+        """Apply one reversible ladder transition: it only gates NEW
+        admissions, so tokens already streaming never change."""
+        if level > self._level:
+            self.stats["degrade_down"] += 1
+        else:
+            self.stats["degrade_up"] += 1
+        if self._tracer is not None:
+            self._tracer.instant(
+                "engine", "ladder",
+                src=self._levels[self._level], dst=self._levels[level],
+                direction="down" if level > self._level else "up")
+        self._level = level
+        self.stats["degrade_level"] = level
+        # the per-tick cost legitimately changed with the level: re-seed
+        # the watchdog baseline instead of flagging every healthy tick
+        self._watchdog.reset()
+
+    # -- internals --------------------------------------------------------
+
     def _admit(self, slot: int, req: Request) -> None:
         # the prompt plus (after a preemption) every token generated so far
         ctx = list(req.prompt) + [int(t) for t in req.generated]
@@ -302,40 +627,56 @@ class Engine:
         toks = np.zeros((1, self.max_prompt_len), np.int32)
         toks[0, :clen] = np.asarray(ctx, np.int32)
         lengths = self._dev(np.asarray([clen], np.int32))
-        t0 = time.perf_counter()
-        if self.paged:
-            self.allocator.alloc_slot(slot, clen)
-            last, self._cache = self._prefill(
-                self.params, self._cache, self._slot_template,
-                self._dev(toks), lengths,
-                self._dev(self.allocator.phys_row(slot)))
-        else:
-            last, slot_cache = self._prefill(
-                self.params, self._slot_template, self._dev(toks), lengths)
-            self._cache = self._insert(self._cache, slot_cache, slot)
-        tok = int(sampler_mod.sample(last, generator=self._gen,
-                                     **self._sample_args)[0])
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        if self._tracer is not None:
+            self._tracer.req_phase(req.rid, "prefill", slot=slot,
+                                   ctx_len=clen)
+        t0 = self._timer()
+        with self._prof.annotate("prefill"):
+            if self.paged:
+                self.allocator.alloc_slot(slot, clen)
+                last, self._cache = self._prefill(
+                    self.params, self._cache, self._slot_template,
+                    self._dev(toks), lengths,
+                    self._dev(self.allocator.phys_row(slot)))
+            else:
+                last, slot_cache = self._prefill(
+                    self.params, self._slot_template, self._dev(toks),
+                    lengths)
+                self._cache = self._insert(self._cache, slot_cache, slot)
+            tok = int(sampler_mod.sample(last, generator=self._gen,
+                                         **self._sample_args)[0])
+        self.stats["prefill_s"] += self._timer() - t0
         self.stats["prefill_dispatches"] += 1
-        now = time.time()
+        now = self._clock()
         if req.t_first_token is None:       # readmissions keep the mark
             req.t_first_token = now
+            if req.t_submit is not None:
+                self._h_ttft.observe(now - req.t_submit)
+        if self._tracer is not None:
+            self._tracer.req_phase(req.rid, "decode", slot=slot)
         req.generated.append(tok)
         self.stats["tokens_out"] += 1
         self._tokens[slot] = tok
         self._positions[slot] = clen
         self._maybe_finish(slot, req, tok, now)
 
-    def _ensure_blocks(self) -> None:
-        """Map each active slot's next write page; stall the slots the
-        pool cannot serve.  If every active slot stalls, preempt and
-        requeue the lowest-priority stalled request holding the most
-        pages, choosing among the requeueable ones first (eviction only
-        when none may requeue), and retry the rest."""
+    def _ensure_blocks(self, need: int = 1) -> None:
+        """Map each active slot's write window (``need`` positions from
+        its frontier); stall the slots the pool cannot serve.  If every
+        active slot stalls, preempt and requeue the lowest-priority
+        stalled request holding the most pages, choosing among the
+        requeueable ones first (eviction only when none may requeue), and
+        retry the rest."""
         self._stalled = set()
         active = self.scheduler.active()
         for slot, _ in active:
-            if not self.allocator.ensure(slot, int(self._positions[slot])):
+            forced = (self._fault is not None
+                      and self._fault.spurious_stall(slot))
+            if forced and self._tracer is not None:
+                self._tracer.instant("engine", "fault:spurious_stall",
+                                     slot=slot)
+            if forced or not self.allocator.ensure_range(
+                    slot, int(self._positions[slot]), need):
                 self._stalled.add(slot)
         if self._stalled and len(self._stalled) == len(active):
             stalled = [(s, r) for s, r in active if s in self._stalled]
@@ -348,10 +689,11 @@ class Engine:
             else:
                 self.stats["preempted"] += 1
                 self._finish(slot, req, self._evict_reason(req),
-                             time.time())
+                             self._clock())
                 self._stalled.discard(slot)
             for slot2 in sorted(self._stalled):
-                if self.allocator.ensure(slot2, int(self._positions[slot2])):
+                if self.allocator.ensure_range(
+                        slot2, int(self._positions[slot2]), need):
                     self._stalled.discard(slot2)
 
     def _maybe_finish(self, slot: int, req: Request, last_token: int,
@@ -376,3 +718,9 @@ class Engine:
             self.allocator.free_slot(slot)
         self._positions[slot] = self._park      # park: no cache writes
         self.stats["finished"] += 1
+        n = len(req.generated)
+        if req.t_first_token is not None and n > 1:
+            self._h_tpot.observe(
+                max(now - req.t_first_token, 0.0) / (n - 1))
+        if self._tracer is not None:
+            self._tracer.req_terminal(req.rid, reason, tokens=n)

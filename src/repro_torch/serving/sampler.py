@@ -2,9 +2,13 @@
 (port of :mod:`repro.serving.sampler`).
 
 The filter math is the reference's (temperature first, then top-k, then
-top-p, masked logits -1e30).  The categorical draw comes from a
+top-p, masked logits -1e30), and so is the draw: Gumbel-max, the argmax
+of the filtered fp32 logits plus ``-log(-log(U))``, which is how
+``jax.random.categorical`` draws.  A row of NaN or one holding ``+inf``
+therefore gives an in-range id (the first NaN, else the first ``+inf``),
+as the reference's does, instead of raising.  ``U`` comes from a
 ``torch.Generator``, so sampled tokens differ from the reference's
-``jax.random`` draws; greedy is exact.
+``jax.random`` draws (they agree as distributions); greedy is exact.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ def sample(logits: torch.Tensor, method: str = "greedy",
            temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """int32 token ids from ``logits`` (..., V): ``greedy`` argmax, or
-    ``temp`` — a categorical draw from ``generator`` over the
-    temperature-scaled, top-k/top-p-filtered logits."""
+    ``temp`` — a Gumbel-max draw from ``generator`` (on the logits'
+    device) over the temperature-scaled, top-k/top-p-filtered logits."""
     if method == "greedy":
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if method != "temp":
@@ -56,7 +60,7 @@ def sample(logits: torch.Tensor, method: str = "greedy",
     lf = logits.float() / max(temperature, 1e-6)
     lf = apply_top_k(lf, top_k)
     lf = apply_top_p(lf, top_p)
-    probs = torch.softmax(lf, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+    u = torch.rand(lf.shape, generator=generator, device=lf.device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(lf - torch.log(-torch.log(u)), dim=-1).to(
+        torch.int32)

@@ -10,7 +10,7 @@ the deadlock breaker: with a prefill window wide enough to re-prefill, it
 preempts and requeues exactly as the reference does (streams, finish
 reasons and counts identical), and evicts once the requeue budget is
 spent.  The allocator and request-stream copies are held against the
-reference's.
+reference's; only speculative decoding is still refused.
 """
 
 import jax
@@ -204,16 +204,19 @@ def test_eos_stops_the_stream(models):
 
 
 def test_unported_engine_options_raise(models):
+    """Only speculative decoding is still refused; deadlines, faults,
+    observability and the bounded queue are accepted."""
     _, tcfg, _, tm, _, tp = models
-    for kw in (dict(spec_k=2), dict(fault=object()), dict(obs=object()),
-               dict(queue_bound=3)):
+    for kw in (dict(spec_k=2), dict(draft=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tm, tcfg, tp, **kw)
-    eng = TEngine(tm, tcfg, tp, n_slots=1, max_len=24, max_prompt_len=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(TRequest(rid=0, prompt=[1, 2], deadline_s=1.0))
+    eng = TEngine(tm, tcfg, tp, n_slots=1, max_len=24, max_prompt_len=12,
+                  queue_bound=3)
+    eng.submit(TRequest(rid=0, prompt=[1, 2], deadline_s=1.0))
     with pytest.raises(ValueError):
         eng.submit(TRequest(rid=1, prompt=[]))
+    with pytest.raises(ValueError):
+        eng.submit(TRequest(rid=2, prompt=[1], deadline_s=0.0))
 
 
 def test_allocator_and_requests_match_reference_copies():

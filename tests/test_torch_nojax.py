@@ -27,7 +27,10 @@ for name in names:
 need = {"repro_torch.kernels.acdc_bwd", "repro_torch.kernels.acdc_cascade_bwd",
         "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
         "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
-        "repro_torch.launch.train", "repro_torch.dist.steps"}
+        "repro_torch.launch.train", "repro_torch.dist.steps",
+        "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+        "repro_torch.obs.prof", "repro_torch.serving.faults",
+        "repro_torch.dist.elastic"}
 missing = sorted(need - set(names))
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

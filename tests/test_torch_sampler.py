@@ -1,6 +1,9 @@
 """Port parity, sampler: the filter math of ``repro_torch.serving.sampler``
 against ``repro.serving.sampler`` (the draws themselves come from
-different generators and are compared as distributions only)."""
+different generators and are compared as distributions only), and the
+draw on non-finite rows: a row of NaN or one holding ``+inf`` gives the
+id ``jax.random.categorical`` gives (Gumbel-max: the first NaN, else the
+first ``+inf``), without raising."""
 
 import jax
 import jax.numpy as jnp
@@ -54,3 +57,28 @@ def test_temperature_sampling_distribution():
     assert 0.5 * np.abs(got - want).sum() < 0.05
     with pytest.raises(ValueError):
         tsamp.sample(torch.from_numpy(x), method="beam")
+
+
+NON_FINITE_ROWS = {
+    "all_nan": [np.nan] * 8,
+    "one_nan": [0.5, 1.0, np.nan, 2.0, -1.0, 0.0, 3.0, 1.0],
+    "plus_inf": [0.0, 1.0, 2.0, np.inf, 0.0, 0.0, 0.0, 0.0],
+    "two_plus_inf": [0.0, np.inf, 2.0, np.inf, 0.0, 0.0, 0.0, 0.0],
+    "inf_and_nan": [np.inf, 1.0, np.nan, 2.0, 0.0, 0.0, 0.0, 0.0],
+    "all_minus_inf": [-np.inf] * 8,
+}
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("name", sorted(NON_FINITE_ROWS))
+def test_temp_sampling_on_non_finite_rows_matches_reference(name,
+                                                            temperature):
+    row = np.asarray([NON_FINITE_ROWS[name]] * 3, np.float32)
+    want = np.asarray(jsamp.sample(jax.random.PRNGKey(0), jnp.asarray(row),
+                                   method="temp", temperature=temperature))
+    got = tsamp.sample(torch.from_numpy(row), method="temp",
+                       temperature=temperature,
+                       generator=torch.Generator().manual_seed(0)).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+    assert ((0 <= got) & (got < row.shape[-1])).all()

@@ -39,10 +39,22 @@ result line if any fails):
    controls (TF32 on; the diagonals dropped, which must exceed the
    limit); and hold ``scaled_matmul``'s fp32 error on every call of the
    prefill within 2 x cuBLAS fp32's (the first call where it passes 2 x
-   the plain version's is recorded);
+   the plain version's is recorded); then serve it speculatively
+   (``--spec --spec-k 4``, the default depth-1 truncated-cascade draft),
+   dense and paged: every tick's kernel launches exact (the verify's
+   ``scaled_matmul`` on the tensor cores at M = 20, the draft passes in
+   the weight stream at M = 4, ``paged_attn`` at T = 5), s/tick,
+   tokens/s, tokens a tick and the acceptance rate; the bf16 streams
+   against the non-speculative ones reported, and in fp32 compute any
+   difference must be a near-tie (the two tokens' fp64 logit gap below
+   the two regimes' measured drift);
 5. serve the smoke width (fp32) dense, paged and with K=1 cascades;
    greedy streams must be identical with the kernels and with the plain
-   versions;
+   versions; then speculatively (``--spec-k 4``), dense and paged, the
+   main path at the default depth and the un-riffled K=4 target at depth
+   2 with one block skipped: every tick's launches exact, the streams
+   identical with the kernels, with the plain versions and without
+   speculation, the acceptance rate recorded;
 6. train full-width Qwen3-1.7B (bf16 compute, fp32 masters, ``--sell acdc
    --sell-method pallas``, global batch 4 x 128 tokens) through the train
    launcher's functions: one warm-up and two timed AdamW steps with an
@@ -54,19 +66,23 @@ result line if any fails):
    against the plain versions, ``acdc_cascade_bwd`` / ``acdc_bwd`` launched
    12 times a step, and a checkpoint-and-resume run that continues the
    uninterrupted one;
-8. overload at full width (paged, 16-token pages) through the serve
-   launcher's functions: deadlines on half the requests, two priority
-   bands, metrics JSONL and a span trace, under a ``FaultPlan`` (corrupt
-   ticks, denied pages, slow ticks): every request terminal, the pool
-   clean, corrupt ticks healed by requeue, the ladder stepped down, the
-   normal finishes' streams equal to a fault-free run's, one terminal a
-   request in the trace, the last JSONL snapshot equal to the stats;
+8. overload at full width (fp32 compute, paged, 16-token pages,
+   speculative) through the serve launcher's functions: deadlines on half
+   the requests, two priority bands, metrics JSONL and a span trace,
+   under a ``FaultPlan`` (corrupt ticks, denied pages, slow ticks): every
+   request terminal, the pool clean, corrupt ticks healed by requeue, the
+   ladder walked down
+   ``spec_half``, ``spec_off``, ``shed`` and back to ``full``, the normal
+   finishes' streams equal segment by segment to a fault-free run's
+   (near-ties reported), one terminal a request in the trace, the last
+   JSONL snapshot equal to the stats;
 9. ``torch.profiler`` windows at full width (8 decode ticks dense and
-   paged through ``obs.prof.ProfileWindow``, one prefill admission, one
-   train step): device busy share, host time and kernels a step, the ten
-   kernels with the most device time; the window must hold kernels, and
-   ``scaled_matmul`` / ``paged_attn`` kernels in the trace must equal the
-   wrappers' counts;
+   paged and 3 speculative ticks paged through
+   ``obs.prof.ProfileWindow``, one prefill admission, one train step):
+   device busy share, host time and kernels a step, the ten kernels with
+   the most device time; the window must hold kernels, and
+   ``scaled_matmul`` (by regime in the windows of ticks) / ``paged_attn``
+   kernels in the trace must equal the wrappers' counts;
 10. print ``{"kernels": [...]}`` (six kernels), then the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1045,40 +1061,16 @@ def read_counts() -> dict:
     return {name: mod.launches for name, mod in _modules().items()}
 
 
-def serve_path(label, argv, params_cache, totals, require, sell_k=2):
-    """Drive the launcher's engine once with counts reset just before and
-    read just after; ``require`` names kernels that must have launched."""
-    import torch
-
+def model_for(params_cache, argv, **overrides):
+    """(cfg, model, params) of the launcher flags ``argv`` with config
+    ``overrides``, built once a key."""
     from repro_torch.launch import serve
 
     args = serve.parse_args(argv)
-    key = (args.smoke, sell_k)
+    key = (args.smoke, tuple(sorted(overrides.items())))
     if key not in params_cache:
-        params_cache[key] = serve.build(args, sell_k=sell_k)
-    cfg, model, params = params_cache[key]
-    reset_counts()
-    eng, reqs, dt = serve.serve(args, cfg, model, params)
-    counts = read_counts()
-    for name in require:
-        if counts[name] == 0:
-            _fail(f"{label}: kernel {name} never launched on this path")
-    for name, n in counts.items():
-        totals[name] += n
-    s = eng.stats
-    streams = [list(r.generated) for r in reqs]
-    if any(r.finish_reason is None for r in reqs):
-        _fail(f"{label}: unfinished requests")
-    info = dict(path=label, argv=argv, tokens=s["tokens_out"], wall_s=dt,
-                tok_per_s=s["tokens_out"] / dt, prefill_s=s["prefill_s"],
-                decode_s=s["decode_s"], decode_ticks=s["decode_ticks"],
-                prefills=s["prefill_dispatches"], launches=counts,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[serve] {label}: {s['tokens_out']} tokens in {dt:.3f}s "
-          f"({info['tok_per_s']:.1f} tok/s) | prefill {s['prefill_s']:.3f}s "
-          f"({s['prefill_dispatches']}) | decode {s['decode_s']:.3f}s "
-          f"({s['decode_ticks']} ticks) | launches {counts}", flush=True)
-    return info, streams
+        params_cache[key] = serve.build(args, **overrides)
+    return params_cache[key]
 
 
 def scaled_matmul_fp64(x, w, pre=None, post=None, bias=None):
@@ -1151,7 +1143,7 @@ def _rel_l2(got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
-def compare_full_width_logits(params_cache, dev, dtype=None):
+def compare_full_width_logits(pieces, dev, dtype=None):
     """One prefill's and one decode step's logits, kernels vs plain, gated
     at ``BF16_LOGIT_REL_L2``.  Beside it, each side against an fp64-summed
     path (which side drifts), every layer's residual stream, and two
@@ -1168,7 +1160,7 @@ def compare_full_width_logits(params_cache, dev, dtype=None):
 
     from repro_torch.models import transformer
 
-    cfg, model, params = params_cache[(False, 2)]
+    cfg, model, params = pieces
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     n_calls = prefill_smm_calls(cfg)
@@ -1324,6 +1316,374 @@ def real_input_errors(recorded, calls_per_layer: int) -> dict:
         _fail("scaled_matmul on the prefill's inputs: fp32 error "
               f"{out['kernel']['worst_max_err']} > 2 x the plain version's "
               f"{out['plain']['worst_max_err']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (phases 5 and 4b): exact launches a tick, streams
+# ---------------------------------------------------------------------------
+
+#: the speculative paths' draft length (the launcher's default)
+SPEC_K = 4
+
+#: the reference's un-riffled truncation target
+#: (tests/test_spec_decode.py): K = 4, no riffle, near-converged init
+UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
+
+
+def forward_launches(cfg, rows: int, paged_t: int = 0):
+    """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
+    (batch x tokens), from the port's routing (``kernels/ops.py``): each
+    layer's four SELL projections (attn_out and the three MLP ones) run
+    2 K ``scaled_matmul`` calls above ``MAX_FUSED_N`` (in the weight
+    stream at ``rows <= STREAM_MAX_M``, else on the tensor cores), one
+    ``acdc_cascade`` where the fused gate passes, else K ``acdc_fused``;
+    a paged pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
+    import collections
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    out = collections.Counter()
+    k, dh = cfg.sell_k, cfg.head_dim_
+    for n_in, n_out in ((cfg.n_heads * dh, cfg.d_model),
+                        (cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                        (cfg.d_ff, cfg.d_model)):
+        n = max(n_in, n_out)
+        if n > ops.MAX_FUSED_N:
+            regime = "stream" if rows <= smm_mod.STREAM_MAX_M else "tc"
+            out["scaled_matmul"] += 2 * k
+            out[f"scaled_matmul_{regime}"] += 2 * k
+        elif k > 1 and ops.cascade_fits(n, k, permute=cfg.sell_permute,
+                                        bias=False):
+            out["acdc_cascade"] += 1
+        else:
+            out["acdc_fused"] += k
+    out = collections.Counter({key: v * cfg.n_layers
+                               for key, v in out.items()})
+    if paged_t:
+        out["paged_attn"] += cfg.n_layers
+        out[f"paged_attn_T{paged_t}"] += cfg.n_layers
+    return out
+
+
+@contextlib.contextmanager
+def tick_recorder():
+    """Record every ``Engine.tick`` run inside the block: the kernel
+    launches it made (the wrappers' counts, ``scaled_matmul`` also by
+    regime and ``paged_attn`` by T, tallied at each kernel's ``launch``),
+    the prefills it ran, whether it stepped, and its speculation depth."""
+    import collections
+
+    from repro_torch.kernels import paged_attn as pa_mod
+    from repro_torch.kernels import scaled_matmul as smm_mod
+    from repro_torch.serving import Engine
+
+    records, tally = [], collections.Counter()
+    smm_launch, pa_launch, tick = smm_mod.launch, pa_mod.launch, Engine.tick
+
+    def smm_counted(x, w, pre, post, bias, p):
+        tally[f"scaled_matmul_{p.regime}"] += 1
+        return smm_launch(x, w, pre, post, bias, p)
+
+    def pa_counted(q, *args):
+        tally[f"paged_attn_T{q.shape[1]}"] += 1
+        return pa_launch(q, *args)
+
+    def counts():
+        return collections.Counter(read_counts()) + tally
+
+    def tick_counted(eng):
+        before = counts()
+        s0 = (eng.stats["prefill_dispatches"], eng.stats["decode_ticks"])
+        k = eng.spec_k_eff
+        n = tick(eng)
+        launched = counts()
+        launched.subtract(before)
+        records.append(dict(
+            k=k, prefills=eng.stats["prefill_dispatches"] - s0[0],
+            stepped=eng.stats["decode_ticks"] - s0[1],
+            launches={key: v for key, v in launched.items() if v}))
+        return n
+
+    smm_mod.launch, pa_mod.launch, Engine.tick = (smm_counted, pa_counted,
+                                                  tick_counted)
+    try:
+        yield records
+    finally:
+        smm_mod.launch, pa_mod.launch, Engine.tick = smm_launch, pa_launch, tick
+
+
+def expected_tick(eng, rec, prompt_rows: int):
+    """The launches tick record ``rec`` of engine ``eng`` must show: a
+    target prefill (and a draft prefill when the engine has a draft) for
+    every admission, then either a speculative step (k + 1 single-token
+    draft passes over the dense draft cache, one verify of all slots at
+    T = k + 1) or a decode step."""
+    import collections
+
+    want = collections.Counter()
+    draft_cfg = eng.draft.cfg if eng.draft is not None else None
+    for _ in range(rec["prefills"]):
+        want += forward_launches(eng.cfg, prompt_rows)
+        if draft_cfg is not None:
+            want += forward_launches(draft_cfg, prompt_rows)
+    if rec["stepped"]:
+        k, slots = rec["k"], eng.n_slots
+        t = k + 1
+        want += forward_launches(eng.cfg, slots * t,
+                                 paged_t=t if eng.paged else 0)
+        for _ in range(k + 1 if k else 0):
+            want += forward_launches(draft_cfg, slots)
+    return {key: v for key, v in want.items() if v}
+
+
+def check_ticks(label, eng, records, prompt_rows: int) -> dict:
+    """Every tick's launches exactly as ``expected_tick``; returns the
+    launches of a speculative tick without admissions (and of each other
+    kind of tick seen), and the ticks by kind."""
+    kinds = {}
+    for i, rec in enumerate(records):
+        want = expected_tick(eng, rec, prompt_rows)
+        if rec["launches"] != want:
+            _fail(f"{label}: tick {i} (k={rec['k']}, {rec['prefills']} "
+                  f"prefills, stepped {rec['stepped']}) launched "
+                  f"{rec['launches']}, want {want}")
+        key = f"k={rec['k']}" + (f" +{rec['prefills']} prefills"
+                                 if rec["prefills"] else "")
+        if rec["stepped"] or rec["prefills"]:
+            kinds.setdefault(key, dict(ticks=0, launches=want))["ticks"] += 1
+    if not any(r["k"] and r["stepped"] for r in records):
+        _fail(f"{label}: no speculative tick ran")
+    return kinds
+
+
+def serve_path(label, argv, pieces, totals, require, record=False):
+    """Drive the launcher's engine once with ``pieces`` = (cfg, model,
+    params), counts reset just before and read just after; ``require``
+    names kernels that must have launched; with ``record`` every tick is
+    recorded (``tick_recorder``).  Returns (info, requests, engine, tick
+    records)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(argv)
+    cfg, model, params = pieces
+    reset_counts()
+    with (tick_recorder() if record else contextlib.nullcontext([])) as recs:
+        eng, reqs, dt = serve.serve(args, cfg, model, params)
+    counts = read_counts()
+    for name in require:
+        if counts[name] == 0:
+            _fail(f"{label}: kernel {name} never launched on this path")
+    for name, n in counts.items():
+        totals[name] += n
+    if any(r.finish_reason is None for r in reqs):
+        _fail(f"{label}: unfinished requests")
+    s = eng.stats
+    steps = max(s["decode_ticks"], 1)
+    info = dict(path=label, argv=argv, compute=cfg.dtype,
+                tokens=s["tokens_out"], wall_s=dt,
+                tok_per_s=s["tokens_out"] / dt, prefill_s=s["prefill_s"],
+                decode_s=s["decode_s"], decode_ticks=s["decode_ticks"],
+                s_per_tick=s["decode_s"] / steps,
+                tokens_per_tick=(s["tokens_out"] - s["prefill_dispatches"])
+                / steps,
+                prefills=s["prefill_dispatches"], drafted=s["drafted"],
+                accepted=s["accepted"],
+                acceptance_rate=s["acceptance_rate"],
+                degrade_down=s["degrade_down"], launches=counts,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[serve] {label} ({smi_line()}): {s['tokens_out']} tokens in "
+          f"{dt:.3f}s ({info['tok_per_s']:.1f} tok/s) | prefill "
+          f"{s['prefill_s']:.3f}s ({s['prefill_dispatches']}) | decode "
+          f"{s['decode_s']:.3f}s ({s['decode_ticks']} ticks, "
+          f"{info['s_per_tick'] * 1e3:.1f} ms a tick, "
+          f"{info['tokens_per_tick']:.2f} tokens a tick) | accepted "
+          f"{s['accepted']}/{s['drafted']} | launches {counts}", flush=True)
+    return info, reqs, eng, recs
+
+
+def streams_of(reqs):
+    return [list(r.generated) for r in reqs]
+
+
+def smoke_spec(params_cache, totals):
+    """Smoke-width speculative serving (fp32), dense and with 4-token
+    pages, in two setups: the main path at the default draft depth (K = 2
+    riffled, the depth-1 draft on ``acdc_fused``) and the reference's
+    un-riffled K = 4 target at depth 2 with one block skipped.  Every
+    tick's launches are exact; the greedy streams are identical with the
+    kernels, with the plain versions and without speculation."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
+            "--sell-method", "pallas", "--slots", "4", "--prompt-len",
+            "12", "--gen", "8", "--requests", "8", "--device", "cuda"]
+    out = []
+    for setup, extra, overrides in (
+            ("smoke spec", [], {}),
+            ("smoke spec un-riffled K=4", ["--draft-depth", "2",
+                                          "--spec-skip-layers", "1"],
+             UNRIFFLED)):
+        pieces = model_for(params_cache, base, **overrides)
+        for paged in (False, True):
+            layout = ["--paged", "--block-size", "4"] if paged else []
+            label = f"{setup} {'paged' if paged else 'dense'}"
+            argv = base + layout + extra + ["--spec", "--spec-k",
+                                            str(SPEC_K)]
+            need = ("acdc_cascade",) + (("paged_attn",) if paged else ())
+            if not overrides:
+                need += ("acdc_fused",)
+            info, reqs, eng, recs = serve_path(label, argv, pieces, totals,
+                                               need, record=True)
+            streams = streams_of(reqs)
+            info["ticks"] = check_ticks(label, eng, recs, 12)
+            info["draft"] = dict(depth=eng.draft.depth,
+                                 skip_layers=eng.draft.skip_layers,
+                                 sell_k=eng.draft.cfg.sell_k)
+            with plain_kernels():
+                plain = streams_of(serve_path(
+                    label + " (plain)", argv, pieces,
+                    {k: 0 for k in KERNEL_MODULES}, ())[1])
+            nonspec = streams_of(serve_path(
+                label + " (no speculation)", base + layout, pieces,
+                {k: 0 for k in KERNEL_MODULES}, ())[1])
+            if streams != plain:
+                _fail(f"{label}: greedy streams differ between kernels and "
+                      f"plain versions")
+            if streams != nonspec:
+                _fail(f"{label}: greedy streams differ from the "
+                      f"non-speculative run")
+            info["streams_identical_to_plain"] = True
+            info["streams_identical_to_nonspec"] = True
+            print(f"[spec] {label}: launches a tick by kind "
+                  f"{json.dumps(info['ticks'])}", flush=True)
+            out.append(info)
+    return out
+
+
+def logits_after(model, cfg, params, context, dev):
+    """fp32 logits of the token after ``context`` (a batch-1 prefill)."""
+    import torch
+
+    n = len(context)
+    toks = torch.tensor([context], dtype=torch.int32, device=dev)
+    template = model.init_cache(cfg, 1, n, dev)
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+    logits, _ = model.prefill(params, template, toks, cfg, lengths)
+    return logits[0, n - 1].double()
+
+
+def decode_logits_after(model, cfg, params, context, dev):
+    """fp32 logits of the token after ``context`` from a decode step over
+    its last token (after a prefill of the rest)."""
+    import torch
+
+    n = len(context)
+    toks = torch.tensor([context[:-1]], dtype=torch.int32, device=dev)
+    template = model.init_cache(cfg, 1, n, dev)
+    lengths = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+    _, cache = model.prefill(params, template, toks, cfg, lengths)
+    pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+    last = torch.tensor([context[-1]], dtype=torch.int32, device=dev)
+    logits, _ = model.decode_step(params, cache, last, pos, cfg)
+    return logits[0].double()
+
+
+def near_tie(model, cfg, params, context, tok_a, tok_b, dev) -> dict:
+    """Whether two paths' different greedy picks ``tok_a`` / ``tok_b``
+    after ``context`` are a near-tie: the gap between their logits in an
+    fp64-summed pass (every ``scaled_matmul`` in fp64) is below the sum
+    of the two sides' measured drift from it at that position, the
+    tensor-core regime's (a prefill over the context: the verify's
+    regime) and the weight stream's (a decode step: the decode's)."""
+    with scaled_matmul_as(scaled_matmul_fp64):
+        want = logits_after(model, cfg, params, context, dev)
+    drift_tc = float((logits_after(model, cfg, params, context, dev)
+                      - want).abs().max())
+    drift_stream = float((decode_logits_after(model, cfg, params, context,
+                                              dev) - want).abs().max())
+    gap = abs(float(want[tok_a] - want[tok_b]))
+    top2 = [int(i) for i in want.topk(2).indices]
+    return dict(position=len(context), tokens=[tok_a, tok_b], gap=gap,
+                top2=top2, drift_tc=drift_tc, drift_stream=drift_stream,
+                near_tie=gap <= drift_tc + drift_stream)
+
+
+def compare_streams(label, pieces, prompts, got, want, dev, hold: bool):
+    """Compare speculative streams ``got`` with non-speculative ``want``
+    (same prompts); each first difference is examined by ``near_tie``.
+    With ``hold``, a difference that is not a near-tie fails."""
+    cfg, model, params = pieces
+    diffs = []
+    for prompt, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            diffs.append(dict(lengths=[len(g), len(w)]))
+            if hold:
+                _fail(f"{label}: streams of unequal length {g} / {w}")
+            continue
+        tie = near_tie(model, cfg, params, list(prompt) + w[:j], g[j], w[j],
+                       dev)
+        diffs.append(tie)
+        if hold and not tie["near_tie"]:
+            _fail(f"{label}: speculative stream {g} departs from {w} at "
+                  f"token {j}, not a near-tie ({tie})")
+    out = dict(streams=len(got), equal=len(got) - len(diffs), diffs=diffs)
+    print(f"[spec] {label}: {out['equal']}/{len(got)} streams equal the "
+          f"non-speculative ones" + (f"; first differences {diffs}"
+                                      if diffs else ""), flush=True)
+    return out
+
+
+def spec_full_width(pieces, dev, totals, nonspec_streams):
+    """Full-width speculative serving through the launcher (``--spec
+    --spec-k 4``, the default depth-1 draft), dense and with 16-token
+    pages, 4 slots, 8 requests: exact launches every tick (the verify's
+    448 ``scaled_matmul`` on the tensor cores at M = 20, 224 a draft pass
+    in the weight stream at M = 4, 28 ``paged_attn`` at T = 5 a paged
+    verify), s/tick, tokens/s, tokens a tick and the acceptance rate.
+    bf16 streams against phase 4's non-speculative ones are reported; in
+    fp32 compute both are run again and any difference must be a
+    near-tie (``near_tie``)."""
+    cfg, model, params = pieces
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    base = ["--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
+            "pallas", "--slots", "4", "--prompt-len", "64", "--gen", "16",
+            "--requests", "8", "--device", "cuda"]
+    spec = ["--spec", "--spec-k", str(SPEC_K)]
+    out = {}
+    for paged in (False, True):
+        layout = ["--paged", "--block-size", "16"] if paged else []
+        name = "paged" if paged else "dense"
+        label = f"full width spec {name}"
+        info, reqs, eng, recs = serve_path(
+            label, base + layout + spec, (cfg, model, params), totals,
+            ("scaled_matmul",) + (("paged_attn",) if paged else ()),
+            record=True)
+        prompts = [r.prompt for r in reqs]
+        info["ticks"] = check_ticks(label, eng, recs, 64)
+        print(f"[spec] {label}: launches a tick by kind "
+              f"{json.dumps(info['ticks'])}", flush=True)
+        info["bf16_vs_nonspec"] = compare_streams(
+            label + " bf16", (cfg, model, params), prompts, streams_of(reqs),
+            nonspec_streams[name], dev, hold=False)
+        nonspec32 = streams_of(serve_path(
+            f"full width {name} fp32 (no speculation)", base + layout,
+            (cfg32, model, params), totals, ("scaled_matmul",))[1])
+        info32, reqs32, _, _ = serve_path(
+            f"full width spec {name} fp32", base + layout + spec,
+            (cfg32, model, params), totals, ("scaled_matmul",))
+        spec32 = streams_of(reqs32)
+        info["fp32"] = dict(info32, vs_nonspec=compare_streams(
+            label + " fp32", (cfg32, model, params), prompts, spec32,
+            nonspec32, dev, hold=True))
+        info["acceptance_rate_fp32"] = info32["acceptance_rate"]
+        out[name] = info
     return out
 
 
@@ -1570,30 +1930,40 @@ def train_smoke(totals, device="cuda"):
 
 #: the overload phase's fault plan: two corrupt-logit ticks (every slot's
 #: ids are garbage and heal by requeue), a few denied pages, and three
-#: consecutive simulated slow ticks after the watchdog's warm-up (not
-#: slept: 30 s is added to what the watchdog sees), so the ladder must
-#: step down to ``shed``
+#: runs of three consecutive simulated slow ticks, each after the
+#: watchdog's warm-up (not slept: 30 s is added to what the watchdog
+#: sees), so the speculative ladder must step down through ``spec_half``
+#: and ``spec_off`` to ``shed``
 OVERLOAD_FAULTS = dict(seed=7, nan_ticks=(5, 13), p_alloc_fail=0.03,
-                       slow_ticks=(8, 9, 10), slow_extra_s=30.0)
+                       slow_ticks=(8, 9, 10, 14, 15, 16, 20, 21, 22),
+                       slow_extra_s=30.0)
 
 
 def overload_full_width(dev, totals):
-    """Serve full-width Qwen3-1.7B with ACDC projections, paged with
-    16-token pages, through the launcher's ``build``/``serve``: 4 slots, 10
-    requests (prompts <= 64, 16 new tokens), a 600 s deadline on half of
-    them (wide: no request may time out however slow the host), two
-    priority bands, a metrics JSONL and a span trace, under
-    ``OVERLOAD_FAULTS``.  Fails unless every request is terminal, the pool
-    audits clean, a corrupt tick was healed by requeue, the ladder stepped
-    down, the trace holds one terminal per request, the last JSONL
-    snapshot equals ``eng.stats``, and every ``eos``/``length`` stream is,
-    segment by segment, what a fault-free, deadline-free run on the same
-    weights generates from the same context: the segments are cut at the
-    request's prefills (from the trace), the first from its prompt, each
-    later one from its prompt plus the tokens before it.  (A re-prefill
-    rounds in bf16 otherwise than the decode steps it replaces, so a
-    requeued stream need not continue the undisturbed one token for token;
-    how many do is reported.)"""
+    """Serve full-width Qwen3-1.7B with ACDC projections in fp32 compute,
+    paged with 16-token pages and speculative (``--spec --spec-k 4``),
+    through the launcher's ``build``/``serve``: 4 slots, 10 requests
+    (prompts <= 64,
+    16 new tokens), a 600 s deadline on half of them (wide: no request
+    may time out however slow the host), two priority bands, a metrics
+    JSONL and a span trace, under ``OVERLOAD_FAULTS``.  Fails unless every
+    request is terminal, the pool audits clean, a corrupt tick was healed
+    by requeue, the ladder walked ``full`` -> ``spec_half`` ->
+    ``spec_off`` -> ``shed`` and (idle ticks after the run) back to
+    ``full``, the trace holds one terminal per request, the last JSONL
+    snapshot equals ``eng.stats``, and every ``eos``/``length`` stream
+    is, segment by segment, what a fault-free, deadline-free speculative
+    run on the same weights generates from the same context: the
+    segments are cut at the request's prefills (from the trace), the
+    first from its prompt, each later one from its prompt plus the tokens
+    before it.  A segment may differ only at a near-tie (``near_tie``,
+    reported): a re-prefill, and a tick at another ladder rung (another
+    speculation depth, so another ``scaled_matmul`` regime), sum otherwise
+    than the ticks they replace.  fp32 compute, since in bf16 those
+    differences round to flips well beyond a near-tie's measured drift
+    (on an H100 80GB HBM3 at 700 W a bf16 speculative stream departed
+    where the two tokens' fp64 gap was 2.5 x the measured drift); how
+    many streams equal the undisturbed ones is reported."""
     import torch
 
     from repro_torch.launch import serve
@@ -1608,10 +1978,11 @@ def overload_full_width(dev, totals):
         "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
         "--slots", "4", "--prompt-len", "64", "--gen", "16", "--requests",
         "10", "--paged", "--block-size", "16", "--deadline-s", "600",
+        "--spec", "--spec-k", str(SPEC_K),
         "--priorities", "2", "--metrics-jsonl", str(metrics_path),
         "--metrics-every", "5", "--trace-out", str(trace_path),
         "--device", str(dev)])
-    cfg, model, params = serve.build(args)
+    cfg, model, params = serve.build(args, dtype="float32")
     fault = FaultPlan(**OVERLOAD_FAULTS)
     reset_counts()
     eng, reqs, dt = serve.serve(args, cfg, model, params, fault=fault)
@@ -1634,8 +2005,11 @@ def overload_full_width(dev, totals):
         _fail("overload: pages leaked")
     if not (s["corrupt_ticks"] >= 1 and s["requeued"] >= 1):
         _fail(f"overload: no corrupt tick healed by requeue ({s})")
-    if not s["degrade_down"] >= 1:
-        _fail(f"overload: the ladder never stepped down ({s})")
+    down = [i.args["dst"] for i in eng.obs.tracer.instants
+            if i.name == "ladder" and i.args["direction"] == "down"]
+    if down[:3] != ["spec_half", "spec_off", "shed"]:
+        _fail(f"overload: the ladder stepped down {down}, not through "
+              f"spec_half and spec_off to shed ({s})")
 
     trace = json.loads(trace_path.read_text())
     names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
@@ -1661,14 +2035,24 @@ def overload_full_width(dev, totals):
     Engine(model, cfg, params, n_slots=args.slots,
            max_len=args.prompt_len + args.gen + 1,
            max_prompt_len=args.prompt_len, paged=True,
-           block_size=args.block_size).run([f for *_, f in fresh],
-                                           max_ticks=4000)
+           block_size=args.block_size, spec_k=SPEC_K).run(
+               [f for *_, f in fresh], max_ticks=4000)
     torch.cuda.synchronize(dev)
+    ties = []
     for r, k, end, f in fresh:
-        if r.generated[k:end] != f.generated[:end - k]:
-            _fail(f"overload: rid {r.rid} tokens {k}:{end} "
-                  f"{r.generated[k:end]} != a fault-free run from the same "
-                  f"context {f.generated[:end - k]}")
+        got, want = r.generated[k:end], f.generated[:end - k]
+        if got == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        tie = near_tie(model, cfg, params,
+                       list(r.prompt) + r.generated[:k + j], got[j],
+                       want[j], dev)
+        tie["rid"] = r.rid
+        ties.append(tie)
+        if not tie["near_tie"]:
+            _fail(f"overload: rid {r.rid} tokens {k}:{end} {got} != a "
+                  f"fault-free run from the same context {want}, and not "
+                  f"at a near-tie ({tie})")
     if not fresh:
         _fail("overload: no request finished normally")
     # the fault-free, deadline-free run of each prompt is its first
@@ -1692,7 +2076,21 @@ def overload_full_width(dev, totals):
             if kind != "derived"}
     if any(snap[k] != s[k] for k in snap):
         _fail(f"overload: last JSONL snapshot {snap} != stats {s}")
+    # idle ticks after the run (the bundle is closed: export nothing more)
+    # walk the ladder back up after sustained calm
+    eng.obs.exporter = None
+    for _ in range(3 * eng.degrade_up_after + 3):
+        if eng.degrade_level == "full":
+            break
+        eng.tick()
+    walk = [i.args["dst"] for i in eng.obs.tracer.instants
+            if i.name == "ladder"]
+    if eng.degrade_level != "full" or eng.spec_k_eff != SPEC_K:
+        _fail(f"overload: the ladder did not walk back to full ({walk})")
+    print(f"[overload] ladder {walk}; segments at near-ties {ties}",
+          flush=True)
     return dict(stats=s, faults=dict(fault.injected), wall_s=dt,
+                ladder=walk, near_ties=ties,
                 launches=counts, segments_checked=len(fresh),
                 streams_equal_undisturbed=undisturbed,
                 requeued_rids=[r.rid for r in requeued],
@@ -1711,10 +2109,13 @@ PRIMARY_KERNELS = {"scaled_matmul": ("smm_stream", "smm_tc"),
                    "paged_attn": ("paged_split",)}
 
 
-def check_profile(label, logdir, summary, wrapper_counts) -> dict:
+def check_profile(label, logdir, summary, wrapper_counts,
+                  regimes=None) -> dict:
     """A window's digest, held to its kernel events: the window must hold
     CUDA kernels, and each wrapper's primary kernels in the trace must
-    number the wrapper's own launch count over the same window."""
+    number the wrapper's own launch count over the same window (with
+    ``regimes``, ``smm_stream`` and ``smm_tc`` each the count of launches
+    in that regime)."""
     if summary["kernels"] == 0:
         _fail(f"profile {label}: no CUDA kernel events in the window")
     trace = json.loads((Path(logdir) / "trace.json").read_text())
@@ -1726,6 +2127,12 @@ def check_profile(label, logdir, summary, wrapper_counts) -> dict:
         if n != wrapper_counts[name]:
             _fail(f"profile {label}: {n} {name} kernels in the trace, the "
                   f"wrapper counted {wrapper_counts[name]}")
+    for regime, n in (regimes or {}).items():
+        got = sum(f"smm_{regime}" in k for k in kernels)
+        if got != n:
+            _fail(f"profile {label}: {got} smm_{regime} kernels in the "
+                  f"trace, {n} launches in that regime")
+        seen[f"smm_{regime}"] = got
     keep = ROOT / "chiprun_out" / "profile" / label.replace(" ", "_")
     keep.mkdir(parents=True, exist_ok=True)
     for name in ("key_averages.txt", "summary.json"):
@@ -1744,8 +2151,11 @@ def check_profile(label, logdir, summary, wrapper_counts) -> dict:
 
 def profile_full_width(dev):
     """``torch.profiler`` windows at full width: 8 steady decode ticks
-    (ticks 4..11, every slot decoding, no admission) dense and paged
-    through the ported ``ProfileWindow``, one 64-token prefill admission
+    (ticks 4..11, every slot decoding, no admission) dense and paged and
+    3 steady speculative ticks paged (ticks 4..6, ``spec_k`` 4, the
+    depth-1 draft; their ``smm_stream`` / ``smm_tc`` kernels each held to
+    the launches in that regime) through the ported ``ProfileWindow``,
+    one 64-token prefill admission
     (a one-token request: its tick admits, samples and finishes), and one
     AdamW train step (B.S = 512) after two unprofiled ones.  Each window's
     digest (``obs.prof.summarize``) is printed and kept; the tick times
@@ -1768,27 +2178,37 @@ def profile_full_width(dev):
         "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
         "--device", str(dev)])
     cfg, model, params = serve.build(args)
-    first, last = 4, 11
-    for paged in (False, True):
-        label = "decode " + ("paged" if paged else "dense")
+    for label, paged, spec_k, first, last in (
+            ("decode dense", False, 0, 4, 11),
+            ("decode paged", True, 0, 4, 11),
+            ("spec paged", True, SPEC_K, 4, 6)):
         window = ProfileWindow(f"{first}:{last}", str(root / label), dev)
         obs = Observability(window=window, prof=Prof(enabled=True))
         eng = Engine(model, cfg, params, n_slots=4, max_len=81,
-                     max_prompt_len=64, paged=paged, block_size=16, obs=obs)
+                     max_prompt_len=64, paged=paged, block_size=16, obs=obs,
+                     spec_k=spec_k)
         for r in make_ragged_requests(cfg.vocab_size, 8, 64, 16):
             eng.submit(r)
         tick, counts, tick_s = 0, {}, []
-        while eng.has_work:
-            if tick in (first, last + 1):
-                counts[tick] = read_counts()
-            t0 = time.perf_counter()
-            eng.tick()
-            tick_s.append(time.perf_counter() - t0)
-            tick += 1
+        with tick_recorder() as recs:
+            while eng.has_work:
+                if tick in (first, last + 1):
+                    counts[tick] = read_counts()
+                t0 = time.perf_counter()
+                eng.tick()
+                tick_s.append(time.perf_counter() - t0)
+                tick += 1
         obs.close(tick)
         wrappers = {k: counts[last + 1][k] - counts[first][k]
                     for k in counts[first]}
-        info = check_profile(label, window.logdir, window.summary, wrappers)
+        inside = recs[first:last + 1]
+        if any(r["prefills"] or r["k"] != spec_k for r in inside):
+            _fail(f"profile {label}: ticks {first}..{last} are not steady "
+                  f"{inside}")
+        regimes = {reg: sum(r["launches"].get(f"scaled_matmul_{reg}", 0)
+                            for r in inside) for reg in ("stream", "tc")}
+        info = check_profile(label, window.logdir, window.summary, wrappers,
+                             regimes)
         # ticks 1..3 and 13..14: decode only, outside the window (tick 12
         # pays the window's stop and trace export)
         outside = tick_s[1:first] + tick_s[last + 2:last + 4]
@@ -1917,20 +2337,23 @@ def main() -> int:
     full = base + ["--gen", "16", "--requests", "8"]
     # warm-up: one short request so the timed runs do not pay the
     # first-call set-up of the libraries (not a main-path run)
+    pieces = model_for({}, base)
     serve_path("warm-up", base + ["--gen", "2", "--requests", "1"],
-               params_cache, {k: 0 for k in KERNEL_MODULES}, ())
+               pieces, {k: 0 for k in KERNEL_MODULES}, ())
+    nonspec_streams = {}
     for paged in (False, True):
         label = "full width " + ("paged" if paged else "dense")
-        info, _ = serve_path(
-            label, full + (["--paged"] if paged else []), params_cache,
-            totals, ("scaled_matmul",) + (("paged_attn",) if paged
-                                         else ()))
+        info, reqs, _, _ = serve_path(
+            label, full + (["--paged"] if paged else []), pieces, totals,
+            ("scaled_matmul",) + (("paged_attn",) if paged else ()))
+        nonspec_streams[label.split()[-1]] = streams_of(reqs)
         paths.append(info)
-    report["full_width_logits"] = compare_full_width_logits(
-        params_cache, dev)
+    report["full_width_logits"] = compare_full_width_logits(pieces, dev)
     report["full_width_logits_fp32"] = compare_full_width_logits(
-        params_cache, dev, dtype="float32")
-    del params_cache[(False, 2)]
+        pieces, dev, dtype="float32")
+    report["spec_full_width"] = spec_full_width(pieces, dev, totals,
+                                                nonspec_streams)
+    del pieces
     torch.cuda.empty_cache()
 
     smoke = ["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
@@ -1941,17 +2364,20 @@ def main() -> int:
             ("smoke paged", ["--paged", "--block-size", "4"], 2,
              ("acdc_cascade", "paged_attn")),
             ("smoke K=1", [], 1, ("acdc_fused",))):
-        info, streams = serve_path(label, smoke + extra, params_cache,
-                                   totals, need, sell_k)
+        pieces = model_for(params_cache, smoke, sell_k=sell_k)
+        info, reqs, _, _ = serve_path(label, smoke + extra, pieces, totals,
+                                      need)
+        streams = streams_of(reqs)
         with plain_kernels():
-            _, plain_streams = serve_path(
-                label + " (plain)", smoke + extra, params_cache,
-                {k: 0 for k in KERNEL_MODULES}, (), sell_k)
+            plain_streams = streams_of(serve_path(
+                label + " (plain)", smoke + extra, pieces,
+                {k: 0 for k in KERNEL_MODULES}, ())[1])
         if streams != plain_streams:
             _fail(f"{label}: greedy streams differ between kernels and "
                   f"plain versions")
         info["streams_identical_to_plain"] = True
         paths.append(info)
+    report["spec_smoke"] = smoke_spec(params_cache, totals)
     report["paths"] = paths
     report["train_full_width"] = train_full_width(dev, totals)
     report["train_smoke"] = train_smoke(totals)

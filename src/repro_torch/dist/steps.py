@@ -1,12 +1,12 @@
 """Train and serve step builders (port of :mod:`repro.dist.steps`): the
 train state and train step with gradient accumulation, prefill (dense
-and paged), the decode step with on-device sampling, and the dense slot
-insert.
+and paged), the decode step with on-device sampling, the speculative
+verify step, and the dense slot insert.
 
 PyTorch runs eagerly, so a "step" is a plain closure over (model, cfg,
 opt); there is nothing to compile.  Parameters, optimizer moments and
-caches are updated in place.  The compressed gradient all-reduce, the
-verify step and the sharding rules wait (ROADMAP.md).
+caches are updated in place.  The compressed gradient all-reduce and the
+sharding rules wait (ROADMAP.md).
 
 Train state layout (the reference's, so checkpoints and
 :mod:`repro_torch.bridge` carry it between the packages)::
@@ -169,6 +169,74 @@ def make_serve_step(model, cfg, sample: str = "greedy",
         logits, cache = model.decode_step(params, cache, tokens, position,
                                           cfg)
         return _sample(logits, generator), cache
+
+    return step
+
+
+def make_verify_step(model, cfg, sample: str = "greedy",
+                     temperature: float = 1.0, top_k: int = 0,
+                     top_p: float = 0.0, paged: bool = False,
+                     park: Optional[int] = None) -> Callable:
+    """The speculative verify step: append k+1 tokens a slot, score them,
+    accept, commit.
+
+    ``step(params, cache, tokens (B, k+1), drafts (B, k), draft_logits
+    (B, k, V) | None, position (B,)[, block_tables], generator) ->
+    (accepted (B,), out_tokens (B, k+1), cache)``
+
+    ``tokens`` is ``[pending, d_1 .. d_k]`` a row; the model's
+    ``verify_step`` scores every position against the cache (set-written
+    in place), acceptance is exact match (greedy) or rejection sampling
+    (temp, :mod:`repro_torch.spec.verify`, drawing from ``generator``),
+    and ``out_tokens[:, :n+1]`` is the committed stream (accepted drafts
+    plus the correction or bonus token at index n).  KV rows past the
+    accepted frontier stay written and are rewound by position; recurrent
+    leaves, where a family has them, are re-selected at each row's
+    accepted length, and ``park`` is the engine's parked-row sentinel
+    (rows at or beyond it, free or stalled, commit 0 tokens).
+    ``paged=True`` verifies through the paged-attention kernel at
+    T = k + 1.
+    """
+    from repro_torch.spec import verify as verify_mod
+
+    if sample not in ("greedy", "temp"):
+        raise ValueError(f"unknown sampler {sample!r}")
+    vfn = model.verify_step_paged if paged else model.verify_step
+    if vfn is None:
+        raise ValueError(
+            f"family {cfg.family!r} has no "
+            f"{'paged ' if paged else ''}speculative verify path")
+
+    def _accept_commit(logits, states, cache, drafts, draft_logits,
+                       position, generator):
+        if sample == "greedy":
+            n, nxt = verify_mod.greedy_accept(logits, drafts)
+        else:
+            n, nxt = verify_mod.rejection_accept(
+                generator, logits, draft_logits, drafts,
+                temperature=temperature, top_k=top_k, top_p=top_p)
+        out = verify_mod.committed_tokens(drafts, n, nxt)
+        if states is not None:
+            advancing = (position < park) if park is not None else True
+            n_adv = torch.where(advancing, n + 1, torch.zeros_like(n))
+            cache = verify_mod.commit_states(cache, states, n_adv)
+        return n, out, cache
+
+    if paged:
+        def paged_step(params, cache, tokens, drafts, draft_logits,
+                       position, block_tables, generator=None):
+            logits, cache, states = vfn(params, cache, tokens, position,
+                                        block_tables, cfg)
+            return _accept_commit(logits, states, cache, drafts,
+                                  draft_logits, position, generator)
+
+        return paged_step
+
+    def step(params, cache, tokens, drafts, draft_logits, position,
+             generator=None):
+        logits, cache, states = vfn(params, cache, tokens, position, cfg)
+        return _accept_commit(logits, states, cache, drafts, draft_logits,
+                              position, generator)
 
     return step
 

@@ -9,8 +9,13 @@ prefill each, advances all active slots with one decode step per tick,
 and evicts finished requests so the batch stays full.  ``--paged
 --block-size 16 [--blocks N]`` serves from the paged KV pool.
 ``--static`` runs one batched prefill and a lockstep decode instead (no
-slot reuse), for A/B runs.  Weights are random, drawn from ``--seed``.
-Runs on ``--device cuda`` (the default) or ``cpu``.
+slot reuse), for A/B runs.  ``--spec [--spec-k 4] [--draft-depth K/2]
+[--spec-skip-layers J]`` turns on speculative decoding: the target's own
+truncated ACDC cascades draft ``--spec-k`` tokens a tick and one verify
+pass scores them all, so each slot advances by its accepted length a
+target pass (greedy streams equal the non-speculative engine's).
+Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
+(the default) or ``cpu``.
 
 Overload and observability (engine path only): ``--deadline-s S`` gives
 a ``--deadline-frac`` share of the requests a latency SLO (admission turns
@@ -62,7 +67,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "kernels) is ported")
     ap.add_argument("--sell-transform", default="acdc",
                     help="transform family (acdc | circulant | hadamard)")
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--requests", type=int, default=12)
@@ -78,6 +83,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="token positions per KV page (paged mode)")
     ap.add_argument("--blocks", type=int, default=None,
                     help="pool size in pages; default = dense parity")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding: truncated-cascade "
+                         "self-draft + one batched k-token verify per tick")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative tick")
+    ap.add_argument("--draft-depth", type=int, default=None,
+                    help="cascade layers the draft keeps "
+                         "(default sell_k // 2)")
+    ap.add_argument("--spec-skip-layers", type=int, default=0,
+                    help="also drop this many top transformer blocks "
+                         "from the draft")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="give a fraction of requests this latency SLO; "
                          "admission turns earliest-deadline-first and "
@@ -110,6 +126,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.paged and args.static:
         ap.error("--paged applies to the engine path, not --static")
+    if args.spec and args.static:
+        ap.error("--spec applies to the engine path, not --static")
     if args.static and (args.metrics_jsonl or args.trace_out
                         or args.profile_ticks or args.deadline_s):
         ap.error("--metrics-jsonl/--trace-out/--profile-ticks/--deadline-s "
@@ -171,7 +189,14 @@ def serve(args: argparse.Namespace, cfg, model, params, fault=None):
                  temperature=args.temperature, top_k=args.top_k,
                  top_p=args.top_p, seed=args.seed, paged=args.paged,
                  block_size=args.block_size, n_blocks=args.blocks,
+                 spec_k=args.spec_k if args.spec else 0,
+                 draft_depth=args.draft_depth,
+                 draft_skip_layers=args.spec_skip_layers,
                  fault=fault, obs=obs)
+    if args.spec:
+        print(f"[spec] k={eng.spec_k} draft={type(eng.draft).__name__} "
+              f"depth={getattr(eng.draft, 'depth', '-')} "
+              f"skip_layers={getattr(eng.draft, 'skip_layers', 0)}")
     deadline_range = None
     if args.deadline_s is not None:
         deadline_range = (args.deadline_s, args.deadline_s)
@@ -216,6 +241,11 @@ def report(eng: Engine, reqs, dt: float, trace_out=None) -> None:
               f"{s['timeout']} timed out | {s['rejected']} shed | "
               f"ladder down/up {s['degrade_down']}/{s['degrade_up']} "
               f"(now {eng.degrade_level})")
+    if eng.spec_k:
+        print(f"[spec] {s['accepted']}/{s['drafted']} drafts accepted "
+              f"(rate {s['acceptance_rate']:.3f}) | {s['decode_ticks']} "
+              f"verify dispatches for {toks} tokens "
+              f"({toks / max(s['decode_ticks'], 1):.2f} tok/dispatch)")
     ttft = [r.t_first_token - r.t_submit for r in reqs
             if r.t_first_token is not None]
     if ttft:

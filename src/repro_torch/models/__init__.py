@@ -12,8 +12,16 @@
     model.init_cache_paged(cfg, batch, n_blocks, block_size, device)
     model.decode_step_paged(params, cache, t, pos, tables, cfg)
                                                 -> (logits, cache)
+    model.verify_step(params, cache, toks (B,T), pos, cfg)
+                                                -> (logits (B,T,V), cache,
+                                                    states | None)
+    model.verify_step_paged(params, cache, toks, pos, tables, cfg)
+                                                -> same, paged KV
 
-The ssm, hybrid and encdec families and the verify steps are not ported
+The verify pair is the speculative-decoding append-and-score path (KV
+set-written, so a rollback is a position rewind); ``states`` would carry
+per-position snapshots of the ``recurrent_keys`` cache leaves, which the
+decoder has none of.  The ssm, hybrid and encdec families are not ported
 yet (ROADMAP.md).
 """
 
@@ -36,6 +44,10 @@ class Model:
     prefill: Optional[Callable] = None
     init_cache_paged: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
+    verify_step: Optional[Callable] = None
+    verify_step_paged: Optional[Callable] = None
+    #: cache keys whose state is truly recurrent (snapshot rollback)
+    recurrent_keys: tuple = ()
     module: Any = None
 
 
@@ -57,5 +69,8 @@ def get_model(cfg: ModelConfig) -> Model:
         prefill=mod.prefill,
         init_cache_paged=mod.init_cache_paged,
         decode_step_paged=mod.decode_step_paged,
+        verify_step=getattr(mod, "verify_step", None),
+        verify_step_paged=getattr(mod, "verify_step_paged", None),
+        recurrent_keys=tuple(getattr(mod, "RECURRENT_CACHE_KEYS", ())),
         module=mod,
     )

@@ -2,13 +2,19 @@
 caches (port of the self-attention half of :mod:`repro.models.attention`).
 
 Prefill runs flash-structured (online softmax over KV chunks) or plain
-SDPA per ``cfg.attn_impl``; decode appends one token to a dense
-``(B, Smax, Hkv, Dh)`` cache slice, or — paged — writes through the
-block table and attends with the paged-attention kernel.  Caches are
-updated IN PLACE (the reference returns new arrays; the port keeps one
-buffer and says so in each function).  Windows are host ints per layer
-(0 = global).  Cross-attention and the speculative verify path are not
-ported yet.
+SDPA per ``cfg.attn_impl``.  Decode and the speculative verify are one
+path: :func:`attention_verify` appends and scores T tokens (decode is
+T = 1) against a dense ``(B, Smax, Hkv, Dh)`` cache slice, or — paged,
+:func:`attention_verify_paged` — writes through the block table and
+attends with the paged-attention kernel.  Caches are updated IN PLACE
+(the reference returns new arrays; the port keeps one buffer and says so
+in each function).  Windows are host ints per layer (0 = global).
+Cross-attention is not ported yet.
+
+Every dense write SETS its cache rows.  The reference's dense decode adds
+into them (``cache_k + onehot * k``), which leaves a rejected draft's
+stale K/V summed into the next decode once speculation is switched off;
+the port does not copy that.
 """
 
 from __future__ import annotations
@@ -192,44 +198,79 @@ def scatter_prefill_pages(pages: torch.Tensor, slab: torch.Tensor,
     return pages
 
 
-def attention_decode(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
+def _set_rows(caches, pos: torch.Tensor, news) -> None:
+    """Set ``cache[b, pos[b, t]] = new[b, t]`` IN PLACE, for each pair of
+    ``caches`` (B, Smax, ...) and ``news`` (B, T, ...), at every
+    ``pos < Smax``; positions at or beyond ``Smax`` write nothing (the
+    reference's ``mode="drop"``).  Without a host sync: dropped entries
+    are clamped to ``Smax - 1`` and write there the value that row's
+    ``Smax - 1`` ends up with (its new value if a token lands there, else
+    the old one), so the duplicate indices all carry one value.  At T = 1
+    (decode) there are no duplicates, and none of that is launched."""
+    smax = caches[0].shape[1]
+    t = pos.shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    idx = torch.clamp(pos.long(), max=smax - 1)                  # (B, T)
+    live = (pos < smax)[:, :, None, None]
+    src = None
+    if t > 1:
+        src = torch.clamp(smax - 1 - pos[:, :1].long(), 0, t - 1)  # (B, 1)
+        src = torch.minimum(torch.arange(t, device=pos.device)[None, :],
+                            src)[:, :, None, None]
+    for cache, new in zip(caches, news):
+        vals = torch.where(live, new.to(cache.dtype), cache[rows, idx])
+        if src is not None:
+            vals = torch.gather(vals, 1, src.expand_as(vals))
+        cache[rows, idx] = vals
+
+
+def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, position: torch.Tensor,
                      window: int, cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One token per row against the dense cache slice (B, Smax, Hkv, Dh),
-    written IN PLACE at ``position``; rows parked at ``position >= Smax``
-    write nothing.  Returns (out (B, 1, D), cache_k, cache_v)."""
-    b = x.shape[0]
+    """Append-and-score T tokens against the dense cache in one pass (the
+    speculative verify; decode is T = 1).
+
+    Row ``b``'s tokens x (B, T, D) occupy positions ``position[b] ..
+    position[b] + T - 1``, whose K/V are SET IN PLACE into the cache slice
+    (B, Smax, Hkv, Dh), so a rollback is a position rewind (stale rows
+    beyond the frontier sit past the causal mask until the next write
+    replaces them).  Positions at or beyond ``Smax`` write nothing, so
+    parked rows leave the cache alone.  Returns (out (B, T, D), cache_k,
+    cache_v)."""
+    b, t, _ = x.shape
     smax = cache_k.shape[1]
     q, k, v = _project_qkv(params, x, x, cfg)
-    pos2 = position[:, None]
-    q = apply_rope(q, pos2, cfg.rope_fraction, cfg.rope_theta)
-    k = apply_rope(k, pos2, cfg.rope_fraction, cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-    idx = torch.clamp(position.long(), max=smax - 1)
-    live = (position < smax)[:, None, None]
-    cache_k[rows, idx] = torch.where(live, k[:, 0].to(cache_k.dtype),
-                                     cache_k[rows, idx])
-    cache_v[rows, idx] = torch.where(live, v[:, 0].to(cache_v.dtype),
-                                     cache_v[rows, idx])
+    pos = position[:, None]                                 # (B, T)
+    if t > 1:
+        pos = pos + torch.arange(t, device=x.device)[None, :]
+    q = apply_rope(q, pos, cfg.rope_fraction, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_fraction, cfg.rope_theta)
+    _set_rows((cache_k, cache_v), pos, (k, v))
     k_pos = torch.arange(smax, device=x.device)[None, :]
-    mask = causal_window_mask(pos2, k_pos, window)          # (B, 1, Smax)
+    mask = causal_window_mask(pos, k_pos, window)           # (B, T, Smax)
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
     dh = cfg.head_dim_
-    out = out.reshape(b, 1, cfg.n_heads * dh)
+    out = out.reshape(b, t, cfg.n_heads * dh)
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
                               cfg.d_model, cfg, "attn_out")
     return out, cache_k, cache_v
 
 
-def _attention_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
-                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                     position: torch.Tensor, window: int, cfg: ModelConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Paged decode body (decode is T=1): the T new tokens' K/V go into
-    their tail pages IN PLACE (trash when unmapped or parked) and the
-    paged-attention kernel attends over the mapped prefix plus the new
-    tokens.  On CPU tensors the kernel's plain version runs."""
+def attention_verify_paged(params: dict, x: torch.Tensor,
+                           k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           position: torch.Tensor, window: int,
+                           cfg: ModelConfig
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Paged twin of :func:`attention_verify` (decode is T=1, verify
+    T=k+1): the T new tokens' K/V go into their tail pages IN PLACE (the
+    trash page when unmapped or parked: the engine maps the whole write
+    window or parks the row) and the paged-attention kernel attends over
+    the mapped prefix plus the new tokens; a rollback is a position rewind
+    plus returning over-mapped tail pages.  On CPU tensors the kernel's
+    plain version runs."""
     b, t, _ = x.shape
     dh = cfg.head_dim_
     q, k, v = _project_qkv(params, x, x, cfg)
@@ -245,15 +286,3 @@ def _attention_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
                               cfg.d_model, cfg, "attn_out")
     return out, k_pages, v_pages
-
-
-def attention_decode_paged(params: dict, x: torch.Tensor,
-                           k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           block_tables: torch.Tensor,
-                           position: torch.Tensor, window: int,
-                           cfg: ModelConfig
-                           ) -> Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
-    """Paged twin of :func:`attention_decode` (the T=1 case)."""
-    return _attention_paged(params, x, k_pages, v_pages, block_tables,
-                            position, window, cfg)

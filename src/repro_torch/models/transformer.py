@@ -178,37 +178,62 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
                     "v": torch.stack(vs).to(cache["v"].dtype)}
 
 
-def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
                 position: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, dict]:
-    """One decode step -> (logits (B, V), cache updated in place)."""
+                ) -> Tuple[torch.Tensor, dict, None]:
+    """Speculative append-and-score: tokens (B, T) at positions
+    ``position .. position + T - 1`` in one pass -> (logits (B, T, V),
+    cache set-written in place, None).  Logits at ``i`` score the token
+    after ``tokens[:, i]``, as ``decode_step`` fed one token at a time
+    would; the KV cache needs no state selection (trailing ``None``)."""
     _check_family(cfg)
-    x = embed_lookup(params["embed"], tokens[:, None], cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     windows = cfg.layer_windows()
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
-        out, _, _ = attn_mod.attention_decode(
+        out, _, _ = attn_mod.attention_verify(
             layer["attn"], h, cache["k"][i], cache["v"][i], position,
             int(windows[i]), cfg)
         x = _ffn(layer, x + out, cfg)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)[:, 0], cache
+    return unembed(params["embed"], x), cache, None
+
+
+def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
+                      position: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, dict, None]:
+    """Paged twin of :func:`verify_step` (writes through the block table,
+    attends with the paged-attention kernel at T = tokens.shape[1])."""
+    _check_family(cfg)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    windows = cfg.layer_windows()
+    for i in range(cfg.n_layers):
+        layer = layer_params(params["layers"], i)
+        h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
+        out, _, _ = attn_mod.attention_verify_paged(
+            layer["attn"], h, cache["k_pages"][i], cache["v_pages"][i],
+            block_tables, position, int(windows[i]), cfg)
+        x = _ffn(layer, x + out, cfg)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return unembed(params["embed"], x), cache, None
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                position: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, dict]:
+    """One decode step -> (logits (B, V), cache updated in place): the
+    verify step at T = 1."""
+    logits, cache, _ = verify_step(params, cache, tokens[:, None], position,
+                                   cfg)
+    return logits[:, 0], cache
 
 
 def decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
                       position: torch.Tensor, block_tables: torch.Tensor,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
-    """One decode step against the paged pool (updated in place)."""
-    _check_family(cfg)
-    x = embed_lookup(params["embed"], tokens[:, None], cfg.compute_dtype)
-    windows = cfg.layer_windows()
-    for i in range(cfg.n_layers):
-        layer = layer_params(params["layers"], i)
-        h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
-        out, _, _ = attn_mod.attention_decode_paged(
-            layer["attn"], h, cache["k_pages"][i], cache["v_pages"][i],
-            block_tables, position, int(windows[i]), cfg)
-        x = _ffn(layer, x + out, cfg)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)[:, 0], cache
+    """One decode step against the paged pool (updated in place): the
+    paged verify step at T = 1."""
+    logits, cache, _ = verify_step_paged(params, cache, tokens[:, None],
+                                         position, block_tables, cfg)
+    return logits[:, 0], cache

@@ -37,10 +37,24 @@ with the most slack.
 
 **Graceful degradation**: a tick-latency watchdog
 (:class:`repro_torch.dist.elastic.StragglerMonitor`) plus pool-pressure and
-queue-depth signals step a reversible ladder — without speculative
-decoding it has two rungs, ``full`` and ``shed`` (the admission queue is
-bounded at ``queue_bound`` and the lowest-priority arrivals finish as
-``rejected``) — and step back up after sustained calm.
+queue-depth signals step a reversible ladder down, and back up after
+sustained calm: shrink ``spec_k`` (``spec_half``), then disable
+speculation (``spec_off``), then bound the admission queue at
+``queue_bound`` and shed the lowest-priority arrivals (``shed``,
+``finish_reason="rejected"``).  Without speculation the ladder is
+``full``, ``shed``.  Ladder moves never change greedy token streams:
+speculation is exact at any k, including 0, because every KV write SETS
+its row (the reference's dense decode adds into it, so its streams can
+change when it steps to ``spec_off`` after rejections; ROADMAP.md §3).
+
+**Speculative decoding** (``spec_k > 0``) replaces the one-token decode
+tick with draft -> verify -> accept/rollback: a cheap draft
+(:mod:`repro_torch.spec.draft`, by default the target's own cascades cut
+to ``max(1, sell_k // 2)`` layers) proposes ``spec_k`` tokens a slot, ONE
+verify pass of the target scores them
+(:func:`repro_torch.dist.steps.make_verify_step`; paged, through the
+paged-attention kernel at T = ``spec_k + 1``), and each slot advances by
+its accepted length.  Greedy streams equal the non-speculative engine's.
 
 Fault injection (``fault=FaultPlan(...)``,
 :mod:`repro_torch.serving.faults`) and observability (``obs=``,
@@ -48,9 +62,6 @@ Fault injection (``fault=FaultPlan(...)``,
 tracing, profiler ranges and windows) are the reference's, each a single
 ``None`` check when off.  With a ``clock``, every duration and timestamp
 comes from it, so a virtual-clock run is deterministic.
-
-Not ported yet: speculative decoding (``spec_k``, ``draft``; ROADMAP.md
-§1 item 4).
 """
 
 from __future__ import annotations
@@ -121,6 +132,8 @@ class Engine:
         age_limit: int = 16,
         spec_k: int = 0,
         draft=None,
+        draft_depth: Optional[int] = None,
+        draft_skip_layers: int = 0,
         clock: Optional[Callable[[], float]] = None,
         fault: Optional[FaultPlan] = None,
         obs: Optional[Observability] = None,
@@ -129,12 +142,10 @@ class Engine:
         degrade_down_after: int = 3,
         degrade_up_after: int = 12,
     ):
-        if spec_k or draft is not None:
-            raise NotImplementedError(
-                "speculative decoding (spec_k, draft) is not ported yet "
-                "(ROADMAP.md §1 item 4)")
         if model.prefill is None or model.decode_step is None:
             raise ValueError(f"family {cfg.family!r} cannot serve")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 disables)")
         self.model = model
         self.cfg = cfg
         self.params = params
@@ -228,9 +239,22 @@ class Engine:
         self._backoff: List[Tuple[int, Request]] = []
         self._tick_no = 0
 
-        # graceful-degradation ladder (the reference's, without the
-        # speculative rungs): shedding is the only step down
-        self._levels = ["full", "shed"]
+        self.spec_k = spec_k
+        self.spec_k_eff = spec_k
+        self.draft = None
+        if spec_k:
+            self._init_spec(spec_k, draft, draft_depth, draft_skip_layers,
+                            sample, temperature, top_k, top_p)
+
+        # graceful-degradation ladder: reversible step-downs, cheapest
+        # first (shrinking speculation costs acceptance, never tokens),
+        # shedding strictly last
+        self._levels = ["full"]
+        if spec_k >= 2:
+            self._levels.append("spec_half")
+        if spec_k >= 1:
+            self._levels.append("spec_off")
+        self._levels.append("shed")
         self._level = 0
         self._hot = 0
         self._calm = 0
@@ -238,6 +262,39 @@ class Engine:
         self.degrade_up_after = degrade_up_after
         self._watchdog = StragglerMonitor(alpha=0.2, factor=3.0, warmup=3,
                                           adapt_after=5)
+
+    def _init_spec(self, spec_k, draft, draft_depth, draft_skip_layers,
+                   sample, temperature, top_k, top_p) -> None:
+        cfg = self.cfg
+        self._verify = steps_mod.make_verify_step(
+            self.model, cfg, sample=sample, temperature=temperature,
+            top_k=top_k, top_p=top_p, paged=self.paged, park=self._park)
+        if self.paged:
+            from repro_torch.kernels import paged_attn as paged_attn_mod
+
+            group = cfg.n_heads // cfg.n_kv_heads
+            if not paged_attn_mod.fits(cfg.n_kv_heads, cfg.head_dim_, group,
+                                       spec_k + 1):
+                most = min(paged_attn_mod.MAX_ROWS // group,
+                           paged_attn_mod.MAX_T) - 1
+                raise ValueError(
+                    f"paged spec_k={spec_k} verifies T={spec_k + 1} query "
+                    f"rows a KV head (group {group}); the paged-attention "
+                    f"kernel takes group*T <= {paged_attn_mod.MAX_ROWS} "
+                    f"and T <= {paged_attn_mod.MAX_T}, so spec_k <= {most} "
+                    "here (ROADMAP.md §2 item 6)")
+        if draft is None:
+            # the paper's own draft: the target's cascades truncated to
+            # half depth (sections 3-4)
+            from repro_torch.spec.draft import TruncatedCascadeDraft
+
+            depth = (draft_depth if draft_depth is not None
+                     else max(1, cfg.sell_k // 2))
+            draft = TruncatedCascadeDraft(cfg, self.params, depth=depth,
+                                          skip_layers=draft_skip_layers)
+        self.draft = draft
+        self.draft.prepare(self.n_slots, self.max_len, spec_k, sample,
+                           temperature, top_k, top_p)
 
     # -- accounting --------------------------------------------------------
 
@@ -269,15 +326,21 @@ class Engine:
 
     @property
     def cache_bytes(self) -> int:
-        """Bytes held by the decode cache (dense slabs or the page pool)."""
-        return sum(t.numel() * t.element_size() for t in self._cache.values())
+        """Bytes held by the decode cache (dense slabs or the page pool),
+        plus the draft's dense slot cache in speculative mode."""
+        total = sum(t.numel() * t.element_size()
+                    for t in self._cache.values())
+        if self.draft is not None:
+            total += self.draft.cache_bytes
+        return total
 
     def _attn_bytes_tick(self, pos: np.ndarray) -> None:
-        """Analytic attention K/V traffic of one paged decode tick (a
-        model, not a measurement), the reference's: ``attn_gather_bytes``
-        is what a gather of every slot's whole virtual row reads,
-        ``attn_kernel_bytes`` what the streaming kernel reads (each live
-        row's mapped prefix; parked and stalled rows cost nothing)."""
+        """Analytic attention K/V traffic of one paged decode or verify
+        tick (a model, not a measurement), the reference's:
+        ``attn_gather_bytes`` is what a gather of every slot's whole
+        virtual row reads, ``attn_kernel_bytes`` what the streaming kernel
+        reads (each live row's mapped prefix; parked and stalled rows cost
+        nothing)."""
         gather = kernel = 0
         for name, pages in self._cache.items():
             if "pages" not in name:
@@ -363,24 +426,28 @@ class Engine:
 
     def _admit_and_map(self) -> None:
         """Backoff release + admission + deadline preemption + (paged)
-        mapping of this tick's write page."""
+        mapping of this tick's write window (1 position, k+1 when
+        speculative)."""
         self._release_backoff()
         self._admit_pass()
         if self._deadline_preempt(self._clock()):
             self._admit_pass()
         if self.paged:
-            self._ensure_blocks()
+            self._ensure_blocks(need=(self.spec_k_eff or 0) + 1)
 
     def tick(self) -> int:
-        """Deadline sweep + admit + one decode step; returns the number of
-        active slots."""
+        """Deadline sweep + admit + one decode (or speculative) step;
+        returns the number of active slots."""
         tick_no = self._tick_no
         self._tick_no += 1
         if self._obs_tick is not None:    # exporter cadence + profile
             self._obs_tick(tick_no)       # window; None when neither set
         self._expire_deadlines(self._clock())
         t0 = self._timer()
-        n = self._tick_decode(tick_no)
+        if self.spec_k_eff:
+            n = self._tick_spec(tick_no)
+        else:
+            n = self._tick_decode(tick_no)
         dt = self._timer() - t0
         if self._fault is not None:
             extra = self._fault.extra_tick_s(tick_no)
@@ -438,6 +505,90 @@ class Engine:
             self._positions[slot] += 1
             self._tokens[slot] = t
             self._maybe_finish(slot, req, t, now)
+        return len(active)
+
+    def _tick_spec(self, tick_no: int) -> int:
+        """One speculative tick: draft k, verify once, advance each slot
+        by its accepted length, roll back the rest."""
+        k = self.spec_k_eff
+        self._admit_and_map()
+        active = self.scheduler.active()
+        if not active:
+            return 0
+        pos = self._positions.copy()
+        for slot in self._stalled:
+            pos[slot] = self._park  # no writes, no tokens this tick
+        if self.paged:
+            self._attn_bytes_tick(pos)
+
+        t0 = self._timer()
+        tokens, pos_dev = self._dev(self._tokens), self._dev(pos)
+        with self._prof.annotate("draft"):
+            drafts, draft_logits = self.draft.propose(tokens, pos_dev,
+                                                      self._gen)
+        tok_mat = torch.cat([tokens[:, None], drafts.to(tokens.dtype)],
+                            dim=1)
+        with self._prof.annotate("verify"):
+            if self.paged:
+                acc, out, self._cache = self._verify(
+                    self.params, self._cache, tok_mat, drafts, draft_logits,
+                    pos_dev, self._dev(self.allocator.table), self._gen)
+            else:
+                acc, out, self._cache = self._verify(
+                    self.params, self._cache, tok_mat, drafts, draft_logits,
+                    pos_dev, self._gen)
+            got = torch.cat([acc[:, None], out], dim=1).cpu().numpy()
+        acc_np, out_np = got[:, 0], got[:, 1:]
+        self.stats["decode_s"] += self._timer() - t0
+        self.stats["decode_ticks"] += 1
+        self.stats["stalled_slot_ticks"] += len(self._stalled)
+        corrupt = (self._fault is not None
+                   and self._fault.logits_corrupt(tick_no))
+        if corrupt:
+            self.stats["corrupt_ticks"] += 1
+            if self._tracer is not None:
+                self._tracer.instant("engine", "fault:corrupt_logits",
+                                     tick=tick_no)
+
+        now = self._clock()
+        n_adv = np.zeros((self.n_slots,), np.int32)
+        for slot, req in active:
+            if slot in self._stalled:
+                continue
+            if corrupt:
+                # simulated NaN/inf verify logits: commit nothing for the
+                # slot, heal by recompute (requeue -> re-prefill)
+                self._heal_or_kill(slot, req, now)
+                continue
+            n = int(acc_np[slot])
+            self.stats["drafted"] += k
+            self.stats["accepted"] += n
+            # commit the accepted drafts plus the correction/bonus token,
+            # applying the stop rules in stream order so EOS, budget and
+            # ceiling cut the stream where the non-speculative engine would
+            for i in range(n + 1):
+                t = int(out_np[slot, i])
+                if not 0 <= t < self.cfg.vocab_size:
+                    self._heal_or_kill(slot, req, now)
+                    break
+                req.generated.append(t)
+                self.stats["tokens_out"] += 1
+                self._positions[slot] += 1
+                self._tokens[slot] = t
+                n_adv[slot] += 1
+                self._maybe_finish(slot, req, t, now)
+                if req.done:
+                    break
+        self.draft.commit(n_adv)
+        if self.paged:
+            # rollback: return verify-window pages beyond each surviving
+            # slot's committed frontier; +1 keeps the page the NEXT tick
+            # writes first, so the admission pass cannot snatch it back
+            for slot, req in active:
+                if (req.status is RequestStatus.ACTIVE
+                        and slot not in self._stalled):
+                    self.allocator.trim_slot(
+                        slot, int(self._positions[slot]) + 1)
         return len(active)
 
     @property
@@ -601,8 +752,10 @@ class Engine:
                 self._calm = 0
 
     def _set_level(self, level: int) -> None:
-        """Apply one reversible ladder transition: it only gates NEW
-        admissions, so tokens already streaming never change."""
+        """Apply one reversible ladder transition: a level only changes
+        the speculation depth (greedy streams are the same at any k,
+        including 0) or gates NEW admissions (shedding), so tokens already
+        streaming never change."""
         if level > self._level:
             self.stats["degrade_down"] += 1
         else:
@@ -614,6 +767,14 @@ class Engine:
                 direction="down" if level > self._level else "up")
         self._level = level
         self.stats["degrade_level"] = level
+        k_eff = {"full": self.spec_k,
+                 "spec_half": max(1, self.spec_k // 2),
+                 "spec_off": 0,
+                 "shed": 0}[self._levels[level]]
+        if self.spec_k and k_eff != self.spec_k_eff:
+            self.spec_k_eff = k_eff
+            if k_eff and self.draft is not None:
+                self.draft.set_k(k_eff)
         # the per-tick cost legitimately changed with the level: re-seed
         # the watchdog baseline instead of flagging every healthy tick
         self._watchdog.reset()
@@ -645,6 +806,10 @@ class Engine:
                 self._cache = self._insert(self._cache, slot_cache, slot)
             tok = int(sampler_mod.sample(last, generator=self._gen,
                                          **self._sample_args)[0])
+            if self.draft is not None:
+                # the draft mirrors the slot layout: its own prefill fills
+                # its cache row, so drafting starts from the same context
+                self.draft.prefill(slot, self._dev(toks), lengths)
         self.stats["prefill_s"] += self._timer() - t0
         self.stats["prefill_dispatches"] += 1
         now = self._clock()

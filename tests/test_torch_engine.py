@@ -10,7 +10,8 @@ the deadlock breaker: with a prefill window wide enough to re-prefill, it
 preempts and requeues exactly as the reference does (streams, finish
 reasons and counts identical), and evicts once the requeue budget is
 spent.  The allocator and request-stream copies are held against the
-reference's; only speculative decoding is still refused.
+reference's; the speculative options are accepted and validated
+(their parity with the reference: tests/test_torch_spec.py).
 """
 
 import jax
@@ -203,12 +204,31 @@ def test_eos_stops_the_stream(models):
         [r.generated for i, r in enumerate(free) if i != 1]
 
 
-def test_unported_engine_options_raise(models):
-    """Only speculative decoding is still refused; deadlines, faults,
+def test_speculative_engine_options_accepted_and_validated(models):
+    """The speculative options are accepted (``spec_k``, ``draft``,
+    ``draft_depth``, ``draft_skip_layers``; the ladder gains the
+    reference's speculative rungs) and validated as the reference's
+    (``spec_k < 0``, a depth outside ``[1, sell_k]``); deadlines, faults,
     observability and the bounded queue are accepted."""
+    from repro_torch.spec import ModelDraft, TruncatedCascadeDraft
+
     _, tcfg, _, tm, _, tp = models
-    for kw in (dict(spec_k=2), dict(draft=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    eng = TEngine(tm, tcfg, tp, n_slots=2, max_len=24, max_prompt_len=12,
+                  spec_k=2)
+    assert isinstance(eng.draft, TruncatedCascadeDraft)
+    assert eng.draft.depth == 1 and eng.spec_k_eff == 2
+    assert eng._levels == ["full", "spec_half", "spec_off", "shed"]
+    eng = TEngine(tm, tcfg, tp, n_slots=2, max_len=24, max_prompt_len=12,
+                  spec_k=1, draft=ModelDraft(tcfg, params=tp))
+    assert eng._levels == ["full", "spec_off", "shed"]
+    eng = TEngine(tm, tcfg, tp, n_slots=2, max_len=24, max_prompt_len=12,
+                  spec_k=3, draft_depth=2, draft_skip_layers=1)
+    assert (eng.draft.depth, eng.draft.cfg.n_layers) == \
+        (2, tcfg.n_layers - 1)
+    assert TEngine(tm, tcfg, tp)._levels == ["full", "shed"]
+    for kw in (dict(spec_k=-1), dict(spec_k=2, draft_depth=0),
+               dict(spec_k=2, draft_depth=3)):
+        with pytest.raises(ValueError):
             TEngine(tm, tcfg, tp, **kw)
     eng = TEngine(tm, tcfg, tp, n_slots=1, max_len=24, max_prompt_len=12,
                   queue_bound=3)

@@ -30,7 +30,8 @@ need = {"repro_torch.kernels.acdc_bwd", "repro_torch.kernels.acdc_cascade_bwd",
         "repro_torch.launch.train", "repro_torch.dist.steps",
         "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
         "repro_torch.obs.prof", "repro_torch.serving.faults",
-        "repro_torch.dist.elastic"}
+        "repro_torch.dist.elastic", "repro_torch.spec",
+        "repro_torch.spec.draft", "repro_torch.spec.verify"}
 missing = sorted(need - set(names))
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

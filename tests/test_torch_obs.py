@@ -15,9 +15,10 @@ with observability on.
 * the engine: obs off binds no tracer, exporter or tick hook, streams
   with obs on equal obs off, and a seeded chaos run over a ``FakeClock``
   (paged, a tight pool, corrupt ticks, denied pages, slow ticks, a
-  deadline, two priorities) agrees EXACTLY with the reference: finish
-  reasons, greedy streams, ``stats``, the registry snapshot, the Chrome
-  trace and the allocator audit; so do the engineered ``timeout``,
+  deadline, two priorities), non-speculative and speculative, agrees
+  EXACTLY with the reference: finish reasons, greedy streams, ``stats``,
+  the registry snapshot, the Chrome trace and the allocator audit; so do
+  the engineered ``timeout``,
   ``rejected`` and ``preempted_limit`` terminals.
 
 The setup is test_torch_engine.py's: qwen3 smoke, ``with_sell(cfg,
@@ -349,10 +350,10 @@ def test_engine_streams_identical_with_obs_on(models):
     assert runs[0] == runs[1] == [list(map(int, r.generated)) for r in want]
 
 
-def _chaos_run(side):
+def _chaos_run(side, spec_k=0):
     """The reference's seeded chaos run (tests/test_obs.py) with a
-    deadline and two priorities; returns (requests, tracer, snapshot,
-    stats, audit)."""
+    deadline and two priorities, speculative with ``spec_k`` > 0;
+    returns (requests, tracer, snapshot, stats, audit, injected)."""
     eng_cls, req_cls, fault_cls, obs_cls, trace_mod, model, cfg, params = \
         side
     clock = FakeClock()
@@ -362,7 +363,7 @@ def _chaos_run(side):
     obs = obs_cls(tracer=trace_mod.SpanTracer())
     eng = eng_cls(model, cfg, params, n_slots=3, max_len=48,
                   max_prompt_len=24, paged=True, block_size=8, n_blocks=10,
-                  clock=clock, fault=fault, obs=obs)
+                  clock=clock, fault=fault, obs=obs, spec_k=spec_k)
     reqs = _reqs(req_cls, cfg.vocab_size, n=6, seed=9, max_new=10)
     reqs[3].deadline_s = 0.2             # expires while queued
     reqs[4].max_preemptions = 0          # first preemption is terminal
@@ -380,9 +381,9 @@ def _chaos_run(side):
             eng.allocator.audit(), fault.injected)
 
 
-def test_chaos_run_matches_reference_exactly(models):
-    jreqs, jtr, jsnap, jstats, jaudit, jinj = _chaos_run(models[0])
-    treqs, ttr, tsnap, tstats, taudit, tinj = _chaos_run(models[1])
+def _assert_chaos_equal(models, spec_k):
+    jreqs, jtr, jsnap, jstats, jaudit, jinj = _chaos_run(models[0], spec_k)
+    treqs, ttr, tsnap, tstats, taudit, tinj = _chaos_run(models[1], spec_k)
     assert [r.finish_reason for r in treqs] == \
         [r.finish_reason for r in jreqs]
     assert [r.generated for r in treqs] == \
@@ -398,6 +399,21 @@ def test_chaos_run_matches_reference_exactly(models):
         assert len(ttr.terminals_for(r.rid)) == 1
     names = {i.name for i in ttr.instants}
     assert {"fault:corrupt_logits", "fault:slow_tick"} <= names
+    if spec_k:
+        assert tstats["drafted"] > 0
+        walked = [i.args["dst"] for i in ttr.instants if i.name == "ladder"]
+        assert walked[0] == "spec_half", walked
+
+
+def test_chaos_run_matches_reference_exactly(models):
+    _assert_chaos_equal(models, 0)
+
+
+def test_spec_chaos_run_matches_reference_exactly(models):
+    """Speculative (``spec_k=3``, the default truncated draft): the ladder
+    steps to ``spec_half`` first, and every verify window maps k + 1
+    positions through the faulty allocator."""
+    _assert_chaos_equal(models, 3)
 
 
 def _terminals(side):

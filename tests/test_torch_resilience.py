@@ -393,3 +393,50 @@ def test_shed_level_bounds_queue_like_reference(models):
     assert level == "shed" and status == ["rejected", "queued"]
     assert out[3]["rejected"] == 2
     assert out[1].count("rejected") == 2
+
+
+def test_spec_ladder_walks_every_rung_like_reference(models):
+    """Speculative (``spec_k=4``): three pairs of simulated slow ticks,
+    each after the watchdog's re-warm-up, walk the ladder ``full`` ->
+    ``spec_half`` -> ``spec_off`` -> ``shed`` (k shrinks to 2, then
+    speculation stops), and sustained calm walks it back to ``full``;
+    the greedy streams never change and equal the non-speculative
+    run's.  Paged: the reference's dense decode adds into K/V rows a
+    rejected draft left, so its dense streams change at ``spec_off``
+    (tests/test_torch_spec.py, ROADMAP.md §3)."""
+    def scenario(eng_cls, req_cls, fault_cls, model, cfg, params):
+        base = _mk_requests(req_cls, cfg.vocab_size, max_new=24)
+        eng_cls(model, cfg, params, n_slots=2, max_len=64,
+                max_prompt_len=16).run(base, max_ticks=600)
+        reqs = _mk_requests(req_cls, cfg.vocab_size, max_new=24)
+        fault = fault_cls(slow_ticks=(4, 5, 9, 10, 14, 15),
+                          slow_extra_s=300.0)
+        eng = eng_cls(model, cfg, params, n_slots=2, max_len=64,
+                      max_prompt_len=16, fault=fault, clock=FakeClock(),
+                      degrade_down_after=2, degrade_up_after=6, spec_k=4,
+                      paged=True, block_size=8)
+        for r in reqs:
+            eng.submit(r)
+        seen = []
+        while eng.has_work:
+            eng.tick()
+            seen.append((eng.degrade_level, eng.spec_k_eff))
+            assert len(seen) < 600
+        for _ in range(50):             # idle ticks are calm: step back up
+            if eng.degrade_level == "full":
+                break
+            eng.tick()
+            seen.append((eng.degrade_level, eng.spec_k_eff))
+        assert [r.generated for r in reqs] == [r.generated for r in base]
+        walk = [lv for i, (lv, _) in enumerate(seen)
+                if i == 0 or seen[i - 1][0] != lv]
+        return (_outcome(reqs, eng, keys=("tokens_out", "decode_ticks",
+                                          "drafted", "accepted",
+                                          "degrade_down", "degrade_up")),
+                walk, sorted(set(seen)))
+
+    out, walk, seen = _both(models, scenario)
+    assert walk[:4] == ["full", "spec_half", "spec_off", "shed"], walk
+    assert walk[-1] == "full"
+    assert {("spec_half", 2), ("spec_off", 0), ("shed", 0),
+            ("full", 4)} <= set(seen)

@@ -66,16 +66,18 @@ result line if any fails):
    against the plain versions, ``acdc_cascade_bwd`` / ``acdc_bwd`` launched
    12 times a step, and a checkpoint-and-resume run that continues the
    uninterrupted one;
-8. overload at full width (fp32 compute, paged, 16-token pages,
-   speculative) through the serve launcher's functions: deadlines on half
-   the requests, two priority bands, metrics JSONL and a span trace,
-   under a ``FaultPlan`` (corrupt ticks, denied pages, slow ticks): every
-   request terminal, the pool clean, corrupt ticks healed by requeue, the
-   ladder walked down
-   ``spec_half``, ``spec_off``, ``shed`` and back to ``full``, the normal
-   finishes' streams equal segment by segment to a fault-free run's
-   (near-ties reported), one terminal a request in the trace, the last
-   JSONL snapshot equal to the stats;
+8. overload at full width (paged, 16-token pages) through the serve
+   launcher's functions: deadlines on half the requests, two priority
+   bands, metrics JSONL and a span trace, under a ``FaultPlan`` (corrupt
+   ticks, denied pages, slow ticks): every request terminal, the pool
+   clean, corrupt ticks healed by requeue, the ladder stepped down, the
+   normal finishes' streams equal segment by segment to a fault-free
+   run's, one terminal a request in the trace, the last JSONL snapshot
+   equal to the stats;
+8b. the same speculative (``--spec --spec-k 4``) in fp32 compute, with
+   more slow ticks: the ladder must walk down ``spec_half``,
+   ``spec_off``, ``shed`` and back to ``full``, every segment again
+   exactly a fault-free speculative run's;
 9. ``torch.profiler`` windows at full width (8 decode ticks dense and
    paged and 3 speculative ticks paged through
    ``obs.prof.ProfileWindow``, one prefill admission, one train step):
@@ -1333,32 +1335,22 @@ UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
 
 def forward_launches(cfg, rows: int, paged_t: int = 0):
     """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
-    (batch x tokens), from the port's routing (``kernels/ops.py``): each
-    layer's four SELL projections (attn_out and the three MLP ones) run
-    2 K ``scaled_matmul`` calls above ``MAX_FUSED_N`` (in the weight
-    stream at ``rows <= STREAM_MAX_M``, else on the tensor cores), one
-    ``acdc_cascade`` where the fused gate passes, else K ``acdc_fused``;
-    a paged pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
+    (batch x tokens): each layer's four SELL projections (attn_out and the
+    three MLP ones) launch what the port's routing gives them
+    (``kernels.ops.forward_launches``); a paged pass adds one
+    ``paged_attn`` a layer at T = ``paged_t``."""
     import collections
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels import scaled_matmul as smm_mod
 
     out = collections.Counter()
     k, dh = cfg.sell_k, cfg.head_dim_
     for n_in, n_out in ((cfg.n_heads * dh, cfg.d_model),
                         (cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
                         (cfg.d_ff, cfg.d_model)):
-        n = max(n_in, n_out)
-        if n > ops.MAX_FUSED_N:
-            regime = "stream" if rows <= smm_mod.STREAM_MAX_M else "tc"
-            out["scaled_matmul"] += 2 * k
-            out[f"scaled_matmul_{regime}"] += 2 * k
-        elif k > 1 and ops.cascade_fits(n, k, permute=cfg.sell_permute,
-                                        bias=False):
-            out["acdc_cascade"] += 1
-        else:
-            out["acdc_fused"] += k
+        out.update(ops.forward_launches(max(n_in, n_out), k, rows,
+                                        permute=cfg.sell_permute,
+                                        bias=False))
     out = collections.Counter({key: v * cfg.n_layers
                                for key, v in out.items()})
     if paged_t:
@@ -1925,52 +1917,50 @@ def train_smoke(totals, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: overload at full width (deadlines, priorities, faults, obs)
+# Phases 8 and 8b: overload at full width (deadlines, priorities, faults,
+# obs), 8b speculative
 # ---------------------------------------------------------------------------
 
 #: the overload phase's fault plan: two corrupt-logit ticks (every slot's
 #: ids are garbage and heal by requeue), a few denied pages, and three
-#: runs of three consecutive simulated slow ticks, each after the
-#: watchdog's warm-up (not slept: 30 s is added to what the watchdog
-#: sees), so the speculative ladder must step down through ``spec_half``
-#: and ``spec_off`` to ``shed``
+#: consecutive simulated slow ticks after the watchdog's warm-up (not
+#: slept: 30 s is added to what the watchdog sees), so the ladder must
+#: step down to ``shed``
 OVERLOAD_FAULTS = dict(seed=7, nan_ticks=(5, 13), p_alloc_fail=0.03,
-                       slow_ticks=(8, 9, 10, 14, 15, 16, 20, 21, 22),
-                       slow_extra_s=30.0)
+                       slow_ticks=(8, 9, 10), slow_extra_s=30.0)
+
+#: the speculative overload phase's plan: as ``OVERLOAD_FAULTS`` with three
+#: runs of three slow ticks, so the speculative ladder must step down
+#: through ``spec_half`` and ``spec_off`` to ``shed``
+SPEC_OVERLOAD_FAULTS = dict(OVERLOAD_FAULTS,
+                            slow_ticks=(8, 9, 10, 14, 15, 16, 20, 21, 22))
 
 
-def overload_full_width(dev, totals):
-    """Serve full-width Qwen3-1.7B with ACDC projections in fp32 compute,
-    paged with 16-token pages and speculative (``--spec --spec-k 4``),
-    through the launcher's ``build``/``serve``: 4 slots, 10 requests
-    (prompts <= 64,
-    16 new tokens), a 600 s deadline on half of them (wide: no request
-    may time out however slow the host), two priority bands, a metrics
-    JSONL and a span trace, under ``OVERLOAD_FAULTS``.  Fails unless every
-    request is terminal, the pool audits clean, a corrupt tick was healed
-    by requeue, the ladder walked ``full`` -> ``spec_half`` ->
-    ``spec_off`` -> ``shed`` and (idle ticks after the run) back to
-    ``full``, the trace holds one terminal per request, the last JSONL
-    snapshot equals ``eng.stats``, and every ``eos``/``length`` stream
-    is, segment by segment, what a fault-free, deadline-free speculative
-    run on the same weights generates from the same context: the
-    segments are cut at the request's prefills (from the trace), the
-    first from its prompt, each later one from its prompt plus the tokens
-    before it.  A segment may differ only at a near-tie (``near_tie``,
-    reported): a re-prefill, and a tick at another ladder rung (another
-    speculation depth, so another ``scaled_matmul`` regime), sum otherwise
-    than the ticks they replace.  fp32 compute, since in bf16 those
-    differences round to flips well beyond a near-tie's measured drift
-    (on an H100 80GB HBM3 at 700 W a bf16 speculative stream departed
-    where the two tokens' fp64 gap was 2.5 x the measured drift); how
-    many streams equal the undisturbed ones is reported."""
+def overload_run(label, dev, totals, extra, faults, **build_overrides):
+    """Serve full-width Qwen3-1.7B with ACDC projections, paged with
+    16-token pages, through the launcher's ``build``/``serve`` (flags
+    ``extra`` added, the config's fields ``build_overrides``): 4 slots, 10
+    requests (prompts <= 64, 16 new tokens), a 600 s deadline on half of
+    them (wide: no request may time out however slow the host), two
+    priority bands, a metrics JSONL and a span trace, under the fault plan
+    ``faults``.  Fails unless every request is terminal, the pool audits
+    clean, a corrupt tick was healed by requeue, the trace holds one
+    terminal per request, the last JSONL snapshot equals ``eng.stats``,
+    and every ``eos``/``length`` stream is, segment by segment, exactly
+    what a fault-free, deadline-free run with the same flags on the same
+    weights generates from the same context: the segments are cut at the
+    request's prefills (from the trace), the first from its prompt, each
+    later one from its prompt plus the tokens before it.  (A re-prefill
+    rounds in bf16 otherwise than the decode steps it replaces, so a
+    requeued stream need not continue the undisturbed one token for token;
+    how many do is reported.)  Returns (engine, info)."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.serving import Engine, FaultPlan, Request
     from repro_torch.serving.engine import STATS_METRICS
 
-    out_dir = ROOT / "build" / "chip_smoke_obs"
+    out_dir = ROOT / "build" / ("chip_smoke_" + label.replace(" ", "_"))
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     metrics_path, trace_path = out_dir / "metrics.jsonl", out_dir / "trace.json"
@@ -1978,38 +1968,32 @@ def overload_full_width(dev, totals):
         "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
         "--slots", "4", "--prompt-len", "64", "--gen", "16", "--requests",
         "10", "--paged", "--block-size", "16", "--deadline-s", "600",
-        "--spec", "--spec-k", str(SPEC_K),
         "--priorities", "2", "--metrics-jsonl", str(metrics_path),
         "--metrics-every", "5", "--trace-out", str(trace_path),
-        "--device", str(dev)])
-    cfg, model, params = serve.build(args, dtype="float32")
-    fault = FaultPlan(**OVERLOAD_FAULTS)
+        "--device", str(dev)] + extra)
+    cfg, model, params = serve.build(args, **build_overrides)
+    fault = FaultPlan(**faults)
     reset_counts()
     eng, reqs, dt = serve.serve(args, cfg, model, params, fault=fault)
     counts = read_counts()
     for name in ("scaled_matmul", "paged_attn"):
         if counts[name] == 0:
-            _fail(f"overload: kernel {name} never launched on this path")
+            _fail(f"{label}: kernel {name} never launched on this path")
     for name, n in counts.items():
         totals[name] += n
     s = dict(eng.stats)
-    print(f"[overload] stats {json.dumps(s)} | faults {fault.injected} | "
+    print(f"[{label}] stats {json.dumps(s)} | faults {fault.injected} | "
           f"{dt:.3f}s | launches {counts}", flush=True)
     serve.report(eng, reqs, dt, args.trace_out)
 
     if not all(r.done for r in reqs):
-        _fail(f"overload: requests left unfinished: "
+        _fail(f"{label}: requests left unfinished: "
               f"{[r.rid for r in reqs if not r.done]}")
     eng.allocator.audit()
     if eng.allocator.n_free != eng.allocator.n_blocks:
-        _fail("overload: pages leaked")
+        _fail(f"{label}: pages leaked")
     if not (s["corrupt_ticks"] >= 1 and s["requeued"] >= 1):
-        _fail(f"overload: no corrupt tick healed by requeue ({s})")
-    down = [i.args["dst"] for i in eng.obs.tracer.instants
-            if i.name == "ladder" and i.args["direction"] == "down"]
-    if down[:3] != ["spec_half", "spec_off", "shed"]:
-        _fail(f"overload: the ladder stepped down {down}, not through "
-              f"spec_half and spec_off to shed ({s})")
+        _fail(f"{label}: no corrupt tick healed by requeue ({s})")
 
     trace = json.loads(trace_path.read_text())
     names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
@@ -2035,26 +2019,17 @@ def overload_full_width(dev, totals):
     Engine(model, cfg, params, n_slots=args.slots,
            max_len=args.prompt_len + args.gen + 1,
            max_prompt_len=args.prompt_len, paged=True,
-           block_size=args.block_size, spec_k=SPEC_K).run(
+           block_size=args.block_size,
+           spec_k=args.spec_k if args.spec else 0).run(
                [f for *_, f in fresh], max_ticks=4000)
     torch.cuda.synchronize(dev)
-    ties = []
     for r, k, end, f in fresh:
-        got, want = r.generated[k:end], f.generated[:end - k]
-        if got == want:
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        tie = near_tie(model, cfg, params,
-                       list(r.prompt) + r.generated[:k + j], got[j],
-                       want[j], dev)
-        tie["rid"] = r.rid
-        ties.append(tie)
-        if not tie["near_tie"]:
-            _fail(f"overload: rid {r.rid} tokens {k}:{end} {got} != a "
-                  f"fault-free run from the same context {want}, and not "
-                  f"at a near-tie ({tie})")
+        if r.generated[k:end] != f.generated[:end - k]:
+            _fail(f"{label}: rid {r.rid} tokens {k}:{end} "
+                  f"{r.generated[k:end]} != a fault-free run from the same "
+                  f"context {f.generated[:end - k]}")
     if not fresh:
-        _fail("overload: no request finished normally")
+        _fail(f"{label}: no request finished normally")
     # the fault-free, deadline-free run of each prompt is its first
     # segment's run: how many whole streams it reproduces (a requeued
     # stream need not: a bf16 re-prefill rounds unlike the decode steps)
@@ -2068,14 +2043,51 @@ def overload_full_width(dev, totals):
             terminals[e["tid"]] = terminals.get(e["tid"], 0) + 1
     per_req = {names[t]: n for t, n in terminals.items()}
     if per_req != {f"req {r.rid}": 1 for r in reqs}:
-        _fail(f"overload: terminals per request {per_req}")
+        _fail(f"{label}: terminals per request {per_req}")
     last = json.loads(metrics_path.read_text().splitlines()[-1])["metrics"]
     snap = {key: (last["gauges"] if kind == "gauge" else
                   last["counters"])[name][""]
             for key, (name, kind) in STATS_METRICS.items()
             if kind != "derived"}
     if any(snap[k] != s[k] for k in snap):
-        _fail(f"overload: last JSONL snapshot {snap} != stats {s}")
+        _fail(f"{label}: last JSONL snapshot {snap} != stats {s}")
+    return eng, dict(stats=s, faults=dict(fault.injected), wall_s=dt,
+                     compute=cfg.dtype, launches=counts,
+                     segments_checked=len(fresh),
+                     streams_equal_undisturbed=undisturbed,
+                     requeued_rids=[r.rid for r in requeued],
+                     finish_reasons=[r.finish_reason for r in reqs],
+                     degrade_level=eng.degrade_level,
+                     snapshots=len(metrics_path.read_text().splitlines()))
+
+
+def overload_full_width(dev, totals):
+    """Phase 8: ``overload_run`` on the main path (bf16 compute, no
+    speculation) under ``OVERLOAD_FAULTS``; fails also unless the ladder
+    stepped down."""
+    eng, info = overload_run("overload", dev, totals, [], OVERLOAD_FAULTS)
+    if not info["stats"]["degrade_down"] >= 1:
+        _fail(f"overload: the ladder never stepped down ({info['stats']})")
+    return info
+
+
+def overload_spec_full_width(dev, totals):
+    """Phase 8b: ``overload_run`` speculative (``--spec --spec-k 4``) under
+    ``SPEC_OVERLOAD_FAULTS``, in fp32 compute: the rungs run the verify at
+    M = 20 (tensor cores), 12 and the decode at 4 (weight stream), which
+    round apart, and in bf16 those differences grow into stream departures
+    (PERF.md §6), so exact segments are held in fp32.  Fails also
+    unless the ladder walked ``full`` -> ``spec_half`` -> ``spec_off`` ->
+    ``shed`` and, on idle ticks after the run, back to ``full`` at the full
+    speculation depth."""
+    eng, info = overload_run("overload spec", dev, totals,
+                             ["--spec", "--spec-k", str(SPEC_K)],
+                             SPEC_OVERLOAD_FAULTS, dtype="float32")
+    down = [i.args["dst"] for i in eng.obs.tracer.instants
+            if i.name == "ladder" and i.args["direction"] == "down"]
+    if down[:3] != ["spec_half", "spec_off", "shed"]:
+        _fail(f"overload spec: the ladder stepped down {down}, not through "
+              f"spec_half and spec_off to shed ({info['stats']})")
     # idle ticks after the run (the bundle is closed: export nothing more)
     # walk the ladder back up after sustained calm
     eng.obs.exporter = None
@@ -2086,17 +2098,11 @@ def overload_full_width(dev, totals):
     walk = [i.args["dst"] for i in eng.obs.tracer.instants
             if i.name == "ladder"]
     if eng.degrade_level != "full" or eng.spec_k_eff != SPEC_K:
-        _fail(f"overload: the ladder did not walk back to full ({walk})")
-    print(f"[overload] ladder {walk}; segments at near-ties {ties}",
-          flush=True)
-    return dict(stats=s, faults=dict(fault.injected), wall_s=dt,
-                ladder=walk, near_ties=ties,
-                launches=counts, segments_checked=len(fresh),
-                streams_equal_undisturbed=undisturbed,
-                requeued_rids=[r.rid for r in requeued],
-                finish_reasons=[r.finish_reason for r in reqs],
-                degrade_level=eng.degrade_level,
-                snapshots=len(metrics_path.read_text().splitlines()))
+        _fail(f"overload spec: the ladder did not walk back to full "
+              f"({walk})")
+    print(f"[overload spec] ladder {walk}", flush=True)
+    info.update(ladder=walk, degrade_level=eng.degrade_level)
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -2382,6 +2388,7 @@ def main() -> int:
     report["train_full_width"] = train_full_width(dev, totals)
     report["train_smoke"] = train_smoke(totals)
     report["overload"] = overload_full_width(dev, totals)
+    report["overload_spec"] = overload_spec_full_width(dev, totals)
     report["profile"] = profile_full_width(dev)
     report["launches"] = totals
 

@@ -305,20 +305,46 @@ class _Cascade(torch.autograd.Function):
                 None, None, None)
 
 
+def cascade_route(n: int, k: int, *, permute: bool, bias: bool) -> str:
+    """How :func:`acdc_cascade_op` runs an order-K cascade at size N
+    forward: ``"cascade"`` (one whole-cascade kernel), ``"fused"`` (K
+    single-layer kernels) or ``"two_call"`` (2 K ``scaled_matmul``
+    calls)."""
+    if k > 1 and cascade_fits(n, k, permute=permute, bias=bias):
+        return "cascade"
+    return "fused" if n <= MAX_FUSED_N else "two_call"
+
+
+def forward_launches(n: int, k: int, rows: int, *, permute: bool,
+                     bias: bool) -> dict:
+    """The kernel launches, by wrapper, of one :func:`acdc_cascade_op`
+    forward over ``rows`` rows on the card, as :func:`cascade_route` and
+    ``scaled_matmul``'s regime route it; ``scaled_matmul`` launches are
+    also counted under ``scaled_matmul_<regime>``."""
+    route = cascade_route(n, k, permute=permute, bias=bias)
+    if route == "cascade":
+        return {"acdc_cascade": 1}
+    if route == "fused":
+        return {"acdc_fused": k}
+    return {"scaled_matmul": 2 * k,
+            f"scaled_matmul_{smm_mod.regime(rows)}": 2 * k}
+
+
 def acdc_cascade_op(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *,
                     relu: bool = False, permute: bool = False,
                     family: str = "acdc") -> torch.Tensor:
     """Order-K cascade over stacked (K, N) diagonals (see module doc)."""
     k = a.shape[0]
+    route = cascade_route(x.shape[-1], k, permute=permute,
+                          bias=bias is not None)
+    if route == "cascade":
+        return _Cascade.apply(x, a, d, bias, relu, permute, family)
     if k == 1:
         return acdc_fused_op(x, a[0], d[0],
                              None if bias is None else bias[0],
                              family=family)
-    n = x.shape[-1]
-    if not cascade_fits(n, k, permute=permute, bias=bias is not None):
-        return _cascade_per_layer(x, a, d, bias, relu, permute, family)
-    return _Cascade.apply(x, a, d, bias, relu, permute, family)
+    return _cascade_per_layer(x, a, d, bias, relu, permute, family)
 
 
 def paged_attn_route(hkv: int, dh: int, group: int, t: int,

@@ -147,9 +147,16 @@ def plan(m: int, n: int, k: int, x_dtype, align: int = 16) -> Plan:
     the largest power of two (up to 16) dividing both base addresses.
     Pure Python (the CPU tests reach it), and cached: the decode and
     train steps repeat a handful of shapes."""
-    if m <= STREAM_MAX_M:
+    if regime(m) == "stream":
         return plan_stream(m, n, k, x_dtype, align)
     return plan_tc(m, n, k, x_dtype, align)
+
+
+def regime(m: int) -> str:
+    """The plan's regime for x with ``m`` rows: ``"stream"`` (the split-K
+    weight stream) up to ``STREAM_MAX_M`` rows, else ``"tc"`` (tensor
+    cores)."""
+    return "stream" if m <= STREAM_MAX_M else "tc"
 
 
 def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -13,7 +13,9 @@ slot reuse), for A/B runs.  ``--spec [--spec-k 4] [--draft-depth K/2]
 [--spec-skip-layers J]`` turns on speculative decoding: the target's own
 truncated ACDC cascades draft ``--spec-k`` tokens a tick and one verify
 pass scores them all, so each slot advances by its accepted length a
-target pass (greedy streams equal the non-speculative engine's).
+target pass (greedy streams equal the non-speculative engine's in fp32;
+in bf16 the verify's and the decode's matmuls round apart and a stream
+can depart).
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
 (the default) or ``cpu``.
 
@@ -85,7 +87,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pool size in pages; default = dense parity")
     ap.add_argument("--spec", action="store_true",
                     help="speculative decoding: truncated-cascade "
-                         "self-draft + one batched k-token verify per tick")
+                         "self-draft + one batched k-token verify per tick "
+                         "(greedy streams as without it in fp32; in bf16 "
+                         "they can depart)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per speculative tick")
     ap.add_argument("--draft-depth", type=int, default=None,

@@ -42,10 +42,17 @@ sustained calm: shrink ``spec_k`` (``spec_half``), then disable
 speculation (``spec_off``), then bound the admission queue at
 ``queue_bound`` and shed the lowest-priority arrivals (``shed``,
 ``finish_reason="rejected"``).  Without speculation the ladder is
-``full``, ``shed``.  Ladder moves never change greedy token streams:
-speculation is exact at any k, including 0, because every KV write SETS
-its row (the reference's dense decode adds into it, so its streams can
-change when it steps to ``spec_off`` after rejections; ROADMAP.md §3).
+``full``, ``shed``.  Ladder moves change no greedy token stream in
+exact arithmetic: speculation commits the target's own greedy tokens at
+any k, including 0, and every KV write SETS its row (the reference's
+dense decode adds into it, so its streams can change when it steps to
+``spec_off`` after rejections; ROADMAP.md §3).  In floating point the
+streams are equal where the verify and the decode round alike (the same
+``scaled_matmul`` regime); in fp32 they held equal in every run of
+``chip_smoke.py`` so far, where the regimes differ too.  In bf16 at full
+width the verify's M = slots (k + 1) rows take the tensor-core regime
+where decode's M = slots take the weight stream, and a stream can depart
+at a near-tied argmax or further (PERF.md §6).
 
 **Speculative decoding** (``spec_k > 0``) replaces the one-token decode
 tick with draft -> verify -> accept/rollback: a cheap draft
@@ -54,7 +61,8 @@ to ``max(1, sell_k // 2)`` layers) proposes ``spec_k`` tokens a slot, ONE
 verify pass of the target scores them
 (:func:`repro_torch.dist.steps.make_verify_step`; paged, through the
 paged-attention kernel at T = ``spec_k + 1``), and each slot advances by
-its accepted length.  Greedy streams equal the non-speculative engine's.
+its accepted length.  Greedy streams equal the non-speculative engine's
+wherever the two round alike (see the ladder above).
 
 Fault injection (``fault=FaultPlan(...)``,
 :mod:`repro_torch.serving.faults`) and observability (``obs=``,

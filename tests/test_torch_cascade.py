@@ -8,7 +8,8 @@ the live JAX reference on CPU.
   the two-call route (``MAX_FUSED_N`` monkeypatched down in both
   packages) so the per-layer path's bf16 rounding places are held too;
 * the routing decisions themselves: the port's copy of the fused gate
-  agrees with the reference's ``fits_vmem``.
+  agrees with the reference's ``fits_vmem``, and the launches a
+  projection makes (``ops.forward_launches``) follow the route.
 
 fp32 tolerance atol 2e-4, rtol 1e-3 (tests/test_kernel_grads.py:248).
 """
@@ -134,6 +135,29 @@ def test_fused_gate_agrees_with_reference(n, k, permute, bias):
     assert tops.MAX_FUSED_N == jfused.MAX_FUSED_N
     assert tops.cascade_fits(n, k, permute=permute, bias=bias) == \
         jcascade.fits_vmem(n, k, permute=permute, bias=bias)
+
+
+@pytest.mark.parametrize("n", [128, 256, 1024, 2048, 6144])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("rows", [4, 16, 20])
+def test_forward_launches_follow_the_route(n, k, rows):
+    """The launches ``chip_smoke.py`` expects a projection to make: one
+    whole-cascade kernel where the reference fuses the cascade, else K
+    single-layer kernels up to ``MAX_FUSED_N``, else 2 K ``scaled_matmul``
+    calls in the regime of ``rows``."""
+    route = tops.cascade_route(n, k, permute=True, bias=False)
+    if k > 1 and jcascade.fits_vmem(n, k, permute=True, bias=False):
+        assert route == "cascade"
+        want = {"acdc_cascade": 1}
+    elif n <= jfused.MAX_FUSED_N:
+        assert route == "fused"
+        want = {"acdc_fused": k}
+    else:
+        assert route == "two_call"
+        regime = tsmm.plan(rows, n, n, torch.bfloat16).regime
+        want = {"scaled_matmul": 2 * k, f"scaled_matmul_{regime}": 2 * k}
+    assert tops.forward_launches(n, k, rows, permute=True,
+                                 bias=False) == want
 
 
 def test_paged_route_counts_cpu_decisions():

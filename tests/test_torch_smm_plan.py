@@ -35,6 +35,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 def test_regime_boundary(m):
     p = tsmm.plan(m, 2048, 2048, torch.bfloat16)
     assert p.regime == ("stream" if m <= tsmm.STREAM_MAX_M else "tc")
+    assert tsmm.regime(m) == p.regime
     assert tsmm.STREAM_MAX_M == 16
 
 

@@ -88,6 +88,35 @@ result line if any fails):
 10. print ``{"kernels": [...]}`` (six kernels), then the final
    ``{"ok": true, "device": {...}}`` line.
 
+Paths A - D hold the reference's default method (``--sell-method auto``:
+matmul at N <= 4096, fft above) and the other SELL routes, none of which
+launches a SELL kernel; they run inside that order (D after 3, A after 4,
+C after 5, B after 6):
+
+A. serve full-width Qwen3-1.7B at ``--sell-method auto`` (matmul at
+   N = 2048, fft at N = 6144), dense then paged, with phase 4's requests
+   and weights: every tick's launches exact (no SELL kernel, one
+   ``paged_attn`` a layer paged), s/tick, tok/s, prefill s/admission, a
+   profiled window of 8 decode ticks in each layout; one prefill's and
+   one decode step's logits against the ``pallas`` route, fp32
+   (``auto``, ``fft``, ``matmul``) within ``FP32_METHOD_REL_L2`` and the
+   bf16 decode step within ``BF16_LOGIT_REL_L2`` (the bf16 prefill
+   reported: ``compare_methods_logits``), each route's drift from an
+   fp64 evaluation beside it and a faulty route over each limit;
+B. train full width at ``auto`` (3 AdamW steps, batch 4 x 128): s/step,
+   tokens/s, peak memory, no kernel launched; one step's fp32 loss and
+   per-group grads against the ``pallas`` route within
+   ``FP32_GRAD_REL_L2``;
+C. serve the smoke width with ``--sell low_rank``, ``circulant``,
+   ``fastfood`` and ``--sell acdc`` at ``fft`` and ``matmul`` for each
+   transform family (one of them paged): launches exact, greedy streams
+   equal to the same model with its SELL projections in fp64 or differing
+   at a near-tie;
+D. the paper's Figure 2: one ACDC layer (K = 1, fp32, 128 rows) at N =
+   128 .. 8192 and 6144 on the ``fft``, ``matmul`` and ``pallas`` routes
+   and a dense ``x @ W``, by device time beside each bound and fp32 error
+   against fp64 (the ACDC routes' within 2 x the ``matmul`` route's).
+
 Details go to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -1145,6 +1174,32 @@ def _rel_l2(got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
+#: the logit probe's prompt: 41 tokens in a 64-token window (seed 3)
+PROBE_LEN = 41
+
+
+def probe_logits(model, cfg, params, dev) -> dict:
+    """fp32 logits of one batch-1 prefill of ``PROBE_LEN`` random tokens
+    (seed 3) at its last position, and of one decode step after it."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(3)
+    toks = np.zeros((1, 64), np.int32)
+    toks[0, :PROBE_LEN] = rs.randint(0, cfg.vocab_size, size=PROBE_LEN)
+    lengths = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+    next_tok = torch.tensor([rs.randint(0, cfg.vocab_size)],
+                            dtype=torch.int32, device=dev)
+    template = model.init_cache(cfg, 1, 96, dev)
+    logits, cache = model.prefill(params, template,
+                                  torch.from_numpy(toks).to(dev), cfg,
+                                  lengths)
+    pos = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+    dlog, _ = model.decode_step(params, cache, next_tok, pos, cfg)
+    return {"prefill": logits[0, PROBE_LEN - 1].float(),
+            "decode": dlog[0].float()}
+
+
 def compare_full_width_logits(pieces, dev, dtype=None):
     """One prefill's and one decode step's logits, kernels vs plain, gated
     at ``BF16_LOGIT_REL_L2``.  Beside it, each side against an fp64-summed
@@ -1157,7 +1212,6 @@ def compare_full_width_logits(pieces, dev, dtype=None):
     bf16 between layers, so the kernel path's drift from fp64 is summation
     order alone and is reported against the plain path's
     (``drift_ratio``)."""
-    import numpy as np
     import torch
 
     from repro_torch.models import transformer
@@ -1166,15 +1220,6 @@ def compare_full_width_logits(pieces, dev, dtype=None):
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     n_calls = prefill_smm_calls(cfg)
-    rs = np.random.RandomState(3)
-    plen, window = 41, 64
-    toks = np.zeros((1, window), np.int32)
-    toks[0, :plen] = rs.randint(0, cfg.vocab_size, size=plen)
-    toks_t = torch.from_numpy(toks).to(dev)
-    lengths = torch.tensor([plen], dtype=torch.int32, device=dev)
-    next_tok = torch.tensor([rs.randint(0, cfg.vocab_size)],
-                            dtype=torch.int32, device=dev)
-    template = model.init_cache(cfg, 1, 96, dev)
     ffn = transformer._ffn
 
     def run():
@@ -1182,19 +1227,15 @@ def compare_full_width_logits(pieces, dev, dtype=None):
 
         def ffn_recording(layer, x, cfg_):
             y = ffn(layer, x, cfg_)
-            residuals.append(y[0, :plen].float())
+            residuals.append(y[0, :PROBE_LEN].float())
             return y
 
         transformer._ffn = ffn_recording
         try:
-            logits, cache = model.prefill(params, template, toks_t, cfg,
-                                          lengths)
+            out = probe_logits(model, cfg, params, dev)
         finally:
             transformer._ffn = ffn
-        pos = torch.tensor([plen], dtype=torch.int32, device=dev)
-        dlog, _ = model.decode_step(params, cache, next_tok, pos, cfg)
-        return {"prefill": logits[0, plen - 1].float(),
-                "decode": dlog[0].float(), "residuals": residuals}
+        return dict(out, residuals=residuals)
 
     # the kernel prefill's scaled_matmul calls (the first ``n_calls`` of
     # the run), inputs kept: each side's fp32 error on the model's own
@@ -1336,11 +1377,13 @@ UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
 def forward_launches(cfg, rows: int, paged_t: int = 0):
     """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
     (batch x tokens): each layer's four SELL projections (attn_out and the
-    three MLP ones) launch what the port's routing gives them
-    (``kernels.ops.forward_launches``); a paged pass adds one
-    ``paged_attn`` a layer at T = ``paged_t``."""
+    three MLP ones) launch what the port's routing gives them -- on the
+    ``pallas`` route ``kernels.ops.forward_launches``, on every other
+    method (``auto``, ``fft``, ``matmul``) and kind no kernel at all; a
+    paged pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
     import collections
 
+    from repro_torch.core import acdc as acdc_mod
     from repro_torch.kernels import ops
 
     out = collections.Counter()
@@ -1348,7 +1391,11 @@ def forward_launches(cfg, rows: int, paged_t: int = 0):
     for n_in, n_out in ((cfg.n_heads * dh, cfg.d_model),
                         (cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
                         (cfg.d_ff, cfg.d_model)):
-        out.update(ops.forward_launches(max(n_in, n_out), k, rows,
+        n = max(n_in, n_out)
+        if cfg.sell_kind != "acdc" or acdc_mod._resolve_method(
+                n, cfg.sell_method) != "pallas":
+            continue
+        out.update(ops.forward_launches(n, k, rows,
                                         permute=cfg.sell_permute,
                                         bias=False))
     out = collections.Counter({key: v * cfg.n_layers
@@ -1430,10 +1477,12 @@ def expected_tick(eng, rec, prompt_rows: int):
     return {key: v for key, v in want.items() if v}
 
 
-def check_ticks(label, eng, records, prompt_rows: int) -> dict:
-    """Every tick's launches exactly as ``expected_tick``; returns the
-    launches of a speculative tick without admissions (and of each other
-    kind of tick seen), and the ticks by kind."""
+def check_ticks(label, eng, records, prompt_rows: int,
+                spec: bool = True) -> dict:
+    """Every tick's launches exactly as ``expected_tick`` (and, with
+    ``spec``, at least one speculative tick); returns the launches of a
+    speculative tick without admissions (and of each other kind of tick
+    seen), and the ticks by kind."""
     kinds = {}
     for i, rec in enumerate(records):
         want = expected_tick(eng, rec, prompt_rows)
@@ -1445,7 +1494,7 @@ def check_ticks(label, eng, records, prompt_rows: int) -> dict:
                                  if rec["prefills"] else "")
         if rec["stepped"] or rec["prefills"]:
             kinds.setdefault(key, dict(ticks=0, launches=want))["ticks"] += 1
-    if not any(r["k"] and r["stepped"] for r in records):
+    if spec and not any(r["k"] and r["stepped"] for r in records):
         _fail(f"{label}: no speculative tick ran")
     return kinds
 
@@ -1584,14 +1633,16 @@ def decode_logits_after(model, cfg, params, context, dev):
     return logits[0].double()
 
 
-def near_tie(model, cfg, params, context, tok_a, tok_b, dev) -> dict:
+def near_tie(model, cfg, params, context, tok_a, tok_b, dev,
+             fp64=None) -> dict:
     """Whether two paths' different greedy picks ``tok_a`` / ``tok_b``
     after ``context`` are a near-tie: the gap between their logits in an
-    fp64-summed pass (every ``scaled_matmul`` in fp64) is below the sum
-    of the two sides' measured drift from it at that position, the
-    tensor-core regime's (a prefill over the context: the verify's
-    regime) and the weight stream's (a decode step: the decode's)."""
-    with scaled_matmul_as(scaled_matmul_fp64):
+    fp64-summed pass (every ``scaled_matmul`` in fp64, or the context
+    ``fp64()`` gives) is below the sum of the two sides' measured drift
+    from it at that position, the tensor-core regime's (a prefill over the
+    context: the verify's regime) and the weight stream's (a decode step:
+    the decode's)."""
+    with (fp64 or (lambda: scaled_matmul_as(scaled_matmul_fp64)))():
         want = logits_after(model, cfg, params, context, dev)
     drift_tc = float((logits_after(model, cfg, params, context, dev)
                       - want).abs().max())
@@ -1604,10 +1655,12 @@ def near_tie(model, cfg, params, context, tok_a, tok_b, dev) -> dict:
                 near_tie=gap <= drift_tc + drift_stream)
 
 
-def compare_streams(label, pieces, prompts, got, want, dev, hold: bool):
-    """Compare speculative streams ``got`` with non-speculative ``want``
-    (same prompts); each first difference is examined by ``near_tie``.
-    With ``hold``, a difference that is not a near-tie fails."""
+def compare_streams(label, pieces, prompts, got, want, dev, hold: bool,
+                    fp64=None):
+    """Compare streams ``got`` with ``want`` (same prompts: speculative
+    against non-speculative, or fp32 against fp64); each first difference
+    is examined by ``near_tie`` (its fp64 pass ``fp64``).  With ``hold``,
+    a difference that is not a near-tie fails."""
     cfg, model, params = pieces
     diffs = []
     for prompt, g, w in zip(prompts, got, want):
@@ -1620,15 +1673,14 @@ def compare_streams(label, pieces, prompts, got, want, dev, hold: bool):
                 _fail(f"{label}: streams of unequal length {g} / {w}")
             continue
         tie = near_tie(model, cfg, params, list(prompt) + w[:j], g[j], w[j],
-                       dev)
+                       dev, fp64)
         diffs.append(tie)
         if hold and not tie["near_tie"]:
             _fail(f"{label}: speculative stream {g} departs from {w} at "
                   f"token {j}, not a near-tie ({tie})")
     out = dict(streams=len(got), equal=len(got) - len(diffs), diffs=diffs)
-    print(f"[spec] {label}: {out['equal']}/{len(got)} streams equal the "
-          f"non-speculative ones" + (f"; first differences {diffs}"
-                                      if diffs else ""), flush=True)
+    print(f"[streams] {label}: {out['equal']}/{len(got)} streams equal"
+          + (f"; first differences {diffs}" if diffs else ""), flush=True)
     return out
 
 
@@ -2155,6 +2207,50 @@ def check_profile(label, logdir, summary, wrapper_counts,
     return dict(summary, wrapper_launches=wrapper_counts)
 
 
+def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
+    """A ``ProfileWindow`` over engine ticks ``first``..``last`` of a
+    full-width run (4 slots, 8 requests, prompts <= 64, 16 new tokens),
+    held by ``check_profile``; the window must hold steady ticks only
+    (no admission, speculation depth ``spec_k``), and the tick times
+    outside it are kept beside it."""
+    from repro_torch.obs import Observability, Prof, ProfileWindow
+    from repro_torch.serving import Engine
+    from repro_torch.serving.request import make_ragged_requests
+
+    cfg, model, params = pieces
+    window = ProfileWindow(f"{first}:{last}", str(root / label), dev)
+    obs = Observability(window=window, prof=Prof(enabled=True))
+    eng = Engine(model, cfg, params, n_slots=4, max_len=81,
+                 max_prompt_len=64, paged=paged, block_size=16, obs=obs,
+                 spec_k=spec_k)
+    for r in make_ragged_requests(cfg.vocab_size, 8, 64, 16):
+        eng.submit(r)
+    tick, counts, tick_s = 0, {}, []
+    with tick_recorder() as recs:
+        while eng.has_work:
+            if tick in (first, last + 1):
+                counts[tick] = read_counts()
+            t0 = time.perf_counter()
+            eng.tick()
+            tick_s.append(time.perf_counter() - t0)
+            tick += 1
+    obs.close(tick)
+    wrappers = {k: counts[last + 1][k] - counts[first][k]
+                for k in counts[first]}
+    inside = recs[first:last + 1]
+    if any(r["prefills"] or r["k"] != spec_k for r in inside):
+        _fail(f"profile {label}: ticks {first}..{last} are not steady "
+              f"{inside}")
+    regimes = {reg: sum(r["launches"].get(f"scaled_matmul_{reg}", 0)
+                        for r in inside) for reg in ("stream", "tc")}
+    info = check_profile(label, window.logdir, window.summary, wrappers,
+                         regimes)
+    # ticks 1..3 and 13..14: decode only, outside the window (tick 12
+    # pays the window's stop and trace export)
+    info["unprofiled_tick_s"] = tick_s[1:first] + tick_s[last + 2:last + 4]
+    return info
+
+
 def profile_full_width(dev):
     """``torch.profiler`` windows at full width: 8 steady decode ticks
     (ticks 4..11, every slot decoding, no admission) dense and paged and
@@ -2175,7 +2271,6 @@ def profile_full_width(dev):
     from repro_torch.obs import Observability, Prof, ProfileWindow
     from repro_torch.obs.prof import profiler_for, write_profile
     from repro_torch.serving import Engine, Request
-    from repro_torch.serving.request import make_ragged_requests
 
     root = ROOT / "build" / "chip_smoke_profile"
     shutil.rmtree(root, ignore_errors=True)
@@ -2188,38 +2283,8 @@ def profile_full_width(dev):
             ("decode dense", False, 0, 4, 11),
             ("decode paged", True, 0, 4, 11),
             ("spec paged", True, SPEC_K, 4, 6)):
-        window = ProfileWindow(f"{first}:{last}", str(root / label), dev)
-        obs = Observability(window=window, prof=Prof(enabled=True))
-        eng = Engine(model, cfg, params, n_slots=4, max_len=81,
-                     max_prompt_len=64, paged=paged, block_size=16, obs=obs,
-                     spec_k=spec_k)
-        for r in make_ragged_requests(cfg.vocab_size, 8, 64, 16):
-            eng.submit(r)
-        tick, counts, tick_s = 0, {}, []
-        with tick_recorder() as recs:
-            while eng.has_work:
-                if tick in (first, last + 1):
-                    counts[tick] = read_counts()
-                t0 = time.perf_counter()
-                eng.tick()
-                tick_s.append(time.perf_counter() - t0)
-                tick += 1
-        obs.close(tick)
-        wrappers = {k: counts[last + 1][k] - counts[first][k]
-                    for k in counts[first]}
-        inside = recs[first:last + 1]
-        if any(r["prefills"] or r["k"] != spec_k for r in inside):
-            _fail(f"profile {label}: ticks {first}..{last} are not steady "
-                  f"{inside}")
-        regimes = {reg: sum(r["launches"].get(f"scaled_matmul_{reg}", 0)
-                            for r in inside) for reg in ("stream", "tc")}
-        info = check_profile(label, window.logdir, window.summary, wrappers,
-                             regimes)
-        # ticks 1..3 and 13..14: decode only, outside the window (tick 12
-        # pays the window's stop and trace export)
-        outside = tick_s[1:first] + tick_s[last + 2:last + 4]
-        info["unprofiled_tick_s"] = outside
-        out[label] = info
+        out[label] = profile_ticks(label, root, (cfg, model, params), dev,
+                                   paged, spec_k, first, last)
 
     label = "prefill admission"
     rs = np.random.RandomState(5)
@@ -2283,6 +2348,380 @@ def profile_full_width(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Paths A - D: the reference's default method (``auto``), ``fft`` and
+# ``matmul`` at full width and at smoke width with every SELL kind, and
+# the paper's Figure 2 on the card
+# ---------------------------------------------------------------------------
+
+#: fp32 logits of the full-width model, the reference's routes (``auto``;
+#: ``fft`` and ``matmul`` at every size) against the ``pallas`` route on
+#: the same weights: relative L2.  Both compute the same function in fp32
+#: and differ in summation order only, so they differ by at most the sum
+#: of their drifts from an fp64 evaluation (measured and reported beside
+#: it).  The pallas route's drift was ~1e-5 (ROADMAP.md section 3, PR 16);
+#: an FFT sums O(log N) terms an output where a matmul sums N, so the
+#: other routes should drift no more and the sum stays ~2e-5; the limit
+#: leaves 5 x above that, and 1000 x below the bf16 limit
+FP32_METHOD_REL_L2 = 1e-4
+
+#: path C: every SELL kind, and ``--sell acdc`` at ``fft`` and ``matmul``
+#: for each transform family, at smoke width: (label, flags, paged)
+SMOKE_METHODS = (
+    ("low_rank", ["--sell", "low_rank"], False),
+    ("circulant", ["--sell", "circulant"], False),
+    ("fastfood", ["--sell", "fastfood"], False),
+    *((f"acdc {m} {f}", ["--sell", "acdc", "--sell-method", m,
+                         "--sell-transform", f], False)
+      for m in ("fft", "matmul") for f in ("acdc", "circulant", "hadamard")),
+    ("acdc fft acdc paged", ["--sell", "acdc", "--sell-method", "fft"],
+     True),
+)
+
+#: path D: the layer sizes of the paper's Figure 2 (and Qwen3's d_ff)
+FIG2_SIZES = (128, 256, 512, 1024, 2048, 4096, 6144, 8192)
+
+#: path D: rows a call, as ``benchmarks/bench_fig2_speed.py`` uses
+FIG2_ROWS = 128
+
+
+@contextlib.contextmanager
+def sell_in_fp64():
+    """Every SELL projection evaluated in fp64 (input and parameters
+    upcast, the result rounded back to the activation dtype): the fp64
+    pass of the routes without kernels (``auto``, ``fft``, ``matmul`` and
+    the baseline kinds).  Comparisons only."""
+    from repro_torch.core import sell as sell_mod
+
+    saved = sell_mod.structured_linear
+
+    def fp64(params, x, cfg):
+        p64 = {k: v.double() for k, v in params.items()}
+        return saved(p64, x.double(), cfg).to(x.dtype)
+
+    sell_mod.structured_linear = fp64
+    try:
+        yield
+    finally:
+        sell_mod.structured_linear = saved
+
+
+@contextlib.contextmanager
+def acdc_without_d():
+    """A deliberately faulty ACDC layer on the routes without kernels
+    that drops ``d``: a control for the cross-route logit limits."""
+    import torch
+
+    from repro_torch.core import acdc as acdc_mod
+
+    saved = acdc_mod.acdc
+
+    def faulty(x, a, d, bias=None, **kw):
+        return saved(x, a, torch.ones_like(d), bias, **kw)
+
+    acdc_mod.acdc = faulty
+    try:
+        yield
+    finally:
+        acdc_mod.acdc = saved
+
+
+def sell_diagonals_in_bf16(params):
+    """``params`` with every SELL diagonal rounded to bf16 (and back to
+    fp32): a 2^-9 perturbation of the weights, the size of the rounding a
+    bf16 route applies to its own operands."""
+    import torch
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return node.to(torch.bfloat16).float() if "/sell/" in path \
+            else node
+
+    return walk(params, "")
+
+
+def compare_methods_logits(pieces, dev) -> dict:
+    """One prefill's and one decode step's logits on the reference's
+    routes (``auto``, ``fft``, ``matmul``) against the ``pallas`` route,
+    same weights, each route's drift from an fp64 evaluation
+    (``sell_in_fp64`` on the ``matmul`` route) beside it, and a faulty
+    ``auto`` route that drops ``d`` (``acdc_without_d``) that must read
+    over each limit held.
+
+    fp32 compute: every route within ``FP32_METHOD_REL_L2``, prefill and
+    decode.  bf16 compute: ``auto`` within ``BF16_LOGIT_REL_L2`` on the
+    decode step.  The bf16 prefill is reported, not held: the routes
+    round their own weights differently (``matmul`` multiplies by the DCT
+    matrix in the activation dtype, as the reference does, and casts the
+    diagonals down), and the prefill's last-position logits move by
+    ~0.07 under a 2^-9 perturbation of the SELL diagonals alone even in
+    fp32 compute (``weight_rounding_fp32`` below, measured every run; the
+    decode step's by ~0.007), so at the prefill no bf16 limit tells a
+    fault from the reference's rounding."""
+    cfg, model, params = pieces
+
+    def probe(dtype, method, ctx=contextlib.nullcontext, p=params):
+        with ctx():
+            return probe_logits(model, dataclasses.replace(
+                cfg, dtype=dtype, sell_method=method), p, dev)
+
+    methods = ("auto", "fft", "matmul")
+    out = {"limit_bf16": BF16_LOGIT_REL_L2, "limit_fp32": FP32_METHOD_REL_L2}
+    rounded = sell_diagonals_in_bf16(params)
+    for dtype, limit in (("bfloat16", BF16_LOGIT_REL_L2),
+                         ("float32", FP32_METHOD_REL_L2)):
+        runs = {m: probe(dtype, m) for m in ("pallas",) + methods}
+        runs["fp64"] = probe(dtype, "matmul", sell_in_fp64)
+        runs["auto_without_d"] = probe(dtype, "auto", acdc_without_d)
+        if dtype == "float32":
+            runs["weight_rounding"] = probe(dtype, "pallas", p=rounded)
+        for where in ("prefill", "decode"):
+            row = {f"{m}_vs_pallas": _rel_l2(runs[m][where],
+                                              runs["pallas"][where])
+                   for m in runs if m not in ("pallas", "fp64")}
+            row.update({f"{m}_vs_fp64": _rel_l2(runs[m][where],
+                                                runs["fp64"][where])
+                        for m in ("pallas",) + methods})
+            held = dtype == "float32" or where == "decode"
+            out[f"{dtype} {where}"] = dict(row, held=held)
+            print(f"[methods] full width {dtype} {where} ({smi_line()}): "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in row.items())
+                  + (f" (limit {limit} on the routes vs pallas)" if held
+                     else " (reported)"), flush=True)
+            if not held:
+                continue
+            for m in methods if dtype == "float32" else ("auto",):
+                if not row[f"{m}_vs_pallas"] <= limit:
+                    _fail(f"full-width {dtype} {where} logits: {m} vs "
+                          f"pallas rel L2 {row[f'{m}_vs_pallas']} > {limit}")
+            if not row["auto_without_d_vs_pallas"] > limit:
+                _fail(f"full-width {dtype} {where} logits: the limit {limit}"
+                      f" does not catch the faulty route (rel L2 "
+                      f"{row['auto_without_d_vs_pallas']})")
+    return out
+
+
+def methods_full_width(pieces, dev, totals) -> dict:
+    """Path A: full-width Qwen3-1.7B served with ``--sell acdc
+    --sell-method auto`` (matmul at N = 2048, fft at N = 6144; bf16
+    compute, fp32 masters) on phase 4's weights, dense then paged with
+    phase 4's requests: every tick's launches exact (no SELL kernel, one
+    ``paged_attn`` a layer on the paged layout), s/tick, tok/s, prefill
+    s/admission; a profiled window of 8 decode ticks in each layout; and
+    the logits against the ``pallas`` route (``compare_methods_logits``)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    cfg, model, params = pieces
+    auto = (dataclasses.replace(cfg, sell_method="auto"), model, params)
+    base = ["--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
+            "auto", "--slots", "4", "--prompt-len", "64", "--gen", "16",
+            "--requests", "8", "--device", "cuda"]
+    out = {"routes": serve.sell_routes(auto[0])}
+    print(f"[methods] full width auto: {out['routes']}", flush=True)
+    root = ROOT / "build" / "chip_smoke_profile_methods"
+    shutil.rmtree(root, ignore_errors=True)
+    for paged in (False, True):
+        name = "paged" if paged else "dense"
+        label = f"full width auto {name}"
+        info, _, eng, recs = serve_path(
+            label, base + (["--paged"] if paged else []), auto, totals,
+            ("paged_attn",) if paged else (), record=True)
+        info["ticks"] = check_ticks(label, eng, recs, 64, spec=False)
+        info["prefill_s_per_admission"] = info["prefill_s"] / max(
+            info["prefills"], 1)
+        info["profile"] = profile_ticks(f"auto decode {name}", root, auto,
+                                        dev, paged, 0, 4, 11)
+        out[name] = info
+    out["logits"] = compare_methods_logits(pieces, dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_methods_full_width(dev, totals) -> dict:
+    """Path B: full-width training at ``--sell-method auto`` (bf16
+    compute, fp32 masters, global batch 4 x 128): one step's fp32 loss and
+    per-group grads against the ``pallas`` route on the same state (within
+    ``FP32_GRAD_REL_L2``), then one warm-up and two timed AdamW steps that
+    launch no SELL kernel: s/step, tokens/s, peak memory."""
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+    from repro_torch.launch import train
+
+    args = train.parse_args([
+        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "auto",
+        "--global-batch", "4", "--seq-len", "128", "--steps", "3",
+        "--device", str(dev)])
+    cfg, model, opt, train_step, pipeline = train.build(args)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = steps_mod.init_state(model, cfg, opt, gen, dev)
+    batch = train.batch_on(pipeline, 0, dev)
+    runs = {m: steps_mod.loss_and_grads(model, dataclasses.replace(
+        cfg, dtype="float32", sell_method=m), state["params"], batch)
+        for m in ("auto", "pallas")}
+    torch.cuda.synchronize()
+    loss_a, loss_p = float(runs["auto"][0]), float(runs["pallas"][0])
+    grads = dict(loss_auto=loss_a, loss_pallas=loss_p,
+                 loss_rel_diff=abs(loss_a - loss_p) / abs(loss_p),
+                 rel_l2=group_rel_l2(runs["auto"][1], runs["pallas"][1]),
+                 limit=FP32_GRAD_REL_L2)
+    del runs
+    torch.cuda.empty_cache()
+    print(f"[grads] full width fp32, auto vs pallas ({smi_line()}): loss "
+          f"{loss_a:.6f} / {loss_p:.6f} | rel L2 " + ", ".join(
+              f"{g} {v:.3e}" for g, v in grads["rel_l2"].items()),
+          flush=True)
+    worst = max(grads["rel_l2"].values())
+    if not (worst <= FP32_GRAD_REL_L2
+            and grads["loss_rel_diff"] <= FP32_GRAD_REL_L2):
+        _fail(f"full-width fp32 auto vs pallas: grads rel L2 {worst}, "
+              f"loss {grads['loss_rel_diff']} (limit {FP32_GRAD_REL_L2})")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, train.batch_on(pipeline, step,
+                                                          dev))
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        print(f"[train] full width auto step {step}: loss {loss:.4f} |g| "
+              f"{float(metrics['grad_norm']):.3f} {dt:.3f}s", flush=True)
+        if not math.isfinite(loss):
+            _fail(f"full-width auto step {step}: loss {loss}")
+        steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                          s=dt))
+    counts = read_counts()
+    if any(counts.values()):
+        _fail(f"full-width auto training launched kernels {counts}")
+    s_step = sum(st["s"] for st in steps[1:]) / (len(steps) - 1)
+    tokens = args.global_batch * args.seq_len
+    info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters, "
+                "--sell-method auto", global_batch=args.global_batch,
+                seq_len=args.seq_len, steps=steps, s_per_step=s_step,
+                tokens_per_s=tokens / s_step,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=counts, grads=grads)
+    print(f"[train] full width auto ({smi_line()}): {s_step:.3f} s/step, "
+          f"{info['tokens_per_s']:.1f} tokens/s, peak "
+          f"{info['peak_mem_gb']:.2f} GB, launches {counts}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return info
+
+
+def smoke_methods(totals, dev) -> list:
+    """Path C: the smoke decoder (fp32) served with every SELL kind and,
+    for ``--sell acdc``, ``fft`` and ``matmul`` over each transform family
+    (``SMOKE_METHODS``), 4 slots, 4 requests: every tick's launches exact
+    (no SELL kernel; ``paged_attn`` on the paged layout); the greedy
+    streams equal the same model with its SELL projections in fp64
+    (``sell_in_fp64``), or differ at a near-tie (``near_tie``)."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "qwen3_1_7b", "--smoke", "--slots", "4",
+            "--prompt-len", "12", "--gen", "8", "--requests", "4",
+            "--device", "cuda"]
+    out = []
+    for name, flags, paged in SMOKE_METHODS:
+        argv = base + flags + (["--paged", "--block-size", "4"]
+                               if paged else [])
+        label = f"smoke {name}"
+        pieces = serve.build(serve.parse_args(argv))
+        info, reqs, eng, recs = serve_path(label, argv, pieces, totals,
+                                           ("paged_attn",) if paged else (),
+                                           record=True)
+        info["ticks"] = check_ticks(label, eng, recs, 12, spec=False)
+        with sell_in_fp64():
+            want = streams_of(serve_path(label + " (fp64)", argv, pieces,
+                                         {k: 0 for k in KERNEL_MODULES},
+                                         ())[1])
+        info["vs_fp64"] = compare_streams(
+            label + " fp32 vs fp64", pieces, [r.prompt for r in reqs],
+            streams_of(reqs), want, dev, hold=True, fp64=sell_in_fp64)
+        out.append(info)
+    return out
+
+
+def fig2_work(route: str, m: int, n: int):
+    """(bytes, flops) one Figure-2 call must move and do: x read and y
+    written once, the diagonals (and the route's N x N operands) read
+    once; flops: two N x N products a row (``matmul``, ``pallas``), one
+    (``dense``), or two length-N complex FFTs a row at the standard
+    5 N log2 N each (``fft``), plus the diagonal products."""
+    io = 4 * (2 * m * n + 2 * n)
+    if route == "dense":
+        return 4 * (2 * m * n + n * n), 2 * m * n * n
+    if route == "fft":
+        return io, 2 * 5 * m * n * math.log2(n) + 2 * m * n
+    return io + 4 * 2 * n * n, 4 * m * n * n + 2 * m * n
+
+
+def fig2_speed(dev) -> list:
+    """Path D, the paper's Figure 2 on the card: one ACDC layer (K = 1,
+    fp32, ``FIG2_ROWS`` rows, random diagonals, no bias) at each of
+    ``FIG2_SIZES``, by device time (``device_ms``) on the ``fft`` and
+    ``matmul`` routes, the ``pallas`` route (``acdc_fused`` at N <= 1024,
+    two ``scaled_matmul`` calls above) and a dense fp32 ``x @ W`` with the
+    layer's matrix rounded to fp32; each beside its bound (``fig2_work``)
+    and its fp32 error against an fp64 evaluation of its own function
+    (``drift``).  The ACDC routes' errors must stay within 2 x the
+    ``matmul`` route's; the dense baseline's is reported (an fp32 ``x @
+    W`` with W near the identity sums N terms where an orthonormal
+    transform spreads them, and reads ~2 x the ``matmul`` route's at N =
+    2048 on the CPU)."""
+    import torch
+
+    from repro_torch.core import acdc as acdc_mod
+    from repro_torch.core import transforms
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for n in FIG2_SIZES:
+        m = FIG2_ROWS
+        x = torch.randn((m, n), generator=gen, device=dev)
+        a = 1.0 + 0.1 * torch.randn((n,), generator=gen, device=dev)
+        d = 1.0 + 0.1 * torch.randn((n,), generator=gen, device=dev)
+        c64 = transforms.dct_matrix(n, torch.float64, dev)
+        w64 = (a.double()[:, None] * c64 * d.double()[None, :]) @ c64.T
+        want = x.double() @ w64
+        w = w64.float()
+        fns = {"fft": lambda: acdc_mod.acdc(x, a, d, method="fft"),
+               "matmul": lambda: acdc_mod.acdc(x, a, d, method="matmul"),
+               "pallas": lambda: ops.acdc_fused_op(x, a, d),
+               "dense": lambda: x @ w}
+        # the dense layer's own function has the fp32-rounded W
+        wants = dict.fromkeys(fns, want)
+        wants["dense"] = x.double() @ w.double()
+        row = dict(n=n, rows=m)
+        with torch.no_grad():
+            for route, fn in fns.items():
+                ms, host_us = device_ms(fn)
+                b, by = bound_ms(*fig2_work(route, m, n))
+                row[route] = dict(ms=ms, host_us=host_us, bound_ms=b,
+                                  bound_by=by, fp32_err_vs_fp64=drift(
+                                      fn(), wants[route]))
+        del c64, w64, want, w, wants
+        print(f"[fig2] N={n} ({smi_line()}): " + "; ".join(
+            f"{r} {row[r]['ms']:.4f} ms (bound {row[r]['bound_ms']:.4f} by "
+            f"{row[r]['bound_by']}, err {row[r]['fp32_err_vs_fp64']:.2e})"
+            for r in fns), flush=True)
+        for route in ("fft", "pallas"):
+            if not (row[route]["fp32_err_vs_fp64"]
+                    <= 2 * row["matmul"]["fp32_err_vs_fp64"]):
+                _fail(f"fig2 N={n}: {route} fp32 error "
+                      f"{row[route]['fp32_err_vs_fp64']} > 2 x matmul's")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2333,6 +2772,7 @@ def main() -> int:
     report["kernels"] = kern
     report["scaled_matmul_regimes"] = sweep
     report["per_layer_backward"] = per_layer
+    report["fig2"] = fig2_speed(dev)
     totals = {name: 0 for name in KERNEL_MODULES}
 
     params_cache = {}
@@ -2359,6 +2799,7 @@ def main() -> int:
         pieces, dev, dtype="float32")
     report["spec_full_width"] = spec_full_width(pieces, dev, totals,
                                                 nonspec_streams)
+    report["methods_full_width"] = methods_full_width(pieces, dev, totals)
     del pieces
     torch.cuda.empty_cache()
 
@@ -2384,8 +2825,11 @@ def main() -> int:
         info["streams_identical_to_plain"] = True
         paths.append(info)
     report["spec_smoke"] = smoke_spec(params_cache, totals)
+    report["methods_smoke"] = smoke_methods(totals, dev)
     report["paths"] = paths
     report["train_full_width"] = train_full_width(dev, totals)
+    report["train_methods_full_width"] = train_methods_full_width(dev,
+                                                                  totals)
     report["train_smoke"] = train_smoke(totals)
     report["overload"] = overload_full_width(dev, totals)
     report["overload_spec"] = overload_spec_full_width(dev, totals)

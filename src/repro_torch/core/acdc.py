@@ -10,10 +10,13 @@ from the :mod:`repro_torch.core.families` registry.  ``acdc_cascade``
 stacks K such layers (Definition 1) with optional ReLU and riffle
 interleavings; ``acdc_rectangular`` pads/truncates for ``N_in != N_out``.
 
-Only ``method="pallas"`` is ported: it routes to the hand-written kernels
-through :mod:`repro_torch.kernels.ops` (CUDA on the card, their plain
-versions on the CPU).  The ``fft``/``matmul``/``auto`` methods wait
-(ROADMAP.md).  Parameters are plain dicts of tensors with a leading K
+Four methods, as in the reference: ``pallas`` routes to the
+hand-written kernels through :mod:`repro_torch.kernels.ops` (CUDA on the
+card, their plain versions on the CPU); ``matmul`` multiplies by the
+family's explicit matrices; ``fft`` applies its fast transforms over
+``torch.fft``; ``auto`` (the default) resolves to ``matmul`` at N <=
+``MATMUL_MAX_N`` and to ``fft`` above, by the reference's rule and
+nothing else.  Parameters are plain dicts of tensors with a leading K
 axis, keyed like the reference pytree.
 """
 
@@ -27,32 +30,60 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import families as families_mod
+from repro_torch.core import transforms
 
 Method = Literal["auto", "fft", "matmul", "pallas"]
 
+#: the reference's crossover (acdc.py:46): ``auto`` takes the explicit
+#: matrices at N <= this and the FFT above; a routing decision, so the
+#: reference's value
+MATMUL_MAX_N = 4096
 
-def _require_pallas(method: str) -> None:
-    if method != "pallas":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet; only 'pallas' (the "
-            "hand-written kernels) is — see ROADMAP.md")
+
+def _resolve_method(n: int, method: Method) -> str:
+    if method != "auto":
+        return method
+    return "matmul" if n <= MATMUL_MAX_N else "fft"
 
 
 def acdc(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-         bias: Optional[torch.Tensor] = None, *, method: Method = "pallas",
+         bias: Optional[torch.Tensor] = None, *, method: Method = "auto",
          family: str = "acdc") -> torch.Tensor:
-    """One layer ``y = ((x*a) C * d + bias) C^-1`` along the last axis."""
+    """One layer ``y = ((x*a) C * d + bias) C^-1`` along the last axis.
+
+    ``bias`` (if given) is the paper's bias-on-D: added after the ``D``
+    scaling, in the transform domain, before the inverse transform."""
     n = x.shape[-1]
     if a.shape[-1] != n or d.shape[-1] != n:
         raise ValueError(
             f"diagonal size mismatch: x={n} a={tuple(a.shape)} "
             f"d={tuple(d.shape)}")
-    families_mod.get_family(family)
-    _require_pallas(method)
-    from repro_torch.kernels import ops
+    fam = families_mod.get_family(family)
+    m = _resolve_method(n, method)
+    if m == "pallas":
+        from repro_torch.kernels import ops
 
-    # fp32 master diagonals go to the kernel uncast, as in the reference
-    return ops.acdc_fused_op(x, a, d, bias, family=family)
+        # fp32 master diagonals go to the kernel uncast, as in the
+        # reference
+        return ops.acdc_fused_op(x, a, d, bias, family=family)
+    if m not in ("fft", "matmul"):
+        raise ValueError(f"unknown method {method!r}")
+    # the fft/matmul paths carry the activation dtype: fp32 master
+    # diagonals are cast down so a bf16 stream stays bf16
+    a = a.to(x.dtype)
+    d = d.to(x.dtype)
+    bias = bias.to(x.dtype) if bias is not None else None
+    h1 = x * a
+    if m == "matmul":
+        h2 = torch.matmul(h1, fam.matrix(n, x.dtype, x.device))
+    else:
+        h2 = fam.apply(h1)
+    h3 = h2 * d
+    if bias is not None:
+        h3 = h3 + bias
+    if m == "matmul":
+        return torch.matmul(h3, fam.inverse_matrix(n, x.dtype, x.device))
+    return fam.inverse(h3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +123,47 @@ def init_acdc_params(gen: torch.Generator, cfg: ACDCConfig,
 
 def acdc_cascade(params: dict, x: torch.Tensor,
                  cfg: ACDCConfig) -> torch.Tensor:
-    """Apply the order-K cascade with optional ReLU + riffle interleaving."""
-    _require_pallas(cfg.method)
-    from repro_torch.kernels import ops
+    """Apply the order-K cascade with optional ReLU + riffle interleaving.
 
-    return ops.acdc_cascade_op(
-        x, params["a"], params["d"], params.get("bias"),
-        relu=cfg.relu, permute=cfg.permute, family=cfg.family)
+    ``pallas``: the kernels' routing (:func:`ops.acdc_cascade_op`: one
+    whole-cascade kernel where the reference fuses, else layer by layer).
+    ``fft``/``matmul``: K = 1 is one :func:`acdc`; otherwise each of the
+    first K-1 layers is followed by the ReLU (if set) and then the riffle
+    (if set), and the last layer by neither."""
+    a, d, bias = params["a"], params["d"], params.get("bias")
+    if _resolve_method(cfg.n, cfg.method) == "pallas":
+        from repro_torch.kernels import ops
+
+        return ops.acdc_cascade_op(x, a, d, bias, relu=cfg.relu,
+                                   permute=cfg.permute, family=cfg.family)
+
+    def layer(h, i):
+        return acdc(h, a[i], d[i], None if bias is None else bias[i],
+                    method=cfg.method, family=cfg.family)
+
+    perm = None
+    if cfg.permute and cfg.k > 1:
+        perm = transforms.constant(families_mod.get_family(cfg.family).riffle,
+                                   cfg.n, torch.long, x.device)
+    h = x
+    for i in range(cfg.k - 1):
+        h = layer(h, i)
+        if cfg.relu:
+            h = torch.relu(h)
+        if perm is not None:
+            h = torch.index_select(h, -1, perm)
+    return layer(h, cfg.k - 1)
+
+
+def acdc_cascade_dense_equivalent(params: dict,
+                                  cfg: ACDCConfig) -> torch.Tensor:
+    """Materialize the cascade as an explicit N x N fp32 matrix (test
+    oracle); only valid for linear cascades (no ReLU)."""
+    if cfg.relu:
+        raise ValueError("dense equivalent undefined with interleaved ReLU")
+    eye = torch.eye(cfg.n, dtype=torch.float32, device=params["a"].device)
+    # push the identity through the cascade: rows transform independently
+    return acdc_cascade({k: v.float() for k, v in params.items()}, eye, cfg)
 
 
 def rectangular_size(n_in: int, n_out: int, multiple: int = 1) -> int:

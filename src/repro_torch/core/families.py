@@ -2,14 +2,13 @@
 
 Port of :mod:`repro.core.families`.  A :class:`TransformFamily` holds
 what a structured linear layer needs about its transform ``C``: the
-explicit orthonormal operand pair, the between-layer riffle, the
-identity+noise init recipe and the size rule.  The three registered
-families (``acdc`` = DCT-II, ``circulant`` = real-DFT basis,
-``hadamard`` = normalized Walsh-Hadamard) all feed the same kernels,
-which only need a real ``C`` with ``C^-1 = C^T``.
-
-The fast ``apply``/``inverse`` transforms of the reference are not
-ported yet; the kernels use the explicit matrices.
+explicit orthonormal operand pair (the ``matmul`` method and the
+kernels' operands), the fast O(N log N) ``apply``/``inverse`` (the
+``fft`` method), whether the diagonals are complex, the between-layer
+riffle, the identity+noise init recipe and the size rule.  The three
+registered families (``acdc`` = DCT-II, ``circulant`` = real-DFT basis,
+``hadamard`` = normalized Walsh-Hadamard) are all real and feed the same
+kernels, which only need a real ``C`` with ``C^-1 = C^T``.
 """
 
 from __future__ import annotations
@@ -62,6 +61,13 @@ class TransformFamily:
     matrix: Callable[..., torch.Tensor]
     #: C^-1 (= C^T for every registered family)
     inverse_matrix: Callable[..., torch.Tensor]
+    #: fast O(N log N) y = x @ C along the last axis
+    apply: Callable[[torch.Tensor], torch.Tensor]
+    #: fast O(N log N) x = y @ C^-1 along the last axis
+    inverse: Callable[[torch.Tensor], torch.Tensor]
+    #: diagonal parameterization: False = real a/d (all registered
+    #: families; the kernels require it)
+    complex_diagonals: bool = False
     #: between-layer permutation policy (indices for size n)
     riffle: Callable[[int], np.ndarray] = transforms.make_riffle
     #: identity-init recipe -> (a, d), each (k, n)
@@ -103,17 +109,23 @@ ACDC = register(TransformFamily(
     name="acdc",
     matrix=transforms.dct_matrix,
     inverse_matrix=transforms.idct_matrix,
+    apply=transforms.dct,
+    inverse=transforms.idct,
 ))
 
 CIRCULANT = register(TransformFamily(
     name="circulant",
     matrix=transforms.real_fft_matrix,
     inverse_matrix=transforms.real_ifft_matrix,
+    apply=transforms.real_fft,
+    inverse=transforms.real_ifft,
 ))
 
 HADAMARD = register(TransformFamily(
     name="hadamard",
     matrix=transforms.hadamard_matrix,
     inverse_matrix=transforms.hadamard_matrix,  # involutive: H = H^-1
+    apply=transforms.fwht,
+    inverse=transforms.fwht,
     valid_size=_next_pow2,
 ))

@@ -1,7 +1,7 @@
 """Serving launcher: the continuous-batching engine over the port's models.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
-        --sell acdc --sell-method pallas [--paged] [--smoke]
+        --sell acdc [--sell-method auto|fft|matmul|pallas] [--paged] [--smoke]
 
 Each request gets a random ragged-length prompt (``--prompt-len`` is the
 longest); the engine admits them into ``--slots`` batch slots with one
@@ -42,8 +42,9 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.configs import registry
+from repro_torch.core import acdc as acdc_mod
 from repro_torch.dist import steps as steps_mod
-from repro_torch.models import get_model
+from repro_torch.models import get_model, linear
 from repro_torch.obs import (REGISTRY, JsonlExporter, Observability, Prof,
                              ProfileWindow, Registry, SpanTracer,
                              set_global_tracer)
@@ -62,13 +63,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's small smoke configuration")
     ap.add_argument("--sell", default="dense",
-                    help="SELL kind for the target projections (dense|acdc)")
-    ap.add_argument("--sell-method", default="pallas",
+                    help="SELL kind for the target projections: dense | "
+                         "low_rank | circulant | fastfood | acdc (afdf, "
+                         "complex-valued, is core-level only)")
+    ap.add_argument("--sell-method", default="auto",
                     choices=["auto", "fft", "matmul", "pallas"],
-                    help="transform backend; only 'pallas' (the hand-written "
-                         "kernels) is ported")
+                    help="transform backend of --sell acdc: auto (the "
+                         "reference's default: matmul at N <= 4096, fft "
+                         "above) | fft (torch.fft) | matmul (the explicit "
+                         "matrices) | pallas (the hand-written kernels)")
     ap.add_argument("--sell-transform", default="acdc",
-                    help="transform family (acdc | circulant | hadamard)")
+                    help="transform family of --sell acdc cascades "
+                         "(acdc | circulant | hadamard)")
     ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
@@ -319,11 +325,31 @@ def run_static(args: argparse.Namespace, cfg, model, params):
     return toks, t_prefill, t_decode
 
 
+def sell_routes(cfg) -> str:
+    """The method each SELL operating size of ``cfg`` runs, ``auto``
+    resolved by the reference's size rule (e.g. ``N=2048 matmul, N=6144
+    fft``); empty unless the projections are ``acdc`` cascades."""
+    if cfg.sell_kind != "acdc":
+        return ""
+    dh = cfg.head_dim_
+    sizes = sorted({linear._sell_cfg(cfg, n_in, n_out).n_op
+                    for role, n_in, n_out in (
+                        ("attn_qkv", cfg.d_model, cfg.n_heads * dh),
+                        ("attn_out", cfg.n_heads * dh, cfg.d_model),
+                        ("mlp_in", cfg.d_model, cfg.d_ff),
+                        ("mlp_out", cfg.d_ff, cfg.d_model))
+                    if linear.uses_sell(cfg, role)})
+    return ", ".join(f"N={n} {acdc_mod._resolve_method(n, cfg.sell_method)}"
+                     for n in sizes)
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg, model, params = build(args)
-    print(f"arch={cfg.name} sell={cfg.sell_kind}/{cfg.sell_method} "
-          f"slots={args.slots} paged={args.paged} static={args.static} "
+    routes = sell_routes(cfg)
+    print(f"arch={cfg.name} sell={cfg.sell_kind}/{cfg.sell_method}"
+          + (f" ({routes})" if routes else "")
+          + f" slots={args.slots} paged={args.paged} static={args.static} "
           f"device={args.device}")
     if args.static:
         return run_static(args, cfg, model, params)

@@ -57,13 +57,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's small smoke configuration")
     ap.add_argument("--sell", default="dense",
-                    help="SELL kind for the target projections (dense|acdc)")
-    ap.add_argument("--sell-method", default="pallas",
+                    help="SELL kind for the target projections: dense | "
+                         "low_rank | circulant | fastfood | acdc (afdf, "
+                         "complex-valued, is core-level only)")
+    ap.add_argument("--sell-method", default="auto",
                     choices=["auto", "fft", "matmul", "pallas"],
-                    help="transform backend; only 'pallas' (the hand-written "
-                         "kernels) is ported")
+                    help="transform backend of --sell acdc: auto (the "
+                         "reference's default: matmul at N <= 4096, fft "
+                         "above) | fft (torch.fft) | matmul (the explicit "
+                         "matrices) | pallas (the hand-written kernels)")
     ap.add_argument("--sell-transform", default="acdc",
-                    help="transform family (acdc | circulant | hadamard)")
+                    help="transform family of --sell acdc cascades "
+                         "(acdc | circulant | hadamard)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)

@@ -58,3 +58,10 @@ def linear_apply(params: dict, x: torch.Tensor, n_in: int, n_out: int,
                                           _sell_cfg(cfg, n_in, n_out))
     return torch.matmul(x, params["w"].to(x.dtype))
 
+
+
+def linear_param_count(cfg: ModelConfig, role: str, n_in: int,
+                       n_out: int) -> int:
+    if uses_sell(cfg, role):
+        return _sell_cfg(cfg, n_in, n_out).param_count()
+    return n_in * n_out

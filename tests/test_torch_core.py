@@ -98,32 +98,52 @@ def test_acdc_rectangular_pad_and_truncate(n_in, n_out):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_dense_sell_and_unported_kinds():
+_KIND_PARAMS = {
+    "dense": {"w": (16, 8), "b": (8,)},
+    "low_rank": {"u": (16, 4), "v": (4, 8), "b": (8,)},
+    "circulant": {"a": (16,), "c": (16,), "b": (8,)},
+    "fastfood": {"d1": (16,), "d2": (16,), "d3": (16,), "b": (8,)},
+    "afdf": {"a_re": (2, 16), "a_im": (2, 16), "d_re": (2, 16),
+             "d_im": (2, 16)},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_KIND_PARAMS))
+def test_dense_sell_and_unported_kinds(kind):
+    """Every SELL kind but ``acdc`` (tested above) on numpy-made params:
+    the reference's param count and forward."""
     rs = np.random.RandomState(0)
-    w = rs.randn(16, 8).astype(np.float32)
-    b = rs.randn(8).astype(np.float32)
+    params = {name: (0.5 * rs.randn(*shape)).astype(np.float32)
+              for name, shape in _KIND_PARAMS[kind].items()}
     x = rs.randn(4, 16).astype(np.float32)
-    cfg_j = jsell.SellConfig(kind="dense", n_in=16, n_out=8)
-    cfg_t = tsell.SellConfig(kind="dense", n_in=16, n_out=8)
-    want = jsell.structured_linear({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+    kw = dict(kind=kind, n_in=16, n_out=8, rank=4, k=2,
+              bias=kind != "afdf")
+    cfg_j, cfg_t = jsell.SellConfig(**kw), tsell.SellConfig(**kw)
+    assert cfg_t.param_count() == cfg_j.param_count() == \
+        sum(v.size for v in params.values())
+    want = jsell.structured_linear({k: jnp.asarray(v)
+                                    for k, v in params.items()},
                                    jnp.asarray(x), cfg_j)
-    got = tsell.structured_linear({"w": torch.from_numpy(w),
-                                   "b": torch.from_numpy(b)},
+    got = tsell.structured_linear({k: torch.from_numpy(v)
+                                   for k, v in params.items()},
                                   torch.from_numpy(x), cfg_t)
+    assert got.shape == (4, 8)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for kind in ("low_rank", "circulant", "fastfood", "afdf"):
-        cfg = tsell.SellConfig(kind=kind, n_in=16, n_out=16)
-        assert cfg.param_count() == jsell.SellConfig(
-            kind=kind, n_in=16, n_out=16).param_count()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsell.structured_linear({}, torch.zeros(2, 16), cfg)
 
 
-def test_only_pallas_method_is_ported():
-    cfg = tacdc.ACDCConfig(n=128, k=2, method="fft")
-    p = {"a": torch.ones(2, 128), "d": torch.ones(2, 128)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tacdc.acdc_cascade(p, torch.zeros(2, 128), cfg)
+@pytest.mark.parametrize("method", ["fft", "matmul", "auto", "pallas"])
+def test_only_pallas_method_is_ported(method):
+    """Every method of ``acdc_cascade`` against the reference's."""
+    rs = np.random.RandomState(1)
+    params = {"a": _diag(rs, 2, 128), "d": _diag(rs, 2, 128)}
+    x = rs.randn(3, 128).astype(np.float32)
+    kw = dict(n=128, k=2, permute=True, bias=False, method=method)
+    want = jacdc.acdc_cascade({k: jnp.asarray(v) for k, v in params.items()},
+                              jnp.asarray(x), jacdc.ACDCConfig(**kw))
+    got = tacdc.acdc_cascade({k: torch.from_numpy(v)
+                              for k, v in params.items()},
+                             torch.from_numpy(x), tacdc.ACDCConfig(**kw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("fraction", [1.0, 0.5])

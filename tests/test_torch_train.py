@@ -332,5 +332,6 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_launcher_defaults_to_cuda_and_pallas():
+    """The reference's default method, ``auto``, on the card."""
     args = ttrain.parse_args([])
-    assert args.device == "cuda" and args.sell_method == "pallas"
+    assert args.device == "cuda" and args.sell_method == "auto"

@@ -27,10 +27,16 @@ result line if any fails):
    fp32 ``torch.matmul`` with the cascade's composed dense matrix;
    ``paged_attn`` at the main path's decode and verify rows (L2 flushed
    too) and at long rows a - d (67 MB of K/V each: 4 x 4096, 16 x 1024,
-   1 x 16384 keys at T = 1, 4 x 4096 at T = 5), bitwise on a repeat, its
-   split plan recorded, every row beside one
-   ``scaled_dot_product_attention`` call over a contiguous cache (with a
-   boolean mask where slots differ or T > 1);
+   1 x 16384 keys at T = 1, 4 x 4096 at T = 5), and past one 16-row
+   block at the dense configs' heads (DeepSeek-67B's verify, 40 rows a
+   KV head; ChatGLM3-6B's decode and verify, 16 and 80; Gemma3-27B's
+   1024 window over 4096 keys), bitwise on a repeat, its split plan
+   recorded, every row beside one ``scaled_dot_product_attention`` call
+   over a contiguous cache (with a boolean mask where slots differ, T > 1
+   or a window binds); the grouped ``scaled_matmul`` at DeepSeekMoE-16B's
+   expert shapes (64 experts' diagonals over M = 64, 448, 3840 rows of
+   K = N = 2048) beside a loop of 64 ungrouped calls and one
+   ``torch.matmul`` of the pre-scaled operand;
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
@@ -117,6 +123,37 @@ D. the paper's Figure 2: one ACDC layer (K = 1, fp32, 128 rows) at N =
    and a dense ``x @ W``, by device time beside each bound and fp32 error
    against fp64 (the ACDC routes' within 2 x the ``matmul`` route's).
 
+Paths E and F hold the dense decoder configs and the MoE layer; they run
+after phase 9 (``[phase]`` lines give every phase's seconds):
+
+E. Gemma3-27B (paged, 16-token pages), ChatGLM3-6B (paged, then
+   ``--spec --spec-k 4``: 80 verify rows a KV head through ``paged_attn``)
+   and DeepSeek-67B (dense layout) at full width, ``--sell acdc
+   --sell-method pallas``, bf16: every tick's launches exact, s/tick,
+   tok/s, prefill s/admission and peak memory beside the reckoned fp32
+   masters; one decode step's logits against the plain versions within
+   ``BF16_DECODE_REL_L2`` with the diagonals-dropped control over it (the
+   prefill's reported); Gemma3-27B at ``auto`` in fp32 with a 1280-token
+   prompt through the paged admission and one paged decode step: the
+   ``paged_attn`` kernel against the plain paged attention within
+   ``FP32_METHOD_REL_L2``, the same model with every layer global over
+   it (the 1024 window binds); then the smoke width of all three (fp32)
+   dense, paged and speculative paged: launches exact, streams identical
+   with the kernels, the plain versions and without speculation, and 3
+   train steps each against the plain versions;
+F. DeepSeekMoE-16B at full width served dense and paged (bf16, 8
+   requests, 16 new tokens): launches exact, one grouped
+   ``scaled_matmul`` a projection call for all 64 experts; one prefill's
+   and one decode step's logits against the plain versions in fp32
+   compute within ``FP32_METHOD_REL_L2`` (every expert given expert 0's
+   diagonals reads over it), bf16 reported with the share of expert
+   choices that agree; trained 3 AdamW steps (batch 4 x 128) on
+   ``pallas`` (exact grouped launch count, fp32 grads per group against
+   the plain versions within ``FP32_GRAD_REL_L2``, the no-d control over
+   it) and on ``auto``; then the smoke width of DeepSeekMoE-16B and
+   Moonshot-v1-16B-A3B (fp32) dense, paged and speculative paged, streams
+   identical with kernels and plain versions, 5 train steps each.
+
 Details go to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -125,6 +162,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -157,6 +195,14 @@ L2_FLUSH_BYTES = 128 * 2 ** 20
 #: what the fp32 orders give and below a faulty path that drops the
 #: diagonals (``compare_full_width_logits``)
 BF16_LOGIT_REL_L2 = 0.1
+
+#: the dense decoder configs' bf16 DECODE step (path E), kernels vs plain
+#: versions: 0.1 cannot tell a fault there -- the faulty path that drops
+#: the diagonals read 0.092 (DeepSeek-67B) and 0.097 (ChatGLM3-6B) on the
+#: decode step, where kernels vs plain read 8.7e-4 - 3.3e-3 over the five
+#: configs served at full width (measured on an H100 80GB HBM3 at 700 W, PERF.md), so the step
+#: is held 9 x above that and under every control
+BF16_DECODE_REL_L2 = 0.03
 
 #: one full-width train step's gradients, kernels vs plain versions on the
 #: card, relative L2 per parameter group, held in fp32 compute.  In bf16
@@ -297,6 +343,7 @@ def check_kernels(dev):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     sweep = check_scaled_matmul(dev, randn, results)
+    check_grouped_scaled_matmul(dev, randn, results)
 
     check_cascade_forward(dev, randn, results)
 
@@ -314,9 +361,22 @@ PAGED_ROWS = (("main T=1", 4, None, 1), ("main T=5", 4, None, 5),
               ("a", 4, 4096, 1), ("b", 16, 1024, 1), ("c", 1, 16384, 1),
               ("d", 4, 4096, 5))
 
+#: paged attention rows of the dense decoder configs, past one 16-row
+#: block of the kernel: (label, slots, position as in ``PAGED_ROWS``, T,
+#: query heads, KV heads, window): DeepSeek-67B's verify (group 8, T = 5:
+#: 40 rows a KV head), ChatGLM3-6B's decode and verify (group 16: 16 and
+#: 80 rows), on the main path's ragged 4-slot rows; Gemma3-27B's local
+#: window (1024) over 4096-key rows
+WIDE_PAGED_ROWS = (("deepseek-67b verify", 4, None, 5, 64, 8, 0),
+                   ("chatglm3-6b decode", 4, None, 1, 32, 2, 0),
+                   ("chatglm3-6b verify", 4, None, 5, 32, 2, 0),
+                   ("gemma3-27b local window", 4, 4096, 1, 32, 16, 1024))
 
-def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0):
-    """Inputs of one paged row: q, new k/v, pools, tables, positions.
+
+def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0, hq=16,
+               hkv=8):
+    """Inputs of one paged row (``hq`` / ``hkv`` heads of 128 dims, 16-token
+    pages): q, new k/v, pools, tables, positions.
     ``length`` None: the main path's 6-page tables, slot 0's tail
     unmapped beyond its frontier, positions 5, 37, 63 - T and parked;
     else every slot at ``length`` with just enough pages, its pages
@@ -324,7 +384,7 @@ def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0):
     import torch
 
     dtype = dtype or torch.bfloat16
-    hq, hkv, dh, bs = 16, 8, 128, 16
+    dh, bs = 128, 16
     mb = 6 if length is None else -(-(length + t) // bs)
     nb = bsz * mb
     if length is None:
@@ -347,31 +407,35 @@ def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0):
     return q, kn, vn, kp, vp, tables, positions
 
 
-def paged_bytes_flops(q, kp, tables, positions):
+def paged_bytes_flops(q, kp, tables, positions, window=0):
     """Bytes a paged call must move (q in, out, new K/V in and written,
-    the streamed prefix's K/V read once) and its flops (q.k and p.v over
-    every attended key)."""
+    the streamed prefix's K/V read once: inside the ``window`` where one
+    binds) and its flops (q.k and p.v over every attended key)."""
     bsz, t, hq, dh = q.shape
     hkv, bs, item = kp.shape[2], kp.shape[1], kp.element_size()
     virtual = tables.shape[1] * bs
     pos = [int(p) for p in positions.tolist()]
-    streamed = sum(p for p in pos if p < virtual)
-    attended = sum((p if p < virtual else 0) + t for p in pos)
+    # keys of the prefix inside the window of a slot's last query
+    inside = [p if window <= 0 else min(p, window - 1) for p in pos]
+    streamed = sum(n for n, p in zip(inside, pos) if p < virtual)
+    attended = sum((n if p < virtual else 0) + t
+                   for n, p in zip(inside, pos))
     nbytes = (2 * bsz * t * hq * dh * item        # q in, out
               + 4 * bsz * t * hkv * dh * item     # new k/v in, written
               + 2 * streamed * hkv * dh * item)   # streamed k/v
     return nbytes, 4.0 * attended * t * hq * dh, 2 * streamed * hkv * dh * item
 
 
-def sdpa_library(q, kp, vp, tables, positions, kn, vn):
+def sdpa_library(q, kp, vp, tables, positions, kn, vn, window=0):
     """One ``scaled_dot_product_attention`` call over a contiguous cache
     holding the same keys and values as the paged call: each slot's
     streamed prefix (padded to the longest) then its T new tokens,
-    ``enable_gqa``.  Where the slots' prefixes differ or T > 1, a boolean
-    ``attn_mask`` keeps each slot's prefix and its new tokens causally; a
-    parked slot (which the paged call averages over its new tokens) then
-    attends to its new tokens causally.  Returns (the call, the rows that
-    compute the paged call's function: the slots that are not parked)."""
+    ``enable_gqa``.  Where the slots' prefixes differ, T > 1 or a
+    ``window`` binds, a boolean ``attn_mask`` keeps each slot's prefix and
+    its new tokens causally (inside the window); a parked slot (which the
+    paged call averages over its new tokens) then attends to its new
+    tokens causally.  Returns (the call, the rows that compute the paged
+    call's function: the slots that are not parked)."""
     import torch
     import torch.nn.functional as F
 
@@ -392,10 +456,16 @@ def sdpa_library(q, kp, vp, tables, positions, kn, vn):
     kc = kc.transpose(1, 2).contiguous()
     vc = vc.transpose(1, 2).contiguous()
     mask = None
-    if t > 1 or not bool(valid.all()):
+    if t > 1 or window > 0 or not bool(valid.all()):
         causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
         mask = torch.cat([valid[:, None, :].expand(bsz, t, lmax),
-                          causal[None].expand(bsz, t, t)], dim=2)[:, None]
+                          causal[None].expand(bsz, t, t)], dim=2)
+        if window > 0:
+            qpos = prefix[:, None] + torch.arange(t, device=q.device)
+            kall = torch.cat([kpos[None, :].expand(bsz, lmax),
+                              qpos], dim=1)                   # (B, L+T)
+            mask = mask & (qpos[:, :, None] - kall[:, None, :] < window)
+        mask = mask[:, None]
 
     def call():
         return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
@@ -416,24 +486,28 @@ def check_paged_attn(dev, randn, results):
     from repro_torch.kernels import paged_attn as pa_mod
     from repro_torch.kernels import ref
 
-    for label, bsz, length, t in PAGED_ROWS:
+    rows = [(label, bsz, length, t, 16, 8, 0)
+            for label, bsz, length, t in PAGED_ROWS] + list(WIDE_PAGED_ROWS)
+    for label, bsz, length, t, hq, hkv, window in rows:
         q, kn, vn, kp, vp, tables, positions = paged_case(
-            dev, randn, bsz, length, t)
+            dev, randn, bsz, length, t, hq=hq, hkv=hkv)
         kp2, vp2 = kp.clone(), vp.clone()
 
         def kernel():
             return pa_mod.paged_attention(q, kn, vn, kp, vp, tables,
-                                          positions, 0, softcap=0.0)
+                                          positions, window, softcap=0.0)
 
         def plain():
             return ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables,
-                                           positions, 0, 0.0)
+                                           positions, window, 0.0)
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         shape = (f"{label}: B={bsz} T={t} pos="
                  f"{'5/37/' + str(63 - t) + '/parked' if length is None else length}"
-                 f" Hq=16 Hkv=8 Dh=128 bs=16 bf16")
+                 f" Hq={hq} Hkv={hkv} Dh=128 bs=16 bf16"
+                 + (f" window={window}" if window else "")
+                 + f" ({hq // hkv * t} rows a KV head)")
         # bf16 output: fp32 online softmax in another order than the
         # plain version's softmax; one bf16 ulp of |out| <= ~4.  Every
         # row is held, the parked one (which attends to its new tokens
@@ -448,7 +522,7 @@ def check_paged_attn(dev, randn, results):
         if not torch.equal(got, kernel()):
             _fail(f"paged_attn {shape}: two runs differ in bits")
         nbytes, flops, streamed = paged_bytes_flops(q, kp, tables,
-                                                    positions)
+                                                    positions, window)
         b, by = bound_ms(nbytes, flops)
         ms, host_us = device_ms(kernel)
         pms, phost_us = device_ms(plain, reps=3, warmup=1)
@@ -460,7 +534,8 @@ def check_paged_attn(dev, randn, results):
         row["plan"] = dataclasses.asdict(pa_mod.plan_of(q, kp, tables))
         if length is None:
             row["ms_cold"] = time_cold_ms(kernel)
-        lib, live = sdpa_library(q, kp, vp, tables, positions, kn, vn)
+        lib, live = sdpa_library(q, kp, vp, tables, positions, kn, vn,
+                                 window)
         row["library_ms"] = device_ms(lib)[0]
         row["library_max_abs_err"] = max_err(
             lib().transpose(1, 2)[live], got[live])
@@ -807,6 +882,95 @@ def check_scaled_matmul(dev, randn, results):
               f"{entry['tc']['ms']:.4f} / {entry['tc']['ms_cold']:.4f} ms "
               f"(warm / L2 flushed)", flush=True)
     return sweep
+
+
+#: the grouped scaled_matmul at DeepSeekMoE-16B's expert shapes (E = 64
+#: experts, K = N = 2048): (label, rows a group C, x dtype); C is each
+#: expert's capacity max(int(1.25 T 6 / 64), 1) at T routed tokens
+GROUPED_SMM_ROWS = (("decode, 4 slots", 1, "bfloat16"),
+                    ("64-token admission", 7, "bfloat16"),
+                    ("train step, 4 x 128", 60, "float32"))
+
+
+def check_grouped_scaled_matmul(dev, randn, results):
+    """The grouped scaled_matmul (pre (E, K): the experts' diagonals) at
+    the MoE shapes of ``GROUPED_SMM_ROWS``: against its plain version,
+    bitwise on a repeat, its fp32 error against fp64 within 2 x the plain
+    version's (cuBLAS fp32) on fp32 x, timed by device time beside the
+    bound, the plain version, the library call (one ``torch.matmul`` of
+    the pre-scaled (E C, N) operand) and a loop of E ungrouped calls (what
+    grouping replaces)."""
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    e, n = 64, 2048
+    c_mat, _ = families.get_family("acdc").matrices(n, torch.float32, dev)
+    pre = 1.0 + 0.061 * randn(e, n)
+    for label, cap, dtype in GROUPED_SMM_ROWS:
+        m = e * cap
+        x = randn(m, n, dtype=getattr(torch, dtype))
+        got = smm_mod.scaled_matmul(x, c_mat, pre=pre)
+        want = ref.scaled_matmul_ref(x, c_mat, pre=pre)
+        torch.cuda.synchronize()
+        shape = f"grouped {label}: E={e} C={cap} M={m} K=N={n} {dtype} x"
+        tol = (dict(rtol=2 ** -7, atol=1e-2) if dtype == "bfloat16" else
+               dict(rtol=1e-3, atol=2e-4 * float(want.abs().max())))
+        if not rel_close(got, want, **tol):
+            _fail(f"scaled_matmul {shape}: max err {max_err(got, want)}")
+        if not torch.equal(got, smm_mod.scaled_matmul(x, c_mat, pre=pre)):
+            _fail(f"scaled_matmul {shape}: two runs differ in bits")
+        xf = x.float()
+        rows = ref.per_row(pre, m)
+        y64 = (xf.double() * rows.double()) @ c_mat.double()
+        scale = float(y64.abs().max())
+        err = {side: float((fn(xf, c_mat, pre=pre).double() - y64).abs()
+                           .max()) / scale
+               for side, fn in (("kernel", smm_mod.scaled_matmul),
+                                ("plain", ref.scaled_matmul_ref))}
+        if not err["kernel"] <= 2 * err["plain"]:
+            _fail(f"scaled_matmul {shape}: fp32 error vs fp64 "
+                  f"{err['kernel']} > 2 x the plain version's {err['plain']}")
+        p = smm_mod.plan(m, n, n, x.dtype)
+        item = x.element_size()
+        nbytes = m * n * item + n * n * 4 + e * n * 4 + m * n * item
+        flops = 2.0 * m * n * n
+        simt, simt_by = bound_ms(nbytes, flops)
+        tc, tc_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_S)
+        own, own_by = (tc, tc_by) if p.regime == "tc" else (simt, simt_by)
+        scaled = xf * rows
+
+        def loop():
+            for i in range(e):
+                smm_mod.scaled_matmul(x[i * cap:(i + 1) * cap], c_mat,
+                                      pre=pre[i])
+
+        ms, host_us = device_ms(
+            lambda: smm_mod.scaled_matmul(x, c_mat, pre=pre))
+        row = dict(
+            shape=shape, plan=dataclasses.asdict(p), groups=e,
+            rows_per_group=cap, max_abs_err=max_err(got, want), ms=ms,
+            host_us=host_us,
+            call_ms=time_ms(lambda: smm_mod.scaled_matmul(x, c_mat,
+                                                          pre=pre)),
+            ms_cold=time_cold_ms(
+                lambda: smm_mod.scaled_matmul(x, c_mat, pre=pre)),
+            plain_ms=device_ms(
+                lambda: ref.scaled_matmul_ref(x, c_mat, pre=pre))[0],
+            library_ms=device_ms(lambda: torch.matmul(scaled, c_mat))[0],
+            ungrouped_loop_ms=device_ms(loop, reps=5)[0],
+            bound_ms=own, bound_by=own_by, bound_simt_ms=simt,
+            bound_tc_ms=tc, fp32_err_vs_fp64=err, bitwise_repeat=True)
+        results["scaled_matmul"].append(row)
+        print(f"[grouped] scaled_matmul {shape} ({p.regime}): err "
+              f"{row['max_abs_err']:.2e} | device {ms:.4f} ms ({host_us:.1f}"
+              f" us host), L2 flushed {row['ms_cold']:.4f}, bound "
+              f"{own:.4f} ({own_by}); plain {row['plain_ms']:.4f}, library "
+              f"{row['library_ms']:.4f}, {e} ungrouped calls "
+              f"{row['ungrouped_loop_ms']:.4f}; fp32 err vs fp64 "
+              f"{err['kernel']:.2e} (plain {err['plain']:.2e})", flush=True)
 
 
 def _grads_err(got, want):
@@ -1374,30 +1538,56 @@ SPEC_K = 4
 UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
 
 
+def sell_projections(cfg, rows: int) -> list:
+    """``(operating size N, rows, groups)`` of each SELL projection of one
+    layer of ``cfg`` over ``rows`` tokens: attn_out, then the three MLP
+    projections -- or, in an MoE layer, the routed experts' three (grouped:
+    E groups of each expert's capacity at ``rows`` tokens) and the shared
+    expert's three."""
+    from repro_torch.models import linear
+    from repro_torch.models import mlp as mlp_mod
+
+    dh = cfg.head_dim_
+
+    def ffn(d_ff, r, groups):
+        return [("mlp_in", cfg.d_model, d_ff, r, groups)] * 2 + [
+            ("mlp_out", d_ff, cfg.d_model, r, groups)]
+
+    proj = [("attn_out", cfg.n_heads * dh, cfg.d_model, rows, 1)]
+    if cfg.n_experts:
+        e = cfg.n_experts
+        proj += ffn(cfg.d_ff, e * mlp_mod.capacity(cfg, rows), e)
+        if cfg.n_shared_experts:
+            proj += ffn(cfg.d_ff * cfg.n_shared_experts, rows, 1)
+    else:
+        proj += ffn(cfg.d_ff, rows, 1)
+    return [(linear._sell_cfg(cfg, n_in, n_out).n_op, r, g)
+            for role, n_in, n_out, r, g in proj
+            if linear.uses_sell(cfg, role)]
+
+
 def forward_launches(cfg, rows: int, paged_t: int = 0):
     """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
-    (batch x tokens): each layer's four SELL projections (attn_out and the
-    three MLP ones) launch what the port's routing gives them -- on the
-    ``pallas`` route ``kernels.ops.forward_launches``, on every other
-    method (``auto``, ``fft``, ``matmul``) and kind no kernel at all; a
-    paged pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
+    (batch x tokens): each layer's SELL projections (``sell_projections``)
+    launch what the port's routing gives them -- on the ``pallas`` route
+    ``kernels.ops.forward_launches`` (grouped projections: one grouped
+    ``scaled_matmul`` a call, never one an expert), on every other method
+    (``auto``, ``fft``, ``matmul``) and kind no kernel at all; a paged
+    pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
     import collections
 
     from repro_torch.core import acdc as acdc_mod
     from repro_torch.kernels import ops
 
     out = collections.Counter()
-    k, dh = cfg.sell_k, cfg.head_dim_
-    for n_in, n_out in ((cfg.n_heads * dh, cfg.d_model),
-                        (cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
-                        (cfg.d_ff, cfg.d_model)):
-        n = max(n_in, n_out)
-        if cfg.sell_kind != "acdc" or acdc_mod._resolve_method(
-                n, cfg.sell_method) != "pallas":
+    k = cfg.sell_k
+    if cfg.sell_kind != "acdc":
+        k = 0
+    for n, r, groups in sell_projections(cfg, rows) if k else ():
+        if acdc_mod._resolve_method(n, cfg.sell_method) != "pallas":
             continue
-        out.update(ops.forward_launches(n, k, rows,
-                                        permute=cfg.sell_permute,
-                                        bias=False))
+        out.update(ops.forward_launches(n, k, r, permute=cfg.sell_permute,
+                                        bias=False, groups=groups))
     out = collections.Counter({key: v * cfg.n_layers
                                for key, v in out.items()})
     if paged_t:
@@ -1739,10 +1929,20 @@ def spec_full_width(pieces, dev, totals, nonspec_streams):
 GRAD_GROUPS = (("sell/a", r"sell/a$"), ("sell/d", r"sell/d$"),
                ("dense w", r"/w$"), ("embed", r"^embed/"))
 
+#: an MoE model's groups besides: the routed experts' diagonals (per
+#: expert, from the grouped backward) and the router
+MOE_GRAD_GROUPS = (("experts sell/a", r"experts/.*sell/a$"),
+                   ("experts sell/d", r"experts/.*sell/d$"),
+                   ("router/w", r"router/w$"))
 
-def group_rel_l2(got: dict, want: dict) -> dict:
+
+def grad_groups(cfg) -> tuple:
+    return GRAD_GROUPS + (MOE_GRAD_GROUPS if cfg.n_experts else ())
+
+
+def group_rel_l2(got: dict, want: dict, groups=GRAD_GROUPS) -> dict:
     """Relative L2 distance of two gradient trees over each group of
-    ``GRAD_GROUPS`` (the group's leaves taken as one vector)."""
+    ``groups`` (the group's leaves taken as one vector)."""
     import torch
 
     from repro_torch.optim.optimizers import tree_flatten
@@ -1750,7 +1950,7 @@ def group_rel_l2(got: dict, want: dict) -> dict:
     paths, g = tree_flatten(got)
     _, w = tree_flatten(want)
     out = {}
-    for name, rx in GRAD_GROUPS:
+    for name, rx in groups:
         idx = [i for i, p in enumerate(paths) if re.search(rx, p)]
         if not idx:
             _fail(f"no parameter matches gradient group {name!r}")
@@ -1781,17 +1981,23 @@ def backward_without_d():
         ops._layer_bwd = saved
 
 
-def smm_launches_per_step(cfg) -> int:
-    """scaled_matmul launches of one full-width train step: every SELL
-    projection (attn_out and the three MLP ones per layer) is a per-layer
+def smm_launches_per_step(cfg, rows: int) -> int:
+    """scaled_matmul launches of one full-width train step over ``rows``
+    tokens: every SELL projection (``sell_projections``: attn_out and the
+    three MLP ones per layer, or the experts' three -- grouped, one launch
+    for all experts -- and the shared expert's three) is a per-layer
     cascade of K two-call ACDC layers (N > MAX_FUSED_N); each layer is 2
     launches forward, 2 more when remat recomputes the forward in the
     backward, and 3 in its backward (the two-call backward)."""
-    acdc_layers = cfg.n_layers * 4 * cfg.sell_k
+    from repro_torch.kernels import ops
+
+    two_call = [n for n, _, _ in sell_projections(cfg, rows)
+                if n > ops.MAX_FUSED_N]
+    acdc_layers = cfg.n_layers * len(two_call) * cfg.sell_k
     return acdc_layers * (2 + (2 if cfg.remat else 0) + 3)
 
 
-def compare_grads(model, cfg, params, batch) -> dict:
+def compare_grads(model, cfg, params, batch, label="full width") -> dict:
     """One step's loss and gradients with the kernels, the plain versions
     and the faulty backward, at ``cfg``'s compute dtype; rel. L2 per
     group against the plain versions."""
@@ -1809,11 +2015,12 @@ def compare_grads(model, cfg, params, batch) -> dict:
     out = dict(loss_kernel=float(runs["kernel"][0]),
                loss_plain=float(runs["plain"][0]),
                rel_l2={f"{a}_vs_plain": group_rel_l2(runs[a][1],
-                                                     runs["plain"][1])
+                                                     runs["plain"][1],
+                                                     grad_groups(cfg))
                        for a in ("kernel", "no_d_in_dh1")})
     del runs
     torch.cuda.empty_cache()
-    print(f"[grads] full width {cfg.dtype}, one step: loss kernel "
+    print(f"[grads] {label} {cfg.dtype}, one step: loss kernel "
           f"{out['loss_kernel']:.6f} plain {out['loss_plain']:.6f} | rel L2 "
           + "; ".join(f"{k}: " + ", ".join(f"{g} {v:.3e}"
                                            for g, v in r.items())
@@ -1821,19 +2028,21 @@ def compare_grads(model, cfg, params, batch) -> dict:
     return out
 
 
-def train_full_width(dev, totals):
-    """Full-width Qwen3-1.7B training: one step's loss and grads against
-    the plain versions and a faulty control, then the main path, one
-    warm-up and two timed AdamW steps with exact launch counts."""
+def train_full_width(dev, totals, arch="qwen3_1_7b"):
+    """Full-width training of ``arch`` (Qwen3-1.7B on the main path): one
+    step's loss and grads against the plain versions and a faulty control,
+    then one warm-up and two timed AdamW steps with exact launch
+    counts."""
     import torch
 
     from repro_torch.dist import steps as steps_mod
     from repro_torch.launch import train
 
     args = train.parse_args([
-        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "pallas",
+        "--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
         "--global-batch", "4", "--seq-len", "128", "--steps", "3",
         "--device", str(dev)])
+    label = "full width" + ("" if arch == "qwen3_1_7b" else f" {arch}")
     cfg, model, opt, train_step, pipeline = train.build(args)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = steps_mod.init_state(model, cfg, opt, gen, dev)
@@ -1843,22 +2052,22 @@ def train_full_width(dev, totals):
     grads = {}
     for dtype in ("bfloat16", "float32"):
         grads[dtype] = compare_grads(model, dataclasses.replace(
-            cfg, dtype=dtype), state["params"], batch)
+            cfg, dtype=dtype), state["params"], batch, label)
     loss_k = grads["bfloat16"]["loss_kernel"]
     loss_p = grads["bfloat16"]["loss_plain"]
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p)
             <= 1e-2 * abs(loss_p)):
-        _fail(f"full-width loss: kernel {loss_k} vs plain {loss_p}")
+        _fail(f"{label} loss: kernel {loss_k} vs plain {loss_p}")
     rel = grads["float32"]["rel_l2"]
     worst = max(rel["kernel_vs_plain"].values())
     if not worst <= FP32_GRAD_REL_L2:
-        _fail(f"full-width fp32 grads: rel L2 {worst} > {FP32_GRAD_REL_L2}")
+        _fail(f"{label} fp32 grads: rel L2 {worst} > {FP32_GRAD_REL_L2}")
     control = min(rel["no_d_in_dh1_vs_plain"].values())
     if not control > FP32_GRAD_REL_L2:
-        _fail(f"full-width fp32 grads: the limit {FP32_GRAD_REL_L2} does "
+        _fail(f"{label} fp32 grads: the limit {FP32_GRAD_REL_L2} does "
               f"not catch the faulty backward (rel L2 {control})")
 
-    want = smm_launches_per_step(cfg)
+    want = smm_launches_per_step(cfg, tokens)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     steps = []
@@ -1872,13 +2081,13 @@ def train_full_width(dev, totals):
         after = read_counts()
         delta = {k: after[k] - before[k] for k in after}
         loss = float(metrics["loss"])
-        print(f"[train] full width step {step}: loss {loss:.4f} |g| "
+        print(f"[train] {label} step {step}: loss {loss:.4f} |g| "
               f"{float(metrics['grad_norm']):.3f} {dt:.3f}s | launches "
               f"{delta}", flush=True)
         if not math.isfinite(loss):
-            _fail(f"full-width step {step}: loss {loss}")
+            _fail(f"{label} step {step}: loss {loss}")
         if delta["scaled_matmul"] != want or sum(delta.values()) != want:
-            _fail(f"full-width step {step}: launches {delta}, want "
+            _fail(f"{label} step {step}: launches {delta}, want "
                   f"{want} scaled_matmul and nothing else")
         steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
                           s=dt, launches=delta))
@@ -1887,13 +2096,13 @@ def train_full_width(dev, totals):
         totals[name] += n
     timed = [st["s"] for st in steps[1:]]
     s_step = sum(timed) / len(timed)
-    info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters",
+    info = dict(config=f"{arch} full width, bf16 compute, fp32 masters",
                 global_batch=args.global_batch, seq_len=args.seq_len,
                 steps=steps, s_per_step=s_step, tokens_per_s=tokens / s_step,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 smm_launches_per_step=want, launches=counts,
                 grads=grads, fp32_limit_rel_l2=FP32_GRAD_REL_L2)
-    print(f"[train] full width: {s_step:.3f} s/step, "
+    print(f"[train] {label} ({smi_line()}): {s_step:.3f} s/step, "
           f"{info['tokens_per_s']:.1f} tokens/s, peak "
           f"{info['peak_mem_gb']:.2f} GB, {want} scaled_matmul launches a "
           f"step", flush=True)
@@ -2540,7 +2749,7 @@ def methods_full_width(pieces, dev, totals) -> dict:
     return out
 
 
-def train_methods_full_width(dev, totals) -> dict:
+def train_methods_full_width(dev, totals, arch="qwen3_1_7b") -> dict:
     """Path B: full-width training at ``--sell-method auto`` (bf16
     compute, fp32 masters, global batch 4 x 128): one step's fp32 loss and
     per-group grads against the ``pallas`` route on the same state (within
@@ -2552,9 +2761,10 @@ def train_methods_full_width(dev, totals) -> dict:
     from repro_torch.launch import train
 
     args = train.parse_args([
-        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method", "auto",
+        "--arch", arch, "--sell", "acdc", "--sell-method", "auto",
         "--global-batch", "4", "--seq-len", "128", "--steps", "3",
         "--device", str(dev)])
+    label = "full width" + ("" if arch == "qwen3_1_7b" else f" {arch}")
     cfg, model, opt, train_step, pipeline = train.build(args)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = steps_mod.init_state(model, cfg, opt, gen, dev)
@@ -2566,18 +2776,19 @@ def train_methods_full_width(dev, totals) -> dict:
     loss_a, loss_p = float(runs["auto"][0]), float(runs["pallas"][0])
     grads = dict(loss_auto=loss_a, loss_pallas=loss_p,
                  loss_rel_diff=abs(loss_a - loss_p) / abs(loss_p),
-                 rel_l2=group_rel_l2(runs["auto"][1], runs["pallas"][1]),
+                 rel_l2=group_rel_l2(runs["auto"][1], runs["pallas"][1],
+                                     grad_groups(cfg)),
                  limit=FP32_GRAD_REL_L2)
     del runs
     torch.cuda.empty_cache()
-    print(f"[grads] full width fp32, auto vs pallas ({smi_line()}): loss "
+    print(f"[grads] {label} fp32, auto vs pallas ({smi_line()}): loss "
           f"{loss_a:.6f} / {loss_p:.6f} | rel L2 " + ", ".join(
               f"{g} {v:.3e}" for g, v in grads["rel_l2"].items()),
           flush=True)
     worst = max(grads["rel_l2"].values())
     if not (worst <= FP32_GRAD_REL_L2
             and grads["loss_rel_diff"] <= FP32_GRAD_REL_L2):
-        _fail(f"full-width fp32 auto vs pallas: grads rel L2 {worst}, "
+        _fail(f"{label} fp32 auto vs pallas: grads rel L2 {worst}, "
               f"loss {grads['loss_rel_diff']} (limit {FP32_GRAD_REL_L2})")
 
     torch.cuda.reset_peak_memory_stats()
@@ -2590,24 +2801,24 @@ def train_methods_full_width(dev, totals) -> dict:
         torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         loss = float(metrics["loss"])
-        print(f"[train] full width auto step {step}: loss {loss:.4f} |g| "
+        print(f"[train] {label} auto step {step}: loss {loss:.4f} |g| "
               f"{float(metrics['grad_norm']):.3f} {dt:.3f}s", flush=True)
         if not math.isfinite(loss):
-            _fail(f"full-width auto step {step}: loss {loss}")
+            _fail(f"{label} auto step {step}: loss {loss}")
         steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
                           s=dt))
     counts = read_counts()
     if any(counts.values()):
-        _fail(f"full-width auto training launched kernels {counts}")
+        _fail(f"{label} auto training launched kernels {counts}")
     s_step = sum(st["s"] for st in steps[1:]) / (len(steps) - 1)
     tokens = args.global_batch * args.seq_len
-    info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters, "
+    info = dict(config=f"{arch} full width, bf16 compute, fp32 masters, "
                 "--sell-method auto", global_batch=args.global_batch,
                 seq_len=args.seq_len, steps=steps, s_per_step=s_step,
                 tokens_per_s=tokens / s_step,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=counts, grads=grads)
-    print(f"[train] full width auto ({smi_line()}): {s_step:.3f} s/step, "
+    print(f"[train] {label} auto ({smi_line()}): {s_step:.3f} s/step, "
           f"{info['tokens_per_s']:.1f} tokens/s, peak "
           f"{info['peak_mem_gb']:.2f} GB, launches {counts}", flush=True)
     del state
@@ -2722,6 +2933,454 @@ def fig2_speed(dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Paths E and F: the dense decoder configs and the MoE layer
+# ---------------------------------------------------------------------------
+
+#: the fp32 masters (GB) reckoned from the configs before the first run
+#: (PERF.md section 4), printed beside each full-width phase's measured
+#: parameter bytes and peak memory
+RECKONED_MASTERS_GB = {"deepseek_67b": 35.0, "gemma3_27b": 16.6,
+                       "chatglm3_6b": 3.2, "deepseek_moe_16b": 2.3}
+
+#: path E, full width: (arch, requests, paged, then speculative paged)
+DENSE_FULL_WIDTH = (("gemma3_27b", 4, True, False),
+                    ("chatglm3_6b", 4, True, True),
+                    ("deepseek_67b", 2, False, False))
+
+#: the Gemma3-27B window probe: one prompt this long (past the 1024
+#: window of its local layers)
+WINDOW_PROMPT = 1280
+
+
+def params_gb(params) -> float:
+    from repro_torch.optim.optimizers import tree_flatten
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_flatten(params)[1]) / 1e9
+
+
+def release_memory() -> None:
+    """Free the card between phases: the objects of earlier phases that
+    sit in reference cycles until the collector runs (an engine and its
+    scheduler hold each other through the scheduler's admission test, and
+    with them a model's weights), and
+    the cached transform matrices (an N = 22016 fp32 C and C^T take 3.9 GB
+    on the card, their fp64 source as much on the host)."""
+    import torch
+
+    from repro_torch.core import transforms
+    from repro_torch.kernels import ops
+
+    ops._mats.cache_clear()
+    transforms._constant.cache_clear()
+    transforms._dct_matrix_np.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_matrices(cfg, dev) -> float:
+    """Make the fp32 C, C^T of each two-call operating size of ``cfg``
+    before anything is timed (set-up, seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    for n in sorted({n for n, _, _ in sell_projections(cfg, 1)}):
+        if n > ops.MAX_FUSED_N:
+            ops._mats("acdc", n, dev, False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def route_recorder(calls: list):
+    """Record every MoE routing's expert choices (``gate_idx``, sorted
+    within each token) into ``calls``."""
+    import torch
+
+    from repro_torch.models import mlp as mlp_mod
+
+    saved = mlp_mod._route
+
+    def recording(xt, params, cfg):
+        out = saved(xt, params, cfg)
+        calls.append(torch.sort(out[1], dim=-1).values.cpu())
+        return out
+
+    mlp_mod._route = recording
+    try:
+        yield calls
+    finally:
+        mlp_mod._route = saved
+
+
+def scaled_matmul_group0(x, w, pre=None, post=None, bias=None):
+    """A deliberately faulty grouped scaled_matmul that scales every group
+    by group 0's vectors (every expert with expert 0's diagonals): a
+    control for the MoE logit limit."""
+    from repro_torch.kernels import ref
+
+    def first(v):
+        return v if v is None or v.dim() == 1 else v[:1].expand_as(v)
+
+    return ref.scaled_matmul_ref(x, w, first(pre), first(post), first(bias))
+
+
+def logits_vs_plain(label, pieces, dev, limit, faulty, dtype=None,
+                    hold=("prefill", "decode")) -> dict:
+    """One prefill's and one decode step's logits (``probe_logits``) with
+    the kernels against the plain versions on the card, at ``dtype``
+    compute (else the config's), and under ``faulty()`` (a deliberately
+    faulty path); where named in ``hold``, kernels vs plain within
+    ``limit`` and the faulty path over it, the rest reported.  For an MoE
+    model, the share of (token, slot) expert choices that agree between
+    kernels and plain versions beside."""
+    import torch
+
+    cfg, model, params = pieces
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    runs, routes = {}, {}
+    for name, ctx in (("kernel", contextlib.nullcontext),
+                      ("plain", plain_kernels), ("faulty", faulty)):
+        calls = []
+        with ctx(), route_recorder(calls):
+            runs[name] = probe_logits(model, cfg, params, dev)
+        routes[name] = calls
+    torch.cuda.synchronize()
+    out = dict(limit_rel_l2=limit, compute=cfg.dtype, held=list(hold))
+    for where in ("prefill", "decode"):
+        out[where] = {f"{a}_vs_plain": _rel_l2(runs[a][where],
+                                                runs["plain"][where])
+                      for a in ("kernel", "faulty")}
+    if cfg.n_experts:
+        same = sum(int((a == b).sum())
+                   for a, b in zip(routes["kernel"], routes["plain"]))
+        out["expert_choices_agree"] = same / sum(
+            a.numel() for a in routes["plain"])
+    print(f"[logits] {label} {cfg.dtype} ({smi_line()}): "
+          + "; ".join(f"{w} " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in out[w].items())
+                      for w in ("prefill", "decode"))
+          + (f"; expert choices agree {out['expert_choices_agree']:.4f}"
+             if cfg.n_experts else "")
+          + (f" (limit {limit} on {', '.join(hold)})" if hold
+             else " (reported)"), flush=True)
+    for where in hold:
+        rel = out[where]
+        if not rel["kernel_vs_plain"] <= limit:
+            _fail(f"{label} {cfg.dtype} {where} logits: kernels vs plain "
+                  f"rel L2 {rel['kernel_vs_plain']} > {limit}")
+        if not rel["faulty_vs_plain"] > limit:
+            _fail(f"{label} {cfg.dtype} {where} logits: the limit {limit} "
+                  f"does not catch the faulty control (rel L2 "
+                  f"{rel['faulty_vs_plain']})")
+    return out
+
+
+def serve_full_width(label, argv, pieces, totals, paged, spec=False):
+    """``serve_path`` of a full-width config with every tick's launches
+    exact (``check_ticks``), s/tick, tok/s, prefill s/admission and peak
+    memory since the caller's reset."""
+    if spec:
+        argv = argv + ["--spec", "--spec-k", str(SPEC_K)]
+    info, _, eng, recs = serve_path(
+        label, argv + (["--paged", "--block-size", "16"] if paged else []),
+        pieces, totals, ("scaled_matmul",) + (("paged_attn",) if paged
+                                              else ()), record=True)
+    info["ticks"] = check_ticks(label, eng, recs, 64, spec=spec)
+    info["prefill_s_per_admission"] = info["prefill_s"] / max(
+        info["prefills"], 1)
+    print(f"[serve] {label}: {info['s_per_tick'] * 1e3:.1f} ms a tick, "
+          f"{info['tok_per_s']:.2f} tok/s, prefill "
+          f"{info['prefill_s_per_admission']:.3f} s an admission, peak "
+          f"{info['peak_mem_gb']:.2f} GB; launches a tick by kind "
+          f"{json.dumps(info['ticks'])}", flush=True)
+    return info
+
+
+def window_full_width(pieces, dev) -> dict:
+    """Gemma3-27B at ``--sell-method auto`` in fp32 compute, one request
+    of a ``WINDOW_PROMPT``-token prompt through the paged admission step
+    (16-token pages) and one paged decode step: the 1024 window binds on
+    the local layers at prefill and decode.  The logits with the
+    ``paged_attn`` kernel against the plain paged attention within
+    ``FP32_METHOD_REL_L2``; the same model with every layer global must
+    read over it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+
+    cfg, model, params = pieces
+    cfg = dataclasses.replace(cfg, sell_method="auto", dtype="float32")
+    n, bs = WINDOW_PROMPT, 16
+    mb = -(-(n + 1) // bs)
+    rs = np.random.RandomState(5)
+    toks = torch.tensor(rs.randint(0, cfg.vocab_size, size=(1, n)),
+                        dtype=torch.int32, device=dev)
+    nxt = torch.tensor([rs.randint(0, cfg.vocab_size)], dtype=torch.int32,
+                       device=dev)
+    tables = torch.arange(mb, dtype=torch.int32, device=dev)[None]
+    pos = torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def run(c):
+        cache = model.init_cache_paged(c, 1, mb, bs, dev)
+        step = steps_mod.make_prefill_step(model, c, paged=True)
+        last, cache = step(params, cache, model.init_cache(c, 1, mb * bs,
+                                                           dev),
+                           toks, pos, tables[0])
+        dlog, _ = model.decode_step_paged(params, cache, nxt, pos, tables, c)
+        return {"prefill": last[0].float(), "decode": dlog[0].float()}
+
+    reset_counts()
+    runs = {"kernel": run(cfg)}
+    torch.cuda.synchronize()
+    launched = read_counts()
+    with plain_kernels():
+        runs["plain"] = run(cfg)
+        runs["global"] = run(dataclasses.replace(cfg, sliding_window=0))
+    torch.cuda.synchronize()
+    out = dict(prompt=n, window=cfg.sliding_window,
+               local_layers=int(sum(w > 0 for w in cfg.layer_windows())),
+               launches=launched, limit=FP32_METHOD_REL_L2)
+    for where in ("prefill", "decode"):
+        out[where] = {f"{a}_vs_plain": _rel_l2(runs[a][where],
+                                                runs["plain"][where])
+                      for a in ("kernel", "global")}
+    print(f"[window] gemma3_27b full width auto fp32, {n}-token prompt, "
+          f"window {cfg.sliding_window} on {out['local_layers']} of "
+          f"{cfg.n_layers} layers ({smi_line()}): "
+          + "; ".join(f"{w} " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in out[w].items())
+                      for w in ("prefill", "decode"))
+          + f" (limit {FP32_METHOD_REL_L2}) | launches {launched}",
+          flush=True)
+    want = {k: 0 for k in launched}
+    want["paged_attn"] = cfg.n_layers
+    if launched != want:
+        _fail(f"gemma3 window probe launched {launched}, want {want}")
+    for where in ("prefill", "decode"):
+        rel = out[where]
+        if not rel["kernel_vs_plain"] <= FP32_METHOD_REL_L2:
+            _fail(f"gemma3 window {where} logits: kernel vs plain rel L2 "
+                  f"{rel['kernel_vs_plain']} > {FP32_METHOD_REL_L2}")
+        if not rel["global_vs_plain"] > FP32_METHOD_REL_L2:
+            _fail(f"gemma3 window {where} logits: the window does not bind "
+                  f"(global attention rel L2 {rel['global_vs_plain']})")
+    return out
+
+
+def dense_configs_full_width(dev, totals) -> dict:
+    """Path E at full width: Gemma3-27B, ChatGLM3-6B (then speculative,
+    ``--spec-k 4``: 80 verify rows a KV head) and DeepSeek-67B served with
+    ``--sell acdc --sell-method pallas``, bf16 compute (``serve_full_width``),
+    one decode step's logits against the plain versions within
+    ``BF16_DECODE_REL_L2`` (so within ``BF16_LOGIT_REL_L2``) with the
+    diagonals-dropped control over it and one prefill's reported, peak
+    memory beside the reckoned fp32 masters; Gemma3 also through
+    ``window_full_width``."""
+    import torch
+
+    out = {}
+    release_memory()
+    for arch, requests, paged, spec in DENSE_FULL_WIDTH:
+        argv = ["--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
+                "--slots", "4", "--prompt-len", "64", "--gen", "8",
+                "--requests", str(requests), "--device", "cuda"]
+        t0 = time.perf_counter()
+        pieces = model_for({}, argv)
+        info = dict(init_s=time.perf_counter() - t0,
+                    params_gb=params_gb(pieces[2]),
+                    reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+                    matrices_s=build_matrices(pieces[0], dev))
+        torch.cuda.reset_peak_memory_stats()
+        name = f"{arch} full width {'paged' if paged else 'dense'}"
+        info["serve"] = serve_full_width(name, argv, pieces, totals, paged)
+        if spec:
+            info["spec"] = serve_full_width(f"{arch} full width spec paged",
+                                            argv, pieces, totals, True,
+                                            spec=True)
+        # bf16: the decode step held, the prefill reported (its last
+        # position amplifies one bf16 ulp of the weights' rounding past
+        # any limit that tells a fault: PERF.md, PR 18)
+        info["logits"] = logits_vs_plain(
+            f"{arch} full width", pieces, dev, BF16_DECODE_REL_L2,
+            lambda: scaled_matmul_as(scaled_matmul_without_pre),
+            hold=("decode",))
+        info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[memory] {arch} full width ({smi_line()}): peak "
+              f"{info['peak_mem_gb']:.2f} GB; fp32 masters "
+              f"{info['params_gb']:.2f} GB (reckoned "
+              f"{info['reckoned_masters_gb']}); init {info['init_s']:.1f} s,"
+              f" transform matrices {info['matrices_s']:.1f} s", flush=True)
+        if arch == "gemma3_27b":
+            info["window"] = window_full_width(pieces, dev)
+        out[arch] = info
+        del pieces
+        release_memory()
+    return out
+
+
+def train_vs_plain(arch, steps, totals) -> dict:
+    """``steps`` smoke-width AdamW steps of ``arch`` (fp32, ``--sell acdc
+    --sell-method pallas``, batch 4 x 64) through the launcher's
+    ``build``/``run``: the backward kernels launched, the losses against
+    the plain versions within ``FP32_LOSS_RTOL``."""
+    from repro_torch.launch import train
+
+    root = ROOT / "build" / "chip_smoke_ckpt_archs"
+    shutil.rmtree(root / arch, ignore_errors=True)
+
+    def args_for(side):
+        return train.parse_args([
+            "--arch", arch, "--smoke", "--sell", "acdc", "--sell-method",
+            "pallas", "--global-batch", "4", "--seq-len", "64", "--steps",
+            str(steps), "--log-every", "1", "--device", "cuda",
+            "--ckpt-dir", str(root / arch / side)])
+
+    args = args_for("kernel")
+    reset_counts()
+    _, hist = train.run(args, *train.build(args))
+    counts = read_counts()
+    for name in ("acdc_cascade", "acdc_cascade_bwd"):
+        if not counts[name]:
+            _fail(f"{arch} smoke train: {name} never launched")
+    for name, n in counts.items():
+        totals[name] += n
+    with plain_kernels():
+        pargs = args_for("plain")
+        _, plain = train.run(pargs, *train.build(pargs))
+    rel = [abs(h["loss"] - q["loss"]) / abs(q["loss"])
+           for h, q in zip(hist, plain)]
+    if len(hist) != steps or not max(rel) <= FP32_LOSS_RTOL:
+        _fail(f"{arch} smoke train: losses differ from the plain versions "
+              f"by {max(rel)} (limit {FP32_LOSS_RTOL})")
+    info = dict(path=f"{arch} smoke train", launches=counts,
+                losses=[h["loss"] for h in hist],
+                plain_losses=[q["loss"] for q in plain],
+                max_rel_loss_diff=max(rel),
+                ms_per_step=[h["ms"] for h in hist])
+    print(f"[train] {arch} smoke: losses {info['losses']} | plain max rel "
+          f"diff {max(rel):.2e} | launches {counts}", flush=True)
+    return info
+
+
+def smoke_configs(totals, archs, train_steps, hold_nonspec) -> list:
+    """Smoke width (fp32) of ``archs`` served dense, paged (4-token pages)
+    and speculative paged (``--spec-k 4``): every tick's launches exact,
+    the greedy streams identical with the kernels and with the plain
+    versions (and, with ``hold_nonspec``, without speculation: an MoE's
+    capacity couples the batch's rows, so its verify of k + 1 tokens a
+    slot routes otherwise than its decode); then ``train_vs_plain``."""
+    out = []
+    paged = ["--paged", "--block-size", "4"]
+    for arch in archs:
+        base = ["--arch", arch, "--smoke", "--sell", "acdc", "--sell-method",
+                "pallas", "--slots", "4", "--prompt-len", "12", "--gen", "8",
+                "--requests", "8", "--device", "cuda"]
+        pieces = model_for({}, base)
+        streams = {}
+        for layout, extra in (("dense", []), ("paged", paged),
+                              ("spec paged", paged + [
+                                  "--spec", "--spec-k", str(SPEC_K)])):
+            label = f"{arch} smoke {layout}"
+            spec = layout.startswith("spec")
+            need = (("acdc_cascade",)
+                    + (("paged_attn",) if "paged" in layout else ())
+                    + (("acdc_fused",) if spec else ()))
+            info, reqs, eng, recs = serve_path(label, base + extra, pieces,
+                                               totals, need, record=True)
+            info["ticks"] = check_ticks(label, eng, recs, 12, spec=spec)
+            got = streams_of(reqs)
+            with plain_kernels():
+                plain = streams_of(serve_path(
+                    label + " (plain)", base + extra, pieces,
+                    {k: 0 for k in KERNEL_MODULES}, ())[1])
+            if got != plain:
+                _fail(f"{label}: greedy streams differ between kernels and "
+                      f"plain versions")
+            info["streams_identical_to_plain"] = True
+            if spec:
+                info["streams_identical_to_nonspec"] = got == streams["paged"]
+                if hold_nonspec and got != streams["paged"]:
+                    _fail(f"{label}: greedy streams differ from the "
+                          f"non-speculative run")
+            streams[layout] = got
+            out.append(info)
+        out.append(train_vs_plain(arch, train_steps, totals))
+    return out
+
+
+def moe_full_width(dev, totals) -> dict:
+    """Path F at full width: DeepSeekMoE-16B served (``--sell acdc
+    --sell-method pallas``, bf16, dense then paged, 4 slots, 8 requests,
+    16 new tokens) with every tick's launches exact -- one grouped
+    ``scaled_matmul`` a projection call for all 64 experts; one prefill's
+    and one decode step's logits against the plain versions held in fp32
+    compute within ``FP32_METHOD_REL_L2`` (a control that gives every
+    expert expert 0's diagonals over it) and reported in bf16 with the
+    share of expert choices that agree; then trained (3 AdamW steps, batch
+    4 x 128) on ``pallas`` (``train_full_width``) and on ``auto``
+    (``train_methods_full_width``)."""
+    import torch
+
+    arch = "deepseek_moe_16b"
+    argv = ["--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
+            "--slots", "4", "--prompt-len", "64", "--gen", "16",
+            "--requests", "8", "--device", "cuda"]
+    release_memory()
+    pieces = model_for({}, argv)
+    cfg = pieces[0]
+    out = dict(params_gb=params_gb(pieces[2]),
+               reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               matrices_s=build_matrices(cfg, dev))
+    torch.cuda.reset_peak_memory_stats()
+    per_tick = forward_launches(cfg, 4)["scaled_matmul"]
+    if per_tick >= cfg.n_layers * cfg.n_experts:
+        _fail(f"{arch}: {per_tick} scaled_matmul launches a decode tick: "
+              f"not one grouped call a projection")
+    out["scaled_matmul_per_decode_tick"] = per_tick
+    for paged in (False, True):
+        name = "paged" if paged else "dense"
+        out[name] = serve_full_width(f"{arch} full width {name}", argv,
+                                     pieces, totals, paged)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def faulty():
+        return scaled_matmul_as(scaled_matmul_group0)
+
+    out["logits_fp32"] = logits_vs_plain(f"{arch} full width", pieces, dev,
+                                         FP32_METHOD_REL_L2, faulty,
+                                         dtype="float32")
+    out["logits_bf16"] = logits_vs_plain(f"{arch} full width", pieces, dev,
+                                         BF16_LOGIT_REL_L2, faulty,
+                                         hold=())
+    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+          f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
+          f" GB (reckoned {out['reckoned_masters_gb']})", flush=True)
+    del pieces
+    release_memory()
+    out["train"] = train_full_width(dev, totals, arch)
+    out["train_auto"] = train_methods_full_width(dev, totals, arch)
+    release_memory()
+    return out
+
+
+def timed(report: dict, key: str, fn, *args):
+    """``report[key] = fn(*args)``, its wall seconds in
+    ``report["phase_s"]``."""
+    t0 = time.perf_counter()
+    report[key] = fn(*args)
+    dt = time.perf_counter() - t0
+    gc.collect()
+    report.setdefault("phase_s", {})[key] = dt
+    print(f"[phase] {key}: {dt:.1f} s", flush=True)
+    return report[key]
+
+
 def main() -> int:
     import torch
 
@@ -2753,6 +3412,8 @@ def main() -> int:
         if name in ("paged_attn", "acdc_bwd"):
             continue    # printed as they were measured
         for r in rows:
+            if "groups" in r:
+                continue    # grouped rows: printed as they were measured
             dev_t = (f" | device {r['ms']:.4f} ms ({r['host_us']:.1f} us "
                      f"host), call {r['call_ms']:.4f}; plain call "
                      f"{r['plain_call_ms']:.4f}; fp32 err vs fp64 "
@@ -2772,8 +3433,11 @@ def main() -> int:
     report["kernels"] = kern
     report["scaled_matmul_regimes"] = sweep
     report["per_layer_backward"] = per_layer
-    report["fig2"] = fig2_speed(dev)
+    report["phase_s"] = {"build": build_s,
+                         "kernels": time.perf_counter() - t0 - build_s}
+    timed(report, "fig2", fig2_speed, dev)
     totals = {name: 0 for name in KERNEL_MODULES}
+    t_serve = time.perf_counter()
 
     params_cache = {}
     paths = []
@@ -2794,12 +3458,15 @@ def main() -> int:
             ("scaled_matmul",) + (("paged_attn",) if paged else ()))
         nonspec_streams[label.split()[-1]] = streams_of(reqs)
         paths.append(info)
-    report["full_width_logits"] = compare_full_width_logits(pieces, dev)
-    report["full_width_logits_fp32"] = compare_full_width_logits(
-        pieces, dev, dtype="float32")
-    report["spec_full_width"] = spec_full_width(pieces, dev, totals,
-                                                nonspec_streams)
-    report["methods_full_width"] = methods_full_width(pieces, dev, totals)
+    report["phase_s"]["full_width_serve"] = time.perf_counter() - t_serve
+    timed(report, "full_width_logits", compare_full_width_logits, pieces,
+          dev)
+    timed(report, "full_width_logits_fp32", compare_full_width_logits,
+          pieces, dev, "float32")
+    timed(report, "spec_full_width", spec_full_width, pieces, dev, totals,
+          nonspec_streams)
+    timed(report, "methods_full_width", methods_full_width, pieces, dev,
+          totals)
     del pieces
     torch.cuda.empty_cache()
 
@@ -2824,16 +3491,25 @@ def main() -> int:
                   f"plain versions")
         info["streams_identical_to_plain"] = True
         paths.append(info)
-    report["spec_smoke"] = smoke_spec(params_cache, totals)
-    report["methods_smoke"] = smoke_methods(totals, dev)
+    timed(report, "spec_smoke", smoke_spec, params_cache, totals)
+    timed(report, "methods_smoke", smoke_methods, totals, dev)
     report["paths"] = paths
-    report["train_full_width"] = train_full_width(dev, totals)
-    report["train_methods_full_width"] = train_methods_full_width(dev,
-                                                                  totals)
-    report["train_smoke"] = train_smoke(totals)
-    report["overload"] = overload_full_width(dev, totals)
-    report["overload_spec"] = overload_spec_full_width(dev, totals)
-    report["profile"] = profile_full_width(dev)
+    timed(report, "train_full_width", train_full_width, dev, totals)
+    timed(report, "train_methods_full_width", train_methods_full_width, dev,
+          totals)
+    timed(report, "train_smoke", train_smoke, totals)
+    timed(report, "overload", overload_full_width, dev, totals)
+    timed(report, "overload_spec", overload_spec_full_width, dev, totals)
+    timed(report, "profile", profile_full_width, dev)
+    del params_cache
+    torch.cuda.empty_cache()
+    timed(report, "dense_configs_full_width", dense_configs_full_width, dev,
+          totals)
+    timed(report, "dense_configs_smoke", smoke_configs, totals,
+          ("gemma3_27b", "chatglm3_6b", "deepseek_67b"), 3, True)
+    timed(report, "moe_full_width", moe_full_width, dev, totals)
+    timed(report, "moe_smoke", smoke_configs, totals,
+          ("deepseek_moe_16b", "moonshot_v1_16b_a3b"), 5, False)
     report["launches"] = totals
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",

@@ -1,6 +1,7 @@
 """Architecture registry (port of the config half of
-:mod:`repro.configs.registry`).  Only qwen3_1_7b is ported; the other
-architectures wait for their model families (ROADMAP.md)."""
+:mod:`repro.configs.registry`): the decoder configurations, dense and
+MoE.  The frontend, SSM, hybrid and encoder-decoder architectures wait
+for their model families (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,14 @@ from typing import Tuple
 from repro_torch.core import families as families_mod
 from repro_torch.models.common import ModelConfig
 
-ARCHS: Tuple[str, ...] = ("qwen3_1_7b",)
+ARCHS: Tuple[str, ...] = (
+    "deepseek_67b",
+    "chatglm3_6b",
+    "gemma3_27b",
+    "qwen3_1_7b",
+    "moonshot_v1_16b_a3b",
+    "deepseek_moe_16b",
+)
 
 
 def _module(arch: str):

@@ -18,6 +18,13 @@ family's explicit matrices; ``fft`` applies its fast transforms over
 ``MATMUL_MAX_N`` and to ``fft`` above, by the reference's rule and
 nothing else.  Parameters are plain dicts of tensors with a leading K
 axis, keyed like the reference pytree.
+
+Grouped cascades (the MoE experts): parameters with one more leading
+axis, ``(G, K, N)``, apply group ``g``'s diagonals to ``x[g]`` for x of
+shape ``(G, ..., N)`` -- what the reference's ``jax.vmap`` over the
+experts computes, in one call: ``matmul``/``fft`` broadcast the diagonals
+over the group axis, ``pallas`` runs grouped kernels
+(:mod:`repro_torch.kernels.ops`).
 """
 
 from __future__ import annotations
@@ -40,6 +47,15 @@ Method = Literal["auto", "fft", "matmul", "pallas"]
 MATMUL_MAX_N = 4096
 
 
+def per_group(v: Optional[torch.Tensor], x: torch.Tensor
+              ) -> Optional[torch.Tensor]:
+    """A diagonal as it multiplies x (..., N): ``(N,)`` as it is, a grouped
+    ``(G, N)`` shaped ``(G, 1, ..., 1, N)`` against x (G, ..., N)."""
+    if v is None or v.dim() == 1:
+        return v
+    return v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[-1])
+
+
 def _resolve_method(n: int, method: Method) -> str:
     if method != "auto":
         return method
@@ -52,7 +68,8 @@ def acdc(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     """One layer ``y = ((x*a) C * d + bias) C^-1`` along the last axis.
 
     ``bias`` (if given) is the paper's bias-on-D: added after the ``D``
-    scaling, in the transform domain, before the inverse transform."""
+    scaling, in the transform domain, before the inverse transform.
+    Diagonals ``(G, N)`` are per group of x (G, ..., N)."""
     n = x.shape[-1]
     if a.shape[-1] != n or d.shape[-1] != n:
         raise ValueError(
@@ -70,9 +87,9 @@ def acdc(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"unknown method {method!r}")
     # the fft/matmul paths carry the activation dtype: fp32 master
     # diagonals are cast down so a bf16 stream stays bf16
-    a = a.to(x.dtype)
-    d = d.to(x.dtype)
-    bias = bias.to(x.dtype) if bias is not None else None
+    a = per_group(a.to(x.dtype), x)
+    d = per_group(d.to(x.dtype), x)
+    bias = per_group(bias.to(x.dtype), x) if bias is not None else None
     h1 = x * a
     if m == "matmul":
         h2 = torch.matmul(h1, fam.matrix(n, x.dtype, x.device))
@@ -137,8 +154,9 @@ def acdc_cascade(params: dict, x: torch.Tensor,
         return ops.acdc_cascade_op(x, a, d, bias, relu=cfg.relu,
                                    permute=cfg.permute, family=cfg.family)
 
-    def layer(h, i):
-        return acdc(h, a[i], d[i], None if bias is None else bias[i],
+    def layer(h, i):   # layer i of a (K, N) or grouped (G, K, N) stack
+        return acdc(h, a[..., i, :], d[..., i, :],
+                    None if bias is None else bias[..., i, :],
                     method=cfg.method, family=cfg.family)
 
     perm = None

@@ -17,6 +17,10 @@ convention, for every kind of the reference:
 * ``afdf``      -- the complex variant of section 3 (theory oracle; its
   output is complex).
 
+Every kind also takes parameters with a leading group axis (the MoE
+experts' stacks) applied to x of shape ``(G, ..., n_in)``, as the
+reference's ``jax.vmap`` over the experts applies them.
+
 Parameters are keyed like the reference's (``w``/``b``, ``u``/``v``,
 ``a``/``c``, ``d1``-``d3``, ``a``/``d``/``bias``,
 ``a_re``/``a_im``/``d_re``/``d_im``), so ``bridge.to_torch`` carries them
@@ -154,18 +158,24 @@ def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def structured_linear(params: dict, x: torch.Tensor,
                       cfg: SellConfig) -> torch.Tensor:
-    """Apply the configured SELL: ``x (..., n_in) -> y (..., n_out)``."""
+    """Apply the configured SELL: ``x (..., n_in) -> y (..., n_out)``;
+    grouped parameters (a leading G axis) take x (G, ..., n_in)."""
+    def vec(name):   # a (n,) parameter, or a grouped (G, n) one, against x
+        return acdc_mod.per_group(params[name], x)
+
     if cfg.kind == "acdc":
         return acdc_mod.acdc_rectangular(params, x, _acdc_cfg(cfg),
                                          cfg.n_in, cfg.n_out)
     if cfg.kind == "afdf":
         hc = _pad_to(x, cfg.n_op).to(torch.complex64)
         for i in range(cfg.k):
-            a = torch.complex(params["a_re"][i], params["a_im"][i])
-            d = torch.complex(params["d_re"][i], params["d_im"][i])
-            hc = torch.fft.ifft(torch.fft.fft(hc * a.to(torch.complex64),
-                                              dim=-1)
-                                * d.to(torch.complex64), dim=-1)
+            a = torch.complex(params["a_re"][..., i, :],
+                              params["a_im"][..., i, :])
+            d = torch.complex(params["d_re"][..., i, :],
+                              params["d_im"][..., i, :])
+            a = acdc_mod.per_group(a.to(torch.complex64), hc)
+            d = acdc_mod.per_group(d.to(torch.complex64), hc)
+            hc = torch.fft.ifft(torch.fft.fft(hc * a, dim=-1) * d, dim=-1)
         return hc[..., :cfg.n_out]
     if cfg.kind == "dense":
         y = torch.matmul(x, params["w"].to(x.dtype))
@@ -175,22 +185,22 @@ def structured_linear(params: dict, x: torch.Tensor,
     elif cfg.kind == "circulant":
         n = cfg.n_op
         wd = transforms.work_dtype(x.dtype)
-        h = _pad_to(x, n) * params["a"].to(x.dtype)
+        h = _pad_to(x, n) * vec("a").to(x.dtype)
         hf = torch.fft.rfft(h.to(wd), dim=-1)
-        cf = torch.fft.rfft(params["c"].to(wd))
+        cf = torch.fft.rfft(vec("c").to(wd), dim=-1)
         y = torch.fft.irfft(hf * cf, n=n, dim=-1).to(x.dtype)[..., :cfg.n_out]
     elif cfg.kind == "fastfood":
         n = cfg.n_op
         had = families_mod.get_family("hadamard")
         perm = transforms.constant(_fastfood_perm, n, torch.long, x.device)
-        h = _pad_to(x, n) * params["d3"].to(x.dtype)
-        h = had.apply(h) * params["d2"].to(x.dtype)
+        h = _pad_to(x, n) * vec("d3").to(x.dtype)
+        h = had.apply(h) * vec("d2").to(x.dtype)
         h = had.apply(torch.index_select(h, -1, perm))
-        y = (h * params["d1"].to(x.dtype))[..., :cfg.n_out]
+        y = (h * vec("d1").to(x.dtype))[..., :cfg.n_out]
     else:
         raise ValueError(cfg.kind)
     if cfg.bias:
-        y = y + params["b"].to(x.dtype)
+        y = y + vec("b").to(x.dtype)
     return y
 
 

@@ -30,6 +30,11 @@
 //   head (Dh * itemsize contiguous bytes each) copied with 16-byte
 //   cp.async into two stages: the next tile is in flight while the warps
 //   work on this one (deeper rings measured no faster);
+// * the query rows of a (slot, KV head) (group * T of them, up to
+//   16 * 32) are cut into row blocks of at most 16, each block its own
+//   CTAs (grid y = KV heads x row blocks): every block streams the same
+//   keys through the same split plan, so more rows cost more CTAs, never
+//   more registers or shared memory a CTA;
 // * inside a CTA, 4 warps split the keys: a row group, holding 2 query
 //   rows (T = 1) or 4; more rows take more row groups of 4 warps, each
 //   over every key of the tile in shared memory.  LPK = Dh / 8 lanes (rounded up
@@ -47,10 +52,11 @@
 //   distributed shared memory) or, where the plan has more splits than a
 //   cluster takes, by a second kernel over a (B, Hkv, splits, rows,
 //   Dh + 2) fp32 workspace.  Both merge the same states in the same order
-//   with the same code: identical bits.  The combining CTA folds the new
-//   tokens (from the kernel's inputs, not re-read from the pool), writes
-//   the output and makes the page writes, once per (slot, head).  Reads
-//   stop at kpos < position, so they never race those writes.
+//   with the same code: identical bits.  The combining CTA of each row
+//   block folds the new tokens (from the kernel's inputs, not re-read
+//   from the pool) and writes its rows' output; only row block 0's makes
+//   the page writes, once per (slot, head).  Reads stop at kpos <
+//   position, so they never race those writes.
 //
 // Softmax numerics: masked keys inside a split's range score -1e30 and
 // enter the softmax as in the reference (a split that saw only masked
@@ -67,8 +73,8 @@
 namespace {
 
 constexpr int kKeyWarps = 4;     // warps of a row group; they split keys
-constexpr int kMaxRows = 16;     // query rows (group * T) a (slot, head)
-constexpr int kMaxT = 16;
+constexpr int kBlockRows = 16;   // query rows a row block (CTA) holds
+constexpr int kMaxT = 32;
 constexpr int kMaxCluster = 16;
 constexpr int kSmemLimit = 232448;
 constexpr unsigned kFull = 0xffffffffu;
@@ -265,6 +271,13 @@ __host__ __device__ inline int lanes_per_key(int Dh, int dpl) {
   return l;
 }
 __host__ __device__ inline int rows_max(int R) { return R <= 2 ? 2 : 4; }
+// rows a row block holds (the layout's rows) and the row blocks of R rows
+__host__ __device__ inline int block_rows(int R) {
+  return R < kBlockRows ? R : kBlockRows;
+}
+__host__ __device__ inline int row_blocks(int R) {
+  return (R + kBlockRows - 1) / kBlockRows;
+}
 // the new tokens' K and V rows (fp32, dims padded to dp) and write pages
 __host__ __device__ inline int new_bytes(int T, int dp) {
   return 2 * T * dp * 4 + (T + 3) / 4 * 16;
@@ -339,24 +352,26 @@ __device__ __forceinline__ void write_pages(const Args& a, int* wp, int b,
   }
 }
 
-// The combining CTA's last step for (slot b, head h), from the merged
-// state `fin` (rows of acc[DP], m, l), the fp32 query rows `qs` and the
-// new tokens `nk` (load_new, write_pages): their page writes, their fold
-// into every row's softmax, the output.  Warps take rows, lanes dims.
+// The combining CTA's last step for (slot b, head h) and the Rl rows of
+// its row block from R0 on, from the merged state `fin` (rows of acc[DP],
+// m, l), the fp32 query rows `qs` and the new tokens `nk` (load_new,
+// write_pages): their page writes (row block 0 only), their fold into
+// every row's softmax, the output.  Warps take rows, lanes dims.
 template <typename T>
 __device__ __forceinline__ void finalize(const Args& a, const float* fin,
                                          const float* qs, const float* nk,
-                                         int dp, int b, int h, int pos) {
+                                         int dp, int b, int h, int pos,
+                                         int R0, int Rl) {
   T* kp = static_cast<T*>(a.kp);
   T* vp = static_cast<T*>(a.vp);
   T* out = static_cast<T*>(a.out);
   const int Tn = a.T, Dh = a.Dh, group = a.Hq / a.Hkv;
-  const int R = group * Tn, virt = a.MB * a.bs;
+  const int virt = a.MB * a.bs;
   const float* nv = nk + Tn * dp;
   const int* wp = reinterpret_cast<const int*>(nv + Tn * dp);
   // 1. persist the new tokens' K/V head slice (bf16 -> fp32 -> bf16 is
-  //    exact)
-  for (int e = threadIdx.x; e < Tn * Dh; e += blockDim.x) {
+  //    exact), once: by row block 0
+  for (int e = threadIdx.x; R0 == 0 && e < Tn * Dh; e += blockDim.x) {
     const int t = e / Dh, dd = e % Dh;
     const int qpos = pos + t;
     const long long dst =
@@ -366,8 +381,8 @@ __device__ __forceinline__ void finalize(const Args& a, const float* fin,
   }
   // 2. fold the new tokens into each row, normalise
   const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < R; r += nwarps) {
-    const int g = r / Tn, t = r % Tn, qpos = pos + t;
+  for (int r = threadIdx.x >> 5; r < Rl; r += nwarps) {
+    const int g = (R0 + r) / Tn, t = (R0 + r) % Tn, qpos = pos + t;
     const float* f = fin + r * (dp + 2);
     const float M = f[dp], L = f[dp + 1];
     float mx = M;
@@ -411,17 +426,19 @@ __device__ __forceinline__ void finalize(const Args& a, const float* fin,
   }
 }
 
-// Query rows r = g * T + t of heads h * group + g, fp32, dims padded
+// Query rows R0 + r = g * T + t (r < Rl) of heads h * group + g, fp32,
+// dims padded; rows Rl .. rows - 1 zero
 template <typename T>
 __device__ __forceinline__ void load_q(const Args& a, float* qs, int rows,
-                                       int dp, int b, int h) {
+                                       int dp, int b, int h, int R0,
+                                       int Rl) {
   const T* q = static_cast<const T*>(a.q);
-  const int group = a.Hq / a.Hkv, R = group * a.T;
+  const int group = a.Hq / a.Hkv;
   for (int e = threadIdx.x; e < rows * dp; e += blockDim.x) {
     const int r = e / dp, d = e % dp;
     float v = 0.f;
-    if (r < R && d < a.Dh) {
-      const int g = r / a.T, t = r % a.T;
+    if (r < Rl && d < a.Dh) {
+      const int g = (R0 + r) / a.T, t = (R0 + r) % a.T;
       v = to_f(q[((long long)(b * a.T + t) * a.Hq + h * group + g) * a.Dh +
                  d]);
     }
@@ -438,11 +455,14 @@ paged_split(const Args a) {
   constexpr int DPL = RMAX <= 2 ? 16 : 8;  // dims_per_lane
   constexpr int DP = DPL * LPK;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int group = a.Hq / a.Hkv, Rall = group * a.T, Dh = a.Dh;
+  const int nrb = row_blocks(Rall), RB = block_rows(Rall);
+  const int split = blockIdx.x, h = blockIdx.y / nrb, b = blockIdx.z;
+  // this CTA's row block: rows R0 .. R0 + R - 1 of the (slot, head)
+  const int R0 = blockIdx.y % nrb * RB, R = min(RB, Rall - R0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int CPR = DP * (int)sizeof(T) / 16;   // 16-byte chunks a row
-  const int group = a.Hq / a.Hkv, R = group * a.T, Dh = a.Dh;
-  const Layout lay(R, a.T, Dh, (int)sizeof(T), a.kt, a.pps);
+  const Layout lay(RB, a.T, Dh, (int)sizeof(T), a.kt, a.pps);
   const int rows = lay.rg * RMAX;
   T* stage = reinterpret_cast<T*>(smem);
   float* wst = reinterpret_cast<float*>(smem);   // after the stream
@@ -457,7 +477,7 @@ paged_split(const Args a) {
   const int* tbl = a.tables + (long long)b * a.MB;
   const int p0 = split * a.pps;
   const bool finalizer = split == 0 && a.route != kTwoPass;
-  load_q<T>(a, qs, rows, DP, b, h);
+  load_q<T>(a, qs, rows, DP, b, h, R0, R);
   for (int i = tid; i < a.pps && p0 + i < a.MB; i += blockDim.x)
     pg[i] = max(tbl[p0 + i], 0);
   if (finalizer) load_new<T>(a, nk, DP, b, h);
@@ -493,7 +513,7 @@ paged_split(const Args a) {
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       load_n<DPL>(qs + (rbase + r) * DP + lk * DPL, qr[r]);
-      kmin[r] = a.window > 0 ? pos + (rbase + r) % a.T - a.window + 1
+      kmin[r] = a.window > 0 ? pos + (R0 + rbase + r) % a.T - a.window + 1
                              : INT_MIN;
     }
     // two stages: tile it + 1 in flight while the warps work on tile it
@@ -636,8 +656,8 @@ paged_split(const Args a) {
   __syncthreads();
 
   if (a.route == kTwoPass) {
-    float* out = a.ws + (((long long)b * a.Hkv + h) * a.splits + split) *
-                            R * (Dh + 2);
+    float* out = a.ws + ((((long long)b * a.Hkv + h) * a.splits + split) *
+                             Rall + R0) * (Dh + 2);
     for (int e = tid; e < R * (Dh + 2); e += blockDim.x) {
       const int row = e / (Dh + 2), c = e % (Dh + 2);
       out[e] = st[row * (DP + 2) + (c < Dh ? c : DP + c - Dh)];
@@ -671,30 +691,32 @@ paged_split(const Args a) {
     if (split != 0) return;
     fin = merged;
   }
-  finalize<T>(a, fin, qs, nk, DP, b, h, pos);
+  finalize<T>(a, fin, qs, nk, DP, b, h, pos, R0, R);
 }
 
 // The second pass where the splits outnumber a cluster: merge each
-// (slot, head)'s split states from the workspace in split order, then the
-// same last step.
+// (slot, head, row block)'s split states from the workspace in split
+// order, then the same last step.
 template <typename T>
 __global__ void __launch_bounds__(128)
 paged_combine(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int R = (a.Hq / a.Hkv) * a.T, Dh = a.Dh;
-  const int dp = dims_per_lane(R) * lanes_per_key(Dh, dims_per_lane(R));
+  const int Rall = (a.Hq / a.Hkv) * a.T, Dh = a.Dh;
+  const int nrb = row_blocks(Rall), RB = block_rows(Rall);
+  const int h = blockIdx.x / nrb, b = blockIdx.y;
+  const int R0 = blockIdx.x % nrb * RB, R = min(RB, Rall - R0);
+  const int dp = dims_per_lane(RB) * lanes_per_key(Dh, dims_per_lane(RB));
   float* qs = reinterpret_cast<float*>(smem);
-  float* st = qs + R * dp;
-  float* nk = st + R * (dp + 2);
+  float* st = qs + RB * dp;
+  float* nk = st + RB * (dp + 2);
   // the prologue overlaps the split kernel; its states are read after it
   const int pos = a.position[b], virt = a.MB * a.bs;
-  load_q<T>(a, qs, R, dp, b, h);
+  load_q<T>(a, qs, RB, dp, b, h, R0, R);
   load_new<T>(a, nk, dp, b, h);
   write_pages(a, reinterpret_cast<int*>(nk + 2 * a.T * dp), b, pos);
   wait_primary();
   const float* ws =
-      a.ws + ((long long)b * a.Hkv + h) * a.splits * R * (Dh + 2);
+      a.ws + ((long long)b * a.Hkv + h) * a.splits * Rall * (Dh + 2);
   auto live = [&](int s) {
     int s0, s1;
     split_keys(s, a.pps, a.bs, pos, virt, a.window, s0, s1);
@@ -704,7 +726,9 @@ paged_combine(const Args a) {
     const int row = e / dp, d = e % dp;
     float M, L, A;
     merge_splits(a.splits, d < Dh ? d : -1, Dh,
-                 [&](int s) { return ws + ((long long)s * R + row) * (Dh + 2); },
+                 [&](int s) {
+                   return ws + ((long long)s * Rall + R0 + row) * (Dh + 2);
+                 },
                  live, M, L, A);
     st[row * (dp + 2) + d] = A;
     if (d == 0) {
@@ -713,7 +737,7 @@ paged_combine(const Args a) {
     }
   }
   __syncthreads();
-  finalize<T>(a, st, qs, nk, dp, b, h, pos);
+  finalize<T>(a, st, qs, nk, dp, b, h, pos, R0, R);
 }
 
 template <typename Kern>
@@ -733,7 +757,7 @@ cudaError_t launch_split(const Args& a, int threads, int smem,
   if (prepared != cudaSuccess) return prepared;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(a.splits, a.Hkv, a.B);
+  cfg.gridDim = dim3(a.splits, a.Hkv * row_blocks((a.Hq / a.Hkv) * a.T), a.B);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -772,22 +796,24 @@ cudaError_t by_rows(const Args& a, int R, int threads, int smem,
 
 template <typename T>
 cudaError_t run(const Args& a, int smem, cudaStream_t s) {
-  const int R = (a.Hq / a.Hkv) * a.T;
-  const Layout lay(R, a.T, a.Dh, (int)sizeof(T), a.kt, a.pps);
+  const int R = (a.Hq / a.Hkv) * a.T, RB = block_rows(R);
+  const Layout lay(RB, a.T, a.Dh, (int)sizeof(T), a.kt, a.pps);
   if (smem != lay.bytes || smem > kSmemLimit) return cudaErrorInvalidValue;
   const int threads = 32 * kKeyWarps * lay.rg;
   cudaError_t err = a.softcap > 0.f
-                        ? by_rows<T, true>(a, R, threads, smem, s)
-                        : by_rows<T, false>(a, R, threads, smem, s);
+                        ? by_rows<T, true>(a, RB, threads, smem, s)
+                        : by_rows<T, false>(a, RB, threads, smem, s);
   if (err != cudaSuccess || a.route != kTwoPass) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(paged_combine<T>);
+  if (prepared != cudaSuccess) return prepared;
   const int dp = lay.dp;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(a.Hkv, a.B, 1);
+  cfg.gridDim = dim3(a.Hkv * row_blocks(R), a.B, 1);
   cfg.blockDim = dim3(128, 1, 1);
-  cfg.dynamicSmemBytes = (R * dp + R * (dp + 2)) * 4 + new_bytes(a.T, dp);
+  cfg.dynamicSmemBytes = (RB * dp + RB * (dp + 2)) * 4 + new_bytes(a.T, dp);
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -798,24 +824,27 @@ cudaError_t run(const Args& a, int smem, cudaStream_t s) {
 
 }  // namespace
 
-// Shared memory of a split CTA (the plan's `smem_bytes`; -1 when the
-// rows exceed the kernel's).
+// Shared memory of a split CTA for (slot, head)s of `rows` query rows
+// (the plan's `smem_bytes` of their row block; -1 for a shape the kernel
+// refuses).
 extern "C" int paged_attn_smem_bytes(int rows, int T, int Dh, int item,
                                      int kt, int pps) {
-  if (rows < 1 || rows > kMaxRows || T < 1 || rows % T) return -1;
-  return Layout(rows, T, Dh, item, kt, pps).bytes;
+  if (rows < 1 || T < 1 || T > kMaxT || rows % T) return -1;
+  return Layout(block_rows(rows), T, Dh, item, kt, pps).bytes;
 }
 
 // q (B, T, Hq, Dh); knew, vnew (B, T, Hkv, Dh); pools kp, vp
 // (n_pages, bs, Hkv, Dh) updated in place, page n_pages-1 the trash page,
 // 16-byte aligned; tables (B, MB) int32 (-1 unmapped); position (B,)
 // int32; out (B, T, Hq, Dh).  One dtype for all of q/knew/vnew/pools/out
-// (fp32 or bf16).  Needs Dh a multiple of 16 in [16, 128] and
-// (Hq / Hkv) * T <= 16.  The plan: `splits` CTAs a (slot, head) of `pps`
+// (fp32 or bf16).  Needs Dh a multiple of 16 in [16, 128] and T <= 32
+// (any group: (Hq / Hkv) * T rows in blocks of 16).  The plan: `splits`
+// CTAs a (slot, head, row block) of `pps`
 // pages each (every split holding at least one page), `kt` keys a tile,
 // `route` 0 (one split), 1 (a cluster of the splits) or 2 (the workspace
 // ws, (B, Hkv, splits, rows, Dh + 2) fp32, and a second kernel), `smem`
-// the split CTA's shared memory; anything else is refused
+// a split CTA's shared memory (laid out for min(rows, 16) rows); anything
+// else is refused
 // (cudaErrorInvalidValue).  Launches on `stream`, allocates nothing,
 // returns the first CUDA error.
 extern "C" int paged_attn_launch(const void* q, const void* knew,
@@ -832,7 +861,7 @@ extern "C" int paged_attn_launch(const void* q, const void* knew,
                window, softcap, scale, splits, pps, kt, route};
   const bool ok =
       Hkv >= 1 && Hq % Hkv == 0 && Tn >= 1 && Tn <= kMaxT &&
-      (Hq / Hkv) * Tn <= kMaxRows && Dh % 16 == 0 && Dh >= 16 && Dh <= 128 &&
+      Dh % 16 == 0 && Dh >= 16 && Dh <= 128 &&
       bs >= 1 && MB >= 1 && splits >= 1 && pps >= 1 &&
       (long long)(splits - 1) * pps < MB && (long long)splits * pps >= MB &&
       kt >= 16 && kt % 16 == 0 &&

@@ -39,6 +39,16 @@
 //    under the mma.sync ceiling is the split itself: 5 instructions an
 //    element of x, 4 of w, repeated by every warp that shares the tile.
 //
+// Groups (the MoE experts' cascades, which the reference runs under
+// jax.vmap: the vmapped pallas_call gets a grid axis over the experts):
+// pre (G, K), post and bias (G, N) for x (G * C, K), row r scaled by the
+// vectors of group r / C, and w (the shared DCT matrix) read once for all
+// G groups -- one M = G * C product, not G products that each re-read w.
+// The scalings already ride each row in registers, so a group costs one
+// index a row: in the weight stream's x * pre and in the epilogue; the
+// tensor-core regime stages a per-row pre tile beside x (smm_tc's GP
+// instances) instead of one pre slice.  Ungrouped calls are C = M.
+//
 // Summation order: two levels in both regimes.  Each BK = 32 slice of K
 // is summed into fresh registers (a thread's own rows in regime 1, the
 // mma accumulator in regime 2) and added to the running total once per
@@ -108,22 +118,25 @@ template <typename T>
 struct Args {
   const T* x;         // (M, K)
   const float* w;     // (K, N)
-  const float* pre;   // (K,) or null
-  const float* post;  // (N,) or null
-  const float* bias;  // (N,) or null
+  const float* pre;   // (G, K) or null
+  const float* post;  // (G, N) or null
+  const float* bias;  // (G, N) or null
   T* y;               // (M, N)
   float* ws;          // (splits, M, N) fp32 partials; null when splits == 1
   int M, N, K;
   int kc;             // K rows a split, a multiple of kBK
+  int C;              // rows a group (M when ungrouped: G = 1)
 };
 
 template <typename T>
 __device__ __forceinline__ void finish(float v, long long row, int col,
                                        const float* post, const float* bias,
-                                       T* y, int N) {
-  // separate roundings, as the reference (no FMA contraction)
-  if (post != nullptr) v = __fmul_rn(v, post[col]);
-  if (bias != nullptr) v = __fadd_rn(v, bias[col]);
+                                       T* y, int N, int C) {
+  // separate roundings, as the reference (no FMA contraction); the
+  // vectors of row's group
+  const long long g = row / C * N;
+  if (post != nullptr) v = __fmul_rn(v, post[g + col]);
+  if (bias != nullptr) v = __fadd_rn(v, bias[g + col]);
   y[row * N + col] = from_f<T>(v);
 }
 
@@ -134,7 +147,7 @@ __device__ __forceinline__ void emit(const Args<T>& a, float v, int row,
   if (a.ws != nullptr)
     a.ws[((long long)blockIdx.z * a.M + row) * a.N + col] = v;
   else
-    finish<T>(v, row, col, a.post, a.bias, a.y, a.N);
+    finish<T>(v, row, col, a.post, a.bias, a.y, a.N, a.C);
 }
 
 // --- regime 1: the weight stream ------------------------------------------
@@ -197,7 +210,8 @@ __global__ void __launch_bounds__(kThreads)
     float v = 0.f;
     if (gm < a.M && gk < k1) {
       v = to_f(a.x[(long long)gm * a.K + gk]);
-      if (a.pre != nullptr) v = __fmul_rn(v, a.pre[gk]);
+      if (a.pre != nullptr)
+        v = __fmul_rn(v, a.pre[(long long)(gm / a.C) * a.K + gk]);
     }
     xs[k * MT + m] = v;
   }
@@ -289,9 +303,11 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // a BM x BN block of WGM x WGN warps; TwoLevel: each BK slice summed into
-// fresh registers before the running total (else one accumulator)
+// fresh registers before the running total (else one accumulator); GP:
+// grouped pre, staged per row (BM x kBK, rows padded to PS) where the
+// ungrouped tile stages one kBK slice of pre
 template <typename T, int BM, int BN, int WGM, int WGN, bool TwoLevel,
-          int Stages>
+          int Stages, bool GP>
 struct TcTile {
   static constexpr int kThreads = WGM * WGN * 32;
   static constexpr int WM = BM / WGM, WN = BN / WGN;  // warp tile
@@ -300,9 +316,11 @@ struct TcTile {
   // rows padded (x by 16 bytes, w by 32): fragment loads hit 32 banks
   static constexpr int XS = kBK + 16 / (int)sizeof(T);
   static constexpr int WS = BN + 8;
+  static constexpr int PS = kBK + 4;  // conflict-free like x's rows
   static constexpr int kXBytes = BM * XS * (int)sizeof(T);
   static constexpr int kWBytes = kBK * WS * 4;
-  static constexpr int kStageBytes = kXBytes + kWBytes + kBK * 4;  // + pre
+  static constexpr int kPBytes = GP ? BM * PS * 4 : kBK * 4;
+  static constexpr int kStageBytes = kXBytes + kWBytes + kPBytes;
   static constexpr int kSmem = kStages * kStageBytes;
   // two blocks an SM where both shared memory and registers allow (the
   // sums, two levels, take 8 MI NI registers a thread)
@@ -316,12 +334,12 @@ struct TcTile {
 // grid (ceil(M / BM), ceil(N / BN), splits): the row tiles that share a
 // strip of w are neighbours in launch order, so w comes from HBM ~once
 template <typename T, int BM, int BN, int WGM, int WGN, bool TwoLevel,
-          int Stages, bool Vec>
+          int Stages, bool Vec, bool GP>
 __global__ void __launch_bounds__(
-    (TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages>::kThreads),
-    (TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages>::kMinBlocks))
+    (TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages, GP>::kThreads),
+    (TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages, GP>::kMinBlocks))
     smm_tc(const Args<T> a) {
-  using L = TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages>;
+  using L = TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages, GP>;
   constexpr int NT = L::kThreads;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -384,7 +402,32 @@ __global__ void __launch_bounds__(
                   ok ? a.w + (long long)(kb + r) * a.N + n0 + c : a.w, ok);
       }
     }
-    if (a.pre != nullptr && tid < kBK) {
+    if constexpr (GP) {
+      // each row's group's pre over this slice
+      if (Vec) {
+#pragma unroll
+        for (int i = 0; i < BM * kBK / 4 / NT; ++i) {
+          const int e = tid + i * NT;
+          const int r = e / (kBK / 4), c = e % (kBK / 4) * 4;
+          const bool ok = m0 + r < a.M && kb + c < k1;
+          cp_async16(pd + r * L::PS + c,
+                     ok ? a.pre + (long long)((m0 + r) / a.C) * a.K + kb + c
+                        : a.pre,
+                     ok);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < BM * kBK / NT; ++i) {
+          const int e = tid + i * NT;
+          const int r = e / kBK, c = e % kBK;
+          const bool ok = m0 + r < a.M && kb + c < k1;
+          cp_async4(pd + r * L::PS + c,
+                    ok ? a.pre + (long long)((m0 + r) / a.C) * a.K + kb + c
+                       : a.pre,
+                    ok);
+        }
+      }
+    } else if (a.pre != nullptr && tid < kBK) {
       const bool ok = kb + tid < k1;
       cp_async4(pd + tid, ok ? a.pre + kb + tid : a.pre, ok);
     }
@@ -427,17 +470,26 @@ __global__ void __launch_bounds__(
     }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 8) {
-      const float p0 = a.pre != nullptr ? pt[kk + t] : 1.f;
-      const float p1 = a.pre != nullptr ? pt[kk + t + 4] : 1.f;
+      const float p0 = !GP && a.pre != nullptr ? pt[kk + t] : 1.f;
+      const float p1 = !GP && a.pre != nullptr ? pt[kk + t + 4] : 1.f;
       uint32_t ab[L::MI][4], as[L::MI][4], bb[L::NI][2], bs[L::NI][2];
 #pragma unroll
       for (int i = 0; i < L::MI; ++i) {
         // A fragment: rows g, g+8; columns t, t+4 (x * pre, then split)
         const T* xr = xt + (wm0 + i * 16 + g) * L::XS + kk + t;
-        split_tf32(__fmul_rn(to_f(xr[0]), p0), ab[i][0], as[i][0]);
-        split_tf32(__fmul_rn(to_f(xr[8 * L::XS]), p0), ab[i][1], as[i][1]);
-        split_tf32(__fmul_rn(to_f(xr[4]), p1), ab[i][2], as[i][2]);
-        split_tf32(__fmul_rn(to_f(xr[8 * L::XS + 4]), p1), ab[i][3],
+        float pa[4] = {p0, p0, p1, p1};
+        if constexpr (GP) {   // the pre of each row's group
+          const float* pr = pt + (wm0 + i * 16 + g) * L::PS + kk + t;
+          pa[0] = pr[0];
+          pa[1] = pr[8 * L::PS];
+          pa[2] = pr[4];
+          pa[3] = pr[8 * L::PS + 4];
+        }
+        split_tf32(__fmul_rn(to_f(xr[0]), pa[0]), ab[i][0], as[i][0]);
+        split_tf32(__fmul_rn(to_f(xr[8 * L::XS]), pa[1]), ab[i][1],
+                   as[i][1]);
+        split_tf32(__fmul_rn(to_f(xr[4]), pa[2]), ab[i][2], as[i][2]);
+        split_tf32(__fmul_rn(to_f(xr[8 * L::XS + 4]), pa[3]), ab[i][3],
                    as[i][3]);
       }
 #pragma unroll
@@ -493,13 +545,13 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     smm_reduce(const float* __restrict__ ws, const float* __restrict__ post,
                const float* __restrict__ bias, T* __restrict__ y, int M,
-               int N, int splits) {
+               int N, int splits, int C) {
   const long long mn = (long long)M * N;
   for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < mn;
        e += (long long)gridDim.x * kThreads) {
     float v = ws[e];
     for (int s = 1; s < splits; ++s) v += ws[s * mn + e];
-    finish<T>(v, e / N, (int)(e % N), post, bias, y, N);
+    finish<T>(v, e / N, (int)(e % N), post, bias, y, N, C);
   }
 }
 
@@ -539,19 +591,36 @@ int launch_stream(const Args<T>& a, bool vec, dim3 grid, cudaStream_t s) {
 #define SMM_TC_TILE_SMALL 64, 128, 2, 2, true, 4
 #endif
 
+// one instance of a tile: the copy width and the pre staging
+template <typename T, int BM, int BN, int WGM, int WGN, bool TwoLevel,
+          int Stages, bool Vec, bool GP>
+void launch_tc_as(const Args<T>& a, dim3 grid, cudaStream_t s, int& err) {
+  using L = TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages, GP>;
+  static int allowed = 0;
+  auto kernel = smm_tc<T, BM, BN, WGM, WGN, TwoLevel, Stages, Vec, GP>;
+  if (!allow_smem(kernel, L::kSmem, allowed)) return;
+  kernel<<<grid, L::kThreads, L::kSmem, s>>>(a);
+  err = cudaSuccess;
+}
+
 // launches when (bm, bn) is this tile's; else leaves err as it was
 template <typename T, int BM, int BN, int WGM, int WGN, bool TwoLevel,
           int Stages>
-void launch_tc(const Args<T>& a, int bm, int bn, bool vec, dim3 grid,
-               cudaStream_t s, int& err) {
-  using L = TcTile<T, BM, BN, WGM, WGN, TwoLevel, Stages>;
+void launch_tc(const Args<T>& a, int bm, int bn, bool vec, bool gp,
+               dim3 grid, cudaStream_t s, int& err) {
   if (bm != BM || bn != BN) return;
-  static int allowed[2] = {0, 0};
-  auto kernel = vec ? smm_tc<T, BM, BN, WGM, WGN, TwoLevel, Stages, true>
-                    : smm_tc<T, BM, BN, WGM, WGN, TwoLevel, Stages, false>;
-  if (!allow_smem(kernel, L::kSmem, allowed[vec])) return;
-  kernel<<<grid, L::kThreads, L::kSmem, s>>>(a);
-  err = cudaSuccess;
+  if (vec && gp)
+    launch_tc_as<T, BM, BN, WGM, WGN, TwoLevel, Stages, true, true>(a, grid,
+                                                                    s, err);
+  else if (vec)
+    launch_tc_as<T, BM, BN, WGM, WGN, TwoLevel, Stages, true, false>(
+        a, grid, s, err);
+  else if (gp)
+    launch_tc_as<T, BM, BN, WGM, WGN, TwoLevel, Stages, false, true>(
+        a, grid, s, err);
+  else
+    launch_tc_as<T, BM, BN, WGM, WGN, TwoLevel, Stages, false, false>(
+        a, grid, s, err);
 }
 
 bool aligned16(const void* p) {
@@ -561,11 +630,15 @@ bool aligned16(const void* p) {
 template <typename T>
 int dispatch(const Args<T>& a, int regime, int bm, int bn, int splits,
              int vec, cudaStream_t s) {
+  // grouped pre (its rows staged per row on the tensor cores)
+  const bool gp = a.pre != nullptr && a.C < a.M;
   // the plan's promises, checked: 16-byte copies only where legal
   if (vec) {
     const int per = 16 / (int)sizeof(T);
     if (a.N % 4 != 0 || !aligned16(a.w)) return cudaErrorInvalidValue;
     if (regime == 1 && (a.K % per != 0 || !aligned16(a.x)))
+      return cudaErrorInvalidValue;
+    if (regime == 1 && gp && (a.K % 4 != 0 || !aligned16(a.pre)))
       return cudaErrorInvalidValue;
   }
   dim3 grid((a.M + bm - 1) / bm, (a.N + bn - 1) / bn, splits);
@@ -575,24 +648,26 @@ int dispatch(const Args<T>& a, int regime, int bm, int bn, int splits,
     if (bm == 8) err = launch_stream<T, 8>(a, vec, grid, s);
     if (bm == 16) err = launch_stream<T, 16>(a, vec, grid, s);
   } else if (regime == 1) {
-    launch_tc<T, SMM_TC_TILE_BIG>(a, bm, bn, vec, grid, s, err);
-    launch_tc<T, SMM_TC_TILE_SMALL>(a, bm, bn, vec, grid, s, err);
+    launch_tc<T, SMM_TC_TILE_BIG>(a, bm, bn, vec, gp, grid, s, err);
+    launch_tc<T, SMM_TC_TILE_SMALL>(a, bm, bn, vec, gp, grid, s, err);
   }
   if (err != cudaSuccess || splits == 1) return err;
   const long long mn = (long long)a.M * a.N;
   const int blocks = (int)std::min<long long>((mn + kThreads - 1) / kThreads,
                                               132 * 8);
   smm_reduce<T><<<blocks, kThreads, 0, s>>>(a.ws, a.post, a.bias, a.y, a.M,
-                                            a.N, splits);
+                                            a.N, splits, a.C);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// x (M, K) fp32 or bf16 (x_is_bf16); w (K, N) fp32; pre (K,), post (N,),
-// bias (N,) fp32 or NULL; y (M, N) in x's dtype.  All row-major and
-// contiguous.  The plan (kernels/scaled_matmul.py: plan): regime 0 (weight
-// stream, bm rows of x a block in {4, 8, 16}, bn = 128) or 1 (3xTF32,
+// x (M, K) fp32 or bf16 (x_is_bf16); w (K, N) fp32; pre (G, K), post
+// (G, N), bias (G, N) fp32 or NULL, for G = M / C groups of C =
+// rows_per_group rows (C = M: one group); y (M, N) in x's dtype.  All
+// row-major and contiguous.  The plan (kernels/scaled_matmul.py: plan):
+// regime 0 (weight stream, bm rows of x a block in {4, 8, 16}, bn = 128)
+// or 1 (3xTF32,
 // bm x bn in {128 x 128, 64 x 128}); `splits` K ranges of `kc` rows each
 // (a multiple of 32, every range non-empty); ws an fp32 (splits, M, N)
 // workspace when splits > 1, else NULL; vec 1 for 16-byte copies.
@@ -603,9 +678,11 @@ extern "C" int smm_launch(const void* x, const void* w, const void* pre,
                           const void* post, const void* bias, void* y,
                           void* ws, int M, int N, int K, int x_is_bf16,
                           int regime, int bm, int bn, int splits, int kc,
-                          int vec, void* stream) {
+                          int vec, int rows_per_group, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows_per_group < 1 || M % rows_per_group != 0)
+    return cudaErrorInvalidValue;
   if (splits < 1 || kc <= 0 || kc % kBK != 0 ||
       (long long)splits * kc < K || (splits > 1 && (splits - 1LL) * kc >= K) ||
       (splits > 1) != (ws != nullptr))
@@ -618,14 +695,15 @@ extern "C" int smm_launch(const void* x, const void* w, const void* pre,
                           static_cast<const float*>(post),
                           static_cast<const float*>(bias),
                           static_cast<__nv_bfloat16*>(y),
-                          static_cast<float*>(ws), M, N, K, kc};
+                          static_cast<float*>(ws), M, N, K, kc,
+                          rows_per_group};
     err = dispatch(a, regime, bm, bn, splits, vec, s);
   } else {
     Args<float> a{static_cast<const float*>(x), static_cast<const float*>(w),
                   static_cast<const float*>(pre),
                   static_cast<const float*>(post),
                   static_cast<const float*>(bias), static_cast<float*>(y),
-                  static_cast<float*>(ws), M, N, K, kc};
+                  static_cast<float*>(ws), M, N, K, kc, rows_per_group};
     err = dispatch(a, regime, bm, bn, splits, vec, s);
   }
   if (err != cudaSuccess) return err;

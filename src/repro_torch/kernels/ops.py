@@ -23,6 +23,15 @@
 * :func:`paged_attn_route` — the paged-attention dispatch, counted in
   ``PAGED_ATTN_DISPATCHES``.
 
+Grouped cascades (the MoE experts, which the reference runs under
+``jax.vmap``): diagonals with a leading group axis, ``(G, N)`` a layer or
+``(G, K, N)`` a cascade, over x of shape ``(G, ..., N)``.  Above
+``MAX_FUSED_N`` every ``scaled_matmul`` of the two-call layer is ONE
+grouped launch over all G groups' rows (per-row diagonals, one shared
+C), forward and backward, and the diagonal grads are per-group sums.  At
+N <= ``MAX_FUSED_N`` (smoke widths only) the cascade kernels are launched
+once per group on that group's rows, forward and backward.
+
 The routing DECISIONS are the reference's, computed here by the port's
 own copy of its arithmetic (``MAX_FUSED_N``, the fused-cascade budget
 and the reverse-sweep budget): they decide where bf16 rounding happens,
@@ -144,13 +153,41 @@ def _flatten(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]), x.shape
 
 
+def _grouped(a: torch.Tensor, k_axis: bool) -> bool:
+    """Whether stacked diagonals carry a leading group axis: ``(G, N)`` a
+    layer (``(G, K, N)`` a cascade, ``k_axis``)."""
+    return a.dim() == (3 if k_axis else 2)
+
+
+def _each(v: Optional[torch.Tensor], g: int) -> Optional[torch.Tensor]:
+    return None if v is None else v[g]
+
+
+def _group_rows(x2: torch.Tensor, groups: int):
+    """The rows of 2-D x (G C, N), group by group."""
+    return x2.reshape(groups, -1, x2.shape[-1]).unbind(0)
+
+
+def _row_sum(t: torch.Tensor, groups: Optional[int]) -> torch.Tensor:
+    """The sum over rows of 2-D t: per group ``(G, N)`` when grouped."""
+    if groups is None:
+        return torch.sum(t, dim=0)
+    return torch.sum(t.reshape(groups, -1, t.shape[-1]), dim=1)
+
+
 def _layer_fwd(x2: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                bias: Optional[torch.Tensor], family: str) -> torch.Tensor:
-    """One layer's forward over 2-D x: the fused kernel, or two calls."""
+    """One layer's forward over 2-D x: the fused kernel, or two calls
+    (grouped diagonals: one grouped launch a call; the fused kernel once
+    per group)."""
     n = x2.shape[-1]
     c, ct, _ = _mats(family, n, x2.device, False)
     if n <= MAX_FUSED_N:
-        return fused_mod.acdc_fused(x2, a, d, bias, c, ct)
+        if not _grouped(a, False):
+            return fused_mod.acdc_fused(x2, a, d, bias, c, ct)
+        return torch.cat([
+            fused_mod.acdc_fused(xg, a[g], d[g], _each(bias, g), c, ct)
+            for g, xg in enumerate(_group_rows(x2, a.shape[0]))])
     h2 = smm_mod.scaled_matmul(x2, c, pre=a)
     bias_t = None
     if bias is not None:
@@ -162,21 +199,36 @@ def _layer_bwd(x2: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                g2: torch.Tensor, with_bias: bool, family: str):
     """One layer's backward over 2-D x, g -> (dx in x's dtype, da, dd, db
     in fp32; db None without bias): the fused backward kernel, or the
-    reference's two-call backward above ``MAX_FUSED_N``."""
+    reference's two-call backward above ``MAX_FUSED_N``.  Grouped
+    diagonals give per-group grads ``(G, N)``."""
     n = x2.shape[-1]
+    groups = a.shape[0] if _grouped(a, False) else None
     c, ct, _ = _mats(family, n, x2.device, False)
     if n <= MAX_FUSED_N:
-        return bwd_mod.acdc_bwd(x2, g2, a, d, c, ct, with_bias=with_bias)
+        if groups is None:
+            return bwd_mod.acdc_bwd(x2, g2, a, d, c, ct, with_bias=with_bias)
+        outs = [bwd_mod.acdc_bwd(xg, gg, a[g], d[g], c, ct,
+                                 with_bias=with_bias)
+                for g, (xg, gg) in enumerate(zip(_group_rows(x2, groups),
+                                                 _group_rows(g2, groups)))]
+        dx, da, dd, db = zip(*outs)
+        return (torch.cat(dx), torch.stack(da), torch.stack(dd),
+                torch.stack(db) if with_bias else None)
     # gc and dh1 land in device memory once each; the diagonal scalings
     # ride the products and the reductions are plain torch
     xf = x2.float()
     gc = smm_mod.scaled_matmul(g2.float(), c)
     h2 = smm_mod.scaled_matmul(xf, c, pre=a.float())
-    dd = torch.sum(h2 * gc, dim=0)
-    db = torch.sum(gc, dim=0) if with_bias else None
+    dd = _row_sum(h2 * gc, groups)
+    db = _row_sum(gc, groups) if with_bias else None
     dh1 = smm_mod.scaled_matmul(gc, ct, pre=d.float())
-    da = torch.sum(xf * dh1, dim=0)
-    return (a.float() * dh1).to(x2.dtype), da, dd, db
+    da = _row_sum(xf * dh1, groups)
+    if groups is None:
+        dx = a.float() * dh1
+    else:
+        dx = (dh1.reshape(groups, -1, n) * a.float()[:, None]).reshape(
+            dh1.shape)
+    return dx.to(x2.dtype), da, dd, db
 
 
 def _cast_grads(a, d, bias, da, dd, db):
@@ -208,26 +260,31 @@ class _Layer(torch.autograd.Function):
 def acdc_fused_op(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
                   family: str = "acdc") -> torch.Tensor:
-    """One layer ``y = ((x*a) C * d + bias) C^T`` along the last axis."""
+    """One layer ``y = ((x*a) C * d + bias) C^T`` along the last axis;
+    diagonals ``(G, N)`` are per group of x (G, ..., N)."""
     return _Layer.apply(x, a, d, bias, family)
 
 
 def _cascade_per_layer(x, a, d, bias, relu, permute, family="acdc"):
-    """Layer-by-layer cascade (the reference's per-layer scan)."""
+    """Layer-by-layer cascade (the reference's per-layer scan) over (K, N)
+    diagonals, or grouped (G, K, N) ones."""
     n = x.shape[-1]
-    k = a.shape[0]
+    k = a.shape[-2]
     perm = _riffle(family, n, x.device) if permute else None
+
+    def layer(h, i):
+        return acdc_fused_op(h, a[..., i, :], d[..., i, :],
+                             None if bias is None else bias[..., i, :],
+                             family=family)
+
     h = x
     for i in range(k - 1):
-        h = acdc_fused_op(h, a[i], d[i], None if bias is None else bias[i],
-                          family=family)
+        h = layer(h, i)
         if relu:
             h = torch.relu(h)
         if perm is not None:
             h = h[..., perm]
-    return acdc_fused_op(h, a[k - 1], d[k - 1],
-                         None if bias is None else bias[k - 1],
-                         family=family)
+    return layer(h, k - 1)
 
 
 def _cascade_bwd_core(x2, g2, a, d, bias, relu, permute, family):
@@ -273,14 +330,23 @@ def _cascade_bwd_core(x2, g2, a, d, bias, relu, permute, family):
 
 class _Cascade(torch.autograd.Function):
     """The fused order-K cascade; backward routed by the reference's gate
-    (reverse sweep, else :func:`_cascade_bwd_core`)."""
+    (reverse sweep, else :func:`_cascade_bwd_core`).  Grouped (G, K, N)
+    diagonals launch the kernels once per group on its rows."""
 
     @staticmethod
     def forward(ctx, x, a, d, bias, relu, permute, family):
         x2, shape = _flatten(x)
         c, ct, ct_mid = _mats(family, x2.shape[-1], x.device, permute)
-        y = cascade_mod.acdc_cascade(x2, a, d, bias, c, ct, ct_mid,
-                                     relu=relu)
+
+        def run(xg, ag, dg, bg):
+            return cascade_mod.acdc_cascade(xg, ag, dg, bg, c, ct, ct_mid,
+                                            relu=relu)
+
+        if _grouped(a, True):
+            y = torch.cat([run(xg, a[g], d[g], _each(bias, g)) for g, xg
+                           in enumerate(_group_rows(x2, a.shape[0]))])
+        else:
+            y = run(x2, a, d, bias)
         ctx.cfg = (relu, permute, family)
         ctx.save_for_backward(x, a, d, bias)
         return y.reshape(shape)
@@ -291,16 +357,30 @@ class _Cascade(torch.autograd.Function):
         relu, permute, family = ctx.cfg
         x2, shape = _flatten(x)
         g2 = g.reshape(x2.shape)
-        n, k = x2.shape[-1], a.shape[0]
+        n, k = x2.shape[-1], a.shape[-2]
         if cascade_bwd_fits(n, k, permute=permute, bias=bias is not None):
             CASCADE_BWD_DISPATCHES["reverse_sweep"] += 1
             c, ct, ct_mid = _mats(family, n, x.device, permute)
-            dx, da, dd, db = cascade_bwd_mod.acdc_cascade_bwd(
-                x2, g2, a, d, bias, c, ct, ct_mid, relu=relu)
+
+            def run(xg, gg, ag, dg, bg):
+                return cascade_bwd_mod.acdc_cascade_bwd(
+                    xg, gg, ag, dg, bg, c, ct, ct_mid, relu=relu)
         else:
             CASCADE_BWD_DISPATCHES["per_layer_scan"] += 1
-            dx, da, dd, db = _cascade_bwd_core(x2, g2, a, d, bias, relu,
-                                               permute, family)
+
+            def run(xg, gg, ag, dg, bg):
+                return _cascade_bwd_core(xg, gg, ag, dg, bg, relu, permute,
+                                         family)
+        if _grouped(a, True):
+            groups = a.shape[0]
+            outs = [run(xg, gg, a[i], d[i], _each(bias, i))
+                    for i, (xg, gg) in enumerate(zip(
+                        _group_rows(x2, groups), _group_rows(g2, groups)))]
+            dx, da, dd, db = zip(*outs)
+            dx, da, dd = torch.cat(dx), torch.stack(da), torch.stack(dd)
+            db = torch.stack(db) if bias is not None else None
+        else:
+            dx, da, dd, db = run(x2, g2, a, d, bias)
         return (dx.reshape(shape), *_cast_grads(a, d, bias, da, dd, db),
                 None, None, None)
 
@@ -316,16 +396,19 @@ def cascade_route(n: int, k: int, *, permute: bool, bias: bool) -> str:
 
 
 def forward_launches(n: int, k: int, rows: int, *, permute: bool,
-                     bias: bool) -> dict:
+                     bias: bool, groups: int = 1) -> dict:
     """The kernel launches, by wrapper, of one :func:`acdc_cascade_op`
-    forward over ``rows`` rows on the card, as :func:`cascade_route` and
+    forward over ``rows`` rows on the card (all groups' rows together for
+    a grouped cascade of ``groups`` groups), as :func:`cascade_route` and
     ``scaled_matmul``'s regime route it; ``scaled_matmul`` launches are
-    also counted under ``scaled_matmul_<regime>``."""
+    also counted under ``scaled_matmul_<regime>``.  A grouped two-call
+    cascade launches as an ungrouped one over the same rows; the cascade
+    kernels launch once per group."""
     route = cascade_route(n, k, permute=permute, bias=bias)
     if route == "cascade":
-        return {"acdc_cascade": 1}
+        return {"acdc_cascade": groups}
     if route == "fused":
-        return {"acdc_fused": k}
+        return {"acdc_fused": k * groups}
     return {"scaled_matmul": 2 * k,
             f"scaled_matmul_{smm_mod.regime(rows)}": 2 * k}
 
@@ -334,15 +417,16 @@ def acdc_cascade_op(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *,
                     relu: bool = False, permute: bool = False,
                     family: str = "acdc") -> torch.Tensor:
-    """Order-K cascade over stacked (K, N) diagonals (see module doc)."""
-    k = a.shape[0]
+    """Order-K cascade over stacked (K, N) diagonals, or grouped (G, K, N)
+    ones over x (G, ..., N) (see module doc)."""
+    k = a.shape[-2]
     route = cascade_route(x.shape[-1], k, permute=permute,
                           bias=bias is not None)
     if route == "cascade":
         return _Cascade.apply(x, a, d, bias, relu, permute, family)
     if k == 1:
-        return acdc_fused_op(x, a[0], d[0],
-                             None if bias is None else bias[0],
+        return acdc_fused_op(x, a[..., 0, :], d[..., 0, :],
+                             None if bias is None else bias[..., 0, :],
                              family=family)
     return _cascade_per_layer(x, a, d, bias, relu, permute, family)
 

@@ -10,7 +10,8 @@ The pools are updated IN PLACE (the reference aliases them through
 ``input_output_aliases``); only the attention output is returned.
 
 The kernel splits each (slot, KV head)'s keys over ``splits`` CTAs
-(split-KV decode).  How is decided here, by :func:`plan`, from host
+(split-KV decode), for each row block of at most ``BLOCK_ROWS`` of its
+``group * T`` query rows.  How is decided here, by :func:`plan`, from host
 integers alone (slots, KV heads, table width, page size, query rows,
 head dim, dtype): never from ``position``, whose read would synchronise
 every tick.  Splits cover the virtual row ``MB * bs`` in whole pages; a
@@ -32,11 +33,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: the kernel's per-(slot, head) limits (see the source)
+#: the kernel's limits (see the source): head dims, query tokens, and
+#: the query rows (``group * T``) a row block of CTAs holds
 MIN_HEAD_DIM = 16
 MAX_HEAD_DIM = 128
-MAX_ROWS = 16          # (n_heads / n_kv_heads) * T
 MAX_T = 32
+BLOCK_ROWS = 16
 
 #: the plan's constants, set from ``scripts/paged_variants.py``'s timings
 #: of every candidate on an H100: ~2 split CTAs an SM (the best split
@@ -62,15 +64,27 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fits(hkv: int, dh: int, group: int, t: int) -> bool:
-    """Whether the kernel takes this head layout and query count."""
+    """Whether the kernel takes this head layout and query count (any
+    group: its rows are cut into row blocks)."""
     return (MIN_HEAD_DIM <= dh <= MAX_HEAD_DIM and dh % 16 == 0
-            and t <= MAX_T and group * t <= MAX_ROWS)
+            and 1 <= t <= MAX_T)
+
+
+def block_rows(rows: int) -> int:
+    """Query rows a row block holds (the source's ``block_rows``): every
+    CTA is laid out for this many."""
+    return min(rows, BLOCK_ROWS)
+
+
+def row_blocks(rows: int) -> int:
+    """Row blocks of ``rows`` query rows a (slot, KV head)."""
+    return _cdiv(rows, BLOCK_ROWS)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch: ``splits`` CTAs per (slot, KV head), split ``s``
-    streaming pages ``[s * pages_per_split, (s + 1) * pages_per_split)``
+    """One launch: ``splits`` CTAs per (slot, KV head, row block), split
+    ``s`` streaming pages ``[s * pages_per_split, (s + 1) * pages_per_split)``
     of the slot's table, ``kt`` keys a tile (two stages); ``route`` one
     of ``ROUTES``; ``threads`` and ``smem_bytes`` of a split CTA;
     ``workspace`` the fp32 shape the two-pass route writes."""
@@ -113,7 +127,8 @@ def rows_max(rows: int) -> int:
 
 def smem_bytes(rows: int, t: int, dh: int, item: int, kt: int,
                pps: int) -> int:
-    """A split CTA's shared memory (the source's ``Layout``): the two K/V
+    """A split CTA's shared memory for ``rows`` query rows (its row
+    block's; the source's ``Layout``): the two K/V
     stages (reused for the warps' states), the fp32 query rows, the CTA's
     state (dims padded to whole lanes), the T new tokens' K and V rows
     and write pages, and the split's ``pps`` pages."""
@@ -141,9 +156,10 @@ def make_plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int,
     route = ("single" if s == 1 else
              "cluster" if cluster and s <= cluster_max else "two_pass")
     rows = group * t
-    rg = _cdiv(rows, rows_max(rows))
+    rb = block_rows(rows)
+    rg = _cdiv(rb, rows_max(rb))
     return Plan(s, pps, kt, route, 128 * rg,
-                smem_bytes(rows, t, dh, item, kt, pps),
+                smem_bytes(rb, t, dh, item, kt, pps),
                 (b, hkv, s, rows, dh + 2) if route == "two_pass" else None)
 
 
@@ -151,9 +167,9 @@ def make_plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int,
 def plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int, dh: int,
          item: int) -> Plan:
     """The launch for B slots of Hkv heads, tables of MB pages of bs
-    tokens, ``group * t`` query rows a (slot, head), head dim ``dh``,
-    pools of ``item``-byte elements: enough splits that the (slot, head)
-    pairs
+    tokens, ``group * t`` query rows a (slot, head) in row blocks of at
+    most ``BLOCK_ROWS``, head dim ``dh``, pools of ``item``-byte
+    elements: enough splits that the (slot, head, row block) triples
     make ``TARGET_CTAS`` CTAs, but none of fewer than ``MIN_SPLIT_KEYS``
     keys; tiles of ``TILE_BYTES`` of K and V, at most the split's keys;
     the splits combined in a cluster where a CTA is one row group.  Pure
@@ -162,7 +178,7 @@ def plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int, dh: int,
             and t >= 1 and fits(hkv, dh, group, t)):
         raise ValueError(f"paged_attn: no plan for B={b} Hkv={hkv} MB={mb} "
                          f"bs={bs} group={group} T={t} Dh={dh}")
-    want = _cdiv(TARGET_CTAS, b * hkv)
+    want = _cdiv(TARGET_CTAS, b * hkv * row_blocks(group * t))
     most = max(1, (mb * bs) // MIN_SPLIT_KEYS)
     splits = max(1, min(want, most, mb))
     pps = _cdiv(mb, splits)
@@ -170,7 +186,7 @@ def plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int, dh: int,
     kt = min(128, max(16, 16 * (kt // 16)), 16 * _cdiv(pps * bs, 16))
     # clusters of CTAs with more than one row group schedule poorly (at
     # T = 5: 0.24 ms a cluster of 4 against 0.16 through the workspace)
-    one_group = group * t <= rows_max(group * t)
+    one_group = group * t <= rows_max(block_rows(group * t))
     return make_plan(b, hkv, mb, bs, group, t, dh, item, splits, kt,
                      cluster=one_group)
 
@@ -256,8 +272,8 @@ def paged_attention(q: torch.Tensor, knew: torch.Tensor, vnew: torch.Tensor,
     if not fits(hkv, dh, hq // hkv, t):
         raise ValueError(
             f"paged_attention kernel needs Dh a multiple of 16 in "
-            f"[{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], T <= {MAX_T} and group*T <= "
-            f"{MAX_ROWS}; got Dh={dh} T={t} group={hq // hkv}")
+            f"[{MIN_HEAD_DIM}, {MAX_HEAD_DIM}] and T <= {MAX_T}; got "
+            f"Dh={dh} T={t}")
     out = launch(q.contiguous(), knew.contiguous(), vnew.contiguous(),
                  k_pages, v_pages, _int32(block_tables), _int32(position),
                  window, softcap, plan_of(q, k_pages, block_tables))

@@ -18,20 +18,33 @@ from typing import Optional, Tuple
 import torch
 
 
+def per_row(v: torch.Tensor, rows: int) -> torch.Tensor:
+    """A scaled_matmul vector as it scales ``rows`` rows: ``(N,)`` as it
+    is; grouped ``(G, N)`` repeated over each group's ``rows / G``
+    consecutive rows, ``(rows, N)``."""
+    if v.dim() == 1:
+        return v
+    g, n = v.shape
+    return v[:, None, :].expand(g, rows // g, n).reshape(rows, n)
+
+
 def scaled_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                       pre: Optional[torch.Tensor] = None,
                       post: Optional[torch.Tensor] = None,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``((x * pre) @ w) * post + bias`` for 2-D x (M, K), w (K, N);
-    output in x's dtype."""
+    output in x's dtype.  Grouped vectors (pre (G, K), post and bias
+    (G, N)) scale each of the G groups of M / G consecutive rows by its
+    own row."""
+    m = x.shape[0]
     h = x.float()
     if pre is not None:
-        h = h * pre.float()
+        h = h * per_row(pre.float(), m)
     y = h @ w.float()
     if post is not None:
-        y = y * post.float()
+        y = y * per_row(post.float(), m)
     if bias is not None:
-        y = y + bias.float()
+        y = y + per_row(bias.float(), m)
     return y.to(x.dtype)
 
 

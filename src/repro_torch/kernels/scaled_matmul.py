@@ -13,6 +13,12 @@ alone: a split-K weight stream for small M (decode) and a 3xTF32
 tensor-core GEMM for larger M (prefill, training).  :func:`tf32_split`
 is the written form of the tensor-core regime's arithmetic.
 
+Groups (the MoE experts' cascades): pre ``(G, K)``, post and bias
+``(G, N)`` scale x's G groups of ``M / G`` consecutive rows each by their
+own vectors, in ONE launch over all ``M`` rows against the one shared w
+(the reference's ``vmap`` over its ``pallas_call``): :func:`plan` sees
+``M = G C``.
+
 For a CUDA tensor :func:`scaled_matmul` launches the kernel (or raises);
 for a CPU tensor it takes the plain version
 :func:`repro_torch.kernels.ref.scaled_matmul_ref`.
@@ -33,7 +39,7 @@ from repro_torch.kernels import build, ref
 #: a call with K splits launches two device kernels; chip_smoke resets it)
 launches = 0
 
-_ARGS = [build.VP] * 7 + [build.I32] * 10 + [build.VP]
+_ARGS = [build.VP] * 7 + [build.I32] * 11 + [build.VP]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 #: streaming multiprocessors of an H100 SXM
@@ -175,12 +181,37 @@ def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, tf32(t.float() - big)
 
 
-def _vec(v: Optional[torch.Tensor], n: int, name: str, device):
+def groups_of(m: int, pre: Optional[torch.Tensor],
+              post: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+              k: int, n: int) -> int:
+    """The groups G of a call over x (m, k) and w (k, n): 1 for (k,) /
+    (n,) vectors; G for (G, k) / (G, n) ones, which must all be grouped
+    alike with G dividing m.  Raises on any other shapes."""
+    shapes = [(v, w, name) for v, w, name in ((pre, k, "pre"),
+                                             (post, n, "post"),
+                                             (bias, n, "bias"))
+              if v is not None]
+    dims = {v.dim() for v, _, _ in shapes}
+    if not shapes or dims == {1}:
+        for v, width, name in shapes:
+            if v.shape != (width,):
+                raise ValueError(f"{name} must have shape ({width},), got "
+                                 f"{tuple(v.shape)}")
+        return 1
+    g = shapes[0][0].shape[0]
+    for v, width, name in shapes:
+        if v.shape != (g, width):
+            raise ValueError(f"grouped {name} must have shape ({g}, "
+                             f"{width}) like the others, got "
+                             f"{tuple(v.shape)}")
+    if g < 1 or m % g:
+        raise ValueError(f"{g} groups do not divide x's {m} rows")
+    return g
+
+
+def _vec(v: Optional[torch.Tensor], name: str, device):
     if v is None:
         return None
-    if v.shape != (n,):
-        raise ValueError(f"{name} must have shape ({n},), got "
-                         f"{tuple(v.shape)}")
     if v.device != device:
         raise ValueError(f"{name} on {v.device}, x on {device}")
     return v.float().contiguous()
@@ -200,17 +231,23 @@ def scaled_matmul(x: torch.Tensor, w: torch.Tensor,
                   post: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``((x * pre) @ w) * post + bias`` for 2-D x (M, K) and w (K, N);
-    fp32 accumulation, output in x's dtype."""
+    fp32 accumulation, output in x's dtype.  Vectors (G, K) / (G, N)
+    scale x's G groups of M / G rows each (see the module doc)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"bad shapes x={tuple(x.shape)} w={tuple(w.shape)}")
     if x.device.type == "cpu":
+        # the kernel's contract on groups, held for the plain version too
+        groups_of(x.shape[0], pre, post, bias, x.shape[1], w.shape[1])
         return ref.scaled_matmul_ref(x, w, pre, post, bias)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"scaled_matmul: x on {x.device}, w on {w.device}")
     x, w = x.contiguous(), w.float().contiguous()
+    pre = _vec(pre, "pre", x.device)
+    # a grouped pre is staged with x's copies on the tensor cores
+    staged = (pre,) if pre is not None and pre.dim() == 2 else ()
     return launch(x, w, pre, post, bias,
                   plan(x.shape[0], w.shape[1], x.shape[1], x.dtype,
-                       _align(x, w)))
+                       _align(x, w, *staged)))
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, pre: Optional[torch.Tensor],
@@ -227,16 +264,17 @@ def launch(x: torch.Tensor, w: torch.Tensor, pre: Optional[torch.Tensor],
         raise ValueError("scaled_matmul: x and fp32 w must be contiguous")
     m, k = x.shape
     n = w.shape[1]
-    pre = _vec(pre, k, "pre", x.device)
-    post = _vec(post, n, "post", x.device)
-    bias = _vec(bias, n, "bias", x.device)
+    groups = groups_of(m, pre, post, bias, k, n)
+    pre = _vec(pre, "pre", x.device)
+    post = _vec(post, "post", x.device)
+    bias = _vec(bias, "bias", x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     ws = (torch.empty(p.ws_bytes // 4, dtype=torch.float32, device=x.device)
           if p.splits > 1 else None)
     err = _smm_launch()(x.data_ptr(), w.data_ptr(), build.ptr(pre), build.ptr(post),
              build.ptr(bias), y.data_ptr(), build.ptr(ws), m, n, k,
              int(x.dtype == torch.bfloat16), int(p.regime == "tc"), p.bm,
-             p.bn, p.splits, p.k_chunk, int(p.vec == 4),
+             p.bn, p.splits, p.k_chunk, int(p.vec == 4), m // groups,
              build.stream_of(x.device))
     build.check(err, f"scaled_matmul {p}")
     launches += 1

@@ -45,6 +45,7 @@ from repro_torch.configs import registry
 from repro_torch.core import acdc as acdc_mod
 from repro_torch.dist import steps as steps_mod
 from repro_torch.models import get_model, linear
+from repro_torch.models import mlp as mlp_mod
 from repro_torch.obs import (REGISTRY, JsonlExporter, Observability, Prof,
                              ProfileWindow, Registry, SpanTracer,
                              set_global_tracer)
@@ -332,15 +333,35 @@ def sell_routes(cfg) -> str:
     if cfg.sell_kind != "acdc":
         return ""
     dh = cfg.head_dim_
+    projections = [("attn_qkv", cfg.d_model, cfg.n_heads * dh),
+                   ("attn_out", cfg.n_heads * dh, cfg.d_model)]
+    # the MLP, or the experts and the shared expert (mlp roles too)
+    for d_ff in ([cfg.d_ff] + ([cfg.d_ff * cfg.n_shared_experts]
+                               if cfg.n_experts and cfg.n_shared_experts
+                               else [])):
+        projections += [("mlp_in", cfg.d_model, d_ff),
+                        ("mlp_out", d_ff, cfg.d_model)]
     sizes = sorted({linear._sell_cfg(cfg, n_in, n_out).n_op
-                    for role, n_in, n_out in (
-                        ("attn_qkv", cfg.d_model, cfg.n_heads * dh),
-                        ("attn_out", cfg.n_heads * dh, cfg.d_model),
-                        ("mlp_in", cfg.d_model, cfg.d_ff),
-                        ("mlp_out", cfg.d_ff, cfg.d_model))
+                    for role, n_in, n_out in projections
                     if linear.uses_sell(cfg, role)})
     return ", ".join(f"N={n} {acdc_mod._resolve_method(n, cfg.sell_method)}"
                      for n in sizes)
+
+
+def moe_shape(cfg, args: argparse.Namespace) -> str:
+    """The MoE layer's shape and each expert's capacity at this batch (a
+    decode tick routes ``--slots`` tokens, an admission ``--prompt-len``,
+    a speculative verify ``slots * (k + 1)``); empty for a dense MLP."""
+    if not cfg.n_experts:
+        return ""
+    ticks = [("decode", args.slots), ("prefill", args.prompt_len)]
+    if args.spec:
+        ticks.append(("verify", args.slots * (args.spec_k + 1)))
+    caps = ", ".join(f"{name} {mlp_mod.capacity(cfg, t)} ({t} tokens)"
+                     for name, t in ticks)
+    return (f"E={cfg.n_experts} top-{cfg.top_k} shared="
+            f"{cfg.n_shared_experts} (d_ff {cfg.d_ff} / "
+            f"{cfg.d_ff * cfg.n_shared_experts}) | capacity {caps}")
 
 
 def main(argv=None):
@@ -351,6 +372,8 @@ def main(argv=None):
           + (f" ({routes})" if routes else "")
           + f" slots={args.slots} paged={args.paged} static={args.static} "
           f"device={args.device}")
+    if cfg.n_experts:
+        print(f"[moe] {moe_shape(cfg, args)}")
     if args.static:
         return run_static(args, cfg, model, params)
     eng, reqs, dt = serve(args, cfg, model, params)

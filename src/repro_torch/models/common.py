@@ -118,6 +118,33 @@ class ModelConfig:
         return w
 
 
+def stack_init(n: int, make) -> dict:
+    """The ``n`` same-shaped parameter trees ``make(0) .. make(n - 1)``
+    stacked leaf by leaf along a new leading axis (layers, experts).  They
+    are made one at a time, in order, and copied into place, so the peak
+    memory is the result plus one tree (a full-width DeepSeek-67B's 35 GB
+    of fp32 layers would otherwise be held twice)."""
+    def alloc(tree):
+        if isinstance(tree, dict):
+            return {k: alloc(v) for k, v in tree.items()}
+        return tree.new_empty((n, *tree.shape))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    first = make(0)
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(i), i)
+    return out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
     dt = x.dtype

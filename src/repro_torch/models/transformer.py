@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM (port of :mod:`repro.models.transformer`,
-dense-MLP layers; MoE waits).
+"""Decoder-only transformer LM (port of :mod:`repro.models.transformer`):
+the dense decoders (qwen3, deepseek-67b, chatglm3-6b, gemma3-27b) and
+the MoE ones (deepseek-moe-16b, moonshot-v1-16b-a3b) by config knobs.
 
 Layer parameters are stacked with a leading L axis, keyed like the
 reference pytree (``layers/attn/wo/sell/a`` is ``(L, K, N)``), so
@@ -28,20 +29,9 @@ from repro_torch.models.common import (
     embed_lookup,
     init_rms_norm,
     rms_norm,
+    stack_init,
     unembed,
 )
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md)")
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -52,56 +42,75 @@ def layer_params(layers: dict, i: int) -> dict:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                device=DEFAULT_DEVICE) -> dict:
-    return {
+    p = {
         "norm1": init_rms_norm(cfg.d_model, dtype, device),
         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
         "norm2": init_rms_norm(cfg.d_model, dtype, device),
-        "mlp": mlp_mod.init_mlp(gen, cfg, None, dtype, device),
     }
+    if cfg.n_experts > 0:
+        p["moe"] = mlp_mod.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(gen, cfg, None, dtype, device)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig,
          device=DEFAULT_DEVICE) -> dict:
     """Random parameters (same shapes and distributions as the reference,
     different numbers: the draws come from ``gen``)."""
-    _check_family(cfg)
     dtype = cfg.param_dtype
     embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
-    layers = _stack([init_layer(gen, cfg, dtype, device)
-                     for _ in range(cfg.n_layers)])
+    layers = stack_init(cfg.n_layers,
+                        lambda _: init_layer(gen, cfg, dtype, device))
     return {"embed": embed, "layers": layers,
             "final_norm": init_rms_norm(cfg.d_model, dtype, device)}
 
 
 def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual feed-forward half of a layer: the MLP or the MoE."""
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
+    if "moe" in layer:
+        return x + mlp_mod.moe(layer["moe"], h, cfg)
     return x + mlp_mod.mlp(layer["mlp"], h, cfg)
 
 
 def _layer_fn(layer: dict, x: torch.Tensor, positions: torch.Tensor,
-              window: int, cfg: ModelConfig) -> torch.Tensor:
+              window: int, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the full-sequence forward -> (x, aux loss: the MoE
+    layer's load-balance loss, else 0)."""
     h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
     out, _, _ = attn_mod.attention_prefill(layer["attn"], h, positions,
                                            window, cfg)
-    return _ffn(layer, x + out, cfg)
+    x = x + out
+    if "moe" not in layer:
+        return _ffn(layer, x, cfg), torch.zeros((), device=x.device)
+    h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
+    return (x + mlp_mod.moe(layer["moe"], h, cfg),
+            mlp_mod.moe_aux_loss(layer["moe"], h, cfg))
 
 
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    """The stacked layers and the final norm over x (B, S, D).  Under
-    ``cfg.remat`` with grad enabled each layer saves only its input and is
-    recomputed whole in the backward (no early stop), as the reference's
+             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stacked layers and the final norm over x (B, S, D) -> (hidden,
+    the layers' mean aux loss).  Under ``cfg.remat`` with grad enabled
+    each layer saves only its input and is recomputed whole in the
+    backward (no early stop), as the reference's
     ``jax.checkpoint(..., nothing_saveable)``."""
     windows = cfg.layer_windows()
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         if remat:
-            x = checkpoint(_layer_fn, layer, x, positions, int(windows[i]),
-                           cfg, use_reentrant=False, early_stop=False)
+            x, aux = checkpoint(_layer_fn, layer, x, positions,
+                                int(windows[i]), cfg, use_reentrant=False,
+                                early_stop=False)
         else:
-            x = _layer_fn(layer, x, positions, int(windows[i]), cfg)
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+            x, aux = _layer_fn(layer, x, positions, int(windows[i]), cfg)
+        auxes.append(aux)
+    return (rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps),
+            torch.mean(torch.stack(auxes)))
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -112,24 +121,26 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
     """Full-sequence forward -> fp32 logits (B, S, V)."""
-    _check_family(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
-    x = backbone(params, x, _positions(tokens), cfg)
+    x, _ = backbone(params, x, _positions(tokens), cfg)
     return unembed(params["embed"], x)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
-    ``batch["labels"]``; positions with label < 0 are masked."""
-    _check_family(cfg)
+    ``batch["labels"]``; positions with label < 0 are masked.  MoE
+    configs add ``0.01`` times the layers' mean load-balance loss."""
     if batch.get("frontend_embeds") is not None:
         raise NotImplementedError(
             "modality frontends are not ported yet (ROADMAP.md)")
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
-    x = backbone(params, x, _positions(tokens), cfg)
+    x, aux = backbone(params, x, _positions(tokens), cfg)
     logits = unembed(params["embed"], x)
-    return cross_entropy(logits, batch["labels"], cfg)
+    loss = cross_entropy(logits, batch["labels"], cfg)
+    if cfg.n_experts > 0:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -153,7 +164,6 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
     """Forward over right-padded prompts -> (logits (B, S, V), a NEW
     cache shaped like ``cache`` holding each row's prompt K/V, zero at
     and beyond its length)."""
-    _check_family(cfg)
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
@@ -186,7 +196,6 @@ def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
     cache set-written in place, None).  Logits at ``i`` score the token
     after ``tokens[:, i]``, as ``decode_step`` fed one token at a time
     would; the KV cache needs no state selection (trailing ``None``)."""
-    _check_family(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     windows = cfg.layer_windows()
     for i in range(cfg.n_layers):
@@ -205,7 +214,6 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict, None]:
     """Paged twin of :func:`verify_step` (writes through the block table,
     attends with the paged-attention kernel at T = tokens.shape[1])."""
-    _check_family(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     windows = cfg.layer_windows()
     for i in range(cfg.n_layers):

@@ -277,20 +277,6 @@ class Engine:
         self._verify = steps_mod.make_verify_step(
             self.model, cfg, sample=sample, temperature=temperature,
             top_k=top_k, top_p=top_p, paged=self.paged, park=self._park)
-        if self.paged:
-            from repro_torch.kernels import paged_attn as paged_attn_mod
-
-            group = cfg.n_heads // cfg.n_kv_heads
-            if not paged_attn_mod.fits(cfg.n_kv_heads, cfg.head_dim_, group,
-                                       spec_k + 1):
-                most = min(paged_attn_mod.MAX_ROWS // group,
-                           paged_attn_mod.MAX_T) - 1
-                raise ValueError(
-                    f"paged spec_k={spec_k} verifies T={spec_k + 1} query "
-                    f"rows a KV head (group {group}); the paged-attention "
-                    f"kernel takes group*T <= {paged_attn_mod.MAX_ROWS} "
-                    f"and T <= {paged_attn_mod.MAX_T}, so spec_k <= {most} "
-                    "here (ROADMAP.md §2 item 6)")
         if draft is None:
             # the paper's own draft: the target's cascades truncated to
             # half depth (sections 3-4)

@@ -358,13 +358,16 @@ def test_paged_smem_layout_matches_the_source(dev):
     from repro_torch.kernels import build
 
     fn = build.bind("paged_attn", "paged_attn_smem_bytes", [build.I32] * 6)
-    for group, t in ((1, 1), (2, 1), (1, 3), (2, 2), (2, 5), (8, 2), (1, 16)):
+    for group, t in ((1, 1), (2, 1), (1, 3), (2, 2), (2, 5), (8, 2), (1, 16),
+                     (8, 5), (16, 5), (16, 32), (7, 5)):
         for dh, item in ((16, 4), (48, 2), (64, 2), (128, 2), (128, 4)):
             for kt in (16, 32, 64, 128):
                 for pps in (1, 6, 29, 1025):
                     rows = group * t
+                    # every row block's CTAs are laid out for its rows
                     assert fn(rows, t, dh, item, kt, pps) == \
-                        pa_mod.smem_bytes(rows, t, dh, item, kt, pps)
+                        pa_mod.smem_bytes(pa_mod.block_rows(rows), t, dh,
+                                          item, kt, pps)
 
 
 def _bwd_inputs(dev, seed, m, n, k, dtype, bias, relu_mid=None):
@@ -544,3 +547,88 @@ def test_autograd_through_cascade_op(dev, n, k):
         y.backward(gy.to(where))
         grads.append([t.grad.cpu() for t in ts])
     _close_grads(grads[0], grads[1], torch.float32)
+
+
+#: grouped scaled_matmul (the MoE experts' two-call layers): (groups, rows
+#: a group, K, N) in the weight stream (M <= 16) and on the tensor cores,
+#: aligned to 16 bytes and not, one group a row (decode at cap 1) and
+#: groups spanning tiles
+GROUPED_SHAPES = [(4, 4, 256, 136), (8, 2, 100, 72), (3, 5, 2048, 2048),
+                  (64, 1, 2048, 2048), (64, 7, 512, 384), (5, 13, 257, 130),
+                  (6, 60, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vectors", ["pre", "pre+bias", "pre+post+bias",
+                                     "bias"])
+@pytest.mark.parametrize("g,c,k,n", GROUPED_SHAPES)
+def test_scaled_matmul_grouped(dev, g, c, k, n, vectors, dtype):
+    gen = torch.Generator(device=dev).manual_seed(g * c + k + n)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    x = r(g * c, k).to(dtype)
+    w = r(k, n) / k ** 0.5
+    vec = {"pre": 1.0 + 0.06 * r(g, k), "post": 1.0 + 0.06 * r(g, n),
+           "bias": r(g, n)}
+    kw = {name: vec[name] for name in vectors.split("+")}
+    before = smm_mod.launches
+    got = smm_mod.scaled_matmul(x, w, **kw)
+    assert smm_mod.launches == before + 1          # one launch, all groups
+    want = ref.scaled_matmul_ref(x, w, **kw)
+    _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+    assert torch.equal(got, smm_mod.scaled_matmul(x, w, **kw))
+    # each group as its own ungrouped call computes the same function
+    for i in (0, g - 1):
+        rows = slice(i * c, (i + 1) * c)
+        one = smm_mod.scaled_matmul(x[rows], w,
+                                    **{nm: v[i] for nm, v in kw.items()})
+        _close(got[rows], one, BF16 if dtype == torch.bfloat16 else F32)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 2), (2816, 1), (256, 2)])
+def test_grouped_cascade_autograd_matches_plain(dev, n, k):
+    # the grouped cascade (two-call at N > 1024: grouped scaled_matmul;
+    # the cascade kernels once a group below), forward and backward,
+    # against the plain versions on the CPU
+    gen = torch.Generator().manual_seed(n + k)
+    g, c = 8, 5
+    x = torch.randn(g, c, n, generator=gen)
+    a = 1.0 + 0.06 * torch.randn(g, k, n, generator=gen)
+    d = 1.0 + 0.06 * torch.randn(g, k, n, generator=gen)
+    gy = torch.randn(g, c, n, generator=gen)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).requires_grad_(True) for t in (x, a, d)]
+        y = ops.acdc_cascade_op(*leaves, permute=True)
+        grads = torch.autograd.grad(y, leaves, gy.to(device))
+        outs.append([y.detach().cpu()] + [t.cpu() for t in grads])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=2e-4 * float(
+            want.abs().max()), rtol=1e-3)
+
+
+#: group * T past one 16-row block: DeepSeek-67B (group 8) and
+#: ChatGLM3-6B (group 16) at decode and verify T
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,t", [(8, 1), (8, 5), (8, 8), (16, 1),
+                                     (16, 5), (16, 8), (7, 5)])
+def test_paged_attention_row_blocks(dev, group, t, dtype):
+    hkv = 4 if group < 16 else 2
+    args = _long_paged_case(dev, 3, 700, t, dtype, group * t, hkv=hkv,
+                            group=group)
+    for window, softcap in ((0, 0.0), (300, 30.0)):
+        got, want, same = _paged_pair(args, window, softcap)
+        _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+        assert same
+        assert torch.equal(got, _paged_pair(args, window, softcap)[0])
+    # every split route of the row blocks: one split, the workspace
+    q, _, _, kp, _, tables, _ = args
+    base = pa_mod.plan_of(q, kp, tables)
+    for splits in (1, 5):
+        p = pa_mod.make_plan(3, hkv, tables.shape[1], 16, group, t, 128,
+                             kp.element_size(), splits, base.kt)
+        got, want, same = _paged_pair(args, p=p)
+        _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+        assert same

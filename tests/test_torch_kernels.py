@@ -182,7 +182,10 @@ def test_paged_attention_matches_pallas(case):
 def test_paged_kernel_limits():
     assert tpaged.fits(hkv=8, dh=128, group=2, t=5)
     assert not tpaged.fits(hkv=8, dh=256, group=2, t=1)
-    assert not tpaged.fits(hkv=1, dh=64, group=8, t=4)
+    # any group * T: the rows go in row blocks of 16 (32 and 512 here)
+    assert tpaged.fits(hkv=1, dh=64, group=8, t=4)
+    assert tpaged.fits(hkv=2, dh=128, group=16, t=32)
+    assert not tpaged.fits(hkv=1, dh=64, group=8, t=33)
 
 
 def test_cuda_wrappers_refuse_other_devices():

@@ -31,7 +31,11 @@ need = {"repro_torch.kernels.acdc_bwd", "repro_torch.kernels.acdc_cascade_bwd",
         "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
         "repro_torch.obs.prof", "repro_torch.serving.faults",
         "repro_torch.dist.elastic", "repro_torch.spec",
-        "repro_torch.spec.draft", "repro_torch.spec.verify"}
+        "repro_torch.spec.draft", "repro_torch.spec.verify",
+        "repro_torch.models.mlp", "repro_torch.configs.deepseek_67b",
+        "repro_torch.configs.chatglm3_6b", "repro_torch.configs.gemma3_27b",
+        "repro_torch.configs.deepseek_moe_16b",
+        "repro_torch.configs.moonshot_v1_16b_a3b"}
 missing = sorted(need - set(names))
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

@@ -37,12 +37,18 @@ F32 = dict(atol=2e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("group,t", [(1, 1), (2, 1), (1, 5), (2, 5),
-                                     (16, 1)])
+                                     (16, 1), (8, 1), (8, 5), (8, 8),
+                                     (16, 5), (16, 8)])
 @pytest.mark.parametrize("bs", [4, 16])
 @pytest.mark.parametrize("mb", [1, 6, 65, 257, 1025])
 @pytest.mark.parametrize("b", [1, 4, 16])
 def test_plans(b, mb, bs, group, t):
     rows = group * t
+    # the CTAs of a (slot, head) row block are laid out for rb rows
+    rb = tpaged.block_rows(rows)
+    assert rb == min(rows, 16)
+    assert tpaged.row_blocks(rows) * 16 >= rows > (
+        tpaged.row_blocks(rows) - 1) * 16
     for dh, item in ((16, 4), (64, 2), (128, 2), (128, 4)):
         p = tpaged.plan(b, 8, mb, bs, group, t, dh, item)
         # every page in exactly one split, every split holding a page
@@ -53,20 +59,23 @@ def test_plans(b, mb, bs, group, t):
             assert lo < hi
             owner[lo:hi] += 1
         assert (owner == 1).all()
-        one_group = rows <= tpaged.rows_max(rows)
+        one_group = rows <= tpaged.rows_max(rb)
         assert p.route == ("single" if p.splits == 1 else "cluster"
                            if p.splits <= tpaged.CLUSTER_MAX and one_group
                            else "two_pass")
         assert p.workspace == ((b, 8, p.splits, rows, dh + 2)
                                if p.route == "two_pass" else None)
         assert p.kt % 16 == 0 and 16 <= p.kt <= 128
-        assert p.smem_bytes == tpaged.smem_bytes(rows, t, dh, item, p.kt,
+        assert p.smem_bytes == tpaged.smem_bytes(rb, t, dh, item, p.kt,
                                                  p.pages_per_split)
         assert p.smem_bytes <= tpaged.SMEM_LIMIT
-        assert p.threads == 128 * -(-rows // tpaged.rows_max(rows))
+        assert p.threads == 128 * -(-rb // tpaged.rows_max(rb))
         # no split of fewer than MIN_SPLIT_KEYS keys unless it is the only
         if p.splits > 1:
             assert p.pages_per_split * bs >= tpaged.MIN_SPLIT_KEYS
+        # the row blocks count towards the CTAs the splits aim at
+        ctas = b * 8 * tpaged.row_blocks(rows)
+        assert p.splits == 1 or ctas * (p.splits - 1) < tpaged.TARGET_CTAS
 
 
 def test_plan_takes_host_integers_only():
@@ -87,12 +96,16 @@ def test_plans_of_the_timed_rows():
 
 
 def test_plans_refuse_what_the_kernel_does_not_take():
+    # T past 32, Dh outside 16 - 128 or not a multiple of 16, empty shapes
+    # (any group * T is taken: its rows are cut into row blocks)
     for bad in ((0, 8, 6, 16, 2, 1, 128, 2), (4, 8, 0, 16, 2, 1, 128, 2),
-                (4, 8, 6, 16, 17, 1, 128, 2), (4, 8, 6, 16, 2, 9, 128, 2),
+                (4, 8, 6, 16, 17, 33, 128, 2), (4, 8, 6, 16, 2, 33, 128, 2),
                 (4, 8, 6, 16, 2, 1, 136, 2), (4, 8, 6, 16, 2, 1, 8, 2),
-                (4, 8, 6, 16, 2, 1, 100, 2)):
+                (4, 8, 6, 16, 2, 1, 100, 2), (4, 8, 6, 16, 2, 0, 128, 2)):
         with pytest.raises(ValueError):
             tpaged.plan(*bad)
+    for group, t in ((17, 1), (2, 9), (16, 32)):
+        assert tpaged.plan(4, 8, 6, 16, group, t, 128, 2).splits >= 1
 
 
 def test_forced_plans_cover_the_table():
@@ -162,7 +175,10 @@ def _emulate(q, kn, vn, kp, vp, tables, pos, window, softcap, p):
     mb = tables.shape[1]
     virt = mb * bs
     scale = dh ** -0.5
-    lpk = tpaged.lanes_per_key(dh, tpaged.dims_per_lane(rows))
+    # every row block's CTAs are laid out for block_rows(rows) rows; a
+    # row's arithmetic does not depend on the block it falls in
+    lpk = tpaged.lanes_per_key(
+        dh, tpaged.dims_per_lane(tpaged.block_rows(rows)))
     nkg = 4 * (32 // lpk)
     ksub = 2
     out = torch.empty_like(q)
@@ -279,6 +295,20 @@ CASES = {
     # T = 5 across splits with a window, Dh 64
     "verify-t5-window-split": (2, 5, 1, 2, 64, 4, 8, 7, 0.0,
                                [17, 30], 3, None),
+    # row blocks (16 query rows each): group 8 and 16 at T = 1, 5, 8, in
+    # one split, in a cluster and through the workspace, window and
+    # softcap on some
+    "rows-g8-t1-cluster": (2, 1, 1, 8, 16, 4, 8, 0, 0.0, [13, 30], 4,
+                           None),
+    "rows-g8-t5-two-pass": (2, 5, 1, 8, 16, 4, 8, 0, 0.0, [17, 26], 3,
+                            None),
+    "rows-g8-t8-window": (1, 8, 1, 8, 32, 4, 8, 6, 0.0, [19], 2, None),
+    "rows-g16-t1-single": (2, 1, 1, 16, 16, 4, 6, 0, 30.0, [9, 24], 1,
+                           3),
+    "rows-g16-t5-two-pass-parked": (2, 5, 1, 16, 16, 4, 6, 0, 0.0,
+                                    [11, 24], 3, None),
+    "rows-g16-t8-window-softcap": (1, 8, 2, 16, 16, 4, 8, 5, 20.0, [21],
+                                   2, None),
 }
 
 

@@ -102,8 +102,8 @@ C after 5, B after 6):
 A. serve full-width Qwen3-1.7B at ``--sell-method auto`` (matmul at
    N = 2048, fft at N = 6144), dense then paged, with phase 4's requests
    and weights: every tick's launches exact (no SELL kernel, one
-   ``paged_attn`` a layer paged), s/tick, tok/s, prefill s/admission, a
-   profiled window of 8 decode ticks in each layout; one prefill's and
+   ``paged_attn`` a layer paged), s/tick, tok/s, prefill s/admission; one
+   prefill's and
    one decode step's logits against the ``pallas`` route, fp32
    (``auto``, ``fft``, ``matmul``) within ``FP32_METHOD_REL_L2`` and the
    bf16 decode step within ``BF16_LOGIT_REL_L2`` (the bf16 prefill
@@ -123,8 +123,9 @@ D. the paper's Figure 2: one ACDC layer (K = 1, fp32, 128 rows) at N =
    and a dense ``x @ W``, by device time beside each bound and fp32 error
    against fp64 (the ACDC routes' within 2 x the ``matmul`` route's).
 
-Paths E and F hold the dense decoder configs and the MoE layer; they run
-after phase 9 (``[phase]`` lines give every phase's seconds):
+Paths E - I hold the dense decoder configs, the MoE layer, the
+recurrent families and the vision frontend; they run after phase 9
+(``[phase]`` lines give every phase's seconds):
 
 E. Gemma3-27B (paged, 16-token pages), ChatGLM3-6B (paged, then
    ``--spec --spec-k 4``: 80 verify rows a KV head through ``paged_attn``)
@@ -152,7 +153,42 @@ F. DeepSeekMoE-16B at full width served dense and paged (bf16, 8
    the plain versions within ``FP32_GRAD_REL_L2``, the no-d control over
    it) and on ``auto``; then the smoke width of DeepSeekMoE-16B and
    Moonshot-v1-16B-A3B (fp32) dense, paged and speculative paged, streams
-   identical with kernels and plain versions, 5 train steps each.
+   identical with kernels and plain versions, 5 train steps each;
+G. Mamba2-1.3B (the ssm family: SSM/conv state a slot, no paged cache) at
+   full width, ``--sell acdc --sell-method pallas``, bf16, dense: 4
+   requests x 16 new tokens, then ``--spec --spec-k 4`` (the truncated
+   draft; the verify re-selects each slot's state at its accepted length
+   from the T + 1 snapshots): every tick's launches exact (384
+   ``scaled_matmul`` a decode tick), s/tick beside the tick's weight-read
+   floor, tok/s, prefill s/admission, peak memory beside the reckoned fp32
+   masters; the bf16 speculative streams against the non-speculative ones
+   reported; one prefill's and one decode step's logits with the kernels,
+   the plain versions, every ``scaled_matmul`` summed in fp64 and the
+   diagonals dropped: in fp32 the kernels' drift from the fp64-summed
+   path within ``DRIFT_RATIO`` x the plain versions' and the faulty
+   path's over that, in bf16 reported (these untrained recurrent models
+   amplify summation order far more than Qwen3: no fixed limit on
+   kernels vs plain tells a fault from the plain version's own rounding);
+   3 AdamW steps at 2 x 256 tokens (the SSD's 256-token chunk): s/step,
+   peak memory, exact launches, fp32 grads held by drift the same way
+   with the no-d control over it;
+H. Zamba2-1.2B (hybrid: 38 mamba layers, one shared attention block
+   applied 7 times) the same, with 16-token pages (``paged_attn`` 7 times
+   a tick), and its fp32 paged decode's logits against the dense one
+   within ``FP32_METHOD_REL_L2`` (a rolled block table over it);
+I. LLaVA-NeXT-34B's backbone at full width, paged: 2 requests whose
+   first 576 positions are the stub patch prefix (``--frontend``),
+   ``max_prompt_len`` 640, 8 new tokens each; the decode step's logits
+   after a prefixed probe against the plain versions within
+   ``BF16_DECODE_REL_L2``, the diagonals-dropped control and the same
+   probe with the prefix zeroed both over it; then the smoke width of
+   all three (fp32): served dense, paged where the family has a paged
+   cache, and speculatively, launches exact, streams identical with the
+   kernels, the plain versions and without speculation; 3 train steps
+   each against the plain versions (LLaVA on its frontend batches).
+
+Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
+cut to keep the whole run within its time with paths G - I added.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX
 or of the JAX package.
@@ -221,6 +257,19 @@ FP32_GRAD_REL_L2 = 1e-3
 #: summation orders (~1e-6 relative per op); five AdamW steps amplify
 #: that, so the bound sits well above it and far below a real fault
 FP32_LOSS_RTOL = 1e-4
+
+#: the recurrent families' agreement is held by drift: the kernel path's
+#: distance from an fp64-summed path (``scaled_matmul_fp64``: fp64 sums,
+#: the same roundings) within this many times the plain version's.  At
+#: random init Mamba2 and Zamba2 amplify summation order 10 - 400 x more
+#: than Qwen3 (fp32 grads kernels vs plain 1.2e-3 / 2.9e-2, where each
+#: side's own drift reads 4.4e-4 / 4.7e-3 for the kernels and 9.8e-4 /
+#: 3.4e-2 for cuBLAS fp32; bf16 decode logits 0.13 / 0.11 with the plain
+#: path 0.17 / 0.08 from the fp64-summed one: measured on an H100 80GB
+#: HBM3 at 700 W, PERF.md), so no fixed limit on kernels vs plain tells a
+#: fault from the plain version's own rounding; the phase-3 rule for one
+#: kernel (within 2 x the plain version's error) holds for the model
+DRIFT_RATIO = 2.0
 
 
 def _fail(msg: str) -> None:
@@ -363,20 +412,26 @@ PAGED_ROWS = (("main T=1", 4, None, 1), ("main T=5", 4, None, 5),
 
 #: paged attention rows of the dense decoder configs, past one 16-row
 #: block of the kernel: (label, slots, position as in ``PAGED_ROWS``, T,
-#: query heads, KV heads, window): DeepSeek-67B's verify (group 8, T = 5:
-#: 40 rows a KV head), ChatGLM3-6B's decode and verify (group 16: 16 and
-#: 80 rows), on the main path's ragged 4-slot rows; Gemma3-27B's local
-#: window (1024) over 4096-key rows
-WIDE_PAGED_ROWS = (("deepseek-67b verify", 4, None, 5, 64, 8, 0),
-                   ("chatglm3-6b decode", 4, None, 1, 32, 2, 0),
-                   ("chatglm3-6b verify", 4, None, 5, 32, 2, 0),
-                   ("gemma3-27b local window", 4, 4096, 1, 32, 16, 1024))
+#: query heads, KV heads, window, head dim): DeepSeek-67B's verify (group
+#: 8, T = 5: 40 rows a KV head), ChatGLM3-6B's decode and verify (group
+#: 16: 16 and 80 rows), on the main path's ragged 4-slot rows; Gemma3-27B's
+#: local window (1024) over 4096-key rows; Zamba2-1.2B's shared attention
+#: (group 1, Dh = 64) and its smoke width (Dh = 16) at decode and verify
+WIDE_PAGED_ROWS = (("deepseek-67b verify", 4, None, 5, 64, 8, 0, 128),
+                   ("chatglm3-6b decode", 4, None, 1, 32, 2, 0, 128),
+                   ("chatglm3-6b verify", 4, None, 5, 32, 2, 0, 128),
+                   ("gemma3-27b local window", 4, 4096, 1, 32, 16, 1024,
+                    128),
+                   ("zamba2-1.2b decode", 4, None, 1, 32, 32, 0, 64),
+                   ("zamba2-1.2b verify", 4, None, 5, 32, 32, 0, 64),
+                   ("zamba2 smoke decode", 4, None, 1, 8, 8, 0, 16),
+                   ("zamba2 smoke verify", 4, None, 5, 8, 8, 0, 16))
 
 
 def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0, hq=16,
-               hkv=8):
-    """Inputs of one paged row (``hq`` / ``hkv`` heads of 128 dims, 16-token
-    pages): q, new k/v, pools, tables, positions.
+               hkv=8, dh=128):
+    """Inputs of one paged row (``hq`` / ``hkv`` heads of ``dh`` dims,
+    16-token pages): q, new k/v, pools, tables, positions.
     ``length`` None: the main path's 6-page tables, slot 0's tail
     unmapped beyond its frontier, positions 5, 37, 63 - T and parked;
     else every slot at ``length`` with just enough pages, its pages
@@ -384,7 +439,7 @@ def paged_case(dev, randn, bsz, length, t, dtype=None, seed=0, hq=16,
     import torch
 
     dtype = dtype or torch.bfloat16
-    dh, bs = 128, 16
+    bs = 16
     mb = 6 if length is None else -(-(length + t) // bs)
     nb = bsz * mb
     if length is None:
@@ -486,11 +541,11 @@ def check_paged_attn(dev, randn, results):
     from repro_torch.kernels import paged_attn as pa_mod
     from repro_torch.kernels import ref
 
-    rows = [(label, bsz, length, t, 16, 8, 0)
+    rows = [(label, bsz, length, t, 16, 8, 0, 128)
             for label, bsz, length, t in PAGED_ROWS] + list(WIDE_PAGED_ROWS)
-    for label, bsz, length, t, hq, hkv, window in rows:
+    for label, bsz, length, t, hq, hkv, window, dh in rows:
         q, kn, vn, kp, vp, tables, positions = paged_case(
-            dev, randn, bsz, length, t, hq=hq, hkv=hkv)
+            dev, randn, bsz, length, t, hq=hq, hkv=hkv, dh=dh)
         kp2, vp2 = kp.clone(), vp.clone()
 
         def kernel():
@@ -505,7 +560,7 @@ def check_paged_attn(dev, randn, results):
         torch.cuda.synchronize()
         shape = (f"{label}: B={bsz} T={t} pos="
                  f"{'5/37/' + str(63 - t) + '/parked' if length is None else length}"
-                 f" Hq={hq} Hkv={hkv} Dh=128 bs=16 bf16"
+                 f" Hq={hq} Hkv={hkv} Dh={dh} bs=16 bf16"
                  + (f" window={window}" if window else "")
                  + f" ({hq // hkv * t} rows a KV head)")
         # bf16 output: fp32 online softmax in another order than the
@@ -657,10 +712,12 @@ def fp32_gate(name, label, err):
 
 def check_cascade_forward(dev, randn, results):
     """acdc_cascade (K=2 with the riffle, fp32 as the smoke model) at N =
-    128 / 256 (smoke attn_out / mlp) and 1024 (the largest N the fused
-    route takes), M = 4 (decode) and 64 (prefill), plus the smoke train
-    step's M = 256 at N = 256 and M = 512 at N = 1024; acdc_fused (the
-    K=1 kernel) at N = 256, M = 4 / 64, with and without bias.  Each
+    128 / 256 (smoke attn_out / mlp), 640 (the smoke Mamba2 and Zamba2
+    ssm_in) and 1024 (the largest N the fused route takes), M = 4
+    (decode) and 64 (prefill), plus the smoke train step's M = 256 at
+    N = 256 and 640 and M = 512 at N = 1024; acdc_fused (the K=1 kernel)
+    at N = 256, M = 4 / 64, with and without bias, and at N = 640, M = 4
+    (the smoke recurrent drafts).  Each
     against its plain version, repeated for identical bits, its fp32
     error against an fp64 cascade within 2 x the plain version's, timed
     by device time beside the library call: one fp32 ``torch.matmul`` of
@@ -673,8 +730,8 @@ def check_cascade_forward(dev, randn, results):
     from repro_torch.kernels import ref
 
     fam = families.get_family("acdc")
-    shapes = [(m, n) for n in (128, 256, 1024) for m in (4, 64)]
-    shapes += [(256, 256), (512, 1024)]
+    shapes = [(m, n) for n in (128, 256, 640, 1024) for m in (4, 64)]
+    shapes += [(256, 256), (256, 640), (512, 1024)]
     for m, n in shapes:
         c, ct = fam.matrices(n, torch.float32, dev)
         perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
@@ -707,47 +764,58 @@ def check_cascade_forward(dev, randn, results):
             2 * m * n * 4 + 2 * 2 * n * 4 + 3 * n * n * 4,
             2 * 4.0 * m * n * n))
 
-    n = 256
-    c, ct = fam.matrices(n, torch.float32, dev)
-    for m in (4, 64):
-        for with_bias in (False, True):
-            x = randn(m, n)
-            a = 1.0 + 0.061 * randn(n)
-            d = 1.0 + 0.061 * randn(n)
-            bias = 0.1 * randn(n) if with_bias else None
-            b2 = None if bias is None else bias[None]
-            label = f"M={m} N={n} bias={with_bias} fp32"
+    for n, m, with_bias in ((256, 4, False), (256, 4, True),
+                            (256, 64, False), (256, 64, True),
+                            (640, 4, False)):
+        c, ct = fam.matrices(n, torch.float32, dev)
+        x = randn(m, n)
+        a = 1.0 + 0.061 * randn(n)
+        d = 1.0 + 0.061 * randn(n)
+        bias = 0.1 * randn(n) if with_bias else None
+        b2 = None if bias is None else bias[None]
+        label = f"M={m} N={n} bias={with_bias} fp32"
 
-            def kernel():
-                return fused_mod.acdc_fused(x, a, d, bias, c, ct)
+        def kernel():
+            return fused_mod.acdc_fused(x, a, d, bias, c, ct)
 
-            def plain():
-                return ref.acdc_cascade_ref(x, a[None], d[None], b2, c, ct,
-                                            None)
+        def plain():
+            return ref.acdc_cascade_ref(x, a[None], d[None], b2, c, ct,
+                                        None)
 
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            if not rel_close(got, want, rtol=1e-3, atol=2e-4):
-                _fail(f"acdc_fused {label}: max err {max_err(got, want)}")
-            if not torch.equal(got, kernel()):
-                _fail(f"acdc_fused {label}: two runs differ in bits")
-            y64 = cascade_fp64(x, a[None], d[None], b2, c, ct, None)
-            err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
-            fp32_gate("acdc_fused", label, err)
-            w = composed_matrix(a[None], d[None], c, ct, None)
-            bvec = None if bias is None else (bias.double()
-                                              @ ct.double()).float()
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not rel_close(got, want, rtol=1e-3, atol=2e-4):
+            _fail(f"acdc_fused {label}: max err {max_err(got, want)}")
+        if not torch.equal(got, kernel()):
+            _fail(f"acdc_fused {label}: two runs differ in bits")
+        y64 = cascade_fp64(x, a[None], d[None], b2, c, ct, None)
+        err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
+        fp32_gate("acdc_fused", label, err)
+        w = composed_matrix(a[None], d[None], c, ct, None)
+        bvec = None if bias is None else (bias.double()
+                                          @ ct.double()).float()
 
-            def library():
-                return (torch.matmul(x, w) if bvec is None
-                        else torch.addmm(bvec, x, w))
+        def library():
+            return (torch.matmul(x, w) if bvec is None
+                    else torch.addmm(bvec, x, w))
 
-            p = cascade_mod.plan(m, n, 1, False)
-            results["acdc_fused"].append(timed_row(
-                label, p, cascade_mod.max_clusters(p, m, 1, False), kernel,
-                plain, library, got, want, err,
-                2 * m * n * 4 + (3 if with_bias else 2) * n * 4
-                + 2 * n * n * 4, 4.0 * m * n * n))
+        p = cascade_mod.plan(m, n, 1, False)
+        results["acdc_fused"].append(timed_row(
+            label, p, cascade_mod.max_clusters(p, m, 1, False), kernel,
+            plain, library, got, want, err,
+            2 * m * n * 4 + (3 if with_bias else 2) * n * 4
+            + 2 * n * n * 4, 4.0 * m * n * n))
+
+
+#: scaled_matmul's operating sizes on paths G - I (K = N after the
+#: 128-lane padding): (N, M of the bf16 rows, also the fp32 M = 512 x 3
+#: training triple): Mamba2's ssm_in (2048 -> 8512) at decode and
+#: prefill and in its training step; Zamba2's ssm_in (2048 -> 8384);
+#: ssm_out and Zamba2's shared_in (N = 4096); Zamba2's MLP (8192);
+#: LLaVA-NeXT-34B's attn_out (7168) and MLP (20480)
+SLICE_SMM_SHAPES = ((8576, (4, 64), True), (8448, (4,), False),
+                    (4096, (4,), False), (8192, (4,), False),
+                    (7168, (4,), False), (20480, (4,), False))
 
 
 def check_scaled_matmul(dev, randn, results):
@@ -758,8 +826,8 @@ def check_scaled_matmul(dev, randn, results):
     the full-width training M = 512.  Each against its plain version, run
     twice for identical bits, its fp32 error against fp64 held within
     2 x the plain version's (cuBLAS fp32), and timed warm and with L2
-    flushed; then both regimes timed at M = 4, 16, 32, 64 (N = 6144), the
-    times that set ``STREAM_MAX_M``."""
+    flushed; the same at ``SLICE_SMM_SHAPES``; then both regimes timed at
+    M = 4, 16, 32, 64 (N = 6144), the times that set ``STREAM_MAX_M``."""
     import torch
 
     from repro_torch.core import families
@@ -793,40 +861,40 @@ def check_scaled_matmul(dev, randn, results):
             bound_by=own_by, bound_simt_ms=simt, bound_tc_ms=tc,
             bound_tc_by=tc_by, fp32_err_vs_fp64=err, bitwise_repeat=True)
 
-    for n in (2048, 6144):
-        c, ct = fam.matrices(n, torch.float32, dev)
-        for m in (4, 16, 64):
-            x = randn(m, n, dtype=torch.bfloat16)
-            pre = 1.0 + 0.061 * randn(n)
-            got = smm_mod.scaled_matmul(x, c, pre=pre)
-            want = ref.scaled_matmul_ref(x, c, pre=pre)
-            torch.cuda.synchronize()
-            # bf16 output: different fp32 summation orders may round one
-            # bf16 ulp (2^-8 relative) apart
-            if not rel_close(got, want, rtol=2 ** -7, atol=1e-2):
-                _fail(f"scaled_matmul N={n} M={m}: max err "
-                      f"{max_err(got, want)}")
-            xf = x.float()
-            # each side's fp32 summation error against fp64 on fp32 x
-            # (no bf16 output rounding to hide it), relative to max |y|
-            y64 = (xf.double() * pre.double()) @ c.double()
-            scale = float(y64.abs().max())
-            err = {side: fp32_err(fn, xf, c, pre, y64, scale)
-                   for side, fn in (("kernel", smm_mod.scaled_matmul),
-                                    ("plain", ref.scaled_matmul_ref))}
-            label = f"M={m} K=N={n} bf16 x"
-            gate(label, err, torch.equal(
-                got, smm_mod.scaled_matmul(x, c, pre=pre)))
-            results["scaled_matmul"].append(row(
-                label, smm_mod.plan(m, n, n, x.dtype), m, n,
-                m * n * 2 + n * n * 4 + n * 4 + m * n * 2, 2.0 * m * n * n,
-                lambda: smm_mod.scaled_matmul(x, c, pre=pre),
-                lambda: ref.scaled_matmul_ref(x, c, pre=pre),
-                lambda: torch.matmul(xf, c), err, got, want))
+    def bf16_row(n, m, c):
+        """x bf16 (M, N) through the decode/prefill product."""
+        x = randn(m, n, dtype=torch.bfloat16)
+        pre = 1.0 + 0.061 * randn(n)
+        got = smm_mod.scaled_matmul(x, c, pre=pre)
+        want = ref.scaled_matmul_ref(x, c, pre=pre)
+        torch.cuda.synchronize()
+        # bf16 output: different fp32 summation orders may round one
+        # bf16 ulp (2^-8 relative) apart
+        if not rel_close(got, want, rtol=2 ** -7, atol=1e-2):
+            _fail(f"scaled_matmul N={n} M={m}: max err "
+                  f"{max_err(got, want)}")
+        xf = x.float()
+        # each side's fp32 summation error against fp64 on fp32 x
+        # (no bf16 output rounding to hide it), relative to max |y|
+        y64 = (xf.double() * pre.double()) @ c.double()
+        scale = float(y64.abs().max())
+        err = {side: fp32_err(fn, xf, c, pre, y64, scale)
+               for side, fn in (("kernel", smm_mod.scaled_matmul),
+                                ("plain", ref.scaled_matmul_ref))}
+        label = f"M={m} K=N={n} bf16 x"
+        gate(label, err, torch.equal(
+            got, smm_mod.scaled_matmul(x, c, pre=pre)))
+        results["scaled_matmul"].append(row(
+            label, smm_mod.plan(m, n, n, x.dtype), m, n,
+            m * n * 2 + n * n * 4 + n * 4 + m * n * 2, 2.0 * m * n * n,
+            lambda: smm_mod.scaled_matmul(x, c, pre=pre),
+            lambda: ref.scaled_matmul_ref(x, c, pre=pre),
+            lambda: torch.matmul(xf, c), err, got, want))
 
+    def train_rows(n, c, ct, m=512):
+        """The two-call backward's three fp32 products."""
         # the two-call backward at the full-width training shape: three
         # fp32 launches (gc = g C, h2 = (x a) C, dh1 = (gc d) C^T)
-        m = 512
         x, g = randn(m, n), randn(m, n)
         a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
 
@@ -858,6 +926,21 @@ def check_scaled_matmul(dev, randn, results):
             3 * 2.0 * m * n * n, lambda: three(smm_mod.scaled_matmul),
             lambda: three(ref.scaled_matmul_ref), three_library, err, got,
             want, reps=5))
+
+    for n in (2048, 6144):
+        c, ct = fam.matrices(n, torch.float32, dev)
+        for m in (4, 16, 64):
+            bf16_row(n, m, c)
+        train_rows(n, c, ct)
+    # the recurrent families' and LLaVA's operating sizes
+    for n, ms, train in SLICE_SMM_SHAPES:
+        c, ct = fam.matrices(n, torch.float32, dev)
+        for m in ms:
+            bf16_row(n, m, c)
+        if train:
+            train_rows(n, c, ct)
+        del c, ct
+        release_memory()
 
     # the regime boundary: both designs at M = 4 .. 64, N = 6144, bf16 x
     n = 6144
@@ -1030,7 +1113,8 @@ def check_acdc_bwd(dev, randn, results):
 
     fam = families.get_family("acdc")
     for m, n, bias in ((256, 128, False), (256, 256, False),
-                       (37, 256, True), (512, 1024, False)):
+                       (37, 256, True), (256, 640, False),
+                       (512, 1024, False)):
         c, ct = fam.matrices(n, torch.float32, dev)
         x, g = randn(m, n), randn(m, n)
         a, d = 1.0 + 0.061 * randn(n), 1.0 + 0.061 * randn(n)
@@ -1101,6 +1185,7 @@ def check_backward_kernels(dev, randn, results):
                                 (256, 256, 2, False, False),
                                 (37, 256, 2, True, True),
                                 (256, 256, 3, False, False),
+                                (256, 640, 2, False, False),
                                 (512, 1024, 2, False, False)):
         c, ct = fam.matrices(n, torch.float32, dev)
         perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
@@ -1342,26 +1427,29 @@ def _rel_l2(got, want) -> float:
 PROBE_LEN = 41
 
 
-def probe_logits(model, cfg, params, dev) -> dict:
+def probe_logits(model, cfg, params, dev, prefix=None) -> dict:
     """fp32 logits of one batch-1 prefill of ``PROBE_LEN`` random tokens
-    (seed 3) at its last position, and of one decode step after it."""
+    (seed 3) at its last position, and of one decode step after it.
+    ``prefix`` (1, P, D), a vision frontend's embeddings, goes before the
+    tokens on P placeholder positions."""
     import numpy as np
     import torch
 
+    p = 0 if prefix is None else prefix.shape[1]
     rs = np.random.RandomState(3)
-    toks = np.zeros((1, 64), np.int32)
-    toks[0, :PROBE_LEN] = rs.randint(0, cfg.vocab_size, size=PROBE_LEN)
-    lengths = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+    toks = np.zeros((1, p + 64), np.int32)
+    toks[0, p:p + PROBE_LEN] = rs.randint(0, cfg.vocab_size, size=PROBE_LEN)
+    n = p + PROBE_LEN
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
     next_tok = torch.tensor([rs.randint(0, cfg.vocab_size)],
                             dtype=torch.int32, device=dev)
-    template = model.init_cache(cfg, 1, 96, dev)
+    template = model.init_cache(cfg, 1, p + 96, dev)
     logits, cache = model.prefill(params, template,
                                   torch.from_numpy(toks).to(dev), cfg,
-                                  lengths)
-    pos = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+                                  lengths, prefix)
+    pos = torch.tensor([n], dtype=torch.int32, device=dev)
     dlog, _ = model.decode_step(params, cache, next_tok, pos, cfg)
-    return {"prefill": logits[0, PROBE_LEN - 1].float(),
-            "decode": dlog[0].float()}
+    return {"prefill": logits[0, n - 1].float(), "decode": dlog[0].float()}
 
 
 def compare_full_width_logits(pieces, dev, dtype=None):
@@ -1539,41 +1627,72 @@ UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
 
 
 def sell_projections(cfg, rows: int) -> list:
-    """``(operating size N, rows, groups)`` of each SELL projection of one
-    layer of ``cfg`` over ``rows`` tokens: attn_out, then the three MLP
-    projections -- or, in an MoE layer, the routed experts' three (grouped:
-    E groups of each expert's capacity at ``rows`` tokens) and the shared
-    expert's three."""
-    from repro_torch.models import linear
+    """``(operating size N, rows, groups, count, remat)`` of each SELL
+    projection of ``cfg``'s stack over ``rows`` tokens, ``count`` its
+    instances and ``remat`` whether training recomputes it in the
+    backward.  A decoder layer: attn_out, then the three MLP projections
+    -- or, in an MoE layer, the routed experts' three (grouped: E groups
+    of each expert's capacity at ``rows`` tokens) and the shared expert's
+    three.  A mamba layer (ssm, hybrid): ssm_in and ssm_out; the hybrid's
+    shared block, once an application (not recomputed): shared_in,
+    attn_out and the MLP's three."""
+    from repro_torch.models import linear, mamba2, zamba2
     from repro_torch.models import mlp as mlp_mod
 
-    dh = cfg.head_dim_
+    dh, d = cfg.head_dim_, cfg.d_model
 
-    def ffn(d_ff, r, groups):
-        return [("mlp_in", cfg.d_model, d_ff, r, groups)] * 2 + [
-            ("mlp_out", d_ff, cfg.d_model, r, groups)]
+    def ffn(d_ff, r, groups, count, remat):
+        return [("mlp_in", d, d_ff, r, groups, count, remat)] * 2 + [
+            ("mlp_out", d_ff, d, r, groups, count, remat)]
 
-    proj = [("attn_out", cfg.n_heads * dh, cfg.d_model, rows, 1)]
-    if cfg.n_experts:
-        e = cfg.n_experts
-        proj += ffn(cfg.d_ff, e * mlp_mod.capacity(cfg, rows), e)
-        if cfg.n_shared_experts:
-            proj += ffn(cfg.d_ff * cfg.n_shared_experts, rows, 1)
-    else:
-        proj += ffn(cfg.d_ff, rows, 1)
-    return [(linear._sell_cfg(cfg, n_in, n_out).n_op, r, g)
-            for role, n_in, n_out, r, g in proj
+    proj = []
+    if cfg.family in ("ssm", "hybrid"):
+        proj += [("ssm_in", d, mamba2._proj_out(cfg), rows, 1, cfg.n_layers,
+                  cfg.remat),
+                 ("ssm_out", mamba2._dims(cfg)[0], d, rows, 1, cfg.n_layers,
+                  cfg.remat)]
+    if cfg.family == "hybrid":
+        apps = len(zamba2._n_groups(cfg))
+        proj += [("shared_in", 2 * d, d, rows, 1, apps, False),
+                 ("attn_out", cfg.n_heads * dh, d, rows, 1, apps, False)]
+        proj += ffn(cfg.d_ff, rows, 1, apps, False)
+    elif cfg.family == "decoder":
+        n, remat = cfg.n_layers, cfg.remat
+        proj.append(("attn_out", cfg.n_heads * dh, d, rows, 1, n, remat))
+        if cfg.n_experts:
+            e = cfg.n_experts
+            proj += ffn(cfg.d_ff, e * mlp_mod.capacity(cfg, rows), e, n,
+                        remat)
+            if cfg.n_shared_experts:
+                proj += ffn(cfg.d_ff * cfg.n_shared_experts, rows, 1, n,
+                            remat)
+        else:
+            proj += ffn(cfg.d_ff, rows, 1, n, remat)
+    return [(linear._sell_cfg(cfg, n_in, n_out).n_op, r, g, count, remat)
+            for role, n_in, n_out, r, g, count, remat in proj
             if linear.uses_sell(cfg, role)]
+
+
+def attention_passes(cfg) -> int:
+    """Attention applications in one pass of ``cfg``'s stack: one a
+    decoder layer, one a shared-block application (hybrid), none
+    (ssm)."""
+    from repro_torch.models import zamba2
+
+    if cfg.family == "hybrid":
+        return len(zamba2._n_groups(cfg))
+    return {"decoder": cfg.n_layers, "ssm": 0}[cfg.family]
 
 
 def forward_launches(cfg, rows: int, paged_t: int = 0):
     """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
-    (batch x tokens): each layer's SELL projections (``sell_projections``)
-    launch what the port's routing gives them -- on the ``pallas`` route
-    ``kernels.ops.forward_launches`` (grouped projections: one grouped
-    ``scaled_matmul`` a call, never one an expert), on every other method
-    (``auto``, ``fft``, ``matmul``) and kind no kernel at all; a paged
-    pass adds one ``paged_attn`` a layer at T = ``paged_t``."""
+    (batch x tokens): each SELL projection (``sell_projections``, times
+    its count) launches what the port's routing gives it -- on the
+    ``pallas`` route ``kernels.ops.forward_launches`` (grouped
+    projections: one grouped ``scaled_matmul`` a call, never one an
+    expert), on every other method (``auto``, ``fft``, ``matmul``) and
+    kind no kernel at all; a paged pass adds one ``paged_attn`` an
+    attention application at T = ``paged_t``."""
     import collections
 
     from repro_torch.core import acdc as acdc_mod
@@ -1583,16 +1702,15 @@ def forward_launches(cfg, rows: int, paged_t: int = 0):
     k = cfg.sell_k
     if cfg.sell_kind != "acdc":
         k = 0
-    for n, r, groups in sell_projections(cfg, rows) if k else ():
+    for n, r, groups, count, _ in sell_projections(cfg, rows) if k else ():
         if acdc_mod._resolve_method(n, cfg.sell_method) != "pallas":
             continue
-        out.update(ops.forward_launches(n, k, r, permute=cfg.sell_permute,
-                                        bias=False, groups=groups))
-    out = collections.Counter({key: v * cfg.n_layers
-                               for key, v in out.items()})
+        one = ops.forward_launches(n, k, r, permute=cfg.sell_permute,
+                                   bias=False, groups=groups)
+        out.update({key: v * count for key, v in one.items()})
     if paged_t:
-        out["paged_attn"] += cfg.n_layers
-        out[f"paged_attn_T{paged_t}"] += cfg.n_layers
+        out["paged_attn"] += attention_passes(cfg)
+        out[f"paged_attn_T{paged_t}"] += attention_passes(cfg)
     return out
 
 
@@ -1936,8 +2054,19 @@ MOE_GRAD_GROUPS = (("experts sell/a", r"experts/.*sell/a$"),
                    ("router/w", r"router/w$"))
 
 
+#: a mamba layer's own leaves (ssm and hybrid families)
+MAMBA_GRAD_GROUPS = (("mixer conv/dt/A/D",
+                      r"mixer/(conv_w|conv_b|dt_bias|a_log|d_skip)$"),)
+
+
 def grad_groups(cfg) -> tuple:
-    return GRAD_GROUPS + (MOE_GRAD_GROUPS if cfg.n_experts else ())
+    """The gradient groups of ``cfg``: an attention-free model (ssm) has
+    no dense projection weights."""
+    groups = tuple(g for g in GRAD_GROUPS
+                   if g[0] != "dense w" or cfg.family != "ssm")
+    if cfg.family in ("ssm", "hybrid"):
+        groups += MAMBA_GRAD_GROUPS
+    return groups + (MOE_GRAD_GROUPS if cfg.n_experts else ())
 
 
 def group_rel_l2(got: dict, want: dict, groups=GRAD_GROUPS) -> dict:
@@ -1985,39 +2114,45 @@ def smm_launches_per_step(cfg, rows: int) -> int:
     """scaled_matmul launches of one full-width train step over ``rows``
     tokens: every SELL projection (``sell_projections``: attn_out and the
     three MLP ones per layer, or the experts' three -- grouped, one launch
-    for all experts -- and the shared expert's three) is a per-layer
-    cascade of K two-call ACDC layers (N > MAX_FUSED_N); each layer is 2
-    launches forward, 2 more when remat recomputes the forward in the
-    backward, and 3 in its backward (the two-call backward)."""
+    for all experts -- and the shared expert's three; ssm_in and ssm_out
+    a mamba layer; the hybrid's shared block once an application) is a
+    per-layer cascade of K two-call ACDC layers (N > MAX_FUSED_N); each
+    layer is 2 launches forward, 2 more when remat recomputes the forward
+    in the backward, and 3 in its backward (the two-call backward)."""
     from repro_torch.kernels import ops
 
-    two_call = [n for n, _, _ in sell_projections(cfg, rows)
-                if n > ops.MAX_FUSED_N]
-    acdc_layers = cfg.n_layers * len(two_call) * cfg.sell_k
-    return acdc_layers * (2 + (2 if cfg.remat else 0) + 3)
+    return sum(count * cfg.sell_k * (2 + (2 if remat else 0) + 3)
+               for n, _, _, count, remat in sell_projections(cfg, rows)
+               if n > ops.MAX_FUSED_N)
 
 
-def compare_grads(model, cfg, params, batch, label="full width") -> dict:
+def compare_grads(model, cfg, params, batch, label="full width",
+                  fp64=False) -> dict:
     """One step's loss and gradients with the kernels, the plain versions
     and the faulty backward, at ``cfg``'s compute dtype; rel. L2 per
-    group against the plain versions."""
+    group against the plain versions, and with ``fp64`` each side's
+    against every ``scaled_matmul`` summed in fp64."""
     import torch
 
     from repro_torch.dist import steps as steps_mod
 
     runs = {}
-    for name, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", plain_kernels),
-                      ("no_d_in_dh1", backward_without_d)):
+    sides = [("kernel", contextlib.nullcontext), ("plain", plain_kernels),
+             ("no_d_in_dh1", backward_without_d)]
+    if fp64:
+        sides.append(("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)))
+    for name, ctx in sides:
         with ctx():
             runs[name] = steps_mod.loss_and_grads(model, cfg, params, batch)
     torch.cuda.synchronize()
+    pairs = [(a, "plain") for a in ("kernel", "no_d_in_dh1")]
+    if fp64:
+        pairs += [(a, "fp64") for a in ("kernel", "plain", "no_d_in_dh1")]
     out = dict(loss_kernel=float(runs["kernel"][0]),
                loss_plain=float(runs["plain"][0]),
-               rel_l2={f"{a}_vs_plain": group_rel_l2(runs[a][1],
-                                                     runs["plain"][1],
-                                                     grad_groups(cfg))
-                       for a in ("kernel", "no_d_in_dh1")})
+               rel_l2={f"{a}_vs_{b}": group_rel_l2(runs[a][1], runs[b][1],
+                                                   grad_groups(cfg))
+                       for a, b in pairs})
     del runs
     torch.cuda.empty_cache()
     print(f"[grads] {label} {cfg.dtype}, one step: loss kernel "
@@ -2028,11 +2163,15 @@ def compare_grads(model, cfg, params, batch, label="full width") -> dict:
     return out
 
 
-def train_full_width(dev, totals, arch="qwen3_1_7b"):
-    """Full-width training of ``arch`` (Qwen3-1.7B on the main path): one
-    step's loss and grads against the plain versions and a faulty control,
-    then one warm-up and two timed AdamW steps with exact launch
-    counts."""
+def train_full_width(dev, totals, arch="qwen3_1_7b", global_batch=4,
+                     seq_len=128, hold="plain"):
+    """Full-width training of ``arch`` (Qwen3-1.7B on the main path) at
+    ``global_batch`` x ``seq_len`` tokens: one step's loss and grads
+    against the plain versions and a faulty control (the fp32 grads held
+    within ``FP32_GRAD_REL_L2`` of the plain versions, or with ``hold``
+    "drift" within ``DRIFT_RATIO`` x the plain version's drift from an
+    fp64-summed step), then one warm-up and two timed AdamW steps with
+    exact launch counts."""
     import torch
 
     from repro_torch.dist import steps as steps_mod
@@ -2040,8 +2179,8 @@ def train_full_width(dev, totals, arch="qwen3_1_7b"):
 
     args = train.parse_args([
         "--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
-        "--global-batch", "4", "--seq-len", "128", "--steps", "3",
-        "--device", str(dev)])
+        "--global-batch", str(global_batch), "--seq-len", str(seq_len),
+        "--steps", "3", "--device", str(dev)])
     label = "full width" + ("" if arch == "qwen3_1_7b" else f" {arch}")
     cfg, model, opt, train_step, pipeline = train.build(args)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2051,21 +2190,34 @@ def train_full_width(dev, totals, arch="qwen3_1_7b"):
 
     grads = {}
     for dtype in ("bfloat16", "float32"):
-        grads[dtype] = compare_grads(model, dataclasses.replace(
-            cfg, dtype=dtype), state["params"], batch, label)
+        grads[dtype] = compare_grads(
+            model, dataclasses.replace(cfg, dtype=dtype), state["params"],
+            batch, label, fp64=hold == "drift" and dtype == "float32")
     loss_k = grads["bfloat16"]["loss_kernel"]
     loss_p = grads["bfloat16"]["loss_plain"]
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p)
             <= 1e-2 * abs(loss_p)):
         _fail(f"{label} loss: kernel {loss_k} vs plain {loss_p}")
     rel = grads["float32"]["rel_l2"]
-    worst = max(rel["kernel_vs_plain"].values())
-    if not worst <= FP32_GRAD_REL_L2:
-        _fail(f"{label} fp32 grads: rel L2 {worst} > {FP32_GRAD_REL_L2}")
-    control = min(rel["no_d_in_dh1_vs_plain"].values())
-    if not control > FP32_GRAD_REL_L2:
-        _fail(f"{label} fp32 grads: the limit {FP32_GRAD_REL_L2} does "
-              f"not catch the faulty backward (rel L2 {control})")
+    if hold == "drift":
+        for group, plain in rel["plain_vs_fp64"].items():
+            got = rel["kernel_vs_fp64"][group]
+            bad = rel["no_d_in_dh1_vs_fp64"][group]
+            if not got <= DRIFT_RATIO * plain:
+                _fail(f"{label} fp32 grads {group}: kernel drift from fp64 "
+                      f"{got} > {DRIFT_RATIO} x the plain version's {plain}")
+            if not bad > DRIFT_RATIO * plain:
+                _fail(f"{label} fp32 grads {group}: the drift limit does "
+                      f"not catch the faulty backward ({bad})")
+    else:
+        worst = max(rel["kernel_vs_plain"].values())
+        if not worst <= FP32_GRAD_REL_L2:
+            _fail(f"{label} fp32 grads: rel L2 {worst} > "
+                  f"{FP32_GRAD_REL_L2}")
+        control = min(rel["no_d_in_dh1_vs_plain"].values())
+        if not control > FP32_GRAD_REL_L2:
+            _fail(f"{label} fp32 grads: the limit {FP32_GRAD_REL_L2} does "
+                  f"not catch the faulty backward (rel L2 {control})")
 
     want = smm_launches_per_step(cfg, tokens)
     torch.cuda.reset_peak_memory_stats()
@@ -2418,7 +2570,7 @@ def check_profile(label, logdir, summary, wrapper_counts,
 
 def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
     """A ``ProfileWindow`` over engine ticks ``first``..``last`` of a
-    full-width run (4 slots, 8 requests, prompts <= 64, 16 new tokens),
+    full-width run (4 slots, 4 requests, prompts <= 64, 16 new tokens),
     held by ``check_profile``; the window must hold steady ticks only
     (no admission, speculation depth ``spec_k``), and the tick times
     outside it are kept beside it."""
@@ -2432,7 +2584,7 @@ def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
     eng = Engine(model, cfg, params, n_slots=4, max_len=81,
                  max_prompt_len=64, paged=paged, block_size=16, obs=obs,
                  spec_k=spec_k)
-    for r in make_ragged_requests(cfg.vocab_size, 8, 64, 16):
+    for r in make_ragged_requests(cfg.vocab_size, 4, 64, 16):
         eng.submit(r)
     tick, counts, tick_s = 0, {}, []
     with tick_recorder() as recs:
@@ -2717,8 +2869,10 @@ def methods_full_width(pieces, dev, totals) -> dict:
     compute, fp32 masters) on phase 4's weights, dense then paged with
     phase 4's requests: every tick's launches exact (no SELL kernel, one
     ``paged_attn`` a layer on the paged layout), s/tick, tok/s, prefill
-    s/admission; a profiled window of 8 decode ticks in each layout; and
-    the logits against the ``pallas`` route (``compare_methods_logits``)."""
+    s/admission; and the logits against the ``pallas`` route
+    (``compare_methods_logits``).  (Its profiled windows of 8 decode
+    ticks a layout were cut to keep the whole run in its time; PERF.md
+    keeps the last profile of this route.)"""
     import torch
 
     from repro_torch.launch import serve
@@ -2730,8 +2884,6 @@ def methods_full_width(pieces, dev, totals) -> dict:
             "--requests", "8", "--device", "cuda"]
     out = {"routes": serve.sell_routes(auto[0])}
     print(f"[methods] full width auto: {out['routes']}", flush=True)
-    root = ROOT / "build" / "chip_smoke_profile_methods"
-    shutil.rmtree(root, ignore_errors=True)
     for paged in (False, True):
         name = "paged" if paged else "dense"
         label = f"full width auto {name}"
@@ -2741,8 +2893,6 @@ def methods_full_width(pieces, dev, totals) -> dict:
         info["ticks"] = check_ticks(label, eng, recs, 64, spec=False)
         info["prefill_s_per_admission"] = info["prefill_s"] / max(
             info["prefills"], 1)
-        info["profile"] = profile_ticks(f"auto decode {name}", root, auto,
-                                        dev, paged, 0, 4, 11)
         out[name] = info
     out["logits"] = compare_methods_logits(pieces, dev)
     torch.cuda.empty_cache()
@@ -2941,7 +3091,9 @@ def fig2_speed(dev) -> list:
 #: (PERF.md section 4), printed beside each full-width phase's measured
 #: parameter bytes and peak memory
 RECKONED_MASTERS_GB = {"deepseek_67b": 35.0, "gemma3_27b": 16.6,
-                       "chatglm3_6b": 3.2, "deepseek_moe_16b": 2.3}
+                       "chatglm3_6b": 3.2, "deepseek_moe_16b": 2.3,
+                       "mamba2_1_3b": 0.43, "zamba2_1_2b": 0.33,
+                       "llava_next_34b": 17.7}
 
 #: path E, full width: (arch, requests, paged, then speculative paged)
 DENSE_FULL_WIDTH = (("gemma3_27b", 4, True, False),
@@ -2987,7 +3139,7 @@ def build_matrices(cfg, dev) -> float:
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    for n in sorted({n for n, _, _ in sell_projections(cfg, 1)}):
+    for n in sorted({p[0] for p in sell_projections(cfg, 1)}):
         if n > ops.MAX_FUSED_N:
             ops._mats("acdc", n, dev, False)
     torch.cuda.synchronize()
@@ -3029,32 +3181,40 @@ def scaled_matmul_group0(x, w, pre=None, post=None, bias=None):
 
 
 def logits_vs_plain(label, pieces, dev, limit, faulty, dtype=None,
-                    hold=("prefill", "decode")) -> dict:
+                    hold=("prefill", "decode"), prefix=None) -> dict:
     """One prefill's and one decode step's logits (``probe_logits``) with
     the kernels against the plain versions on the card, at ``dtype``
     compute (else the config's), and under ``faulty()`` (a deliberately
     faulty path); where named in ``hold``, kernels vs plain within
     ``limit`` and the faulty path over it, the rest reported.  For an MoE
     model, the share of (token, slot) expert choices that agree between
-    kernels and plain versions beside."""
+    kernels and plain versions beside.  ``prefix``: a vision frontend's
+    embeddings before the probe's tokens (``probe_logits``); the kernels
+    with the prefix zeroed are then a second control that must read over
+    the limit (the prefix reaches the logits)."""
     import torch
 
     cfg, model, params = pieces
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     runs, routes = {}, {}
-    for name, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", plain_kernels), ("faulty", faulty)):
+    sides = [("kernel", contextlib.nullcontext, prefix),
+             ("plain", plain_kernels, prefix), ("faulty", faulty, prefix)]
+    if prefix is not None:
+        sides.append(("zero_prefix", contextlib.nullcontext,
+                      torch.zeros_like(prefix)))
+    for name, ctx, pre in sides:
         calls = []
         with ctx(), route_recorder(calls):
-            runs[name] = probe_logits(model, cfg, params, dev)
+            runs[name] = probe_logits(model, cfg, params, dev, pre)
         routes[name] = calls
     torch.cuda.synchronize()
     out = dict(limit_rel_l2=limit, compute=cfg.dtype, held=list(hold))
+    controls = [side[0] for side in sides[2:]]
     for where in ("prefill", "decode"):
         out[where] = {f"{a}_vs_plain": _rel_l2(runs[a][where],
                                                 runs["plain"][where])
-                      for a in ("kernel", "faulty")}
+                      for a in ["kernel"] + controls}
     if cfg.n_experts:
         same = sum(int((a == b).sum())
                    for a, b in zip(routes["kernel"], routes["plain"]))
@@ -3073,11 +3233,31 @@ def logits_vs_plain(label, pieces, dev, limit, faulty, dtype=None,
         if not rel["kernel_vs_plain"] <= limit:
             _fail(f"{label} {cfg.dtype} {where} logits: kernels vs plain "
                   f"rel L2 {rel['kernel_vs_plain']} > {limit}")
-        if not rel["faulty_vs_plain"] > limit:
-            _fail(f"{label} {cfg.dtype} {where} logits: the limit {limit} "
-                  f"does not catch the faulty control (rel L2 "
-                  f"{rel['faulty_vs_plain']})")
+        for name in controls:
+            if not rel[f"{name}_vs_plain"] > limit:
+                _fail(f"{label} {cfg.dtype} {where} logits: the limit "
+                      f"{limit} does not catch the {name} control (rel L2 "
+                      f"{rel[f'{name}_vs_plain']})")
     return out
+
+
+def tick_floor_ms(cfg) -> float:
+    """The least time of one decode tick of ``cfg`` on the card: the
+    bytes every tick must read (each two-call ACDC layer's fp32 C or C^T
+    of every projection instance, each dense projection's fp32 master,
+    the fp32 embedding table the unembedding reads) over the HBM rate."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import linear
+
+    nbytes = sum(count * cfg.sell_k * 2 * n * n * 4
+                 for n, _, _, count, _ in sell_projections(cfg, 1)
+                 if n > ops.MAX_FUSED_N)
+    nbytes += sum(count * n_in * n_out * 4
+                  for role, n_in, n_out, count in serve.projections(cfg)
+                  if not linear.uses_sell(cfg, role))
+    nbytes += cfg.vocab_size * cfg.d_model * 4
+    return nbytes / HBM_BYTES_S * 1e3
 
 
 def serve_full_width(label, argv, pieces, totals, paged, spec=False):
@@ -3086,14 +3266,18 @@ def serve_full_width(label, argv, pieces, totals, paged, spec=False):
     memory since the caller's reset."""
     if spec:
         argv = argv + ["--spec", "--spec-k", str(SPEC_K)]
-    info, _, eng, recs = serve_path(
+    info, reqs, eng, recs = serve_path(
         label, argv + (["--paged", "--block-size", "16"] if paged else []),
         pieces, totals, ("scaled_matmul",) + (("paged_attn",) if paged
                                               else ()), record=True)
-    info["ticks"] = check_ticks(label, eng, recs, 64, spec=spec)
+    info["streams"] = streams_of(reqs)
+    info["ticks"] = check_ticks(label, eng, recs, eng.max_prompt_len,
+                                spec=spec)
     info["prefill_s_per_admission"] = info["prefill_s"] / max(
         info["prefills"], 1)
-    print(f"[serve] {label}: {info['s_per_tick'] * 1e3:.1f} ms a tick, "
+    info["tick_floor_ms"] = tick_floor_ms(pieces[0])
+    print(f"[serve] {label}: {info['s_per_tick'] * 1e3:.1f} ms a tick "
+          f"(weight-read floor {info['tick_floor_ms']:.1f} ms), "
           f"{info['tok_per_s']:.2f} tok/s, prefill "
           f"{info['prefill_s_per_admission']:.3f} s an admission, peak "
           f"{info['peak_mem_gb']:.2f} GB; launches a tick by kind "
@@ -3270,22 +3454,31 @@ def train_vs_plain(arch, steps, totals) -> dict:
 
 def smoke_configs(totals, archs, train_steps, hold_nonspec) -> list:
     """Smoke width (fp32) of ``archs`` served dense, paged (4-token pages)
-    and speculative paged (``--spec-k 4``): every tick's launches exact,
+    and speculative paged (``--spec-k 4``; a family without a paged cache
+    dense and speculative dense; a vision frontend with ``--frontend``):
+    every tick's launches exact,
     the greedy streams identical with the kernels and with the plain
     versions (and, with ``hold_nonspec``, without speculation: an MoE's
     capacity couples the batch's rows, so its verify of k + 1 tokens a
     slot routes otherwise than its decode); then ``train_vs_plain``."""
     out = []
     paged = ["--paged", "--block-size", "4"]
+    spec_flags = ["--spec", "--spec-k", str(SPEC_K)]
     for arch in archs:
         base = ["--arch", arch, "--smoke", "--sell", "acdc", "--sell-method",
                 "pallas", "--slots", "4", "--prompt-len", "12", "--gen", "8",
                 "--requests", "8", "--device", "cuda"]
         pieces = model_for({}, base)
+        if pieces[0].frontend == "vision":
+            base.append("--frontend")
+        # a family without a paged cache (ssm) serves dense and speculates
+        # dense
+        layouts = ((("dense", []), ("paged", paged),
+                    ("spec paged", paged + spec_flags))
+                   if pieces[1].init_cache_paged is not None
+                   else (("dense", []), ("spec dense", spec_flags)))
         streams = {}
-        for layout, extra in (("dense", []), ("paged", paged),
-                              ("spec paged", paged + [
-                                  "--spec", "--spec-k", str(SPEC_K)])):
+        for layout, extra in layouts:
             label = f"{arch} smoke {layout}"
             spec = layout.startswith("spec")
             need = (("acdc_cascade",)
@@ -3304,8 +3497,9 @@ def smoke_configs(totals, archs, train_steps, hold_nonspec) -> list:
                       f"plain versions")
             info["streams_identical_to_plain"] = True
             if spec:
-                info["streams_identical_to_nonspec"] = got == streams["paged"]
-                if hold_nonspec and got != streams["paged"]:
+                nonspec = streams[layout.split()[-1]]
+                info["streams_identical_to_nonspec"] = got == nonspec
+                if hold_nonspec and got != nonspec:
                     _fail(f"{label}: greedy streams differ from the "
                           f"non-speculative run")
             streams[layout] = got
@@ -3365,6 +3559,224 @@ def moe_full_width(dev, totals) -> dict:
     release_memory()
     out["train"] = train_full_width(dev, totals, arch)
     out["train_auto"] = train_methods_full_width(dev, totals, arch)
+    release_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paths G, H and I: the recurrent families and the vision frontend
+# ---------------------------------------------------------------------------
+
+def logits_drift(label, pieces, dev, dtype) -> dict:
+    """One prefill's and one decode step's logits (``probe_logits``) at
+    ``dtype`` compute with the kernels, the plain versions, every
+    ``scaled_matmul`` summed in fp64 and the diagonals dropped.  In fp32
+    the kernel path's drift from the fp64-summed path is held within
+    ``DRIFT_RATIO`` x the plain version's and the faulty path's must read
+    over that; bf16 readings are reported."""
+    import torch
+
+    cfg, model, params = pieces
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    runs = {}
+    for name, ctx in (("kernel", contextlib.nullcontext),
+                      ("plain", plain_kernels),
+                      ("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)),
+                      ("faulty",
+                       lambda: scaled_matmul_as(scaled_matmul_without_pre))):
+        with ctx():
+            runs[name] = probe_logits(model, cfg, params, dev)
+    torch.cuda.synchronize()
+    held = dtype == "float32"
+    out = dict(compute=dtype, held=held, drift_ratio_limit=DRIFT_RATIO)
+    for where in ("prefill", "decode"):
+        rel = {f"{a}_vs_{b}": _rel_l2(runs[a][where], runs[b][where])
+               for a, b in (("kernel", "plain"), ("kernel", "fp64"),
+                            ("plain", "fp64"), ("faulty", "fp64"))}
+        out[where] = rel
+        print(f"[logits] {label} {dtype} {where} ({smi_line()}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + (f" (held: kernel_vs_fp64 <= {DRIFT_RATIO} x plain_vs_fp64"
+                 f" < faulty_vs_fp64)" if held else " (reported)"),
+              flush=True)
+        if not held:
+            continue
+        bound = DRIFT_RATIO * rel["plain_vs_fp64"]
+        if not rel["kernel_vs_fp64"] <= bound:
+            _fail(f"{label} fp32 {where} logits: kernel drift from fp64 "
+                  f"{rel['kernel_vs_fp64']} > {DRIFT_RATIO} x the plain "
+                  f"version's {rel['plain_vs_fp64']}")
+        if not rel["faulty_vs_fp64"] > bound:
+            _fail(f"{label} fp32 {where} logits: the drift limit {bound} "
+                  f"does not catch the faulty control "
+                  f"({rel['faulty_vs_fp64']})")
+    return out
+
+
+def paged_vs_dense_logits(pieces, dev) -> dict:
+    """A hybrid's fp32 decode-step logits after the ``probe_logits``
+    prompt, through the paged admission step (16-token pages) and the
+    paged decode (``paged_attn``) against the dense prefill and decode,
+    within ``FP32_METHOD_REL_L2``; the same paged decode over a table whose
+    pages are rolled by one (the prefix read from the wrong pages) must
+    read over it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+
+    cfg, model, params = pieces
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    bs, mb = 16, 6
+    rs = np.random.RandomState(3)
+    toks = np.zeros((1, 64), np.int32)
+    toks[0, :PROBE_LEN] = rs.randint(0, cfg.vocab_size, size=PROBE_LEN)
+    toks = torch.from_numpy(toks).to(dev)
+    nxt = torch.tensor([rs.randint(0, cfg.vocab_size)], dtype=torch.int32,
+                       device=dev)
+    pos = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+    tables = torch.arange(mb, dtype=torch.int32, device=dev)[None]
+
+    _, cache = model.prefill(params, model.init_cache(cfg, 1, mb * bs, dev),
+                             toks, cfg, pos)
+    dense, _ = model.decode_step(params, cache, nxt, pos, cfg)
+
+    def paged(table):
+        cache = model.init_cache_paged(cfg, 1, mb, bs, dev)
+        step = steps_mod.make_prefill_step(model, cfg, paged=True)
+        _, cache = step(params, cache, model.init_cache(cfg, 1, mb * bs, dev),
+                        toks, pos, tables[0], 0)
+        logits, _ = model.decode_step_paged(params, cache, nxt, pos, table,
+                                            cfg)
+        return logits
+
+    reset_counts()
+    got = paged(tables)
+    torch.cuda.synchronize()
+    launched = read_counts()["paged_attn"]
+    rolled = paged(torch.roll(tables, 1, dims=1))
+    out = dict(limit=FP32_METHOD_REL_L2, paged_attn_launches=launched,
+               paged_vs_dense=_rel_l2(got[0].float(), dense[0].float()),
+               rolled_table_vs_dense=_rel_l2(rolled[0].float(),
+                                             dense[0].float()))
+    print(f"[paged] {cfg.name} full width fp32 decode logits ({smi_line()}):"
+          f" paged vs dense {out['paged_vs_dense']:.3e}, rolled table "
+          f"{out['rolled_table_vs_dense']:.3e} (limit {FP32_METHOD_REL_L2});"
+          f" paged_attn launched {launched}", flush=True)
+    if launched != attention_passes(cfg):
+        _fail(f"{cfg.name} paged decode: {launched} paged_attn launches, "
+              f"want {attention_passes(cfg)}")
+    if not out["paged_vs_dense"] <= FP32_METHOD_REL_L2:
+        _fail(f"{cfg.name} paged decode logits: rel L2 "
+              f"{out['paged_vs_dense']} > {FP32_METHOD_REL_L2}")
+    if not out["rolled_table_vs_dense"] > FP32_METHOD_REL_L2:
+        _fail(f"{cfg.name} paged decode logits: the limit does not catch a "
+              f"rolled table ({out['rolled_table_vs_dense']})")
+    return out
+
+
+def recurrent_full_width(dev, totals, arch, paged) -> dict:
+    """Paths G (Mamba2-1.3B, dense: the ssm family has no paged cache) and
+    H (Zamba2-1.2B, 16-token pages) at full width, ``--sell acdc
+    --sell-method pallas``, bf16 compute: 4 requests of <= 64 prompt
+    tokens and 16 new ones, then ``--spec --spec-k 4`` with the truncated
+    draft (``serve_full_width``: every tick's launches exact, s/tick
+    beside the weight-read floor, tok/s, prefill s/admission); the bf16
+    speculative streams against the non-speculative ones reported; one
+    prefill's and one decode step's logits held by drift in fp32 and
+    reported in bf16 (``logits_drift``); Zamba2's paged fp32 decode
+    against its dense one (``paged_vs_dense_logits``); peak memory beside
+    the reckoned fp32 masters; then 3 AdamW steps at 2 x 256 tokens
+    (``train_full_width``: the SSD's chunk is 256; fp32 grads held by
+    drift)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
+            "--slots", "4", "--prompt-len", "64", "--gen", "16",
+            "--requests", "4", "--device", "cuda"]
+    release_memory()
+    t0 = time.perf_counter()
+    pieces = model_for({}, argv)
+    cfg = pieces[0]
+    out = dict(init_s=time.perf_counter() - t0,
+               params_gb=params_gb(pieces[2]),
+               reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               cache=serve.cache_kind(cfg, pieces[1], 81),
+               matrices_s=build_matrices(cfg, dev))
+    print(f"[cache] {arch} full width: {out['cache']}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    layout = "paged" if paged else "dense"
+    out["serve"] = serve_full_width(f"{arch} full width {layout}", argv,
+                                    pieces, totals, paged)
+    out["spec"] = serve_full_width(f"{arch} full width spec {layout}", argv,
+                                   pieces, totals, paged, spec=True)
+    equal = sum(a == b for a, b in zip(out["spec"]["streams"],
+                                       out["serve"]["streams"]))
+    out["spec"]["bf16_streams_equal_nonspec"] = equal
+    print(f"[spec] {arch} full width bf16: {equal}/"
+          f"{len(out['serve']['streams'])} speculative streams equal the "
+          f"non-speculative ones (reported)", flush=True)
+    out["logits"] = {dtype: logits_drift(f"{arch} full width", pieces, dev,
+                                         dtype)
+                     for dtype in ("bfloat16", "float32")}
+    if paged:
+        out["paged_vs_dense"] = paged_vs_dense_logits(pieces, dev)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+          f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
+          f" GB (reckoned {out['reckoned_masters_gb']})", flush=True)
+    del pieces
+    release_memory()
+    out["train"] = train_full_width(dev, totals, arch, global_batch=2,
+                                    seq_len=256, hold="drift")
+    release_memory()
+    return out
+
+
+def llava_full_width(dev, totals) -> dict:
+    """Path I: LLaVA-NeXT-34B's backbone at full width, ``--sell acdc
+    --sell-method pallas``, bf16 compute, 16-token pages: 2 requests whose
+    first 576 positions are the stub patch prefix (``--frontend``: fp32
+    embeddings from a seeded generator), prompts of <= 64 tokens after it
+    (``max_prompt_len`` 640) and 8 new tokens (``serve_full_width``); one
+    decode step's logits after a prefixed probe against the plain versions
+    within ``BF16_DECODE_REL_L2``, with the diagonals-dropped control and
+    the prefix zeroed both over it; peak memory beside the reckoned fp32
+    masters.  Its AdamW state does not fit one card: no training here."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    arch = "llava_next_34b"
+    argv = ["--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
+            "--slots", "2", "--prompt-len", "64", "--gen", "8",
+            "--requests", "2", "--frontend", "--device", "cuda"]
+    release_memory()
+    t0 = time.perf_counter()
+    pieces = model_for({}, argv)
+    cfg = pieces[0]
+    out = dict(init_s=time.perf_counter() - t0,
+               params_gb=params_gb(pieces[2]),
+               reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               matrices_s=build_matrices(cfg, dev))
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"] = serve_full_width(f"{arch} full width paged", argv, pieces,
+                                    totals, True)
+    prefix = serve._make_frontend(
+        cfg, torch.Generator().manual_seed(7), 1).to(dev)
+    out["logits"] = logits_vs_plain(
+        f"{arch} full width", pieces, dev, BF16_DECODE_REL_L2,
+        lambda: scaled_matmul_as(scaled_matmul_without_pre),
+        hold=("decode",), prefix=prefix)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+          f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
+          f" GB (reckoned {out['reckoned_masters_gb']}); init "
+          f"{out['init_s']:.1f} s, transform matrices "
+          f"{out['matrices_s']:.1f} s", flush=True)
+    del pieces, prefix
     release_memory()
     return out
 
@@ -3510,6 +3922,13 @@ def main() -> int:
     timed(report, "moe_full_width", moe_full_width, dev, totals)
     timed(report, "moe_smoke", smoke_configs, totals,
           ("deepseek_moe_16b", "moonshot_v1_16b_a3b"), 5, False)
+    timed(report, "mamba2_full_width", recurrent_full_width, dev, totals,
+          "mamba2_1_3b", False)
+    timed(report, "zamba2_full_width", recurrent_full_width, dev, totals,
+          "zamba2_1_2b", True)
+    timed(report, "llava_full_width", llava_full_width, dev, totals)
+    timed(report, "recurrent_smoke", smoke_configs, totals,
+          ("mamba2_1_3b", "zamba2_1_2b", "llava_next_34b"), 3, True)
     report["launches"] = totals
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",

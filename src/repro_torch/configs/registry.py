@@ -1,7 +1,8 @@
 """Architecture registry (port of the config half of
-:mod:`repro.configs.registry`): the decoder configurations, dense and
-MoE.  The frontend, SSM, hybrid and encoder-decoder architectures wait
-for their model families (ROADMAP.md)."""
+:mod:`repro.configs.registry`): the decoder configurations (dense, MoE,
+and LLaVA-NeXT's backbone with its stub vision prefix), the SSM
+(Mamba2) and the hybrid (Zamba2).  The encoder-decoder architecture
+(Seamless-M4T) waits for its model family (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ ARCHS: Tuple[str, ...] = (
     "qwen3_1_7b",
     "moonshot_v1_16b_a3b",
     "deepseek_moe_16b",
+    "llava_next_34b",
+    "mamba2_1_3b",
+    "zamba2_1_2b",
 )
 
 

@@ -7,9 +7,11 @@ labels are the reference's: Zipf-like ranks from an exponential transform
 of a uniform draw, about half the tokens replaced by a fixed hash of the
 previous token (:func:`markov_next`), labels the next token with -1 at
 the end.  The draws come from a ``torch.Generator`` seeded from
-``(seed, step)``, so the numbers differ from ``jax.random``'s.  The
-reference's modality-frontend stub inputs and its per-host ``shard_at``
-(no caller) are not ported; Qwen3 has no frontend.
+``(seed, step)``, so the numbers differ from ``jax.random``'s.  A
+config with a frontend gets the reference's stub inputs: standard normal
+``frontend_embeds`` (B, P, d_model) fp32, and for ``vision`` labels -1
+over the P-position patch prefix (no LM loss there).  The reference's
+per-host ``shard_at`` (no caller) is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ class DataConfig:
     seed: int = 0
     zipf_a: float = 1.2
     markov_order: bool = True       # mix in next-token structure
-    frontend: Optional[str] = None  # "vision" | "audio": not ported
+    frontend: Optional[str] = None  # "vision" | "audio" stub inputs
+    n_frontend_tokens: int = 0
+    d_model: int = 0                # frontend embedding width
 
 
 def markov_next(prev: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -42,10 +46,6 @@ class SyntheticLM:
     """Stateless synthetic LM batches (CPU tensors, int32)."""
 
     def __init__(self, cfg: DataConfig):
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                "modality frontend stub inputs are not ported yet "
-                "(ROADMAP.md)")
         self.cfg = cfg
 
     def batch_at(self, step: int) -> dict:
@@ -65,4 +65,22 @@ class SyntheticLM:
             tokens = torch.cat([tokens[:, :1], nxt], dim=1)
         labels = torch.cat([tokens[:, 1:],
                             torch.full((b, 1), -1, dtype=torch.int32)], 1)
-        return {"tokens": tokens, "labels": labels}
+        batch = {"tokens": tokens, "labels": labels}
+        if cfg.frontend is not None and cfg.n_frontend_tokens > 0:
+            p = cfg.n_frontend_tokens
+            batch["frontend_embeds"] = torch.randn((b, p, cfg.d_model),
+                                                   generator=gen)
+            if cfg.frontend == "vision":
+                # prefix positions carry image patches: no LM loss there
+                labels[:, :p] = -1
+        return batch
+
+
+def make_batch_specs(cfg: DataConfig, model_d: int = 0) -> dict:
+    """``{name: (shape, dtype)}`` of one global batch."""
+    b, s = cfg.global_batch, cfg.seq_len
+    spec = {"tokens": ((b, s), torch.int32), "labels": ((b, s), torch.int32)}
+    if cfg.frontend is not None and cfg.n_frontend_tokens > 0:
+        spec["frontend_embeds"] = ((b, cfg.n_frontend_tokens,
+                                    cfg.d_model or model_d), torch.float32)
+    return spec

@@ -102,37 +102,50 @@ def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
-    """``step(params, cache, tokens, lengths) -> (logits, new_cache)``.
+    """``step(params, cache, tokens, lengths[, frontend_embeds]) ->
+    (logits, new_cache)``.
 
     Runs the model over right-padded prompts and returns the logits at
     each row's last real token (B, V) plus a new dense cache shaped like
-    ``cache``.
+    ``cache``: K/V for attention, SSM and conv state for the recurrent
+    families, both for the hybrid.
 
     ``paged=True`` builds the paged admission step instead:
-    ``step(params, cache, template, tokens, lengths, phys_blocks) ->
-    (last_logits, cache)`` runs the batch-1 prefill into a slab shaped
-    like ``template`` and scatters it IN PLACE into the pools through
-    ``phys_blocks`` (the slot's table row, unmapped entries already
-    routed to the trash page).
+    ``step(params, cache, template, tokens, lengths, phys_blocks[, slot,
+    frontend_embeds]) -> (last_logits, cache)`` runs the batch-1 prefill
+    into a slab shaped like ``template``, scatters each ``*_pages`` leaf's
+    slab IN PLACE into its pool through ``phys_blocks`` (the slot's table
+    row, unmapped entries already routed to the trash page) and writes
+    every batch-indexed leaf (zamba2's SSM/conv state) into row ``slot``.
     """
     if model.prefill is None:
         raise ValueError(f"family {cfg.family!r} has no prefill path")
 
     if paged:
+        if model.init_cache_paged is None:
+            raise ValueError(f"family {cfg.family!r} has no paged cache")
+
         def paged_step(params, cache, template, tokens, lengths,
-                       phys_blocks):
+                       phys_blocks, slot: Optional[int] = None,
+                       frontend_embeds=None):
             logits, slot_cache = model.prefill(params, template, tokens,
-                                               cfg, lengths)
-            for key in ("k", "v"):
-                attn_mod.scatter_prefill_pages(cache[f"{key}_pages"],
-                                               slot_cache[key], phys_blocks)
+                                               cfg, lengths, frontend_embeds)
+            for key, leaf in cache.items():
+                if key.endswith("_pages"):
+                    attn_mod.scatter_prefill_pages(
+                        leaf, slot_cache[key[:-len("_pages")]], phys_blocks)
+                elif slot is None:
+                    raise ValueError(f"cache leaf {key!r} is batch-indexed: "
+                                     f"the paged prefill needs its slot")
+                else:
+                    leaf[:, slot] = slot_cache[key][:, 0].to(leaf.dtype)
             return _last_logits(logits, lengths), cache
 
         return paged_step
 
-    def step(params, cache, tokens, lengths):
+    def step(params, cache, tokens, lengths, frontend_embeds=None):
         logits, new_cache = model.prefill(params, cache, tokens, cfg,
-                                          lengths)
+                                          lengths, frontend_embeds)
         return _last_logits(logits, lengths), new_cache
 
     return step
@@ -190,10 +203,11 @@ def make_verify_step(model, cfg, sample: str = "greedy",
     (temp, :mod:`repro_torch.spec.verify`, drawing from ``generator``),
     and ``out_tokens[:, :n+1]`` is the committed stream (accepted drafts
     plus the correction or bonus token at index n).  KV rows past the
-    accepted frontier stay written and are rewound by position; recurrent
-    leaves, where a family has them, are re-selected at each row's
-    accepted length, and ``park`` is the engine's parked-row sentinel
-    (rows at or beyond it, free or stalled, commit 0 tokens).
+    accepted frontier stay written and are rewound by position; the
+    recurrent leaves of the ssm and hybrid families are re-selected at
+    each row's accepted length from the verify's snapshots, and ``park``
+    is the engine's parked-row sentinel (rows at or beyond it, free or
+    stalled, commit 0 tokens).
     ``paged=True`` verifies through the paged-attention kernel at
     T = k + 1.
     """

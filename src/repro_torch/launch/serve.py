@@ -17,7 +17,13 @@ target pass (greedy streams equal the non-speculative engine's in fp32;
 in bf16 the verify's and the decode's matmuls round apart and a stream
 can depart).
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
-(the default) or ``cpu``.
+(the default) or ``cpu``.  The banner names the model family and its
+decode cache a slot (K/V, SSM state, or both for the hybrid); the ssm
+family (``--arch mamba2_1_3b``) has no paged cache and serves dense.
+``--frontend`` gives every request of a config with a vision frontend
+(``--arch llava_next_34b``) a stub patch prefix: ``n_frontend_tokens``
+placeholder positions before its prompt, whose embeddings the request
+carries (standard normal, fp32, drawn from ``--seed`` and its id).
 
 Overload and observability (engine path only): ``--deadline-s S`` gives
 a ``--deadline-frac`` share of the requests a latency SLO (admission turns
@@ -84,6 +90,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--frontend", action="store_true",
+                    help="give each request a stub patch prefix of the "
+                         "config's n_frontend_tokens (vision frontends)")
     ap.add_argument("--static", action="store_true",
                     help="batched prefill + lockstep decode, no slot reuse")
     ap.add_argument("--paged", action="store_true",
@@ -139,6 +148,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--paged applies to the engine path, not --static")
     if args.spec and args.static:
         ap.error("--spec applies to the engine path, not --static")
+    if args.frontend and args.static:
+        ap.error("--frontend applies to the engine path, not --static")
     if args.static and (args.metrics_jsonl or args.trace_out
                         or args.profile_ticks or args.deadline_s):
         ap.error("--metrics-jsonl/--trace-out/--profile-ticks/--deadline-s "
@@ -188,15 +199,36 @@ def build_obs(args: argparse.Namespace) -> Observability:
                          prof=prof, window=window)
 
 
+def _make_frontend(cfg, gen: torch.Generator, batch: int):
+    """A vision frontend's stub patch embeddings (batch, n_frontend_tokens,
+    d_model), standard normal fp32 on the CPU; None for a config without
+    one."""
+    if cfg.frontend != "vision" or not cfg.n_frontend_tokens:
+        return None
+    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=gen)
+
+
+def frontend_prefix(args: argparse.Namespace, cfg) -> int:
+    """Placeholder positions ``--frontend`` puts before every prompt."""
+    if not args.frontend:
+        return 0
+    if cfg.frontend != "vision" or not cfg.n_frontend_tokens:
+        raise ValueError(f"{cfg.name} has no vision frontend")
+    return cfg.n_frontend_tokens
+
+
 def serve(args: argparse.Namespace, cfg, model, params, fault=None):
     """Run the engine over the synthetic request stream (deadlines and
-    priorities from the flags; ``fault`` a ``FaultPlan``); then flush the
+    priorities from the flags; ``fault`` a ``FaultPlan``; with
+    ``--frontend`` a stub patch prefix a request); then flush the
     observability bundle and write the trace.  Returns (engine, requests,
     wall seconds)."""
     obs = build_obs(args)
+    prefix = frontend_prefix(args, cfg)
     eng = Engine(model, cfg, params, n_slots=args.slots,
-                 max_len=args.prompt_len + args.gen + 1,
-                 max_prompt_len=args.prompt_len, sample=args.sample,
+                 max_len=prefix + args.prompt_len + args.gen + 1,
+                 max_prompt_len=prefix + args.prompt_len, sample=args.sample,
                  temperature=args.temperature, top_k=args.top_k,
                  top_p=args.top_p, seed=args.seed, paged=args.paged,
                  block_size=args.block_size, n_blocks=args.blocks,
@@ -216,6 +248,11 @@ def serve(args: argparse.Namespace, cfg, model, params, fault=None):
                                 deadline_range=deadline_range,
                                 deadline_frac=args.deadline_frac,
                                 n_priorities=args.priorities)
+    for req in reqs if prefix else ():
+        req.prompt = [0] * prefix + list(req.prompt)
+        req.frontend_embeds = _make_frontend(
+            cfg, torch.Generator().manual_seed(args.seed * 1_000_003
+                                               + req.rid), 1)
     t0 = time.perf_counter()
     eng.run(reqs, max_ticks=4 * args.requests * (args.prompt_len + args.gen)
             + 64, wall_clock_limit_s=args.wall_clock_limit_s)
@@ -326,26 +363,63 @@ def run_static(args: argparse.Namespace, cfg, model, params):
     return toks, t_prefill, t_decode
 
 
+def projections(cfg) -> list:
+    """``(role, n_in, n_out, count)`` of every projection of ``cfg``'s
+    stack that can be a SELL layer, ``count`` its instances (layers, or
+    the shared block's applications)."""
+    from repro_torch.models import mamba2, zamba2
+
+    d, dh = cfg.d_model, cfg.head_dim_
+    out = []
+    if cfg.family in ("ssm", "hybrid"):
+        out += [("ssm_in", d, mamba2._proj_out(cfg), cfg.n_layers),
+                ("ssm_out", mamba2._dims(cfg)[0], d, cfg.n_layers)]
+    n_attn = (len(zamba2._n_groups(cfg)) if cfg.family == "hybrid"
+              else cfg.n_layers if cfg.family == "decoder" else 0)
+    if cfg.family == "hybrid":
+        out.append(("shared_in", 2 * d, d, n_attn))
+    if n_attn:
+        out += [("attn_qkv", d, cfg.n_heads * dh, n_attn),
+                ("attn_qkv", d, cfg.n_kv_heads * dh, 2 * n_attn),
+                ("attn_out", cfg.n_heads * dh, d, n_attn)]
+        # the MLP, or the experts and the shared expert (mlp roles too)
+        for d_ff in ([cfg.d_ff] + ([cfg.d_ff * cfg.n_shared_experts]
+                                   if cfg.n_experts and cfg.n_shared_experts
+                                   else [])):
+            out += [("mlp_in", d, d_ff, n_attn), ("mlp_out", d_ff, d, n_attn)]
+    return out
+
+
 def sell_routes(cfg) -> str:
     """The method each SELL operating size of ``cfg`` runs, ``auto``
     resolved by the reference's size rule (e.g. ``N=2048 matmul, N=6144
     fft``); empty unless the projections are ``acdc`` cascades."""
     if cfg.sell_kind != "acdc":
         return ""
-    dh = cfg.head_dim_
-    projections = [("attn_qkv", cfg.d_model, cfg.n_heads * dh),
-                   ("attn_out", cfg.n_heads * dh, cfg.d_model)]
-    # the MLP, or the experts and the shared expert (mlp roles too)
-    for d_ff in ([cfg.d_ff] + ([cfg.d_ff * cfg.n_shared_experts]
-                               if cfg.n_experts and cfg.n_shared_experts
-                               else [])):
-        projections += [("mlp_in", cfg.d_model, d_ff),
-                        ("mlp_out", d_ff, cfg.d_model)]
     sizes = sorted({linear._sell_cfg(cfg, n_in, n_out).n_op
-                    for role, n_in, n_out in projections
+                    for role, n_in, n_out, _ in projections(cfg)
                     if linear.uses_sell(cfg, role)})
     return ", ".join(f"N={n} {acdc_mod._resolve_method(n, cfg.sell_method)}"
                      for n in sizes)
+
+
+def cache_kind(cfg, model, max_len: int) -> str:
+    """The family and its decode cache a slot: the recurrent SSM/conv
+    state (O(1) in length) and the K/V (``max_len`` positions)."""
+    leaves = model.init_cache(cfg, 1, max_len, "meta")
+    rec = set(model.recurrent_keys)
+
+    def mb(keys):
+        return sum(t.numel() * t.element_size()
+                   for k, t in leaves.items() if k in keys) / 1e6
+
+    parts = []
+    if rec:
+        parts.append(f"SSM state {mb(rec):.2f} MB a slot")
+    kv = set(leaves) - rec
+    if kv:
+        parts.append(f"K/V {mb(kv):.2f} MB a slot at {max_len} positions")
+    return f"family={cfg.family} | " + " + ".join(parts)
 
 
 def moe_shape(cfg, args: argparse.Namespace) -> str:
@@ -372,6 +446,8 @@ def main(argv=None):
           + (f" ({routes})" if routes else "")
           + f" slots={args.slots} paged={args.paged} static={args.static} "
           f"device={args.device}")
+    max_len = frontend_prefix(args, cfg) + args.prompt_len + args.gen + 1
+    print(f"[cache] {cache_kind(cfg, model, max_len)}")
     if cfg.n_experts:
         print(f"[moe] {moe_shape(cfg, args)}")
     if args.static:

@@ -98,9 +98,13 @@ def build(args: argparse.Namespace, **overrides):
         OptimizerConfig(kind="adamw", lr=args.lr, groups=SELL_GROUPS),
         cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps))
     train_step = steps_mod.make_train_step(model, cfg, opt, args.accum_steps)
-    pipeline = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=args.seq_len,
-                                      global_batch=args.global_batch))
+    pipeline = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        global_batch=args.global_batch, frontend=cfg.frontend,
+        n_frontend_tokens=(cfg.n_frontend_tokens
+                           or (args.seq_len // 4 if cfg.frontend == "audio"
+                               else 0)),
+        d_model=cfg.d_model))
     return cfg, model, opt, train_step, pipeline
 
 

@@ -1,12 +1,13 @@
-"""Model registry (port of :mod:`repro.models`; the ``decoder`` family).
+"""Model registry (port of :mod:`repro.models`): the ``decoder``,
+``ssm`` (Mamba2) and ``hybrid`` (Zamba2) families.
 
 ``get_model(cfg)`` returns the uniform functional interface::
 
     model.init(gen, cfg, device)                -> params
-    model.apply(params, tokens, cfg)            -> logits (B, S, V)
+    model.apply(params, tokens, cfg, fe)        -> logits (B, S, V)
     model.loss_fn(params, batch, cfg)           -> scalar loss
     model.init_cache(cfg, batch, max_len, device)
-    model.prefill(params, cache, tokens, cfg, lengths)
+    model.prefill(params, cache, tokens, cfg, lengths, fe)
                                                 -> (logits (B,S,V), cache)
     model.decode_step(params, cache, t, pos, cfg)  -> (logits, cache)
     model.init_cache_paged(cfg, batch, n_blocks, block_size, device)
@@ -18,11 +19,14 @@
     model.verify_step_paged(params, cache, toks, pos, tables, cfg)
                                                 -> same, paged KV
 
-The verify pair is the speculative-decoding append-and-score path (KV
-set-written, so a rollback is a position rewind); ``states`` would carry
-per-position snapshots of the ``recurrent_keys`` cache leaves, which the
-decoder has none of.  The ssm, hybrid and encdec families are not ported
-yet (ROADMAP.md).
+The paged pair is None for a family with no length-proportional K/V to
+page (mamba2's recurrent state is O(1) a slot).  The verify pair is the
+speculative-decoding append-and-score path (K/V set-written, so a
+rollback is a position rewind); ``states`` carries per-position
+snapshots of the ``recurrent_keys`` cache leaves (mamba2, zamba2), which
+cannot rewind and are re-committed at the accepted length instead.
+``fe`` is a frontend's embeddings (LLaVA's stub patch prefix).  The
+``encdec`` family (Seamless-M4T) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, zamba2
 from repro_torch.models.common import ModelConfig
 
 
@@ -51,7 +55,11 @@ class Model:
     module: Any = None
 
 
-_FAMILIES = {"decoder": transformer}
+_FAMILIES = {
+    "decoder": transformer,
+    "ssm": mamba2,
+    "hybrid": zamba2,
+}
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -64,11 +72,11 @@ def get_model(cfg: ModelConfig) -> Model:
         init=mod.init,
         apply=mod.apply,
         loss_fn=mod.loss_fn,
-        init_cache=mod.init_cache,
-        decode_step=mod.decode_step,
-        prefill=mod.prefill,
-        init_cache_paged=mod.init_cache_paged,
-        decode_step_paged=mod.decode_step_paged,
+        init_cache=getattr(mod, "init_cache", None),
+        decode_step=getattr(mod, "decode_step", None),
+        prefill=getattr(mod, "prefill", None),
+        init_cache_paged=getattr(mod, "init_cache_paged", None),
+        decode_step_paged=getattr(mod, "decode_step_paged", None),
         verify_step=getattr(mod, "verify_step", None),
         verify_step_paged=getattr(mod, "verify_step_paged", None),
         recurrent_keys=tuple(getattr(mod, "RECURRENT_CACHE_KEYS", ())),

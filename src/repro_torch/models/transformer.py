@@ -1,6 +1,8 @@
 """Decoder-only transformer LM (port of :mod:`repro.models.transformer`):
-the dense decoders (qwen3, deepseek-67b, chatglm3-6b, gemma3-27b) and
-the MoE ones (deepseek-moe-16b, moonshot-v1-16b-a3b) by config knobs.
+the dense decoders (qwen3, deepseek-67b, chatglm3-6b, gemma3-27b), the
+MoE ones (deepseek-moe-16b, moonshot-v1-16b-a3b) and llava-next-34b's
+backbone, whose first positions a vision frontend's embeddings replace,
+by config knobs.
 
 Layer parameters are stacked with a leading L axis, keyed like the
 reference pytree (``layers/attn/wo/sell/a`` is ``(L, K, N)``), so
@@ -118,10 +120,22 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device)[None].expand(b, s)
 
 
-def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig
-          ) -> torch.Tensor:
-    """Full-sequence forward -> fp32 logits (B, S, V)."""
+def embed_with_frontend(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                        frontend_embeds: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The embedded tokens (B, S, D) with the first P positions replaced
+    by a frontend's embeddings (B, P, D) (LLaVA's stub patch prefix)."""
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    if frontend_embeds is None:
+        return x
+    p = frontend_embeds.shape[1]
+    return torch.cat([frontend_embeds.to(x.dtype), x[:, p:]], dim=1)
+
+
+def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+          frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward -> fp32 logits (B, S, V)."""
+    x = embed_with_frontend(params, tokens, cfg, frontend_embeds)
     x, _ = backbone(params, x, _positions(tokens), cfg)
     return unembed(params["embed"], x)
 
@@ -129,12 +143,12 @@ def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
     ``batch["labels"]``; positions with label < 0 are masked.  MoE
-    configs add ``0.01`` times the layers' mean load-balance loss."""
-    if batch.get("frontend_embeds") is not None:
-        raise NotImplementedError(
-            "modality frontends are not ported yet (ROADMAP.md)")
+    configs add ``0.01`` times the layers' mean load-balance loss.  A
+    ``batch["frontend_embeds"]`` (B, P, D) replaces the first P embedded
+    positions (the pipeline masks their labels for a vision prefix)."""
     tokens = batch["tokens"]
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_with_frontend(params, tokens, cfg,
+                            batch.get("frontend_embeds"))
     x, aux = backbone(params, x, _positions(tokens), cfg)
     logits = unembed(params["embed"], x)
     loss = cross_entropy(logits, batch["labels"], cfg)
@@ -159,17 +173,18 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
 
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
-            cfg: ModelConfig, lengths: Optional[torch.Tensor] = None
+            cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
+            frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Forward over right-padded prompts -> (logits (B, S, V), a NEW
     cache shaped like ``cache`` holding each row's prompt K/V, zero at
-    and beyond its length)."""
+    and beyond its length); ``frontend_embeds`` as in :func:`apply`."""
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_with_frontend(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     windows = cfg.layer_windows()
     ks, vs = [], []

@@ -6,20 +6,23 @@ tick loop:
 1. **admit** — while a slot is free and requests are queued, the most
    urgent request (earliest deadline, then priority, then arrival order;
    :mod:`repro_torch.serving.scheduler`) runs ONE batch-1 prefill of its
-   context right-padded to ``max_prompt_len``, its KV is written into the
-   slot's cache row (dense) or pages (paged), and the first token is
-   sampled (the time-to-first-token mark);
+   context right-padded to ``max_prompt_len`` (a request's
+   ``frontend_embeds`` replacing its first positions), its KV is written
+   into the slot's cache row (dense) or pages (paged) and its recurrent
+   SSM/conv state (mamba2, zamba2) into the slot's row, and the first
+   token is sampled (the time-to-first-token mark);
 2. **decode** — one decode step advances every active slot by one token;
    free slots ride along parked at the row length, where the cache write
    lands nowhere (dense) or in the trash page (paged);
 3. **evict** — requests that hit EOS, their ``max_new_tokens`` budget,
    the cache ceiling or their deadline release their slot at once.
 
-Paged mode (``paged=True``) draws ``block_size``-token pages from one
-pool (:class:`repro_torch.serving.blocks.BlockAllocator`, default size =
-dense parity): admission is gated on free pages for the context plus one
-token, decode maps pages lazily, and a slot whose next page cannot be
-mapped stalls (parks for the tick).
+Paged mode (``paged=True``; refused for a family whose decode state is
+not length-proportional, the ssm one) draws ``block_size``-token pages
+from one pool (:class:`repro_torch.serving.blocks.BlockAllocator`,
+default size = dense parity): admission is gated on free pages for the
+context plus one token, decode maps pages lazily, and a slot whose next
+page cannot be mapped stalls (parks for the tick).
 
 **Preemption with recompute**: when every active slot is stalled, or a
 deadline demands the capacity, the victim's pages are released and the
@@ -152,6 +155,11 @@ class Engine:
     ):
         if model.prefill is None or model.decode_step is None:
             raise ValueError(f"family {cfg.family!r} cannot serve")
+        if paged and (model.init_cache_paged is None
+                      or model.decode_step_paged is None):
+            raise ValueError(
+                f"family {cfg.family!r} has no paged KV cache (its decode "
+                "state is not length-proportional); serve it dense")
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0 (0 disables)")
         self.model = model
@@ -782,6 +790,9 @@ class Engine:
         toks = np.zeros((1, self.max_prompt_len), np.int32)
         toks[0, :clen] = np.asarray(ctx, np.int32)
         lengths = self._dev(np.asarray([clen], np.int32))
+        fe = req.frontend_embeds
+        if fe is not None:
+            fe = torch.as_tensor(fe).to(self.device)
         if self._tracer is not None:
             self._tracer.req_phase(req.rid, "prefill", slot=slot,
                                    ctx_len=clen)
@@ -792,18 +803,18 @@ class Engine:
                 last, self._cache = self._prefill(
                     self.params, self._cache, self._slot_template,
                     self._dev(toks), lengths,
-                    self._dev(self.allocator.phys_row(slot)))
+                    self._dev(self.allocator.phys_row(slot)), slot, fe)
             else:
                 last, slot_cache = self._prefill(
                     self.params, self._slot_template, self._dev(toks),
-                    lengths)
+                    lengths, fe)
                 self._cache = self._insert(self._cache, slot_cache, slot)
             tok = int(sampler_mod.sample(last, generator=self._gen,
                                          **self._sample_args)[0])
             if self.draft is not None:
                 # the draft mirrors the slot layout: its own prefill fills
                 # its cache row, so drafting starts from the same context
-                self.draft.prefill(slot, self._dev(toks), lengths)
+                self.draft.prefill(slot, self._dev(toks), lengths, fe)
         self.stats["prefill_s"] += self._timer() - t0
         self.stats["prefill_dispatches"] += 1
         now = self._clock()

@@ -20,9 +20,11 @@ engine's slot layout.  Admission prefills its row; each speculative tick
 runs k+1 single-token ``verify_step`` calls on it (k sampled drafts plus
 one advance step, so the draft's cache covers a fully accepted run);
 after verification the engine reports each slot's committed count and
-the draft's KV rolls back by the engine's position rewind (the propose
-steps set-write).  The reference fuses the k+1 steps into one
-``lax.scan``; here they are a plain loop.
+the draft rolls back: its KV by the engine's position rewind (the
+propose steps set-write), its recurrent SSM/conv state (the ssm and
+hybrid families) by re-committing the snapshot taken after that many
+steps.  The reference fuses the k+1 steps into one ``lax.scan``; here
+they are a plain loop.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ class DraftSource(Protocol):
     def prepare(self, n_slots: int, max_len: int, k: int, sample: str,
                 temperature: float, top_k: int, top_p: float) -> None: ...
 
-    def prefill(self, slot: int, tokens, lengths) -> None: ...
+    def prefill(self, slot: int, tokens, lengths,
+                frontend_embeds=None) -> None: ...
 
     def propose(self, tokens, positions, generator): ...
 
@@ -85,14 +88,12 @@ class _EngineDraft:
         if model.verify_step is None:
             raise ValueError(
                 f"family {cfg.family!r} has no verify path to draft with")
-        if model.recurrent_keys:
-            raise NotImplementedError(
-                "drafts with recurrent cache state are not ported yet "
-                "(ROADMAP.md)")
         self.model = model
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["table"].device
+        self.rec_keys = tuple(model.recurrent_keys)
+        self._rec = None
 
     # -- engine wiring -----------------------------------------------------
 
@@ -130,10 +131,10 @@ class _EngineDraft:
                    for t in self._cache.values())
 
     def prefill(self, slot: int, tokens: torch.Tensor,
-                lengths: torch.Tensor) -> None:
+                lengths: torch.Tensor, frontend_embeds=None) -> None:
         """Admission: the draft's own prefill into the slot's row."""
         _, slot_cache = self._prefill(self.params, self._template, tokens,
-                                      lengths)
+                                      lengths, frontend_embeds)
         self._cache = self._insert(self._cache, slot_cache, slot)
 
     def propose(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -147,12 +148,19 @@ class _EngineDraft:
         k, greedy = self.k, self._sample_args["method"] == "greedy"
         tok = tokens
         drafts, lgs = [], []
+        # the recurrent leaves after 0 .. k+1 steps (each verify step
+        # returns new state tensors, so the earlier ones stay intact)
+        self._rec = ([{key: self._cache[key] for key in self.rec_keys}]
+                     if self.rec_keys else None)
         # k sampled drafts + ONE advance step feeding the last draft, so a
         # fully accepted run leaves no hole at position p + k
         for i in range(k + 1):
             logits, self._cache, _ = self.model.verify_step(
                 self.params, self._cache, tok[:, None], positions + i,
                 self.cfg)
+            if self._rec is not None:
+                self._rec.append({key: self._cache[key]
+                                  for key in self.rec_keys})
             if i == k:
                 break
             lg = logits[:, 0]
@@ -165,8 +173,20 @@ class _EngineDraft:
                 None if greedy else torch.stack(lgs, dim=1))
 
     def commit(self, n_adv) -> None:
-        """Roll back to each slot's committed length: the KV rolls back by
-        the engine's position rewind; there is no recurrent state."""
+        """Roll back to each slot's committed length ``n_adv`` (B,) (host
+        ints): the KV by the engine's position rewind, the recurrent state
+        by re-committing the propose snapshot after ``n_adv[b]`` steps."""
+        if self._rec is None:
+            return
+        cache = dict(self._cache)
+        for key in self.rec_keys:
+            leaf = self._rec[0][key]    # the cache before propose: rewrite
+            for b, n in enumerate(n_adv):
+                if n:
+                    leaf[:, b] = self._rec[int(n)][key][:, b]
+            cache[key] = leaf
+        self._cache = cache
+        self._rec = None
 
 
 class TruncatedCascadeDraft(_EngineDraft):

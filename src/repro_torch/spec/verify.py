@@ -110,9 +110,9 @@ def commit_states(cache: dict, states: dict, n_adv: torch.Tensor) -> dict:
     ``states[key]`` is ``cache[key]`` with a time axis inserted after the
     batch axis, ``(L, B, T+1, ...)`` (index j = the state after j consumed
     tokens), and ``n_adv (B,)`` is each row's consumed count (0 for parked
-    or stalled rows, which keep their incoming state).  The ported decoder
-    has no recurrent leaves, so its verify step passes no states and this
-    is never reached there; it is kept for the protocol.
+    or stalled rows, which keep their incoming state).  The ssm and
+    hybrid families' verify steps pass their SSM/conv snapshots here; the
+    decoder has no recurrent leaves and passes none.
     """
     new = dict(cache)
     for key, s in states.items():

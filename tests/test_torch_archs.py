@@ -65,10 +65,11 @@ def _pair(arch, **over):
 
 
 def test_registry_holds_the_ported_decoders():
-    assert set(treg.ARCHS) == set(ARCHS) | {"qwen3_1_7b"}
+    assert set(treg.ARCHS) == set(ARCHS) | {
+        "qwen3_1_7b", "llava_next_34b", "mamba2_1_3b", "zamba2_1_2b"}
     assert set(treg.ARCHS) <= set(jreg.ARCHS)
     with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_config("mamba2_1_3b")
+        treg.get_config("seamless_m4t_large_v2")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -34,6 +34,8 @@ from repro_torch.models import get_model as tget
 from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 
+from _torch_clock import StepClock
+
 ARCHS = ("deepseek_67b", "chatglm3_6b", "gemma3_27b", "deepseek_moe_16b",
          "moonshot_v1_16b_a3b")
 
@@ -75,7 +77,7 @@ def _serve_both(arch, **kw):
             (TEngine, TRequest, tm, tcfg, tp)):
         reqs = [req_cls(rid=i, prompt=p, max_new_tokens=8)
                 for i, p in enumerate(_prompts(cfg.vocab_size))]
-        eng = eng_cls(model, cfg, params, **kw)
+        eng = eng_cls(model, cfg, params, clock=StepClock(), **kw)
         eng.run(reqs, max_ticks=400)
         out.append(([list(map(int, r.generated)) for r in reqs],
                     [r.finish_reason for r in reqs],

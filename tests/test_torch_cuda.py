@@ -632,3 +632,68 @@ def test_paged_attention_row_blocks(dev, group, t, dtype):
         got, want, same = _paged_pair(args, p=p)
         _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
         assert same
+
+
+#: the recurrent families' and LLaVA-NeXT's operating sizes (K = N after
+#: the 128-lane padding): Mamba2's ssm_in 8576 and Zamba2's 8448 (not
+#: multiples of 256: the vector paths and the split-K slices must cover
+#: the tail), ssm_out / shared_in 4096, Zamba2's MLP 8192, LLaVA's
+#: attn_out 7168 and MLP 20480; M = 4 (decode), 20 (a 4-slot verify at
+#: k = 4) and 64 (a prefill) in bf16, and 512 in fp32 (the training step)
+SLICE_SMM = [(4, 8576), (20, 8576), (64, 8576), (512, 8576), (4, 8448),
+             (20, 8448), (4, 4096), (4, 8192), (4, 7168), (4, 20480)]
+
+
+@pytest.mark.parametrize("m,n", SLICE_SMM)
+def test_scaled_matmul_slice_shapes(dev, m, n):
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    dtype = torch.float32 if m == 512 else torch.bfloat16
+    c, _ = families.get_family("acdc").matrices(n, torch.float32, dev)
+    x = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    pre = 1.0 + 0.061 * torch.randn((n,), generator=g, device=dev)
+    got = smm_mod.scaled_matmul(x, c, pre=pre)
+    want = ref.scaled_matmul_ref(x, c, pre=pre)
+    _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+    assert torch.equal(got, smm_mod.scaled_matmul(x, c, pre=pre))
+
+
+#: the smoke Mamba2 / Zamba2 ssm_in's operating size N = 640 through the
+#: cascade (K = 2, the riffle), the fused K = 1 layer and both backwards
+@pytest.mark.parametrize("m", [4, 64, 256])
+def test_cascade_kernels_at_n640(dev, m):
+    n = 640
+    g = torch.Generator(device=dev).manual_seed(m)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    fam = families.get_family("acdc")
+    c, ct = fam.matrices(n, torch.float32, dev)
+    perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
+    mid = ct[:, perm].contiguous()
+    x, gy = r(m, n), r(m, n)
+    a, d = 1.0 + 0.061 * r(2, n), 1.0 + 0.061 * r(2, n)
+    _close(cascade_mod.acdc_cascade(x, a, d, None, c, ct, mid),
+           ref.acdc_cascade_ref(x, a, d, None, c, ct, mid), F32)
+    _close(fused_mod.acdc_fused(x, a[0], d[0], None, c, ct),
+           ref.acdc_cascade_ref(x, a[:1], d[:1], None, c, ct, None), F32)
+    _close_grads(cbwd_mod.acdc_cascade_bwd(x, gy, a, d, None, c, ct, mid),
+                 ref.acdc_cascade_bwd_ref(x, gy, a, d, None, c, ct, mid,
+                                          False), torch.float32)
+    _close_grads(bwd_mod.acdc_bwd(x, gy, a[0], d[0], c, ct, with_bias=False),
+                 ref.acdc_bwd_ref(x, gy, a[0], d[0], c, ct, False),
+                 torch.float32)
+
+
+#: Zamba2's shared attention: group 1 (32 query and KV heads of 64 dims at
+#: full width, 8 of 16 at smoke) at decode (T = 1) and verify (T = 5)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,dh", [(32, 64), (8, 16)])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_attention_group_one(dev, hkv, dh, t, dtype):
+    args = _long_paged_case(dev, 4, 80, t, dtype, hkv + t, hkv=hkv,
+                            group=1, dh=dh)
+    got, want, same = _paged_pair(args)
+    _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
+    assert same
+    assert torch.equal(got, _paged_pair(args)[0])

@@ -33,6 +33,8 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.serving.blocks import BlockAllocator as TAlloc
 from repro_torch.serving.request import make_ragged_requests as t_ragged
 
+from _torch_clock import StepClock
+
 
 @pytest.fixture(scope="module")
 def models():
@@ -64,8 +66,8 @@ def test_greedy_streams_identical_to_reference(models, paged):
              for i, p in enumerate(prompts)]
     treqs = [TRequest(rid=i, prompt=p, max_new_tokens=8)
              for i, p in enumerate(prompts)]
-    JEngine(jm, jcfg, jp, **kw).run(jreqs, max_ticks=400)
-    eng = TEngine(tm, tcfg, tp, **kw)
+    JEngine(jm, jcfg, jp, clock=StepClock(), **kw).run(jreqs, max_ticks=400)
+    eng = TEngine(tm, tcfg, tp, clock=StepClock(), **kw)
     eng.run(treqs, max_ticks=400)
     assert [list(map(int, r.generated)) for r in treqs] == \
         [list(map(int, r.generated)) for r in jreqs]
@@ -87,10 +89,10 @@ def test_tight_pool_stalls_and_ceiling(models):
     prompts = _prompts(tcfg.vocab_size)
     reqs = [[TRequest(rid=i, prompt=p, max_new_tokens=16)
              for i, p in enumerate(prompts)] for _ in range(2)]
-    TEngine(tm, tcfg, tp, n_slots=2, max_len=24,
-            max_prompt_len=12).run(reqs[0], max_ticks=400)
+    TEngine(tm, tcfg, tp, n_slots=2, max_len=24, max_prompt_len=12,
+            clock=StepClock()).run(reqs[0], max_ticks=400)
     eng = TEngine(tm, tcfg, tp, n_slots=2, max_len=24, max_prompt_len=12,
-                  paged=True, block_size=4, n_blocks=7)
+                  paged=True, block_size=4, n_blocks=7, clock=StepClock())
     eng.run(reqs[1], max_ticks=400)
     assert all(r.done for r in reqs[1])
     assert eng.stats["stalled_slot_ticks"] + eng.stats["preempted"] > 0
@@ -118,9 +120,9 @@ def test_tight_pool_requeues_like_reference(models, max_preemptions):
     treqs = [TRequest(rid=i, prompt=p, max_new_tokens=16,
                       max_preemptions=max_preemptions)
              for i, p in enumerate(prompts)]
-    jeng = JEngine(jm, jcfg, jp, **kw)
+    jeng = JEngine(jm, jcfg, jp, clock=StepClock(), **kw)
     jeng.run(jreqs, max_ticks=400)
-    eng = TEngine(tm, tcfg, tp, **kw)
+    eng = TEngine(tm, tcfg, tp, clock=StepClock(), **kw)
     eng.run(treqs, max_ticks=400)
     assert [list(map(int, r.generated)) for r in treqs] == \
         [list(map(int, r.generated)) for r in jreqs]
@@ -157,7 +159,7 @@ def test_public_preempt_requeues_like_reference(models, paged):
     for eng_cls, req_cls, model, cfg, params in (
             (JEngine, JRequest, jm, jcfg, jp),
             (TEngine, TRequest, tm, tcfg, tp)):
-        eng = eng_cls(model, cfg, params, **kw)
+        eng = eng_cls(model, cfg, params, clock=StepClock(), **kw)
         reqs = [req_cls(rid=i, prompt=p, max_new_tokens=8)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -191,13 +193,13 @@ def test_eos_stops_the_stream(models):
     kw = dict(n_slots=2, max_len=24, max_prompt_len=12)
     free = [TRequest(rid=i, prompt=p, max_new_tokens=8)
             for i, p in enumerate(prompts)]
-    TEngine(tm, tcfg, tp, **kw).run(free)
+    TEngine(tm, tcfg, tp, clock=StepClock(), **kw).run(free)
     eos = free[1].generated[3]
     cut = free[1].generated.index(eos) + 1
     reqs = [TRequest(rid=i, prompt=p, max_new_tokens=8,
                      eos_id=eos if i == 1 else None)
             for i, p in enumerate(prompts)]
-    TEngine(tm, tcfg, tp, **kw).run(reqs)
+    TEngine(tm, tcfg, tp, clock=StepClock(), **kw).run(reqs)
     assert reqs[1].finish_reason == "eos"
     assert reqs[1].generated == free[1].generated[:cut]
     assert [r.generated for i, r in enumerate(reqs) if i != 1] == \

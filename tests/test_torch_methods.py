@@ -43,6 +43,8 @@ from repro_torch.optim import schedules as tsched
 from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 
+from _torch_clock import StepClock
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 
 
@@ -76,7 +78,7 @@ def _serve_both(kind, method, **kw):
             (TEngine, TRequest, tm, tcfg, tp)):
         reqs = [req_cls(rid=i, prompt=p, max_new_tokens=8)
                 for i, p in enumerate(_prompts(cfg.vocab_size))]
-        eng_cls(model, cfg, params, **kw).run(reqs, max_ticks=400)
+        eng_cls(model, cfg, params, clock=StepClock(), **kw).run(reqs, max_ticks=400)
         out.append(([list(map(int, r.generated)) for r in reqs],
                     [r.finish_reason for r in reqs]))
     return out
@@ -132,14 +134,14 @@ def test_cascade_free_kind_drafts_only_with_skipped_layers():
     tp = bridge.to_torch(_flat(jp), device="cpu")
     kw = dict(n_slots=2, max_len=24, max_prompt_len=12, spec_k=2)
     with pytest.raises(ValueError, match="no stacked cascades"):
-        JEngine(jm, jcfg, jp, **kw)
+        JEngine(jm, jcfg, jp, clock=StepClock(), **kw)
     with pytest.raises(ValueError, match="no stacked cascades"):
-        TEngine(tm, tcfg, tp, **kw)
+        TEngine(tm, tcfg, tp, clock=StepClock(), **kw)
     streams = []
     for eng_cls, req_cls, model, cfg, params in (
             (JEngine, JRequest, jm, jcfg, jp),
             (TEngine, TRequest, tm, tcfg, tp)):
-        eng = eng_cls(model, cfg, params, draft_skip_layers=1, **kw)
+        eng = eng_cls(model, cfg, params, clock=StepClock(), draft_skip_layers=1, **kw)
         assert eng.draft.skip_layers == 1 and eng.draft.depth is None
         reqs = [req_cls(rid=i, prompt=p, max_new_tokens=6)
                 for i, p in enumerate(_prompts(cfg.vocab_size))]

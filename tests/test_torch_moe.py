@@ -41,6 +41,8 @@ from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 from repro_torch.spec import draft as tdraft
 
+from _torch_clock import StepClock
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 ARCH = "deepseek_moe_16b"
 CAPACITY = {"drops": 0.5, "no-drops": 8.0}
@@ -252,7 +254,7 @@ def test_speculative_engine_streams_match_reference(paged, monkeypatch):
             (TEngine, TRequest, tm, tcfg, tp)):
         reqs = [req_cls(rid=i, prompt=p, max_new_tokens=8)
                 for i, p in enumerate(_prompts(cfg.vocab_size))]
-        eng = eng_cls(model, cfg, params, **kw)
+        eng = eng_cls(model, cfg, params, clock=StepClock(), **kw)
         eng.run(reqs, max_ticks=400)
         out.append(([list(map(int, r.generated)) for r in reqs],
                     [r.finish_reason for r in reqs],

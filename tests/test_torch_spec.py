@@ -49,6 +49,8 @@ from repro_torch.spec import ModelDraft as TModelDraft
 from repro_torch.spec import TruncatedCascadeDraft as TTruncated
 from repro_torch.spec import verify as tverify
 
+from _torch_clock import StepClock
+
 N_SLOTS, MAX_LEN, MAX_PROMPT, SPEC_K = 2, 40, 16, 3
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -329,7 +331,7 @@ def _requests(req_cls, vocab, shapes):
 def _switch_run(eng_cls, req_cls, model, cfg, params, paged, switch):
     kw = dict(paged=True, block_size=4) if paged else {}
     reqs = _requests(req_cls, cfg.vocab_size, _shapes())
-    eng = eng_cls(model, cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+    eng = eng_cls(model, cfg, params, clock=StepClock(), n_slots=N_SLOTS, max_len=MAX_LEN,
                   max_prompt_len=MAX_PROMPT, spec_k=4 if switch else 0,
                   **kw)
     for r in reqs:

@@ -27,6 +27,8 @@ from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 from repro_torch.spec import TruncatedCascadeDraft as TTruncated
 
+from _torch_clock import StepClock
+
 N_SLOTS, MAX_LEN, MAX_PROMPT, SPEC_K = 2, 40, 16, 3
 
 
@@ -79,7 +81,7 @@ def _serve(eng_cls, req_cls, model, cfg, params, shapes, paged, **kw):
     if paged:
         kw.update(paged=True, block_size=4)
     reqs = _requests(req_cls, cfg.vocab_size, shapes)
-    eng = eng_cls(model, cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+    eng = eng_cls(model, cfg, params, clock=StepClock(), n_slots=N_SLOTS, max_len=MAX_LEN,
                   max_prompt_len=MAX_PROMPT, **kw)
     eng.run(reqs, max_ticks=600)
     assert all(r.done for r in reqs)

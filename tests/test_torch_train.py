@@ -172,8 +172,16 @@ def test_synthetic_lm_labels_and_range():
     # follow the hash in the final stream, as in the reference
     hit = (markov_next(tok[:, :-1], 300) == tok[:, 1:]).float().mean()
     assert 0.15 < float(hit) < 0.45
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSyntheticLM(TDataConfig(frontend="vision"))
+    # a vision frontend: stub patch embeddings drawn after the tokens (the
+    # tokens stay those of the same seed and step), no loss on the prefix
+    fcfg = dataclasses.replace(cfg, frontend="vision", n_frontend_tokens=5,
+                               d_model=8)
+    fb = TSyntheticLM(fcfg).batch_at(7)
+    assert torch.equal(fb["tokens"], tok)
+    assert fb["frontend_embeds"].shape == (3, 5, 8)
+    assert fb["frontend_embeds"].dtype == torch.float32
+    assert bool((fb["labels"][:, :5] == -1).all())
+    assert torch.equal(fb["labels"][:, 5:], lab[:, 5:])
 
 
 def test_markov_hash_matches_reference_on_its_tokens():

@@ -258,9 +258,10 @@ FP32_GRAD_REL_L2 = 1e-3
 #: that, so the bound sits well above it and far below a real fault
 FP32_LOSS_RTOL = 1e-4
 
-#: the recurrent families' agreement is held by drift: the kernel path's
-#: distance from an fp64-summed path (``scaled_matmul_fp64``: fp64 sums,
-#: the same roundings) within this many times the plain version's.  At
+#: the recurrent families' and Seamless-M4T's fp32 grads are held by
+#: drift: the kernel path's distance from an fp64-summed path
+#: (``kernels_in_fp64``: fp64 sums, the same roundings) within this many
+#: times the plain version's.  At
 #: random init Mamba2 and Zamba2 amplify summation order 10 - 400 x more
 #: than Qwen3 (fp32 grads kernels vs plain 1.2e-3 / 2.9e-2, where each
 #: side's own drift reads 4.4e-4 / 4.7e-3 for the kernels and 9.8e-4 /
@@ -268,7 +269,10 @@ FP32_LOSS_RTOL = 1e-4
 #: path 0.17 / 0.08 from the fp64-summed one: measured on an H100 80GB
 #: HBM3 at 700 W, PERF.md), so no fixed limit on kernels vs plain tells a
 #: fault from the plain version's own rounding; the phase-3 rule for one
-#: kernel (within 2 x the plain version's error) holds for the model
+#: kernel (within 2 x the plain version's error) holds for the model.
+#: Seamless-M4T's 24 + 24 layers: plain fp32 grads 1.2e-3 from fp64,
+#: the kernels' 4.3e-4 (``scripts/drift_vs_fp64.py`` on an H100 80GB
+#: HBM3 at 700 W, PERF.md §6)
 DRIFT_RATIO = 2.0
 
 
@@ -713,11 +717,13 @@ def fp32_gate(name, label, err):
 def check_cascade_forward(dev, randn, results):
     """acdc_cascade (K=2 with the riffle, fp32 as the smoke model) at N =
     128 / 256 (smoke attn_out / mlp), 640 (the smoke Mamba2 and Zamba2
-    ssm_in) and 1024 (the largest N the fused route takes), M = 4
-    (decode) and 64 (prefill), plus the smoke train step's M = 256 at
-    N = 256 and 640 and M = 512 at N = 1024; acdc_fused (the K=1 kernel)
-    at N = 256, M = 4 / 64, with and without bias, and at N = 640, M = 4
-    (the smoke recurrent drafts).  Each
+    ssm_in) and 1024 (the largest N the fused route takes: every
+    Seamless-M4T attn_out), M = 4 (decode) and 64 (prefill), plus the
+    smoke train step's M = 256 at N = 256 and 640, and at N = 1024
+    Seamless's encoder prefill (M = 16, 16 frames) and train step
+    (M = 512); acdc_fused (the K=1 kernel) at N = 256, M = 4 / 64, with
+    and without bias, and at N = 640 and 1024, M = 4 (the smoke
+    recurrent drafts, Seamless's depth-1 draft).  Each
     against its plain version, repeated for identical bits, its fp32
     error against an fp64 cascade within 2 x the plain version's, timed
     by device time beside the library call: one fp32 ``torch.matmul`` of
@@ -731,7 +737,7 @@ def check_cascade_forward(dev, randn, results):
 
     fam = families.get_family("acdc")
     shapes = [(m, n) for n in (128, 256, 640, 1024) for m in (4, 64)]
-    shapes += [(256, 256), (256, 640), (512, 1024)]
+    shapes += [(256, 256), (256, 640), (16, 1024), (512, 1024)]
     for m, n in shapes:
         c, ct = fam.matrices(n, torch.float32, dev)
         perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
@@ -766,7 +772,7 @@ def check_cascade_forward(dev, randn, results):
 
     for n, m, with_bias in ((256, 4, False), (256, 4, True),
                             (256, 64, False), (256, 64, True),
-                            (640, 4, False)):
+                            (640, 4, False), (1024, 4, False)):
         c, ct = fam.matrices(n, torch.float32, dev)
         x = randn(m, n)
         a = 1.0 + 0.061 * randn(n)
@@ -807,15 +813,17 @@ def check_cascade_forward(dev, randn, results):
             + 2 * n * n * 4, 4.0 * m * n * n))
 
 
-#: scaled_matmul's operating sizes on paths G - I (K = N after the
-#: 128-lane padding): (N, M of the bf16 rows, also the fp32 M = 512 x 3
-#: training triple): Mamba2's ssm_in (2048 -> 8512) at decode and
-#: prefill and in its training step; Zamba2's ssm_in (2048 -> 8384);
-#: ssm_out and Zamba2's shared_in (N = 4096); Zamba2's MLP (8192);
-#: LLaVA-NeXT-34B's attn_out (7168) and MLP (20480)
-SLICE_SMM_SHAPES = ((8576, (4, 64), True), (8448, (4,), False),
-                    (4096, (4,), False), (8192, (4,), False),
-                    (7168, (4,), False), (20480, (4,), False))
+#: scaled_matmul's operating sizes on paths G - J (K = N after the
+#: 128-lane padding): (N, M of the bf16 rows, M of the fp32 x 3 training
+#: triples): Mamba2's ssm_in (2048 -> 8512) at decode and prefill and in
+#: its training step; Zamba2's ssm_in (2048 -> 8384); ssm_out and
+#: Zamba2's shared_in (N = 4096); Zamba2's and Seamless-M4T's MLP (8192:
+#: Seamless's decode, encoder prefill of 16 frames, 64-token prefill, and
+#: its train step's decoder and encoder rows); LLaVA-NeXT-34B's attn_out
+#: (7168) and MLP (20480)
+SLICE_SMM_SHAPES = ((8576, (4, 64), (512,)), (8448, (4,), ()),
+                    (4096, (4,), ()), (8192, (4, 16, 64), (512, 128)),
+                    (7168, (4,), ()), (20480, (4,), ()))
 
 
 def check_scaled_matmul(dev, randn, results):
@@ -933,12 +941,12 @@ def check_scaled_matmul(dev, randn, results):
             bf16_row(n, m, c)
         train_rows(n, c, ct)
     # the recurrent families' and LLaVA's operating sizes
-    for n, ms, train in SLICE_SMM_SHAPES:
+    for n, ms, train_ms in SLICE_SMM_SHAPES:
         c, ct = fam.matrices(n, torch.float32, dev)
         for m in ms:
             bf16_row(n, m, c)
-        if train:
-            train_rows(n, c, ct)
+        for m in train_ms:
+            train_rows(n, c, ct, m)
         del c, ct
         release_memory()
 
@@ -1167,7 +1175,8 @@ def check_backward_kernels(dev, randn, results):
     """acdc_bwd and acdc_cascade_bwd against their plain versions at the
     smoke train step's shapes (M = 4 x 64 rows, N = 128 / 256, K = 2 with
     the riffle, bias and ReLU on and off, ragged M; K = 3) and at N = 1024
-    with the full-width step's M = 512; each run twice for identical bits.
+    with Seamless-M4T's train step's M = 128 (encoder, 4 x 32 frames) and
+    512 (decoder); each run twice for identical bits.
     A ReLU cascade gets inputs from ``relu_margin_input`` (K = 2).
     Then the per-layer cascade backward on the card (N = 1024, K = 24:
     only the backward gate fails; its report is returned)."""
@@ -1186,6 +1195,7 @@ def check_backward_kernels(dev, randn, results):
                                 (37, 256, 2, True, True),
                                 (256, 256, 3, False, False),
                                 (256, 640, 2, False, False),
+                                (128, 1024, 2, False, False),
                                 (512, 1024, 2, False, False)):
         c, ct = fam.matrices(n, torch.float32, dev)
         perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
@@ -1317,6 +1327,61 @@ def plain_kernels():
          bwd_mod.acdc_bwd, cbwd_mod.acdc_cascade_bwd) = saved
 
 
+@contextlib.contextmanager
+def kernels_in_fp64():
+    """Swap every SELL kernel wrapper for its plain version with fp64
+    products and sums, rounded back where the kernel rounds (outputs to
+    x's dtype, diagonal grads to fp32): the fp64-summed path each side's
+    fp32 drift is measured against.  ``paged_attn`` stays the kernel.
+    For comparisons only."""
+    import torch
+
+    from repro_torch.kernels import acdc_bwd as bwd_mod
+    from repro_torch.kernels import acdc_cascade_bwd as cbwd_mod
+    from repro_torch.kernels import acdc_cascade_fused as cascade_mod
+    from repro_torch.kernels import acdc_fused as fused_mod
+    from repro_torch.kernels import scaled_matmul as smm_mod
+
+    saved = (smm_mod.scaled_matmul, fused_mod.acdc_fused,
+             cascade_mod.acdc_cascade, bwd_mod.acdc_bwd,
+             cbwd_mod.acdc_cascade_bwd)
+
+    def rounded(grads, dtype):
+        dx, *rest = grads
+        return (dx.to(dtype), *(None if t is None else t.float()
+                                for t in rest))
+
+    def cascade64(x, a, d, bias, c, ct, ct_mid, relu=False):
+        return cascade_fp64(x, a, d, bias, c, ct, ct_mid, relu).to(x.dtype)
+
+    def fused64(x, a, d, bias, c, ct):
+        return cascade64(x, a[None], d[None],
+                         None if bias is None else bias[None], c, ct, None)
+
+    def cascade_bwd64(x, g, a, d, bias, c, ct, ct_mid, relu=False):
+        return rounded(cascade_bwd_fp64(x, g, a, d, bias, c, ct, ct_mid,
+                                        relu), x.dtype)
+
+    def bwd64(x, g, a, d, c, ct, with_bias=True):
+        bias = torch.zeros(1, a.shape[-1], device=x.device) \
+            if with_bias else None
+        dx, da, dd, db = cascade_bwd64(x, g, a[None], d[None], bias, c, ct,
+                                       None)
+        return dx, da[0], dd[0], None if db is None else db[0]
+
+    smm_mod.scaled_matmul = scaled_matmul_fp64
+    fused_mod.acdc_fused = fused64
+    cascade_mod.acdc_cascade = cascade64
+    bwd_mod.acdc_bwd = bwd64
+    cbwd_mod.acdc_cascade_bwd = cascade_bwd64
+    try:
+        yield
+    finally:
+        (smm_mod.scaled_matmul, fused_mod.acdc_fused,
+         cascade_mod.acdc_cascade, bwd_mod.acdc_bwd,
+         cbwd_mod.acdc_cascade_bwd) = saved
+
+
 KERNEL_MODULES = ("scaled_matmul", "acdc_cascade", "acdc_fused",
                   "paged_attn", "acdc_bwd", "acdc_cascade_bwd")
 
@@ -1431,11 +1496,13 @@ def probe_logits(model, cfg, params, dev, prefix=None) -> dict:
     """fp32 logits of one batch-1 prefill of ``PROBE_LEN`` random tokens
     (seed 3) at its last position, and of one decode step after it.
     ``prefix`` (1, P, D), a vision frontend's embeddings, goes before the
-    tokens on P placeholder positions."""
+    tokens on P placeholder positions; an encoder-decoder's frames
+    (1, F, D) feed its encoder instead."""
     import numpy as np
     import torch
 
-    p = 0 if prefix is None else prefix.shape[1]
+    p = (0 if prefix is None or cfg.family == "encdec"
+         else prefix.shape[1])
     rs = np.random.RandomState(3)
     toks = np.zeros((1, p + 64), np.int32)
     toks[0, p:p + PROBE_LEN] = rs.randint(0, cfg.vocab_size, size=PROBE_LEN)
@@ -1506,7 +1573,7 @@ def compare_full_width_logits(pieces, dev, dtype=None):
         runs = {"kernel": run()}
     for name, ctx in (("plain", plain_kernels),
                       ("kernel_stream_only", stream_regime_only),
-                      ("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)),
+                      ("fp64", kernels_in_fp64),
                       ("plain_tf32", plain_with_tf32),
                       ("no_diagonals",
                        lambda: scaled_matmul_as(scaled_matmul_without_pre))):
@@ -1626,7 +1693,7 @@ SPEC_K = 4
 UNRIFFLED = dict(sell_k=4, sell_permute=False, sell_init_std=0.02)
 
 
-def sell_projections(cfg, rows: int) -> list:
+def sell_projections(cfg, rows: int, enc_rows: int = 0) -> list:
     """``(operating size N, rows, groups, count, remat)`` of each SELL
     projection of ``cfg``'s stack over ``rows`` tokens, ``count`` its
     instances and ``remat`` whether training recomputes it in the
@@ -1635,7 +1702,10 @@ def sell_projections(cfg, rows: int) -> list:
     of each expert's capacity at ``rows`` tokens) and the shared expert's
     three.  A mamba layer (ssm, hybrid): ssm_in and ssm_out; the hybrid's
     shared block, once an application (not recomputed): shared_in,
-    attn_out and the MLP's three."""
+    attn_out and the MLP's three.  An encoder-decoder's decoder layer:
+    the self- and the cross-attention's attn_out and the MLP's three;
+    with ``enc_rows`` frames (a pass that runs the encoder: a prefill,
+    training) each encoder layer's attn_out and MLP over them too."""
     from repro_torch.models import linear, mamba2, zamba2
     from repro_torch.models import mlp as mlp_mod
 
@@ -1656,6 +1726,15 @@ def sell_projections(cfg, rows: int) -> list:
         proj += [("shared_in", 2 * d, d, rows, 1, apps, False),
                  ("attn_out", cfg.n_heads * dh, d, rows, 1, apps, False)]
         proj += ffn(cfg.d_ff, rows, 1, apps, False)
+    elif cfg.family == "encdec":
+        n, remat = cfg.n_layers, cfg.remat
+        proj += [("attn_out", cfg.n_heads * dh, d, rows, 1, 2 * n, remat)]
+        proj += ffn(cfg.d_ff, rows, 1, n, remat)
+        if enc_rows:
+            n_enc = cfg.n_encoder_layers or n
+            proj += [("attn_out", cfg.n_heads * dh, d, enc_rows, 1, n_enc,
+                      remat)]
+            proj += ffn(cfg.d_ff, enc_rows, 1, n_enc, remat)
     elif cfg.family == "decoder":
         n, remat = cfg.n_layers, cfg.remat
         proj.append(("attn_out", cfg.n_heads * dh, d, rows, 1, n, remat))
@@ -1674,25 +1753,35 @@ def sell_projections(cfg, rows: int) -> list:
 
 
 def attention_passes(cfg) -> int:
-    """Attention applications in one pass of ``cfg``'s stack: one a
-    decoder layer, one a shared-block application (hybrid), none
-    (ssm)."""
+    """Cached (self-)attention applications in one pass of ``cfg``'s
+    stack: one a decoder layer (an encoder-decoder's cross-attention
+    reads its dense cross cache), one a shared-block application
+    (hybrid), none (ssm)."""
     from repro_torch.models import zamba2
 
     if cfg.family == "hybrid":
         return len(zamba2._n_groups(cfg))
-    return {"decoder": cfg.n_layers, "ssm": 0}[cfg.family]
+    return {"decoder": cfg.n_layers, "encdec": cfg.n_layers,
+            "ssm": 0}[cfg.family]
 
 
-def forward_launches(cfg, rows: int, paged_t: int = 0):
+def prefill_frames(cfg) -> int:
+    """Audio frames the serve launcher gives each encoder-decoder request
+    (``n_frontend_tokens or 16``, ``launch/serve._make_frontend``); 0 for
+    every other family."""
+    return (cfg.n_frontend_tokens or 16) if cfg.family == "encdec" else 0
+
+
+def forward_launches(cfg, rows: int, paged_t: int = 0, enc_rows: int = 0):
     """Kernel launches of one forward pass of ``cfg`` over ``rows`` rows
-    (batch x tokens): each SELL projection (``sell_projections``, times
-    its count) launches what the port's routing gives it -- on the
-    ``pallas`` route ``kernels.ops.forward_launches`` (grouped
-    projections: one grouped ``scaled_matmul`` a call, never one an
-    expert), on every other method (``auto``, ``fft``, ``matmul``) and
-    kind no kernel at all; a paged pass adds one ``paged_attn`` an
-    attention application at T = ``paged_t``."""
+    (batch x tokens), and an encoder-decoder's encoder over ``enc_rows``
+    frames: each SELL projection (``sell_projections``, times its count)
+    launches what the port's routing gives it -- on the ``pallas`` route
+    ``kernels.ops.forward_launches`` (grouped projections: one grouped
+    ``scaled_matmul`` a call, never one an expert), on every other method
+    (``auto``, ``fft``, ``matmul``) and kind no kernel at all; a paged
+    pass adds one ``paged_attn`` an attention application at T =
+    ``paged_t``."""
     import collections
 
     from repro_torch.core import acdc as acdc_mod
@@ -1702,7 +1791,8 @@ def forward_launches(cfg, rows: int, paged_t: int = 0):
     k = cfg.sell_k
     if cfg.sell_kind != "acdc":
         k = 0
-    for n, r, groups, count, _ in sell_projections(cfg, rows) if k else ():
+    for n, r, groups, count, _ in (sell_projections(cfg, rows, enc_rows)
+                                   if k else ()):
         if acdc_mod._resolve_method(n, cfg.sell_method) != "pallas":
             continue
         one = ops.forward_launches(n, k, r, permute=cfg.sell_permute,
@@ -1764,17 +1854,20 @@ def tick_recorder():
 def expected_tick(eng, rec, prompt_rows: int):
     """The launches tick record ``rec`` of engine ``eng`` must show: a
     target prefill (and a draft prefill when the engine has a draft) for
-    every admission, then either a speculative step (k + 1 single-token
+    every admission, an encoder-decoder's each with its encoder over the
+    request's frames, then either a speculative step (k + 1 single-token
     draft passes over the dense draft cache, one verify of all slots at
     T = k + 1) or a decode step."""
     import collections
 
     want = collections.Counter()
     draft_cfg = eng.draft.cfg if eng.draft is not None else None
+    frames = prefill_frames(eng.cfg)
     for _ in range(rec["prefills"]):
-        want += forward_launches(eng.cfg, prompt_rows)
+        want += forward_launches(eng.cfg, prompt_rows, enc_rows=frames)
         if draft_cfg is not None:
-            want += forward_launches(draft_cfg, prompt_rows)
+            want += forward_launches(draft_cfg, prompt_rows,
+                                     enc_rows=frames)
     if rec["stepped"]:
         k, slots = rec["k"], eng.n_slots
         t = k + 1
@@ -1945,12 +2038,12 @@ def near_tie(model, cfg, params, context, tok_a, tok_b, dev,
              fp64=None) -> dict:
     """Whether two paths' different greedy picks ``tok_a`` / ``tok_b``
     after ``context`` are a near-tie: the gap between their logits in an
-    fp64-summed pass (every ``scaled_matmul`` in fp64, or the context
+    fp64-summed pass (every SELL kernel in fp64, or the context
     ``fp64()`` gives) is below the sum of the two sides' measured drift
     from it at that position, the tensor-core regime's (a prefill over the
     context: the verify's regime) and the weight stream's (a decode step:
     the decode's)."""
-    with (fp64 or (lambda: scaled_matmul_as(scaled_matmul_fp64)))():
+    with (fp64 or kernels_in_fp64)():
         want = logits_after(model, cfg, params, context, dev)
     drift_tc = float((logits_after(model, cfg, params, context, dev)
                       - want).abs().max())
@@ -2110,20 +2203,46 @@ def backward_without_d():
         ops._layer_bwd = saved
 
 
-def smm_launches_per_step(cfg, rows: int) -> int:
-    """scaled_matmul launches of one full-width train step over ``rows``
-    tokens: every SELL projection (``sell_projections``: attn_out and the
-    three MLP ones per layer, or the experts' three -- grouped, one launch
-    for all experts -- and the shared expert's three; ssm_in and ssm_out
-    a mamba layer; the hybrid's shared block once an application) is a
-    per-layer cascade of K two-call ACDC layers (N > MAX_FUSED_N); each
-    layer is 2 launches forward, 2 more when remat recomputes the forward
-    in the backward, and 3 in its backward (the two-call backward)."""
+def train_launches_per_step(cfg, rows: int, enc_rows: int = 0) -> dict:
+    """Kernel launches of one full-width train step over ``rows`` tokens
+    (and an encoder-decoder's ``enc_rows`` frames), by wrapper: every
+    SELL projection (``sell_projections``: attn_out and the three MLP ones
+    per layer, or the experts' three -- grouped, one launch for all
+    experts -- and the shared expert's three; ssm_in and ssm_out a mamba
+    layer; the hybrid's shared block once an application; the
+    encoder-decoder's self and cross attn_out, its encoder's attn_out and
+    the MLPs) launches its forward (``kernels.ops.forward_launches``), the
+    forward again when remat recomputes it in the backward, and its
+    backward: a fused cascade one ``acdc_cascade_bwd`` a group when the
+    reverse sweep's gate passes (else the per-layer backward: K - 1
+    ``acdc_fused`` re-walks and K ``acdc_bwd``), a per-layer cascade K
+    ``acdc_bwd`` (N <= MAX_FUSED_N) or 3 ``scaled_matmul`` a layer (the
+    two-call backward)."""
+    import collections
+
     from repro_torch.kernels import ops
 
-    return sum(count * cfg.sell_k * (2 + (2 if remat else 0) + 3)
-               for n, _, _, count, remat in sell_projections(cfg, rows)
-               if n > ops.MAX_FUSED_N)
+    k, want = cfg.sell_k, collections.Counter()
+    for n, r, groups, count, remat in sell_projections(cfg, rows, enc_rows):
+        fwd = ops.forward_launches(n, k, r, permute=cfg.sell_permute,
+                                   bias=False, groups=groups)
+        step = collections.Counter({key: v * (2 if remat else 1)
+                                    for key, v in fwd.items()
+                                    if not key.startswith("scaled_matmul_")})
+        route = ops.cascade_route(n, k, permute=cfg.sell_permute,
+                                  bias=False)
+        if route == "two_call":
+            step["scaled_matmul"] += 3 * k
+        elif route == "fused":
+            step["acdc_bwd"] += k * groups
+        elif ops.cascade_bwd_fits(n, k, permute=cfg.sell_permute,
+                                  bias=False):
+            step["acdc_cascade_bwd"] += groups
+        else:
+            step.update({"acdc_fused": (k - 1) * groups,
+                         "acdc_bwd": k * groups})
+        want.update({key: v * count for key, v in step.items()})
+    return dict(want)
 
 
 def compare_grads(model, cfg, params, batch, label="full width",
@@ -2140,7 +2259,7 @@ def compare_grads(model, cfg, params, batch, label="full width",
     sides = [("kernel", contextlib.nullcontext), ("plain", plain_kernels),
              ("no_d_in_dh1", backward_without_d)]
     if fp64:
-        sides.append(("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)))
+        sides.append(("fp64", kernels_in_fp64))
     for name, ctx in sides:
         with ctx():
             runs[name] = steps_mod.loss_and_grads(model, cfg, params, batch)
@@ -2171,10 +2290,14 @@ def train_full_width(dev, totals, arch="qwen3_1_7b", global_batch=4,
     within ``FP32_GRAD_REL_L2`` of the plain versions, or with ``hold``
     "drift" within ``DRIFT_RATIO`` x the plain version's drift from an
     fp64-summed step), then one warm-up and two timed AdamW steps with
-    exact launch counts."""
+    exact launch counts (``train_launches_per_step``; every cascade
+    backward's gate decision the reverse sweep, counted in
+    ``ops.CASCADE_BWD_DISPATCHES``).  An encoder-decoder's batch carries
+    the launcher's frames (``seq_len // 4`` a row)."""
     import torch
 
     from repro_torch.dist import steps as steps_mod
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     args = train.parse_args([
@@ -2219,12 +2342,15 @@ def train_full_width(dev, totals, arch="qwen3_1_7b", global_batch=4,
             _fail(f"{label} fp32 grads: the limit {FP32_GRAD_REL_L2} does "
                   f"not catch the faulty backward (rel L2 {control})")
 
-    want = smm_launches_per_step(cfg, tokens)
+    frames = pipeline.cfg.n_frontend_tokens if cfg.family == "encdec" else 0
+    want = train_launches_per_step(cfg, tokens,
+                                   args.global_batch * frames)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     steps = []
     for step in range(args.steps):
         before = read_counts()
+        sweeps = dict(ops.CASCADE_BWD_DISPATCHES)
         t0 = time.perf_counter()
         state, metrics = train_step(state, train.batch_on(pipeline, step,
                                                           dev))
@@ -2232,15 +2358,20 @@ def train_full_width(dev, totals, arch="qwen3_1_7b", global_batch=4,
         dt = time.perf_counter() - t0
         after = read_counts()
         delta = {k: after[k] - before[k] for k in after}
+        routed = {k: ops.CASCADE_BWD_DISPATCHES[k] - sweeps[k]
+                  for k in sweeps}
         loss = float(metrics["loss"])
         print(f"[train] {label} step {step}: loss {loss:.4f} |g| "
               f"{float(metrics['grad_norm']):.3f} {dt:.3f}s | launches "
-              f"{delta}", flush=True)
+              f"{delta} | cascade backward routes {routed}", flush=True)
         if not math.isfinite(loss):
             _fail(f"{label} step {step}: loss {loss}")
-        if delta["scaled_matmul"] != want or sum(delta.values()) != want:
-            _fail(f"{label} step {step}: launches {delta}, want "
-                  f"{want} scaled_matmul and nothing else")
+        if {k: v for k, v in delta.items() if v} != want:
+            _fail(f"{label} step {step}: launches {delta}, want {want} "
+                  f"and nothing else")
+        if routed != {"reverse_sweep": want.get("acdc_cascade_bwd", 0),
+                      "per_layer_scan": 0}:
+            _fail(f"{label} step {step}: cascade backward routes {routed}")
         steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
                           s=dt, launches=delta))
     counts = read_counts()
@@ -2252,12 +2383,13 @@ def train_full_width(dev, totals, arch="qwen3_1_7b", global_batch=4,
                 global_batch=args.global_batch, seq_len=args.seq_len,
                 steps=steps, s_per_step=s_step, tokens_per_s=tokens / s_step,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                smm_launches_per_step=want, launches=counts,
+                launches_per_step=want, frames_per_row=frames,
+                launches=counts,
                 grads=grads, fp32_limit_rel_l2=FP32_GRAD_REL_L2)
     print(f"[train] {label} ({smi_line()}): {s_step:.3f} s/step, "
           f"{info['tokens_per_s']:.1f} tokens/s, peak "
-          f"{info['peak_mem_gb']:.2f} GB, {want} scaled_matmul launches a "
-          f"step", flush=True)
+          f"{info['peak_mem_gb']:.2f} GB, launches a step {want}",
+          flush=True)
     del state
     torch.cuda.empty_cache()
     return info
@@ -2606,16 +2738,17 @@ def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
                         for r in inside) for reg in ("stream", "tc")}
     info = check_profile(label, window.logdir, window.summary, wrappers,
                          regimes)
-    # ticks 1..3 and 13..14: decode only, outside the window (tick 12
-    # pays the window's stop and trace export)
+    # ticks 1 .. first - 1 and the two after last + 1: decode only,
+    # outside the window (tick last + 1 pays the window's stop and trace
+    # export)
     info["unprofiled_tick_s"] = tick_s[1:first] + tick_s[last + 2:last + 4]
     return info
 
 
 def profile_full_width(dev):
-    """``torch.profiler`` windows at full width: 8 steady decode ticks
-    (ticks 4..11, every slot decoding, no admission) dense and paged and
-    3 steady speculative ticks paged (ticks 4..6, ``spec_k`` 4, the
+    """``torch.profiler`` windows at full width: 4 steady decode ticks
+    (ticks 4..7, every slot decoding, no admission) dense and paged and
+    2 steady speculative ticks paged (ticks 4..5, ``spec_k`` 4, the
     depth-1 draft; their ``smm_stream`` / ``smm_tc`` kernels each held to
     the launches in that regime) through the ported ``ProfileWindow``,
     one 64-token prefill admission
@@ -2641,9 +2774,9 @@ def profile_full_width(dev):
         "--device", str(dev)])
     cfg, model, params = serve.build(args)
     for label, paged, spec_k, first, last in (
-            ("decode dense", False, 0, 4, 11),
-            ("decode paged", True, 0, 4, 11),
-            ("spec paged", True, SPEC_K, 4, 6)):
+            ("decode dense", False, 0, 4, 7),
+            ("decode paged", True, 0, 4, 7),
+            ("spec paged", True, SPEC_K, 4, 5)):
         out[label] = profile_ticks(label, root, (cfg, model, params), dev,
                                    paged, spec_k, first, last)
 
@@ -3093,7 +3226,8 @@ def fig2_speed(dev) -> list:
 RECKONED_MASTERS_GB = {"deepseek_67b": 35.0, "gemma3_27b": 16.6,
                        "chatglm3_6b": 3.2, "deepseek_moe_16b": 2.3,
                        "mamba2_1_3b": 0.43, "zamba2_1_2b": 0.33,
-                       "llava_next_34b": 17.7}
+                       "llava_next_34b": 17.7,
+                       "seamless_m4t_large_v2": 1.98}
 
 #: path E, full width: (arch, requests, paged, then speculative paged)
 DENSE_FULL_WIDTH = (("gemma3_27b", 4, True, False),
@@ -3567,10 +3701,11 @@ def moe_full_width(dev, totals) -> dict:
 # Paths G, H and I: the recurrent families and the vision frontend
 # ---------------------------------------------------------------------------
 
-def logits_drift(label, pieces, dev, dtype) -> dict:
+def logits_drift(label, pieces, dev, dtype, frames=None) -> dict:
     """One prefill's and one decode step's logits (``probe_logits``) at
-    ``dtype`` compute with the kernels, the plain versions, every
-    ``scaled_matmul`` summed in fp64 and the diagonals dropped.  In fp32
+    ``dtype`` compute with the kernels, the plain versions, every SELL
+    kernel summed in fp64 (``kernels_in_fp64``) and the diagonals
+    dropped; ``frames``: an encoder-decoder's (``probe_logits``).  In fp32
     the kernel path's drift from the fp64-summed path is held within
     ``DRIFT_RATIO`` x the plain version's and the faulty path's must read
     over that; bf16 readings are reported."""
@@ -3581,11 +3716,11 @@ def logits_drift(label, pieces, dev, dtype) -> dict:
     runs = {}
     for name, ctx in (("kernel", contextlib.nullcontext),
                       ("plain", plain_kernels),
-                      ("fp64", lambda: scaled_matmul_as(scaled_matmul_fp64)),
+                      ("fp64", kernels_in_fp64),
                       ("faulty",
                        lambda: scaled_matmul_as(scaled_matmul_without_pre))):
         with ctx():
-            runs[name] = probe_logits(model, cfg, params, dev)
+            runs[name] = probe_logits(model, cfg, params, dev, frames)
     torch.cuda.synchronize()
     held = dtype == "float32"
     out = dict(compute=dtype, held=held, drift_ratio_limit=DRIFT_RATIO)
@@ -3613,13 +3748,14 @@ def logits_drift(label, pieces, dev, dtype) -> dict:
     return out
 
 
-def paged_vs_dense_logits(pieces, dev) -> dict:
-    """A hybrid's fp32 decode-step logits after the ``probe_logits``
-    prompt, through the paged admission step (16-token pages) and the
-    paged decode (``paged_attn``) against the dense prefill and decode,
-    within ``FP32_METHOD_REL_L2``; the same paged decode over a table whose
-    pages are rolled by one (the prefix read from the wrong pages) must
-    read over it."""
+def paged_vs_dense_logits(pieces, dev, frames=None) -> dict:
+    """A hybrid's (or an encoder-decoder's, its encoder over ``frames``)
+    fp32 decode-step logits after the ``probe_logits`` prompt, through
+    the paged admission step (16-token pages) and the paged decode
+    (``paged_attn``) against the dense prefill and decode, within
+    ``FP32_METHOD_REL_L2``; the same paged decode over a table whose pages
+    are rolled by one (the prefix read from the wrong pages) must read
+    over it."""
     import numpy as np
     import torch
 
@@ -3638,14 +3774,14 @@ def paged_vs_dense_logits(pieces, dev) -> dict:
     tables = torch.arange(mb, dtype=torch.int32, device=dev)[None]
 
     _, cache = model.prefill(params, model.init_cache(cfg, 1, mb * bs, dev),
-                             toks, cfg, pos)
+                             toks, cfg, pos, frames)
     dense, _ = model.decode_step(params, cache, nxt, pos, cfg)
 
     def paged(table):
         cache = model.init_cache_paged(cfg, 1, mb, bs, dev)
         step = steps_mod.make_prefill_step(model, cfg, paged=True)
         _, cache = step(params, cache, model.init_cache(cfg, 1, mb * bs, dev),
-                        toks, pos, tables[0], 0)
+                        toks, pos, tables[0], 0, frames)
         logits, _ = model.decode_step_paged(params, cache, nxt, pos, table,
                                             cfg)
         return logits
@@ -3777,6 +3913,153 @@ def llava_full_width(dev, totals) -> dict:
           f"{out['init_s']:.1f} s, transform matrices "
           f"{out['matrices_s']:.1f} s", flush=True)
     del pieces, prefix
+    release_memory()
+    return out
+
+
+def frames_vs_apply(pieces, dev, frames) -> dict:
+    """The frame fix at full width, fp32 compute.  The full config leaves
+    ``n_frontend_tokens`` unset, so a slot's cross cache holds 128 frames
+    and a request brings 16: the ``probe_logits`` prompt is prefilled with
+    ``frames`` into a batch-1 slot cache, inserted into slot 1 of a 2-slot
+    decode cache (slot 0 parked), and one decode step's logits are held
+    against ``apply`` over the same tokens and frames within
+    ``FP32_METHOD_REL_L2``.  The same decode reading all 128 frames of
+    the slot (its frame count set to 128: the reference's cross read)
+    must read over the limit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+
+    cfg, model, params = pieces
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    smax = 96
+    rs = np.random.RandomState(3)
+    ctx = rs.randint(0, cfg.vocab_size, size=PROBE_LEN + 1).astype(np.int32)
+    toks = np.zeros((1, 64), np.int32)
+    toks[0, :PROBE_LEN] = ctx[:PROBE_LEN]
+    lengths = torch.tensor([PROBE_LEN], dtype=torch.int32, device=dev)
+    _, slot_cache = steps_mod.make_prefill_step(model, cfg)(
+        params, model.init_cache(cfg, 1, smax, dev),
+        torch.from_numpy(toks).to(dev), lengths, frames)
+    cache = steps_mod.make_insert_step()(model.init_cache(cfg, 2, smax, dev),
+                                         slot_cache, 1)
+    room = int(cache["xk"].shape[2])
+    tok = torch.tensor([0, int(ctx[PROBE_LEN])], dtype=torch.int32,
+                       device=dev)
+    pos = torch.tensor([smax, PROBE_LEN], dtype=torch.int32, device=dev)
+
+    def decode(xlen):
+        c = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(),
+                 xlen=torch.tensor([room, xlen], dtype=torch.int32,
+                                   device=dev))
+        return model.decode_step(params, c, tok, pos, cfg)[0][1].float()
+
+    got = decode(int(cache["xlen"][1]))
+    unmasked = decode(room)
+    want = model.apply(params, torch.from_numpy(ctx[None]).to(dev), cfg,
+                       frames)[0, PROBE_LEN].float()
+    out = dict(limit=FP32_METHOD_REL_L2, cache_frames=room,
+               request_frames=int(frames.shape[1]),
+               decode_vs_apply=_rel_l2(got, want),
+               unmasked_decode_vs_apply=_rel_l2(unmasked, want))
+    print(f"[frames] {cfg.name} full width fp32 ({smi_line()}): "
+          f"{out['request_frames']} frames in a {room}-frame cross cache; "
+          f"decode vs apply {out['decode_vs_apply']:.3e}, all {room} frames "
+          f"read {out['unmasked_decode_vs_apply']:.3e} (limit "
+          f"{FP32_METHOD_REL_L2})", flush=True)
+    if not out["decode_vs_apply"] <= FP32_METHOD_REL_L2:
+        _fail(f"{cfg.name} decode after a short-framed prefill departs from "
+              f"apply: rel L2 {out['decode_vs_apply']}")
+    if not out["unmasked_decode_vs_apply"] > FP32_METHOD_REL_L2:
+        _fail(f"{cfg.name}: the limit does not catch a decode reading all "
+              f"{room} frames ({out['unmasked_decode_vs_apply']})")
+    return out
+
+
+def seamless_full_width(dev, totals) -> dict:
+    """Path J: Seamless-M4T-large-v2 at full width (24 + 24 layers, d
+    1024, d_ff 8192, vocab 256206), ``--sell acdc --sell-method pallas``,
+    bf16 compute, fp32 masters: 4 slots, 4 requests of <= 64 tokens plus
+    16 stub frames each (the launcher's), 16 new tokens, served dense,
+    paged (16-token pages) and ``--spec --spec-k 4`` paged with every
+    tick's launches exact (``serve_full_width``: every attn_out, self,
+    cross and encoder, an N = 1024 riffled cascade; the MLPs two-call
+    ``scaled_matmul`` at N = 8192; the depth-1 draft's attn_out
+    ``acdc_fused``); one prefill's and one decode step's logits after
+    the probe against the plain versions, held in fp32 compute within
+    ``FP32_METHOD_REL_L2`` with the diagonals-dropped control and the
+    frames zeroed over it, reported in bf16 beside each side's drift from
+    the fp64-summed path (``logits_drift``); paged against dense in
+    fp32 (``paged_vs_dense_logits``); decode against ``apply`` with 16
+    frames in the 128-frame cross cache (``frames_vs_apply``); peak
+    memory beside the reckoned fp32 masters; then 3 AdamW steps at 4 x
+    128 tokens and 32 frames a row (``train_full_width``: exact
+    ``scaled_matmul``, ``acdc_cascade`` and ``acdc_cascade_bwd`` counts;
+    fp32 grads held by drift: the plain versions' own drift from an
+    fp64-summed step is 1.2e-3, 16 x Qwen3's: ``scripts/drift_vs_fp64.py``,
+    PERF.md §6)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    arch = "seamless_m4t_large_v2"
+    argv = ["--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
+            "--slots", "4", "--prompt-len", "64", "--gen", "16",
+            "--requests", "4", "--device", "cuda"]
+    release_memory()
+    t0 = time.perf_counter()
+    pieces = model_for({}, argv)
+    cfg = pieces[0]
+    out = dict(init_s=time.perf_counter() - t0,
+               params_gb=params_gb(pieces[2]),
+               reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               cache=serve.cache_kind(cfg, pieces[1], 81),
+               matrices_s=build_matrices(cfg, dev))
+    print(f"[cache] {arch} full width: {out['cache']}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for key, paged, spec in (("serve", False, False), ("paged", True, False),
+                             ("spec", True, True)):
+        out[key] = serve_full_width(
+            f"{arch} full width {'spec ' if spec else ''}"
+            f"{'paged' if paged else 'dense'}", argv, pieces, totals, paged,
+            spec=spec)
+    for key in ("paged", "spec"):
+        out[key]["bf16_streams_equal_dense"] = sum(
+            a == b for a, b in zip(out[key]["streams"],
+                                   out["serve"]["streams"]))
+    print(f"[serve] {arch} full width bf16: streams equal to dense: paged "
+          f"{out['paged']['bf16_streams_equal_dense']}/4, spec "
+          f"{out['spec']['bf16_streams_equal_dense']}/4 (reported)",
+          flush=True)
+    frames = serve._make_frontend(
+        cfg, torch.Generator().manual_seed(7), 1).to(dev)
+    # bf16 reported: at 24 + 24 layers the plain versions' own decode
+    # logits drift 0.029 from an fp64-summed path, the kernels' 0.014
+    # (``scripts/drift_vs_fp64.py``, PERF.md §6), so a 0.03 limit between
+    # them tells no fault; fp32 held, as the deep MoE stack's logits are
+    out["logits"] = {dtype: logits_vs_plain(
+        f"{arch} full width", pieces, dev, limit,
+        lambda: scaled_matmul_as(scaled_matmul_without_pre), dtype=dtype,
+        hold=hold, prefix=frames)
+        for dtype, limit, hold in (
+            ("bfloat16", BF16_DECODE_REL_L2, ()),
+            ("float32", FP32_METHOD_REL_L2, ("prefill", "decode")))}
+    out["logits_drift_bf16"] = logits_drift(f"{arch} full width", pieces,
+                                            dev, "bfloat16", frames)
+    out["paged_vs_dense"] = paged_vs_dense_logits(pieces, dev, frames)
+    out["frames"] = frames_vs_apply(pieces, dev, frames)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+          f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
+          f" GB (reckoned {out['reckoned_masters_gb']}); init "
+          f"{out['init_s']:.1f} s, transform matrices "
+          f"{out['matrices_s']:.1f} s", flush=True)
+    del pieces, frames
+    release_memory()
+    out["train"] = train_full_width(dev, totals, arch, global_batch=4,
+                                    seq_len=128, hold="drift")
     release_memory()
     return out
 
@@ -3929,6 +4212,9 @@ def main() -> int:
     timed(report, "llava_full_width", llava_full_width, dev, totals)
     timed(report, "recurrent_smoke", smoke_configs, totals,
           ("mamba2_1_3b", "zamba2_1_2b", "llava_next_34b"), 3, True)
+    timed(report, "seamless_full_width", seamless_full_width, dev, totals)
+    timed(report, "seamless_smoke", smoke_configs, totals,
+          ("seamless_m4t_large_v2",), 3, True)
     report["launches"] = totals
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",

@@ -1,8 +1,8 @@
 """Architecture registry (port of the config half of
 :mod:`repro.configs.registry`): the decoder configurations (dense, MoE,
 and LLaVA-NeXT's backbone with its stub vision prefix), the SSM
-(Mamba2) and the hybrid (Zamba2).  The encoder-decoder architecture
-(Seamless-M4T) waits for its model family (ROADMAP.md)."""
+(Mamba2), the hybrid (Zamba2) and the encoder-decoder (Seamless-M4T,
+with a stub audio frontend): the reference's ten."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ ARCHS: Tuple[str, ...] = (
     "llava_next_34b",
     "mamba2_1_3b",
     "zamba2_1_2b",
+    "seamless_m4t_large_v2",
 )
 
 

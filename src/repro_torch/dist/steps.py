@@ -116,7 +116,8 @@ def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
     into a slab shaped like ``template``, scatters each ``*_pages`` leaf's
     slab IN PLACE into its pool through ``phys_blocks`` (the slot's table
     row, unmapped entries already routed to the trash page) and writes
-    every batch-indexed leaf (zamba2's SSM/conv state) into row ``slot``.
+    every batch-indexed leaf (zamba2's SSM/conv state, encdec's cross K/V
+    and frame count) into row ``slot`` (:func:`write_slot`).
     """
     if model.prefill is None:
         raise ValueError(f"family {cfg.family!r} has no prefill path")
@@ -138,7 +139,7 @@ def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
                     raise ValueError(f"cache leaf {key!r} is batch-indexed: "
                                      f"the paged prefill needs its slot")
                 else:
-                    leaf[:, slot] = slot_cache[key][:, 0].to(leaf.dtype)
+                    write_slot(leaf, slot_cache[key], slot)
             return _last_logits(logits, lengths), cache
 
         return paged_step
@@ -255,13 +256,29 @@ def make_verify_step(model, cfg, sample: str = "greedy",
     return step
 
 
+def write_slot(leaf: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """Write the batch-1 cache leaf ``new`` into batch row ``slot`` of
+    ``leaf`` IN PLACE: a layer-stacked leaf (L, B, ...) at ``[:, slot]``,
+    a per-slot vector (B,) (encdec's frame count ``xlen``) at ``[slot]``.
+    A leaf shorter than the slot on an axis (encdec's cross K/V holding a
+    request's F frames in a slot sized for more) fills the leading
+    entries, as the reference's ``dynamic_update_slice`` does."""
+    if leaf.dim() == 1:
+        leaf[slot] = new[0]
+        return
+    src = new[:, 0]
+    dst = leaf[:, slot]
+    dst[tuple(slice(0, n) for n in src.shape)] = src.to(leaf.dtype)
+
+
 def make_insert_step() -> Callable:
     """``insert(cache, slot_cache, slot)``: write a batch-1 slot cache
-    into batch row ``slot`` of the decode cache, in place."""
+    into batch row ``slot`` of the decode cache, in place
+    (:func:`write_slot` a leaf)."""
 
     def insert(cache, slot_cache, slot: int):
         for key, leaf in cache.items():
-            leaf[:, slot] = slot_cache[key][:, 0].to(leaf.dtype)
+            write_slot(leaf, slot_cache[key], slot)
         return cache
 
     return insert

@@ -23,7 +23,11 @@ family (``--arch mamba2_1_3b``) has no paged cache and serves dense.
 ``--frontend`` gives every request of a config with a vision frontend
 (``--arch llava_next_34b``) a stub patch prefix: ``n_frontend_tokens``
 placeholder positions before its prompt, whose embeddings the request
-carries (standard normal, fp32, drawn from ``--seed`` and its id).
+carries (standard normal, fp32, drawn from ``--seed`` and its id).  An
+encoder-decoder (``--arch seamless_m4t_large_v2``) needs no flag: every
+request, and every row of ``--static``, carries stub audio frames
+(``n_frontend_tokens or 16`` of them, drawn the same way) for its
+encoder.
 
 Overload and observability (engine path only): ``--deadline-s S`` gives
 a ``--deadline-frac`` share of the requests a latency SLO (admission turns
@@ -200,13 +204,17 @@ def build_obs(args: argparse.Namespace) -> Observability:
 
 
 def _make_frontend(cfg, gen: torch.Generator, batch: int):
-    """A vision frontend's stub patch embeddings (batch, n_frontend_tokens,
-    d_model), standard normal fp32 on the CPU; None for a config without
-    one."""
-    if cfg.frontend != "vision" or not cfg.n_frontend_tokens:
+    """Stub frontend inputs, standard normal fp32 on the CPU: an
+    encoder-decoder's audio frames (batch, n_frontend_tokens or 16,
+    d_model), a vision frontend's patch embeddings (batch,
+    n_frontend_tokens, d_model); None for a config without either."""
+    if cfg.family == "encdec":
+        frames = cfg.n_frontend_tokens or 16
+    elif cfg.frontend == "vision" and cfg.n_frontend_tokens:
+        frames = cfg.n_frontend_tokens
+    else:
         return None
-    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
-                       generator=gen)
+    return torch.randn((batch, frames, cfg.d_model), generator=gen)
 
 
 def frontend_prefix(args: argparse.Namespace, cfg) -> int:
@@ -221,7 +229,8 @@ def frontend_prefix(args: argparse.Namespace, cfg) -> int:
 def serve(args: argparse.Namespace, cfg, model, params, fault=None):
     """Run the engine over the synthetic request stream (deadlines and
     priorities from the flags; ``fault`` a ``FaultPlan``; with
-    ``--frontend`` a stub patch prefix a request); then flush the
+    ``--frontend`` a stub patch prefix a request, and an
+    encoder-decoder's requests their stub frames); then flush the
     observability bundle and write the trace.  Returns (engine, requests,
     wall seconds)."""
     obs = build_obs(args)
@@ -248,7 +257,7 @@ def serve(args: argparse.Namespace, cfg, model, params, fault=None):
                                 deadline_range=deadline_range,
                                 deadline_frac=args.deadline_frac,
                                 n_priorities=args.priorities)
-    for req in reqs if prefix else ():
+    for req in reqs if prefix or cfg.family == "encdec" else ():
         req.prompt = [0] * prefix + list(req.prompt)
         req.frontend_embeds = _make_frontend(
             cfg, torch.Generator().manual_seed(args.seed * 1_000_003
@@ -320,9 +329,10 @@ def report(eng: Engine, reqs, dt: float, trace_out=None) -> None:
 
 
 def run_static(args: argparse.Namespace, cfg, model, params):
-    """Batched prefill of ``--slots`` prompts of ``--prompt-len`` tokens,
-    then ``--gen - 1`` lockstep decode steps (no slot reuse); returns
-    (tokens (slots, gen), prefill seconds, decode seconds)."""
+    """Batched prefill of ``--slots`` prompts of ``--prompt-len`` tokens
+    (an encoder-decoder's rows with their stub frames), then ``--gen - 1``
+    lockstep decode steps (no slot reuse); returns (tokens (slots, gen),
+    prefill seconds, decode seconds)."""
     dev = torch.device(args.device)
     b, p, g = args.slots, args.prompt_len, args.gen
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -338,9 +348,13 @@ def run_static(args: argparse.Namespace, cfg, model, params):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    fe = None
+    if cfg.family == "encdec":
+        fe = _make_frontend(cfg, torch.Generator().manual_seed(args.seed),
+                            b).to(dev)
     t0 = time.perf_counter()
     lengths = torch.full((b,), p, dtype=torch.int32, device=dev)
-    last, cache = prefill(params, cache, prompts, lengths)
+    last, cache = prefill(params, cache, prompts, lengths, fe)
     tok = sampler_mod.sample(last, method=args.sample,
                              temperature=args.temperature, top_k=args.top_k,
                              top_p=args.top_p, generator=gen)
@@ -365,8 +379,12 @@ def run_static(args: argparse.Namespace, cfg, model, params):
 
 def projections(cfg) -> list:
     """``(role, n_in, n_out, count)`` of every projection of ``cfg``'s
-    stack that can be a SELL layer, ``count`` its instances (layers, or
-    the shared block's applications)."""
+    stack that can be a SELL layer and runs at each decode step,
+    ``count`` its instances (layers, or the shared block's
+    applications).  An encoder-decoder's decoder layer adds the
+    cross-attention's query and output projections; its encoder and the
+    cross K/V projections run once a request, at prefill, at the same
+    sizes."""
     from repro_torch.models import mamba2, zamba2
 
     d, dh = cfg.d_model, cfg.head_dim_
@@ -375,13 +393,17 @@ def projections(cfg) -> list:
         out += [("ssm_in", d, mamba2._proj_out(cfg), cfg.n_layers),
                 ("ssm_out", mamba2._dims(cfg)[0], d, cfg.n_layers)]
     n_attn = (len(zamba2._n_groups(cfg)) if cfg.family == "hybrid"
-              else cfg.n_layers if cfg.family == "decoder" else 0)
+              else cfg.n_layers if cfg.family in ("decoder", "encdec")
+              else 0)
     if cfg.family == "hybrid":
         out.append(("shared_in", 2 * d, d, n_attn))
     if n_attn:
         out += [("attn_qkv", d, cfg.n_heads * dh, n_attn),
                 ("attn_qkv", d, cfg.n_kv_heads * dh, 2 * n_attn),
                 ("attn_out", cfg.n_heads * dh, d, n_attn)]
+        if cfg.family == "encdec":
+            out += [("attn_qkv", d, cfg.n_heads * dh, n_attn),
+                    ("attn_out", cfg.n_heads * dh, d, n_attn)]
         # the MLP, or the experts and the shared expert (mlp roles too)
         for d_ff in ([cfg.d_ff] + ([cfg.d_ff * cfg.n_shared_experts]
                                    if cfg.n_experts and cfg.n_shared_experts

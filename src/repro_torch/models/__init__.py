@@ -1,5 +1,6 @@
 """Model registry (port of :mod:`repro.models`): the ``decoder``,
-``ssm`` (Mamba2) and ``hybrid`` (Zamba2) families.
+``encdec`` (Seamless-M4T), ``ssm`` (Mamba2) and ``hybrid`` (Zamba2)
+families.
 
 ``get_model(cfg)`` returns the uniform functional interface::
 
@@ -25,8 +26,9 @@ speculative-decoding append-and-score path (K/V set-written, so a
 rollback is a position rewind); ``states`` carries per-position
 snapshots of the ``recurrent_keys`` cache leaves (mamba2, zamba2), which
 cannot rewind and are re-committed at the accepted length instead.
-``fe`` is a frontend's embeddings (LLaVA's stub patch prefix).  The
-``encdec`` family (Seamless-M4T) is not ported yet (ROADMAP.md).
+``fe`` is a frontend's embeddings: LLaVA's stub patch prefix, or the
+stub audio frames Seamless-M4T's encoder reads (required by its
+``apply`` and by the prefill that fills a slot's cross K/V).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
-from repro_torch.models import mamba2, transformer, zamba2
+from repro_torch.models import encdec, mamba2, transformer, zamba2
 from repro_torch.models.common import ModelConfig
 
 
@@ -57,6 +59,7 @@ class Model:
 
 _FAMILIES = {
     "decoder": transformer,
+    "encdec": encdec,
     "ssm": mamba2,
     "hybrid": zamba2,
 }

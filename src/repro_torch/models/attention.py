@@ -1,5 +1,6 @@
 """Grouped-query attention with RoPE, qk-norm, sliding windows and KV
-caches (port of the self-attention half of :mod:`repro.models.attention`).
+caches, and the encoder-decoder's cross-attention (port of
+:mod:`repro.models.attention`).
 
 Prefill runs flash-structured (online softmax over KV chunks) or plain
 SDPA per ``cfg.attn_impl``.  Decode and the speculative verify are one
@@ -9,7 +10,8 @@ T = 1) against a dense ``(B, Smax, Hkv, Dh)`` cache slice, or — paged,
 attends with the paged-attention kernel.  Caches are updated IN PLACE
 (the reference returns new arrays; the port keeps one buffer and says so
 in each function).  Windows are host ints per layer (0 = global).
-Cross-attention is not ported yet.
+:func:`attention` with ``kv`` is the cross-attention (no RoPE, full
+visibility) that Seamless-M4T's encoder and decoder run.
 
 Every dense write SETS its cache rows.  The reference's dense decode adds
 into them (``cache_k + onehot * k``), which leaves a rejected draft's
@@ -37,7 +39,12 @@ from repro_torch.models.common import (
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype=torch.float32, device=DEFAULT_DEVICE) -> dict:
+                   dtype=torch.float32, device=DEFAULT_DEVICE,
+                   cross: bool = False) -> dict:
+    """Q/K/V/O projections (and the qk-norm scales).  ``cross`` (the
+    encoder-decoder's cross-attention) changes no parameter: it is kept
+    so the call reads as the reference's."""
+    del cross
     dh = cfg.head_dim_
     d = cfg.d_model
     p = {
@@ -152,6 +159,26 @@ def attention_prefill(params: dict, x: torch.Tensor,
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
                               cfg.d_model, cfg, "attn_out")
     return out, k, v
+
+
+def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
+              window: int, cfg: ModelConfig,
+              kv: Optional[Tuple[torch.Tensor, ...]] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention (``kv=None``: causal, as :func:`attention_prefill`)
+    or cross-attention over ``kv[0]`` (B, Sk, D), the encoder states: no
+    RoPE and no mask, every query sees every key (``kv_positions`` is
+    unused, as in the reference).  x (B, S, D) -> (B, S, D)."""
+    del kv_positions
+    if kv is None:
+        out, _, _ = attention_prefill(params, x, positions, window, cfg)
+        return out
+    q, k, v = _project_qkv(params, x, kv[0], cfg)
+    out = _sdpa(q, k, v, None, cfg)
+    dh = cfg.head_dim_
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * dh)
+    return linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
+                               cfg.d_model, cfg, "attn_out")
 
 
 def scatter_prefill_kv(k: torch.Tensor, v: torch.Tensor,

@@ -7,9 +7,11 @@ tick loop:
    urgent request (earliest deadline, then priority, then arrival order;
    :mod:`repro_torch.serving.scheduler`) runs ONE batch-1 prefill of its
    context right-padded to ``max_prompt_len`` (a request's
-   ``frontend_embeds`` replacing its first positions), its KV is written
-   into the slot's cache row (dense) or pages (paged) and its recurrent
-   SSM/conv state (mamba2, zamba2) into the slot's row, and the first
+   ``frontend_embeds`` replacing its first positions, or, for the encdec
+   family, which refuses a request without them, the audio frames its
+   encoder reads), its KV is written into the slot's cache row (dense) or
+   pages (paged), its recurrent SSM/conv state (mamba2, zamba2) or its
+   cross K/V and frame count (encdec) into the slot's row, and the first
    token is sampled (the time-to-first-token mark);
 2. **decode** — one decode step advances every active slot by one token;
    free slots ride along parked at the row length, where the cache write
@@ -372,6 +374,18 @@ class Engine:
         if request.deadline_s is not None and request.deadline_s <= 0:
             raise ValueError(
                 f"request {request.rid}: deadline_s must be positive")
+        if self.cfg.family == "encdec":
+            # without frames the cross K/V would stay all zero: the request
+            # would "succeed" while conditioning on a null encoder
+            fe = request.frontend_embeds
+            if fe is None:
+                raise ValueError(f"request {request.rid}: encdec family "
+                                 "needs frontend_embeds")
+            room = self._slot_template["xk"].shape[2]
+            if fe.shape[1] > room:
+                raise ValueError(
+                    f"request {request.rid}: {fe.shape[1]} frames > the "
+                    f"cross cache's {room} a slot")
         now = self._clock()
         request.t_submit = now
         tr = self._tracer

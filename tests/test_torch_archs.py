@@ -32,20 +32,11 @@ from repro_torch.configs import registry as treg
 from repro_torch.dist import steps as tsteps
 from repro_torch.models import get_model as tget
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 ARCHS = ("deepseek_67b", "chatglm3_6b", "gemma3_27b", "deepseek_moe_16b",
          "moonshot_v1_16b_a3b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many tiny torch ops; beside other test processes on
-    the same cores, torch's intra-op thread pool spins and slows them
-    ~15 x (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):
@@ -66,10 +57,12 @@ def _pair(arch, **over):
 
 def test_registry_holds_the_ported_decoders():
     assert set(treg.ARCHS) == set(ARCHS) | {
-        "qwen3_1_7b", "llava_next_34b", "mamba2_1_3b", "zamba2_1_2b"}
-    assert set(treg.ARCHS) <= set(jreg.ARCHS)
+        "qwen3_1_7b", "llava_next_34b", "mamba2_1_3b", "zamba2_1_2b",
+        "seamless_m4t_large_v2"}
+    assert len(treg.ARCHS) == 10 and set(treg.ARCHS) == set(jreg.ARCHS)
+    assert treg.get_config("seamless_m4t_large_v2").family == "encdec"
     with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_config("seamless_m4t_large_v2")
+        treg.get_config("no_such_arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

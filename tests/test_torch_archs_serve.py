@@ -20,7 +20,6 @@ reaches the live rows' routing; the port computes the kernel's function.
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import registry as jreg
 from repro.kernels import paged_attn as jpaged_attn
@@ -35,20 +34,10 @@ from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("deepseek_67b", "chatglm3_6b", "gemma3_27b", "deepseek_moe_16b",
          "moonshot_v1_16b_a3b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many tiny torch ops; beside other test processes on
-    the same cores, torch's intra-op thread pool spins and slows them
-    ~15 x (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

@@ -32,20 +32,11 @@ from repro_torch.models import get_model as tget
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 ARCHS = ("deepseek_67b", "chatglm3_6b", "gemma3_27b", "deepseek_moe_16b",
          "moonshot_v1_16b_a3b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many tiny torch ops; beside other test processes on
-    the same cores, torch's intra-op thread pool spins and slows them
-    ~15 x (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

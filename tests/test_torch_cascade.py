@@ -30,6 +30,8 @@ from repro_torch.kernels import acdc_cascade_fused as tcascade
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import scaled_matmul as tsmm
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 
 

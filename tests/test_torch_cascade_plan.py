@@ -37,6 +37,8 @@ from repro_torch.core import families as tfam
 from repro_torch.kernels import acdc_cascade_bwd as tcbwd
 from repro_torch.kernels import acdc_cascade_fused as tcascade
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 NS = (1, 37, 100, 128, 256, 384, 1000, 1024)
 MS = (1, 4, 37, 64, 256, 512)

@@ -24,6 +24,8 @@ from repro_torch.core import sell as tsell
 from repro_torch.core import transforms as ttr
 from repro_torch.models import common as tcommon
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=2e-4, rtol=1e-3)
 
 

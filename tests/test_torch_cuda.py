@@ -451,6 +451,31 @@ def test_acdc_cascade_bwd(dev, m, n, k, relu, permute, bias, dtype):
     assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
 
 
+@pytest.mark.parametrize("m", [4, 512])
+def test_seamless_attn_out_cascade_forward_and_backward(dev, m):
+    # Seamless-M4T's attn_out at full width (self, cross and encoder): N =
+    # 1024, K = 2 with the riffle, at the decode tick (M = 4) and the
+    # decoder's train step (M = 512); both gates pass, so the forward and
+    # the backward are the whole-cascade kernels
+    n, k = 1024, 2
+    assert ops.cascade_route(n, k, permute=True, bias=False) == "cascade"
+    assert ops.cascade_bwd_fits(n, k, permute=True, bias=False)
+    x, a, d, _, c, ct, mid = _cascade_case(dev, m, n, k, False, True, False,
+                                           "acdc")
+    mid = mid.contiguous()
+    got = cascade_mod.acdc_cascade(x, a, d, None, c, ct, mid)
+    _close(got, ref.acdc_cascade_ref(x, a, d, None, c, ct, mid), F32)
+    assert torch.equal(got, cascade_mod.acdc_cascade(x, a, d, None, c, ct,
+                                                     mid))
+    gy = torch.randn(m, n, generator=torch.Generator(device=dev)
+                     .manual_seed(m), device=dev)
+    grads = cbwd_mod.acdc_cascade_bwd(x, gy, a, d, None, c, ct, mid)
+    _close_grads(grads, ref.acdc_cascade_bwd_ref(x, gy, a, d, None, c, ct,
+                                                 mid), torch.float32)
+    again = cbwd_mod.acdc_cascade_bwd(x, gy, a, d, None, c, ct, mid)
+    assert all(p is None or torch.equal(p, q) for p, q in zip(grads, again))
+
+
 @pytest.mark.parametrize("m,n", [(256, 128), (256, 256), (512, 1024)])
 def test_acdc_bwd_fp32_error_within_plain(dev, m, n):
     # one layer is the K = 1 cascade: every gradient's fp32 error against

@@ -34,6 +34,7 @@ from repro_torch.serving.blocks import BlockAllocator as TAlloc
 from repro_torch.serving.request import make_ragged_requests as t_ragged
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,8 @@ from repro_torch.serving import FaultPlan as TFault
 from repro_torch.serving import FinishReason
 from repro_torch.serving import Request as TRequest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 # ---------------------------------------------------------------------------
 # FaultPlan.

@@ -34,6 +34,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import common as tcommon
 from repro_torch.models.common import ModelConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 
 

@@ -30,6 +30,8 @@ from repro_torch.kernels import acdc_fused as tfused
 from repro_torch.kernels import paged_attn as tpaged
 from repro_torch.kernels import scaled_matmul as tsmm
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 BF16 = dict(atol=2e-2, rtol=2 ** -7)
 

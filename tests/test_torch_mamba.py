@@ -43,18 +43,10 @@ from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import zamba2 as tzamba
 from repro_torch.serving import Engine as TEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 NEW_ARCHS = ("llava_next_34b", "mamba2_1_3b", "zamba2_1_2b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many tiny torch ops: one intra-op thread beside other test
-    processes on the same cores (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

@@ -44,6 +44,7 @@ from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import Request as TRequest
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=2e-4, rtol=1e-3)
 

@@ -38,6 +38,8 @@ from repro_torch.configs import registry as treg
 from repro_torch.dist import steps as tsteps
 from repro_torch.models import get_model as tget
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 BF16_ATOL = 0.25
 

@@ -42,21 +42,11 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.spec import draft as tdraft
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=2e-4, rtol=1e-3)
 ARCH = "deepseek_moe_16b"
 CAPACITY = {"drops": 0.5, "no-drops": 8.0}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many tiny torch ops; beside other test processes on
-    the same cores, torch's intra-op thread pool spins and slows them
-    ~15 x (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

@@ -53,6 +53,8 @@ from repro_torch.serving import Engine as TEngine
 from repro_torch.serving import FaultPlan as TFault
 from repro_torch.serving import Request as TRequest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 class FakeClock:
     """Deterministic virtual clock."""

@@ -33,6 +33,8 @@ import torch
 from repro.kernels import paged_attn as jpaged
 from repro_torch.kernels import paged_attn as tpaged
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 
 

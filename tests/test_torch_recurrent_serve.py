@@ -22,7 +22,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import registry as jreg
 from repro.models import get_model as jget
@@ -38,19 +37,10 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.spec import ModelDraft as TModelDraft
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 STAT_KEYS = ("drafted", "accepted", "decode_ticks", "tokens_out",
              "prefill_dispatches", "preempted", "stalled_slot_ticks")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many tiny torch ops: one intra-op thread beside other test
-    processes on the same cores (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

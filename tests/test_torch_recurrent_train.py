@@ -33,17 +33,9 @@ from repro_torch.models import get_model as tget
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many tiny torch ops: one intra-op thread beside other test
-    processes on the same cores (the numbers do not depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

@@ -31,6 +31,8 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.serving import RequestStatus
 from repro_torch.serving import Scheduler as TScheduler
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 class FakeClock:
     """Deterministic wall clock the deadline tests advance by hand."""

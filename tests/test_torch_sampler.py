@@ -14,6 +14,8 @@ import torch
 from repro.serving import sampler as jsamp
 from repro_torch.serving import sampler as tsamp
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _logits(seed=0, shape=(3, 50)):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)

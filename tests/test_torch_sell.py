@@ -33,6 +33,8 @@ from repro_torch.core import acdc as tacdc
 from repro_torch.core import sell as tsell
 from repro_torch.models import linear as tlinear
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=2e-4, rtol=1e-3)
 BF16 = dict(atol=5e-2, rtol=2 ** -6)
 METHODS = ["fft", "matmul", "auto"]

@@ -26,6 +26,8 @@ import torch
 from repro.kernels import scaled_matmul as jsmm
 from repro_torch.kernels import scaled_matmul as tsmm
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SIZES = (100, 257, 2048, 6144)
 MS = (1, 4, 16, 17, 64, 512)
 DTYPES = (torch.float32, torch.bfloat16)

@@ -50,6 +50,7 @@ from repro_torch.spec import TruncatedCascadeDraft as TTruncated
 from repro_torch.spec import verify as tverify
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_SLOTS, MAX_LEN, MAX_PROMPT, SPEC_K = 2, 40, 16, 3
 ATOL, RTOL = 2e-4, 1e-3

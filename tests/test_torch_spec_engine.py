@@ -33,6 +33,7 @@ from repro_torch.serving import Request as TRequest
 from repro_torch.spec import ModelDraft as TModelDraft
 
 from _torch_clock import StepClock
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_SLOTS, MAX_LEN, MAX_PROMPT, SPEC_K = 2, 40, 16, 3
 

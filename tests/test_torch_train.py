@@ -48,6 +48,8 @@ from repro_torch.models import get_model as tget
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=2e-4, rtol=1e-3)
 
 #: leaf paths touching every SELL_GROUPS regex and the default group

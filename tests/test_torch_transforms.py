@@ -22,6 +22,8 @@ from repro.core import transforms as jtr
 from repro_torch.core import families as tfam
 from repro_torch.core import transforms as ttr
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=2e-4, rtol=1e-3)
 BF16 = dict(atol=5e-2, rtol=2 ** -6)
 SIZES = [6, 7, 128, 384]

@@ -187,6 +187,33 @@ I. LLaVA-NeXT-34B's backbone at full width, paged: 2 requests whose
    kernels, the plain versions and without speculation; 3 train steps
    each against the plain versions (LLaVA on its frontend batches).
 
+J. Seamless-M4T-large-v2 at full width, dense, paged and speculative,
+   and trained (after path I), then its smoke width;
+K. data-parallel training (right after phase 6): a world-of-one NCCL
+   process group (``file://`` rendezvous under ``build/``) and
+   ``launch.mesh.make_host_mesh()``; full-width Qwen3-1.7B through the
+   train launcher with ``--compress-grads`` (4 x 128 tokens): on one
+   seeded state and batch, every gradient leaf's int8 bound
+   |ghat - (g + e)| <= scale / 2 and the identity ghat + new_e = g + e
+   (atol 1e-5, the reference's) on a carried residual, ``quantize_int8``
+   on the card against the CPU (entries that differ counted), equal
+   step-0 losses with and without compression; three compressed steps
+   and three uncompressed ones from that state (finite losses, SELL
+   launches exactly ``train_launches_per_step``: compression launches no
+   SELL kernel; s/step, peak memory, wire and raw bytes); the
+   accumulated transmitted gradient within half a quantization step of
+   the true sum over three steps, and over one step with the feedback
+   dropped (the faulty control); then the drain drill: the launcher at
+   smoke width under ``torchrun --standalone --nproc-per-node 1``
+   (``--compress-grads``, cascade kernels at N = 128 / 256) gets SIGTERM
+   after step 2, must drain (``[preempt]``, ``done.``) to a checkpoint
+   at or above step 3, and ``--resume`` must finish; each worker is this
+   script's ``--drill-worker`` mode, which reports the kernel launches of
+   its process: exactly ``train_launches_per_step`` at smoke width for
+   every step it ran (24 ``acdc_cascade`` and 12 ``acdc_cascade_bwd``),
+   added to the launch totals.  On the CPU the
+   launcher runs the same path over gloo (``torchrun ... --device cpu``).
+
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
 cut to keep the whole run within its time with paths G - I added.
 
@@ -2093,8 +2120,9 @@ def spec_full_width(pieces, dev, totals, nonspec_streams):
     in the weight stream at M = 4, 28 ``paged_attn`` at T = 5 a paged
     verify), s/tick, tokens/s, tokens a tick and the acceptance rate.
     bf16 streams against phase 4's non-speculative ones are reported; in
-    fp32 compute both are run again and any difference must be a
-    near-tie (``near_tie``)."""
+    fp32 compute both are run again over the first 4 requests (one wave
+    of the 4 slots) and any difference must be a near-tie
+    (``near_tie``)."""
     cfg, model, params = pieces
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     base = ["--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
@@ -2117,16 +2145,20 @@ def spec_full_width(pieces, dev, totals, nonspec_streams):
         info["bf16_vs_nonspec"] = compare_streams(
             label + " bf16", (cfg, model, params), prompts, streams_of(reqs),
             nonspec_streams[name], dev, hold=False)
+        wave = base[:-4] + ["--requests", "4"] + base[-2:] + layout
         nonspec32 = streams_of(serve_path(
-            f"full width {name} fp32 (no speculation)", base + layout,
+            f"full width {name} fp32 (no speculation)", wave,
             (cfg32, model, params), totals, ("scaled_matmul",))[1])
         info32, reqs32, _, _ = serve_path(
-            f"full width spec {name} fp32", base + layout + spec,
+            f"full width spec {name} fp32", wave + spec,
             (cfg32, model, params), totals, ("scaled_matmul",))
         spec32 = streams_of(reqs32)
+        if len(spec32) != 4 or len(nonspec32) != 4:
+            _fail(f"{label} fp32: {len(spec32)} / {len(nonspec32)} streams, "
+                  f"want 4")
         info["fp32"] = dict(info32, vs_nonspec=compare_streams(
-            label + " fp32", (cfg32, model, params), prompts, spec32,
-            nonspec32, dev, hold=True))
+            label + " fp32", (cfg32, model, params),
+            [r.prompt for r in reqs32], spec32, nonspec32, dev, hold=True))
         info["acceptance_rate_fp32"] = info32["acceptance_rate"]
         out[name] = info
     return out
@@ -2705,7 +2737,8 @@ def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
     full-width run (4 slots, 4 requests, prompts <= 64, 16 new tokens),
     held by ``check_profile``; the window must hold steady ticks only
     (no admission, speculation depth ``spec_k``), and the tick times
-    outside it are kept beside it."""
+    outside it are kept beside it.  The run stops after tick
+    ``last + 3``: nothing later is read."""
     from repro_torch.obs import Observability, Prof, ProfileWindow
     from repro_torch.serving import Engine
     from repro_torch.serving.request import make_ragged_requests
@@ -2720,7 +2753,7 @@ def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
         eng.submit(r)
     tick, counts, tick_s = 0, {}, []
     with tick_recorder() as recs:
-        while eng.has_work:
+        while eng.has_work and tick <= last + 3:
             if tick in (first, last + 1):
                 counts[tick] = read_counts()
             t0 = time.perf_counter()
@@ -3252,7 +3285,8 @@ def release_memory() -> None:
     scheduler hold each other through the scheduler's admission test, and
     with them a model's weights), and
     the cached transform matrices (an N = 22016 fp32 C and C^T take 3.9 GB
-    on the card, their fp64 source as much on the host)."""
+    on the card; the numpy-built ones' fp64 source as much on the
+    host)."""
     import torch
 
     from repro_torch.core import transforms
@@ -3261,6 +3295,8 @@ def release_memory() -> None:
     ops._mats.cache_clear()
     transforms._constant.cache_clear()
     transforms._dct_matrix_np.cache_clear()
+    transforms._dct_matrix_cuda.cache_clear()
+    transforms._idct_matrix_cuda.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4064,6 +4100,421 @@ def seamless_full_width(dev, totals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path K: data-parallel training with int8 error-feedback gradient sums
+# ---------------------------------------------------------------------------
+
+#: elementwise int8 bound |ghat - (g + e)| <= scale / 2: the fp32 quotient
+#: and product each round once (at most 127 x 2^-24 of a step, and one ulp
+#: of the value)
+INT8_STEP_SLACK = 1e-5
+#: ``ghat + new_e == g + e`` to the reference's own tolerance
+#: (tests/test_compression.py, compressed_psum on one member)
+EF_IDENTITY_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def compression_recorder(sums: dict, drop_feedback: bool = False):
+    """Record, for every gradient leaf the compressed all-reduce sees, the
+    true gradient's and the transmitted gradient's running sums (fp64)
+    and the largest block scale so far; ``drop_feedback`` is the faulty
+    control: the residual is thrown away (``new_e = 0``)."""
+    import torch
+
+    from repro_torch.dist import compression
+    from repro_torch.optim.optimizers import tree_flatten, tree_map
+
+    reduce_tree = compression.compressed_all_reduce_tree
+
+    def recorded(grads, errors, group=None):
+        total, new_e = reduce_tree(grads, errors, group)
+        paths, gs = tree_flatten(grads)
+        _, es = tree_flatten(errors)
+        _, ts = tree_flatten(total)
+        for path, g, e, t in zip(paths, gs, es, ts):
+            flat = g.float().reshape(-1) + e.reshape(-1)
+            _, scale = compression.quantize_int8(
+                torch.where(torch.isfinite(flat), flat, 0.0))
+            if path not in sums:
+                sums[path] = dict(
+                    true=torch.zeros(flat.shape, dtype=torch.float64,
+                                     device=flat.device),
+                    sent=torch.zeros(flat.shape, dtype=torch.float64,
+                                     device=flat.device),
+                    scale=torch.zeros_like(scale))
+            sums[path]["true"] += g.reshape(-1).double()
+            sums[path]["sent"] += t.reshape(-1).double()
+            torch.maximum(sums[path]["scale"], scale,
+                          out=sums[path]["scale"])
+        if drop_feedback:
+            new_e = tree_map(torch.zeros_like, new_e)
+        return total, new_e
+
+    compression.compressed_all_reduce_tree = recorded
+    try:
+        yield
+    finally:
+        compression.compressed_all_reduce_tree = reduce_tree
+
+
+def steps_from_true_sum(sums: dict) -> float:
+    """max over elements of |sum of sent - sum of true| in units of the
+    element's quantization step (its block's largest scale)."""
+    import torch
+
+    from repro_torch.dist import compression
+
+    worst = 0.0
+    for rec in sums.values():
+        n = rec["true"].numel()
+        step = rec["scale"].expand(-1, compression.BLOCK).reshape(-1)[:n]
+        gap = (rec["sent"] - rec["true"]).abs()
+        ratio = torch.where(step > 0, gap / step.double(),
+                            torch.where(gap > 0, math.inf, 0.0))
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def compressed_leaf_checks(grads: dict, errors: dict, group) -> dict:
+    """One compressed all-reduce over ``group`` of ``grads`` with carried
+    residuals ``errors``: per leaf the int8 bound and the error-feedback
+    identity, and ``quantize_int8`` on the card against the CPU (entries
+    that differ, counted)."""
+    import torch
+
+    from repro_torch.dist import compression
+    from repro_torch.optim.optimizers import tree_flatten
+
+    ghat, new_e = compression.compressed_all_reduce_tree(grads, errors,
+                                                         group)
+    out = dict(leaves=0, entries=0, worst_bound_ratio=0.0,
+               identity_max_abs=0.0, q_differ=0, scale_differ=0)
+    paths, gs = tree_flatten(grads)
+    for path, g, e, gh, ne in zip(paths, gs, tree_flatten(errors)[1],
+                                  tree_flatten(ghat)[1],
+                                  tree_flatten(new_e)[1]):
+        flat = g.float().reshape(-1) + e.reshape(-1)
+        q, scale = compression.quantize_int8(flat)
+        n = flat.numel()
+        step = scale.expand(-1, compression.BLOCK).reshape(-1)[:n]
+        err = (gh.reshape(-1).float() - flat).abs()
+        bound = step * (0.5 + INT8_STEP_SLACK) + flat.abs() * 2.0 ** -23
+        if not bool((err <= bound).all()):
+            _fail(f"[K] {path}: |ghat - (g + e)| over scale / 2 "
+                  f"({float((err - bound).max())} past the bound)")
+        ratio = torch.where(step > 0, err / step, 0.0)
+        ident = float((gh.reshape(-1).float() + ne.reshape(-1)
+                       - flat).abs().max())
+        if not ident <= EF_IDENTITY_ATOL:
+            _fail(f"[K] {path}: ghat + new_e departs from g + e by {ident}")
+        q_cpu, scale_cpu = compression.quantize_int8(flat.cpu())
+        out["q_differ"] += int((q.cpu() != q_cpu).sum())
+        out["scale_differ"] += int((scale.cpu() != scale_cpu).sum())
+        out["leaves"] += 1
+        out["entries"] += n
+        out["worst_bound_ratio"] = max(out["worst_bound_ratio"],
+                                       float(ratio.max()))
+        out["identity_max_abs"] = max(out["identity_max_abs"], ident)
+    return out
+
+
+def dist_full_width(dev, totals) -> dict:
+    """Path K: full-width Qwen3-1.7B trained data-parallel through the
+    train launcher with ``--compress-grads`` over a world-of-one NCCL
+    process group: the int8 bound, the error-feedback identity, the
+    quantizer on the card against the CPU, equal step-0 losses with and
+    without compression, three timed compressed steps (exact SELL
+    launches: compression launches no SELL kernel) beside three
+    uncompressed ones, and the faulty control (the residual dropped)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import compression
+    from repro_torch.dist import steps as steps_mod
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_map
+
+    pg = ROOT / "build" / "chip_smoke_pg"
+    pg.parent.mkdir(parents=True, exist_ok=True)
+    pg.unlink(missing_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh(1, dev.type)
+        if tuple(mesh.shape) != (1, 1):
+            _fail(f"[K] world-of-one mesh {mesh}")
+        args = train.parse_args([
+            "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
+            "pallas", "--compress-grads", "--global-batch", "4",
+            "--seq-len", "128", "--steps", "3", "--device", str(dev)])
+        cfg, model, opt, step_c, pipeline = train.build(args)
+        dp = pipeline.dp
+        backend = dist.get_backend(dp.group) if dp.group else None
+        if backend != mesh_mod.BACKENDS[dev.type]:
+            _fail(f"[K] the data group runs {backend} on {dev.type}")
+        step_u = steps_mod.make_train_step(model, cfg, opt, group=dp.group)
+        tokens = args.global_batch * args.seq_len
+        want = train_launches_per_step(cfg, tokens)
+
+        def fresh(compress: bool) -> dict:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return steps_mod.init_state(model, cfg, opt, gen, dev,
+                                        compress_dp=int(compress))
+
+        # one seeded state and batch: the bound and the identity on a
+        # carried (non-zero) residual, and the card against the CPU
+        state = fresh(True)
+        wire, raw = train._grad_wire_bytes(state["params"])
+        _, grads = steps_mod.loss_and_grads(model, cfg, state["params"],
+                                            train.batch_on(pipeline, 0, dev))
+        zeros = tree_map(lambda e: e[0], state["grad_error"])
+        _, carried = compression.compressed_all_reduce_tree(grads, zeros,
+                                                            dp.group)
+        leaf = compressed_leaf_checks(grads, carried, dp.group)
+        del state, grads, zeros, carried
+        torch.cuda.empty_cache()
+        print(f"[K] {leaf['leaves']} grad leaves, {leaf['entries']} "
+              f"entries: |ghat - (g + e)| <= {leaf['worst_bound_ratio']:.6f}"
+              f" scale, |ghat + new_e - (g + e)| <= "
+              f"{leaf['identity_max_abs']:.2e}; quantize_int8 card vs CPU: "
+              f"{leaf['q_differ']} q and {leaf['scale_differ']} scales "
+              f"differ", flush=True)
+
+        def run(label, step_fn, compress, record=None, drop=False):
+            state = fresh(compress)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = []
+            ctx = (compression_recorder(record, drop) if record is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                for step in range(args.steps):
+                    batch = train.batch_on(pipeline, step, dev)
+                    before = read_counts()
+                    t0 = time.perf_counter()
+                    state, met = step_fn(state, batch)
+                    torch.cuda.synchronize(dev)
+                    dt = time.perf_counter() - t0
+                    delta = {k: v - before[k]
+                             for k, v in read_counts().items() if v - before[k]}
+                    loss = float(met["loss"])
+                    if not math.isfinite(loss):
+                        _fail(f"[K] {label} step {step}: loss {loss}")
+                    if delta != want:
+                        _fail(f"[K] {label} step {step}: launches {delta}, "
+                              f"want {want} and nothing else")
+                    out.append(dict(loss=loss, s=dt, launches=delta,
+                                    grad_norm=float(met["grad_norm"])))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            del state
+            torch.cuda.empty_cache()
+            timed_s = [o["s"] for o in out[1:]]
+            info = dict(steps=out, s_per_step=sum(timed_s) / len(timed_s),
+                        peak_mem_gb=peak)
+            print(f"[K] {label}: losses {[o['loss'] for o in out]}, "
+                  f"{info['s_per_step']:.3f} s/step, peak {peak:.2f} GB",
+                  flush=True)
+            return info
+
+        reset_counts()
+        plain = run("uncompressed", step_u, False)
+        comp = run("compressed", step_c, True)
+        if plain["steps"][0]["loss"] != comp["steps"][0]["loss"]:
+            _fail(f"[K] step-0 loss compressed {comp['steps'][0]['loss']} "
+                  f"!= uncompressed {plain['steps'][0]['loss']}")
+        sums_ef, sums_off = {}, {}
+        run("compressed, recorded", step_c, True, sums_ef)
+        run("compressed, feedback dropped", step_c, True, sums_off,
+            drop=True)
+        counts = read_counts()
+        with_ef = steps_from_true_sum(sums_ef)
+        without = steps_from_true_sum(sums_off)
+        del sums_ef, sums_off
+        torch.cuda.empty_cache()
+        print(f"[K] accumulated transmitted gradient after {args.steps} "
+              f"steps: {with_ef:.4f} quantization steps from the true sum "
+              f"with error feedback, {without:.4f} without", flush=True)
+        if not with_ef <= 0.5 + 1e-3:
+            _fail(f"[K] with error feedback the transmitted sum drifts "
+                  f"{with_ef} steps from the true one (> 1/2)")
+        if not without > 1.0:
+            _fail(f"[K] the faulty control (no feedback) stays within one "
+                  f"quantization step ({without}): the check cannot tell")
+    finally:
+        mesh_mod.shutdown()
+    for name, n in counts.items():
+        totals[name] += n
+    info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters, "
+                       "--compress-grads over a world-of-one NCCL group",
+                global_batch=args.global_batch, seq_len=args.seq_len,
+                leaf_checks=leaf, uncompressed=plain, compressed=comp,
+                s_per_step_ratio=comp["s_per_step"] / plain["s_per_step"],
+                wire_bytes=wire, raw_bytes=raw,
+                steps_from_true_sum=dict(with_feedback=with_ef,
+                                         feedback_dropped=without),
+                launches_per_step=want, launches=counts, device=smi_line())
+    print(f"[K] ({info['device']}): compressed {comp['s_per_step']:.3f} "
+          f"s/step vs uncompressed {plain['s_per_step']:.3f} "
+          f"({info['s_per_step_ratio']:.3f}x), peak {comp['peak_mem_gb']:.2f}"
+          f" / {plain['peak_mem_gb']:.2f} GB, wire {wire} vs raw {raw} "
+          f"bytes ({wire / raw:.4f}x), launches a step {want}", flush=True)
+    return info
+
+
+def drill_worker(out: str, argv: list) -> int:
+    """One ``torchrun`` worker of the drain drill (``chip_smoke.py
+    --drill-worker OUT.json <launcher flags>``): the train launcher's
+    ``main(argv)``, then the kernel launches this process counted and the
+    steps it ran, written to ``out``."""
+    from repro_torch.launch import train
+
+    reset_counts()
+    _, hist = train.main(argv)
+    Path(out).write_text(json.dumps({"launches": read_counts(),
+                                     "steps": len(hist)}))
+    return 0
+
+
+def drain_drill(totals, device="cuda") -> dict:
+    """Path K's drain drill at smoke width: the train launcher under
+    ``torchrun --standalone --nproc-per-node 1`` with ``--compress-grads
+    --sell-method pallas`` (cascade kernels at N = 128 / 256) gets SIGTERM
+    after step 2 (the agent forwards it): it must print the ``[preempt]``
+    line and leave a checkpoint at or above step 3 and below ``--steps``;
+    ``--resume`` then prints ``resumed from step N`` and ``done.``.  Each
+    run's worker is this script's ``--drill-worker`` mode, which reports
+    the kernel launches counted in that process: both runs must launch
+    exactly ``train_launches_per_step`` at smoke width a step they ran,
+    and nothing else."""
+    import os
+    import selectors
+    import signal
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+
+    ckpt = ROOT / "build" / "chip_smoke_drain"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")]
+                   + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+
+    def flags(steps, *extra):
+        return ["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
+                "--sell-method", "pallas", "--compress-grads",
+                "--global-batch", "4", "--seq-len", "64", "--log-every",
+                "1", "--ckpt-every", "2", "--ckpt-dir", str(ckpt),
+                "--device", device, "--steps", str(steps), *extra]
+
+    def cmd(tag, steps, *extra):
+        return [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", "1",
+                str(ROOT / "chip_smoke.py"), "--drill-worker",
+                str(ckpt / f"{tag}.json"), *flags(steps, *extra)]
+
+    args = train.parse_args(flags(1))
+    cfg = registry.with_sell(registry.get_smoke_config(args.arch), args.sell,
+                             method=args.sell_method,
+                             transform=args.sell_transform)
+    per_step = train_launches_per_step(cfg, args.global_batch * args.seq_len)
+
+    def launched(tag, steps_run, text):
+        got = json.loads((ckpt / f"{tag}.json").read_text())
+        want = {k: v * steps_run for k, v in per_step.items()}
+        if (got["steps"] != steps_run
+                or {k: v for k, v in got["launches"].items() if v} != want):
+            _fail(f"[K] drain drill ({tag}): {got['steps']} steps and "
+                  f"launches {got['launches']}, want {steps_run} steps and "
+                  f"{want} ({per_step} a step) and nothing else:\n"
+                  + text[-3000:])
+        for name, n in got["launches"].items():
+            totals[name] += n
+        return got["launches"]
+
+    def run(tag, steps, *extra, stop_after=None):
+        """(returncode, output, seconds from the start to the first step
+        line, to the SIGTERM, to the exit) of one torchrun launch; with
+        ``stop_after``, SIGTERM once step ``stop_after`` is printed."""
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd(tag, steps, *extra), cwd=ROOT, env=env,
+                                text=True, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        lines, when = [], {}
+        try:
+            sel = selectors.DefaultSelector()
+            sel.register(proc.stdout, selectors.EVENT_READ)
+            deadline = time.time() + 180
+            while time.time() < deadline:
+                if not sel.select(timeout=5):
+                    continue
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                if not line.startswith("step"):
+                    continue
+                when.setdefault("first_step", time.perf_counter() - t)
+                if (stop_after is not None and "signal" not in when
+                        and int(line.split()[1]) >= stop_after):
+                    proc.send_signal(signal.SIGTERM)
+                    when["signal"] = time.perf_counter() - t
+            proc.wait(timeout=max(deadline - time.time(), 1))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        when["exit"] = time.perf_counter() - t
+        text = "".join(lines)
+        (ckpt / f"{tag}.log").write_text(text)
+        return proc.returncode, text, when
+
+    t0 = time.perf_counter()
+    rc1, out1, when1 = run("drain", 20000, stop_after=2)
+    if "signal" not in when1:
+        _fail("[K] drain drill: the launcher never reached step 2:\n"
+              + out1[-3000:])
+    saved = CheckpointManager(str(ckpt)).latest_step()
+    if ("[preempt] SIGTERM received: draining + checkpointing" not in out1
+            or "done." not in out1 or "SIGKILL" in out1):
+        _fail("[K] drain drill: the launcher did not drain and finish "
+              "inside torchrun's grace period:\n" + out1[-3000:])
+    if saved is None or not 3 <= saved < 20000:
+        _fail(f"[K] drain drill: checkpoint at {saved}, want >= 3 and "
+              f"< --steps:\n" + out1[-3000:])
+    drained = launched("drain", saved, out1)
+    final = saved + 2
+    rc2, out2, when2 = run("resume", final, "--resume")
+    if (rc2 != 0 or f"resumed from step {saved}" not in out2
+            or f"step {final - 1:5d}" not in out2 or "done." not in out2
+            or CheckpointManager(str(ckpt)).latest_step() != final):
+        _fail(f"[K] drain drill: the resume from {saved} did not finish "
+              f"(rc {rc2}):\n" + out2[-3000:])
+    resumed = launched("resume", final - saved, out2)
+    info = dict(signal_after_step=2, drained_checkpoint=saved,
+                resumed_to=final, agent_returncode=rc1,
+                launches_per_step=per_step, launches_drain=drained,
+                launches_resume=resumed, drain_s=when1, resume_s=when2,
+                seconds=time.perf_counter() - t0)
+    print(f"[K] drain drill: SIGTERM after step 2, checkpoint at {saved}, "
+          f"resumed to {final} (torchrun agent rc {rc1}); "
+          f"launches {per_step} a step in both workers (drain "
+          f"{ {k: v for k, v in drained.items() if v} }, resume "
+          f"{ {k: v for k, v in resumed.items() if v} }), "
+          f"{info['seconds']:.1f} s", flush=True)
+    print("[K] drain drill seconds from each launch: drain "
+          + ", ".join(f"{k} {v:.1f}" for k, v in when1.items())
+          + "; resume " + ", ".join(f"{k} {v:.1f}" for k, v in when2.items()),
+          flush=True)
+    return info
+
+
 def timed(report: dict, key: str, fn, *args):
     """``report[key] = fn(*args)``, its wall seconds in
     ``report["phase_s"]``."""
@@ -4190,6 +4641,8 @@ def main() -> int:
     timed(report, "methods_smoke", smoke_methods, totals, dev)
     report["paths"] = paths
     timed(report, "train_full_width", train_full_width, dev, totals)
+    timed(report, "dist_full_width", dist_full_width, dev, totals)
+    timed(report, "drain_drill", drain_drill, totals)
     timed(report, "train_methods_full_width", train_methods_full_width, dev,
           totals)
     timed(report, "train_smoke", train_smoke, totals)
@@ -4256,4 +4709,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--drill-worker"]:
+        sys.exit(drill_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

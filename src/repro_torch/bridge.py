@@ -12,8 +12,11 @@ path is its keys joined by ``/`` — the strings
   the reference side);
 * :func:`to_numpy` flattens the port's parameters back;
 * :func:`state_to_torch` / :func:`state_to_numpy` do the same for a
-  whole train state (``params/...``, ``opt/m/...``, ``opt/v/...`` and
-  ``step``), so both trainers can start from one state, mid-run too.
+  whole train state (``params/...``, ``opt/m/...``, ``opt/v/...``,
+  ``step`` and, with compression, ``grad_error/...``), so both trainers
+  can start from one state, mid-run too.  ``grad_error`` leaves keep the
+  reference's layout ``(dp, *param.shape)``, row r data rank r's
+  residual.
 """
 
 from __future__ import annotations
@@ -56,8 +59,9 @@ def to_numpy(params: dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def state_to_torch(flat: Dict[str, np.ndarray],
                    device=DEFAULT_DEVICE) -> dict:
-    """A train state ``{"params", "opt", "step"}`` from the flat paths of
-    the reference's state tree; ``step`` becomes a Python int."""
+    """A train state ``{"params", "opt", "step"[, "grad_error"]}`` from
+    the flat paths of the reference's state tree; ``step`` becomes a
+    Python int."""
     step = int(np.asarray(flat["step"]))
     state = to_torch({k: v for k, v in flat.items() if k != "step"},
                      device)

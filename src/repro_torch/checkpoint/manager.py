@@ -14,8 +14,9 @@ Leaf paths are the state's keys joined by ``/`` (``params/embed/table``,
 has no bfloat16) and cast back to the target's dtype on restore, as the
 reference casts every leaf.  ``save_async`` copies to host memory at
 once and writes from a thread (joined by the next save or ``wait``).
-Single-process: the reference's resharding onto another mesh has nothing
-to do here.
+Arrays are stored in their global layout, as the reference stores them;
+under data parallelism one rank writes (the train launcher gathers the
+per-rank ``grad_error`` rows first), and every rank restores.
 """
 
 from __future__ import annotations
@@ -114,9 +115,11 @@ class CheckpointManager:
         for s in steps[: max(0, len(steps) - self.keep)]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, device=None) -> Any:
         """A new tree shaped like ``like``: each tensor leaf takes its
-        dtype and device from ``like``, an int leaf comes back an int."""
+        dtype from ``like`` and its device from ``device`` when given
+        (``like`` may then live on ``meta``), else from ``like``; an int
+        leaf comes back an int.  A leaf takes the stored array's shape."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -130,7 +133,8 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, "arrays", entry["file"]))
             if isinstance(leaf, torch.Tensor):
                 out.append(torch.from_numpy(np.array(arr)).to(
-                    device=leaf.device, dtype=leaf.dtype))
+                    device=leaf.device if device is None else device,
+                    dtype=leaf.dtype))
             elif isinstance(leaf, int):
                 out.append(int(arr))
             else:

@@ -8,6 +8,11 @@ interchangeable forms:
   ``real_fft_matrix``, ``hadamard_matrix`` and their inverses), built by
   the SAME float64 numpy code as the reference and rounded to the
   requested dtype, so the fp32 operands match the reference bit for bit;
+  on a CUDA device the DCT pair is computed there instead, by the same
+  float64 operations in the same order (a 22016-point pair took tens of
+  seconds of host time through numpy): only ``cos`` differs, the card's
+  float64 one, so an entry of a large matrix can round to the
+  neighbouring fp32 value (tests/test_torch_cuda.py counts them);
   ``dct_via_matmul`` / ``idct_via_matmul`` multiply by them;
 * the O(N log N) transforms over ``torch.fft``: ``dct`` / ``idct``
   (Makhoul's even permutation), ``real_fft`` / ``real_ifft`` and ``fwht``.
@@ -100,16 +105,48 @@ def _idct_matrix_np(n: int) -> np.ndarray:
     return _dct_matrix_np(n).T
 
 
+@functools.lru_cache(maxsize=256)
+def _dct_matrix_cuda(n: int, dtype, device: torch.device) -> torch.Tensor:
+    """:func:`_dct_matrix_np` computed on a CUDA ``device`` in float64, a
+    block of rows at a time (~128 MB of float64 a temporary), each block
+    rounded to ``dtype``; cached as :func:`constant` caches."""
+    out = torch.empty((n, n), dtype=dtype, device=device)
+    k = torch.arange(n, dtype=torch.float64, device=device)[None, :]
+    # a divisor on the device: CUDA divides by a host scalar through its
+    # reciprocal, which rounds the angle differently from numpy
+    two_n = torch.tensor(2.0 * n, dtype=torch.float64, device=device)
+    rows = max(1, (1 << 24) // n)
+    for lo in range(0, n, rows):
+        m = torch.arange(lo, min(lo + rows, n), dtype=torch.float64,
+                         device=device)[:, None]
+        blk = torch.cos(math.pi * (2.0 * m + 1.0) * k / two_n)
+        blk *= math.sqrt(2.0 / n)
+        blk[:, 0] *= 1.0 / math.sqrt(2.0)
+        out[lo:lo + blk.shape[0]] = blk
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _idct_matrix_cuda(n: int, dtype, device: torch.device) -> torch.Tensor:
+    return _dct_matrix_cuda(n, dtype, device).t().contiguous()
+
+
 def dct_matrix(n: int, dtype=torch.float32,
                device=DEFAULT_DEVICE) -> torch.Tensor:
     """Orthonormal DCT-II matrix ``C`` with ``y = x @ C``; ``C^-1 = C.T``
     (cached: do not write to it)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _dct_matrix_cuda(n, dtype, device)
     return constant(_dct_matrix_np, n, dtype, device)
 
 
 def idct_matrix(n: int, dtype=torch.float32,
                 device=DEFAULT_DEVICE) -> torch.Tensor:
     """Inverse (DCT-III) matrix, the transpose of :func:`dct_matrix`."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _idct_matrix_cuda(n, dtype, device)
     return constant(_idct_matrix_np, n, dtype, device)
 
 

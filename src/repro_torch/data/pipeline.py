@@ -10,8 +10,8 @@ the end.  The draws come from a ``torch.Generator`` seeded from
 ``(seed, step)``, so the numbers differ from ``jax.random``'s.  A
 config with a frontend gets the reference's stub inputs: standard normal
 ``frontend_embeds`` (B, P, d_model) fp32, and for ``vision`` labels -1
-over the P-position patch prefix (no LM loss there).  The reference's
-per-host ``shard_at`` (no caller) is not ported.
+over the P-position patch prefix (no LM loss there).  ``shard_at`` gives
+one data rank its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -74,6 +74,13 @@ class SyntheticLM:
                 # prefix positions carry image patches: no LM loss there
                 labels[:, :p] = -1
         return batch
+
+    def shard_at(self, step: int, shard: int, n_shards: int) -> dict:
+        """Rows ``[shard * per, (shard + 1) * per)`` of ``batch_at(step)``,
+        ``per = global_batch // n_shards``: one data rank's slice."""
+        full = self.batch_at(step)  # cheap: synthetic; real data slices I/O
+        per = self.cfg.global_batch // n_shards
+        return {k: t[shard * per:(shard + 1) * per] for k, t in full.items()}
 
 
 def make_batch_specs(cfg: DataConfig, model_d: int = 0) -> dict:

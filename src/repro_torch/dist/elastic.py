@@ -1,15 +1,25 @@
-"""Straggler detection (port of the ``StragglerMonitor`` of
-:mod:`repro.dist.elastic`; the mesh-healing policy and the SIGTERM drain
-wait for the port of the distributed layer, ROADMAP.md).
+"""Elastic execution utilities: mesh healing, straggler detection, drain
+(port of :mod:`repro.dist.elastic`).
 
-The serving engine uses the monitor as its tick-latency watchdog (one of
-the pressure signals of the degradation ladder) and the train launcher
-over its step times.
+Model-parallel groups are load-bearing (the weights are sharded across
+them), so on device loss the policy shrinks DATA parallelism first —
+dropping whole replicas — and only degrades the model axis when fewer
+than one full model-parallel group survives.  Data-parallel size is kept a
+power of two so gradient all-reduce rings stay balanced and the synthetic
+data pipeline reshards evenly.
+
+The serving engine uses the straggler monitor as its tick-latency
+watchdog (one of the pressure signals of the degradation ladder) and the
+train launcher over its step times; the launcher polls the
+:class:`Heartbeat` once a step and drains on SIGTERM.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+import signal
+import threading
+from typing import List, Optional, Tuple
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -19,6 +29,26 @@ from repro_torch.obs import trace as obs_trace
 #: straggler pressure without threading the monitor through them
 _FLAGS = obs_metrics.REGISTRY.counter(
     "straggler_flags_total", "StragglerMonitor outlier flags")
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+@dataclasses.dataclass
+class ElasticPolicy:
+    """Resolve a (data, model) mesh shape from the surviving device count."""
+
+    model_parallel: int = 16
+
+    def resolve_mesh(self, n_devices: int) -> Tuple[int, int]:
+        if n_devices < 1:
+            raise ValueError("no devices")
+        mp = self.model_parallel
+        if n_devices >= mp:
+            return (_pow2_floor(n_devices // mp), mp)
+        # fewer devices than one model-parallel group: degrade the model axis
+        return (1, _pow2_floor(n_devices))
 
 
 class StragglerMonitor:
@@ -80,3 +110,42 @@ class StragglerMonitor:
         self._consecutive = 0
         self.ewma = (1.0 - self.alpha) * self.ewma + self.alpha * float(dt)
         return False
+
+
+class Heartbeat:
+    """SIGTERM drain flag for the train loop.
+
+    ``install()`` registers handlers and returns self; the loop polls
+    ``should_stop`` once per step and checkpoints before exiting (the
+    preemption path of :mod:`repro_torch.launch.train`, which agrees the
+    flag across ranks).  Registration is skipped outside the main thread
+    (signal handlers are main-thread-only in CPython).
+    """
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._signals = signals
+        self._stop = threading.Event()
+        self._previous = {}
+
+    def install(self) -> "Heartbeat":
+        try:
+            for s in self._signals:
+                self._previous[s] = signal.signal(s, self._handle)
+        except ValueError:
+            pass  # not the main thread
+        return self
+
+    def uninstall(self):
+        for s, prev in self._previous.items():
+            try:
+                signal.signal(s, prev)
+            except ValueError:
+                pass
+        self._previous = {}
+
+    def _handle(self, signum, frame):
+        self._stop.set()
+
+    @property
+    def should_stop(self) -> bool:
+        return self._stop.is_set()

@@ -1,17 +1,23 @@
 """Train and serve step builders (port of :mod:`repro.dist.steps`): the
-train state and train step with gradient accumulation, prefill (dense
-and paged), the decode step with on-device sampling, the speculative
-verify step, and the dense slot insert.
+train state and train step with gradient accumulation and data-parallel
+gradient sums (plain, or int8 with error feedback), prefill (dense and
+paged), the decode step with on-device sampling, the speculative verify
+step, and the dense slot insert.
 
 PyTorch runs eagerly, so a "step" is a plain closure over (model, cfg,
 opt); there is nothing to compile.  Parameters, optimizer moments and
-caches are updated in place.  The compressed gradient all-reduce and the
-sharding rules wait (ROADMAP.md).
+caches are updated in place.
 
 Train state layout (the reference's, so checkpoints and
 :mod:`repro_torch.bridge` carry it between the packages)::
 
-    {"params": <model params>, "opt": <optimizer state>, "step": int}
+    {"params": <model params>, "opt": <optimizer state>, "step": int,
+     "grad_error": <per-rank int8 residuals, with compression only>}
+
+The reference keeps ``grad_error`` as one fp32 leaf ``(dp, *param.shape)``
+a parameter, row r being data rank r's residual; that is the layout of
+checkpoints and of the bridge.  In memory a rank of the port holds only
+its own row, ``(1, *param.shape)``.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.dist import compression
 from repro_torch.models import attention as attn_mod
 from repro_torch.optim.optimizers import (global_norm, tree_flatten,
                                           tree_map, tree_unflatten)
@@ -28,10 +36,29 @@ from repro_torch.serving import sampler as sampler_mod
 
 
 def init_state(model, cfg, opt, gen: torch.Generator,
-               device=DEFAULT_DEVICE) -> dict:
-    """Train state: random params from ``gen``, zero moments, step 0."""
+               device=DEFAULT_DEVICE, compress_dp: int = 0) -> dict:
+    """Train state: random params from ``gen``, zero moments, step 0.
+
+    ``compress_dp > 0`` adds a ``grad_error`` tree of fp32 zeros
+    ``(compress_dp, *param.shape)``: the int8 residuals of that many data
+    ranks (a rank training in memory takes ``compress_dp=1``, its row).
+    """
     params = model.init(gen, cfg, device)
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    if compress_dp > 0:
+        state["grad_error"] = tree_map(
+            lambda p: torch.zeros((compress_dp,) + tuple(p.shape),
+                                  dtype=torch.float32, device=p.device),
+            params)
+    return state
+
+
+def abstract_state(model, cfg, opt, compress_dp: int = 0) -> dict:
+    """:func:`init_state`'s tree on the ``meta`` device: every shape and
+    dtype, no storage.  The parameters are drawn on ``meta`` from a CPU
+    generator, which draws nothing there."""
+    return init_state(model, cfg, opt, torch.Generator().manual_seed(0),
+                      "meta", compress_dp)
 
 
 def loss_and_grads(model, cfg, params: dict, batch: dict):
@@ -51,9 +78,21 @@ def loss_and_grads(model, cfg, params: dict, batch: dict):
     return loss.detach(), tree_unflatten(paths, grads)
 
 
-def make_train_step(model, cfg, opt, accum_steps: int = 1) -> Callable:
+def make_train_step(model, cfg, opt, accum_steps: int = 1,
+                    group: Optional[dist.ProcessGroup] = None,
+                    compress: bool = False) -> Callable:
     """``step(state, batch) -> (state, metrics)`` with metrics ``{loss,
     grad_norm, update_norm}`` (fp32 scalars).
+
+    ``group`` is the data-parallel process group: every rank passes its
+    own rows of the global batch, the gradients are summed over the group
+    and divided by its size, and the loss is the group's mean, as in the
+    reference's data-parallel step.  ``compress`` sums them with
+    :func:`repro_torch.dist.compression.compressed_all_reduce_tree`
+    (int8 quantization with error feedback; with no group, over this
+    process alone); the state must then carry this rank's ``grad_error``
+    row (``init_state(..., compress_dp=1)``).  Parameters are replicated
+    on every rank (the reference's compressed path).
 
     The parameters and moments of ``state`` are updated IN PLACE (the
     returned state holds the same tensors).  ``accum_steps > 1`` splits
@@ -81,17 +120,47 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1) -> Callable:
         inv = 1.0 / accum_steps
         return loss * inv, tree_map(lambda t: t * inv, grads)
 
+    dsize = 1 if group is None else dist.get_world_size(group)
+
+    def summed(loss, grads, error):
+        """(mean loss, mean grads, new error rows) over the group."""
+        new_error = None
+        if compress:
+            rows = tree_flatten(error)[1]
+            if any(e.shape[0] != 1 for e in rows):
+                raise ValueError("grad_error must hold this rank's row "
+                                 "only: (1, *param.shape) a leaf")
+            grads, new_err = compression.compressed_all_reduce_tree(
+                grads, tree_map(lambda e: e[0], error), group)
+            grads = tree_map(lambda g: g / dsize, grads)
+            new_error = tree_map(lambda e: e[None], new_err)
+        elif group is not None:
+            grads = tree_map(lambda g: g.contiguous(), grads)
+            for g in tree_flatten(grads)[1]:
+                dist.all_reduce(g, group=group)
+            grads = tree_map(lambda g: g / dsize, grads)
+        if group is not None:
+            loss = loss.float().clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / dsize
+        return loss, grads, new_error
+
     def step(state, batch):
         params = state["params"]
         loss, grads = grads_of(params, batch)
+        loss, grads, new_error = summed(loss, grads,
+                                        state.get("grad_error"))
         updates, new_opt = opt.update(grads, state["opt"], params,
                                       state["step"])
         with torch.no_grad():
             tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
         metrics = {"loss": loss.float(), "grad_norm": global_norm(grads),
                    "update_norm": global_norm(updates)}
-        return ({"params": params, "opt": new_opt,
-                 "step": state["step"] + 1}, metrics)
+        new_state = {"params": params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if new_error is not None:
+            new_state["grad_error"] = new_error
+        return new_state, metrics
 
     return step
 

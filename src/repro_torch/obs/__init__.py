@@ -84,6 +84,8 @@ kernel_paged_attn_dispatches_total    counter    label route=kernel|plain
 straggler_flags_total                 counter    StragglerMonitor flags
 train_step_loss                       gauge      last step loss
 train_tokens_per_s                    gauge      last step token throughput
+train_grad_compressed_bytes           gauge      int8 wire bytes per step
+train_grad_raw_bytes                  gauge      fp32 equivalent per step
 train_cascade_diag_norm               gauge      labels param=a|d, cascade=
                                                  <path>; per-cascade ||.||_2
 train_step_seconds                    histogram  step wall time

@@ -722,3 +722,51 @@ def test_paged_attention_group_one(dev, hkv, dh, t, dtype):
     _close(got, want, BF16 if dtype == torch.bfloat16 else F32)
     assert same
     assert torch.equal(got, _paged_pair(args)[0])
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4099, 1 << 20])
+def test_quantize_int8_on_the_card_equals_the_cpu(dev, n):
+    """The int8 gradient quantizer (plain PyTorch, no kernel of its own)
+    gives the CPU's ``q`` and ``scale`` bit for bit on the card, and the
+    compressed all-reduce over no group the CPU's transmitted values."""
+    from repro_torch.dist import compression
+
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=gen) * 10.0 ** torch.randint(
+        -20, 20, (n,), generator=gen).float()
+    x[::97] = 0.0
+    q, s = compression.quantize_int8(x)
+    qd, sd = compression.quantize_int8(x.to(dev))
+    assert torch.equal(qd.cpu(), q) and torch.equal(sd.cpu(), s)
+    e = 1e-3 * torch.randn(n, generator=gen)
+    x[::101] = float("inf")
+    ghat, new_e = compression.compressed_all_reduce(x, e)
+    ghat_d, new_e_d = compression.compressed_all_reduce(x.to(dev), e.to(dev))
+    assert torch.equal(ghat_d.cpu(), ghat)
+    flat = torch.where(torch.isfinite(x + e), x + e, 0.0)
+    torch.testing.assert_close(new_e_d.cpu(), new_e, rtol=0,
+                               atol=2 * float(torch.finfo(torch.float32).eps
+                                              * flat.abs().max()))
+
+
+@pytest.mark.parametrize("n", [256, 2048, 6144])
+def test_dct_matrices_on_the_card_match_numpy(dev, n):
+    """The DCT pair computed on the card (the same float64 operations as
+    the numpy build, only ``cos`` the card's) rounds to the CPU's fp32
+    matrices but for at most one ulp at a few entries; C^-1 is C^T bit
+    for bit."""
+    import numpy as np
+
+    from repro_torch.core import transforms
+
+    c = transforms.dct_matrix(n, torch.float32, dev).cpu()
+    ct = transforms.idct_matrix(n, torch.float32, dev).cpu()
+    want = torch.from_numpy(transforms._dct_matrix_np(n)).float()
+    assert torch.equal(ct, c.t())
+    ulp = torch.from_numpy(np.spacing(want.abs().numpy()))
+    diff = (c - want).abs()
+    assert (diff <= ulp).all(), float((diff / ulp).max())
+    differ = int((diff > 0).sum())
+    print(f"dct_matrix({n}) on the card: {differ} of {n * n} fp32 entries "
+          f"one ulp from numpy's")
+    assert differ <= max(4, n * n // 10 ** 6)

@@ -37,6 +37,27 @@ result line if any fails):
    expert shapes (64 experts' diagonals over M = 64, 448, 3840 rows of
    K = N = 2048) beside a loop of 64 ungrouped calls and one
    ``torch.matmul`` of the pre-scaled operand;
+3b. ``autotune`` (``kernels/autotune.py``): from here on every cascade
+   kernel call through ``kernels.ops`` and every ``paged_attention`` call
+   takes its launch plan from an on-card sweep of the cost model's
+   candidates at its key's first call (phase 3's paged rows swept
+   theirs already; phase 3's cascade rows are the cost model's plans,
+   launched without one).  The phase starts from an empty
+   ``build/autotune_cache.json`` and sweeps path J's full-width keys
+   (``acdc_cascade`` at N = 1024, K = 2, riffle, M = 4, 16, 20, 64, 128,
+   512; ``acdc_cascade_bwd`` at M = 128, 512; the depth-1 draft's
+   ``acdc_fused``; ``paged_attn`` group 1, Dh 64), Qwen3's paged
+   attention (group 2, Dh 128, T = 1, 3, 5) and the smoke width's keys
+   (N = 128 / 256 / 640, K = 1 / 2: phases 5 and 7, the drain drill, the
+   smoke Mamba2); one line a key: its candidates, the cost model's plan
+   and the winner with their device times and the sweep's seconds; each
+   winner held against the plain version (fp32 atol 2e-4, rtol 1e-3,
+   bitwise on a repeat, the cascades' fp32 error against fp64 within 2 x
+   the plain version's).  Every later engine resolves its keys when it is
+   built (``plans_at_engine_build``); a sweep inside a recorded tick or a
+   profiled window fails; each phase's sweeps and their seconds go to
+   ``report["autotune"]``; at the end every plan the memo holds is held
+   against the plain version again (``hold_memo``);
 4. serve full-width Qwen3-1.7B with ACDC projections (``--sell acdc
    --sell-method pallas``) through the launcher's functions, dense then
    paged, counting kernel launches; compare one prefill's and one decode
@@ -188,7 +209,9 @@ I. LLaVA-NeXT-34B's backbone at full width, paged: 2 requests whose
    each against the plain versions (LLaVA on its frontend batches).
 
 J. Seamless-M4T-large-v2 at full width, dense, paged and speculative,
-   and trained (after path I), then its smoke width;
+   and trained (after path I), then its smoke width, on the autotuned
+   plans (decode tick, prefill and s/step printed beside the last ones
+   measured on the cost model's plans, PERF.md);
 K. data-parallel training (right after phase 6): a world-of-one NCCL
    process group (``file://`` rendezvous under ``build/``) and
    ``launch.mesh.make_host_mesh()``; full-width Qwen3-1.7B through the
@@ -211,7 +234,9 @@ K. data-parallel training (right after phase 6): a world-of-one NCCL
    script's ``--drill-worker`` mode, which reports the kernel launches of
    its process: exactly ``train_launches_per_step`` at smoke width for
    every step it ran (24 ``acdc_cascade`` and 12 ``acdc_cascade_bwd``),
-   added to the launch totals.  On the CPU the
+   added to the launch totals; both read this process's autotune file
+   (``REPRO_AUTOTUNE_CACHE_PATH``) and must sweep nothing and hold its
+   winners for their keys.  On the CPU the
    launcher runs the same path over gloo (``torchrun ... --device cpu``).
 
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
@@ -569,6 +594,7 @@ def check_paged_attn(dev, randn, results):
     mask where the slots' prefixes differ or T > 1)."""
     import torch
 
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import paged_attn as pa_mod
     from repro_torch.kernels import ref
 
@@ -617,7 +643,12 @@ def check_paged_attn(dev, randn, results):
                    plain_host_us=phost_us, library_ms=None, bound_ms=b,
                    bound_by=by, bytes=nbytes, streamed_bytes=streamed,
                    bitwise_repeat=True)
-        row["plan"] = dataclasses.asdict(pa_mod.plan_of(q, kp, tables))
+        # the launch the wrapper made (autotuned: swept at this row's first
+        # call) beside the cost model's
+        row["plan"] = dataclasses.asdict(autotune.autotuned_plan(
+            "paged_attn", *pa_mod.plan_dims(q, kp, tables), device=dev))
+        row["cost_model_plan"] = dataclasses.asdict(pa_mod.plan_of(
+            q, kp, tables))
         if length is None:
             row["ms_cold"] = time_cold_ms(kernel)
         lib, live = sdpa_library(q, kp, vp, tables, positions, kn, vn,
@@ -1301,6 +1332,380 @@ def check_backward_kernels(dev, randn, results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the launch plans swept on the card (``kernels/autotune.py``)
+# ---------------------------------------------------------------------------
+
+#: the serving flags of the autotune phase's keys: path J's and phase 4's
+#: full-width requests (4 slots, prompts <= 64, 16 new tokens, 16-token
+#: pages, ``--spec-k 4``), and the smoke width's (prompts <= 12, 8 new
+#: tokens, 4-token pages)
+AUTOTUNE_FULL = ["--slots", "4", "--prompt-len", "64", "--gen", "16",
+                 "--paged", "--block-size", "16", "--spec", "--spec-k",
+                 "4"]
+AUTOTUNE_SMOKE = ["--smoke", "--slots", "4", "--prompt-len", "12", "--gen",
+                  "8", "--paged", "--block-size", "4", "--spec", "--spec-k",
+                  "4"]
+
+
+def config_of(argv, **overrides):
+    """(cfg, args) of the serve launcher's flags ``argv`` (no weights)."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(argv)
+    return serve.config(args, **overrides), args
+
+
+def sell_requests(cfg, rows: int, enc_rows: int = 0,
+                  train: bool = False) -> set:
+    """The autotune requests ``(direction, M, N, K, dtype, bias, permute,
+    family)`` of one forward of ``cfg`` over ``rows`` rows (and
+    ``enc_rows`` encoder frames), with ``train`` its backward's too: each
+    SELL projection on the cascade kernels (``sell_projections``; a
+    grouped one once a group on its rows), routed as
+    ``kernels.ops`` routes it."""
+    from repro_torch.core import acdc as acdc_mod
+    from repro_torch.kernels import ops
+
+    out = set()
+    if cfg.sell_kind != "acdc":
+        return out
+    k, permute, fam = cfg.sell_k, cfg.sell_permute, cfg.sell_transform
+    dt = cfg.compute_dtype
+    for n, r, groups, _, _ in sell_projections(cfg, rows, enc_rows):
+        if (acdc_mod._resolve_method(n, cfg.sell_method) != "pallas"
+                or n > ops.MAX_FUSED_N):
+            continue
+        m = r // groups
+        if ops.cascade_route(n, k, permute=permute, bias=False) == "cascade":
+            out.add(("cascade", m, n, k, dt, False, permute, fam))
+            if train and ops.cascade_bwd_fits(n, k, permute=permute,
+                                              bias=False):
+                out.add(("cascade_bwd", m, n, k, dt, False, permute, fam))
+            elif train:     # the per-layer re-walk and backward
+                out |= {("fwd", m, n, 1, dt, False, False, fam),
+                        ("bwd", m, n, 1, dt, False, False, fam)}
+        else:
+            out.add(("fwd", m, n, 1, dt, False, False, fam))
+            if train:
+                out.add(("bwd", m, n, 1, dt, False, False, fam))
+    return out
+
+
+def serve_requests(cfg, slots: int, max_prompt_len: int, max_len: int,
+                   paged: bool, block_size: int, spec_k: int,
+                   draft_cfg=None) -> set:
+    """The autotune requests of an engine: its prefill (``max_prompt_len``
+    rows and the encoder's frames), its decode and verify steps (``slots``
+    x T rows, T = 1 and k + 1 at the ladder's depths) and a draft's
+    prefill and single-token passes; paged, one ``paged_attn`` request at
+    each T (``paged_attn.plan``'s arguments)."""
+    import torch
+
+    ts = {1} | ({spec_k + 1, max(1, spec_k // 2) + 1} if spec_k else set())
+    frames = prefill_frames(cfg)
+    out = sell_requests(cfg, max_prompt_len, frames)
+    for t in ts:
+        out |= sell_requests(cfg, slots * t)
+    if draft_cfg is not None:
+        out |= sell_requests(draft_cfg, max_prompt_len, frames)
+        out |= sell_requests(draft_cfg, slots)
+    if paged and attention_passes(cfg):
+        item = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        for t in ts:
+            out.add(("paged_attn", slots, cfg.n_kv_heads,
+                     -(-max_len // block_size), block_size,
+                     cfg.n_heads // cfg.n_kv_heads, t, cfg.head_dim_, item))
+    return out
+
+
+def flag_requests(argv, **overrides) -> set:
+    """``serve_requests`` of the serve launcher's flags (the default
+    depth-1 truncated-cascade draft with ``--spec``)."""
+    from repro_torch.launch import serve
+
+    cfg, args = config_of(argv, **overrides)
+    prefix = serve.frontend_prefix(args, cfg)
+    spec_k = args.spec_k if args.spec else 0
+    draft = (dataclasses.replace(cfg, sell_k=args.draft_depth or 1)
+             if spec_k and cfg.sell_kind == "acdc" else None)
+    return serve_requests(cfg, args.slots, prefix + args.prompt_len,
+                          prefix + args.prompt_len + args.gen + 1,
+                          args.paged, args.block_size, spec_k, draft)
+
+
+def engine_requests(eng) -> set:
+    """``serve_requests`` of a built engine."""
+    draft = getattr(eng.draft, "cfg", None)
+    return serve_requests(eng.cfg, eng.n_slots, eng.max_prompt_len,
+                          eng.max_len, eng.paged,
+                          getattr(eng, "block_size", 0), eng.spec_k, draft)
+
+
+def resolve(requests, dev) -> None:
+    """Ask for each request's autotuned plan on the card: a key's first
+    request sweeps."""
+    from repro_torch.kernels import autotune
+
+    for direction, *dims in sorted(requests, key=str):
+        if direction == "paged_attn":
+            autotune.autotuned_plan(direction, *dims, device=dev)
+        else:
+            m, n, k, dt, bias, permute, fam = dims
+            autotune.autotuned_plan(direction, m, n, k, device=dev,
+                                    dtype=dt, bias=bias, permute=permute,
+                                    family=fam)
+
+
+@contextlib.contextmanager
+def plans_at_engine_build():
+    """Resolve every engine's autotune requests when it is built, so no
+    key's first call (its sweep) falls inside a tick."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import Engine
+
+    init = Engine.__init__
+
+    def built(self, *args, **kw):
+        init(self, *args, **kw)
+        if autotune._backend(self.device) != "cpu":
+            resolve(engine_requests(self), self.device)
+
+    Engine.__init__ = built
+    try:
+        yield
+    finally:
+        Engine.__init__ = init
+
+
+@contextlib.contextmanager
+def no_sweeps(label):
+    """Fail when an autotune sweep runs inside the block (a recorded tick,
+    a profiled window)."""
+    from repro_torch.kernels import autotune
+
+    before = autotune.totals()[0]
+    yield
+    swept = autotune.totals()[0] - before
+    if swept:
+        _fail(f"{label}: {swept} autotune sweeps inside a recorded tick or "
+              f"profiled window: {autotune.SWEEPS[-swept:]}")
+
+
+def autotune_requests() -> list:
+    """The autotune phase's requests: path J's full-width cascades at the
+    shapes it runs (serving: decode M = 4, encoder prefill 16, verify 20,
+    prefill 64; training: 128 encoder and 512 decoder rows, forward and
+    reverse sweep; the depth-1 draft's ``acdc_fused``) and its and phase
+    4's paged attention (Seamless: group 1, Dh 64; Qwen3: group 2, Dh 128;
+    T = 1, 3, 5); the smoke width's keys that the drain drill, phases 5
+    and 7 and the smoke Mamba2 hit (N = 128 / 256 / 640, K = 1 / 2)."""
+    base = ["--sell", "acdc", "--sell-method", "pallas", "--device", "cuda"]
+    reqs = set()
+    for arch in ("seamless_m4t_large_v2", "qwen3_1_7b"):
+        reqs |= flag_requests(["--arch", arch] + base + AUTOTUNE_FULL)
+    cfg, _ = config_of(["--arch", "seamless_m4t_large_v2"] + base)
+    reqs |= sell_requests(cfg, 4 * 128, 4 * 32, train=True)
+    for arch, over in (("qwen3_1_7b", {}), ("qwen3_1_7b", {"sell_k": 1}),
+                       ("mamba2_1_3b", {})):
+        argv = ["--arch", arch] + base + AUTOTUNE_SMOKE
+        reqs |= flag_requests(argv, **over)
+        # the smoke train step (4 x 64 tokens): phase 7, the drill
+        reqs |= sell_requests(config_of(argv, **over)[0], 4 * 64,
+                              train=True)
+    return sorted(reqs, key=str)
+
+
+def drill_requests(device="cuda") -> set:
+    """The drain drill's requests: the smoke train step (4 x 64 tokens)."""
+    cfg, _ = config_of(["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
+                        "--sell-method", "pallas", "--device", device])
+    return sell_requests(cfg, 4 * 64, train=True)
+
+
+def hold_plan(key, p, dev) -> dict:
+    """A memo entry's plan against the plain version at its key's shape
+    (the ACDC directions at the M bucket, in fp32: a plan does not depend
+    on x's dtype; paged attention in its pools' dtype): fp32 atol 2e-4,
+    rtol 1e-3 (bf16 pools: ``check_paged_attn``'s), bitwise on a repeat,
+    and the cascades' fp32 error against fp64 within 2 x the plain
+    version's."""
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.kernels import acdc_cascade_bwd as cbwd_mod
+    from repro_torch.kernels import acdc_cascade_fused as cascade_mod
+    from repro_torch.kernels import paged_attn as pa_mod
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(99)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    label = "|".join(str(v) for v in key)
+    if key[0] == "paged_attn":
+        b, hkv, mb, bs, group, t, dh, item = key[1:]
+        dt = torch.bfloat16 if item == 2 else torch.float32
+        nb = b * mb
+        q = randn(b, t, hkv * group, dh, dtype=dt)
+        kn, vn = randn(b, t, hkv, dh, dtype=dt), randn(b, t, hkv, dh,
+                                                        dtype=dt)
+        kp, vp = (randn(nb + 1, bs, hkv, dh, dtype=dt) for _ in range(2))
+        tables = torch.arange(nb, dtype=torch.int32,
+                              device=dev).reshape(b, mb)
+        virtual = mb * bs
+        # ragged positions, the last slot parked where there are two
+        pos = [(37 * i + 5) % (virtual - t + 1) for i in range(b)]
+        if b > 1:
+            pos[-1] = virtual
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kp2, vp2 = kp.clone(), vp.clone()
+        got = pa_mod.launch(q, kn, vn, kp, vp, tables, pos, 0, 0.0, p)
+        want = ref.paged_attention_ref(q, kn, vn, kp2, vp2, tables, pos, 0,
+                                       0.0)
+        atol, rtol = (2e-2, 2 ** -7) if item == 2 else (2e-4, 1e-3)
+        if not rel_close(got, want, rtol=rtol, atol=atol) or not (
+                torch.equal(kp[:-1], kp2[:-1])
+                and torch.equal(vp[:-1], vp2[:-1])):
+            _fail(f"autotune {label}: plan {p} against the plain version: "
+                  f"max err {max_err(got, want)}")
+        if not torch.equal(got, pa_mod.launch(q, kn, vn, kp, vp, tables,
+                                              pos, 0, 0.0, p)):
+            _fail(f"autotune {label}: plan {p}: two runs differ in bits")
+        return dict(max_abs_err=max_err(got, want), bitwise_repeat=True)
+
+    direction, n, k, _, bias, permute, family, m = key
+    fam = families.get_family(family)
+    c, ct = fam.matrices(n, torch.float32, dev)
+    riffle = direction in ("cascade", "cascade_bwd") and permute and k > 1
+    mid = (ct[:, torch.as_tensor(fam.riffle(n), dtype=torch.long,
+                                 device=dev)].contiguous() if riffle
+           else None)
+    x = randn(m, n)
+    a, d = 1.0 + 0.061 * randn(k, n), 1.0 + 0.061 * randn(k, n)
+    bb = 0.1 * randn(k, n) if bias and direction != "bwd" else None
+    if direction in ("fwd", "cascade"):
+        def kernel():
+            return cascade_mod.launch_cascade(x, a, d, bb, c, ct, mid, False,
+                                              p)
+        got, want = kernel(), ref.acdc_cascade_ref(x, a, d, bb, c, ct, mid)
+        y64 = cascade_fp64(x, a, d, bb, c, ct, mid)
+        err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
+        ok, same = (rel_close(got, want, rtol=1e-3, atol=2e-4),
+                    torch.equal(got, kernel()))
+        abs_err = max_err(got, want)
+    else:
+        gy = randn(m, n)
+        # one layer's db from a zero bias, whose value the backward never
+        # reads
+        b64 = torch.zeros(1, n, device=dev) if bias and k == 1 else bb
+
+        def kernel():
+            return cbwd_mod.launch_bwd(x, gy, a, d, bb, c, ct, mid, False,
+                                       p, with_db=bias)
+        got = kernel()
+        want = ref.acdc_cascade_bwd_ref(x, gy, a, d, b64, c, ct, mid, False)
+        w64 = cascade_bwd_fp64(x, gy, a, d, b64, c, ct, mid)
+        err = {"kernel": grads_drift(got, w64),
+               "plain": grads_drift(want, w64)}
+        abs_err, ok = _grads_err(got, want)
+        same = _same_bits(got, kernel())
+    if not ok:
+        _fail(f"autotune {label}: plan {p} against the plain version: max "
+              f"err {abs_err}")
+    if not same:
+        _fail(f"autotune {label}: plan {p}: two runs differ in bits")
+    fp32_gate("autotune", f"{label} plan {p}", err)
+    return dict(max_abs_err=abs_err, bitwise_repeat=True,
+                fp32_err_vs_fp64=err)
+
+
+def autotune_phase(dev) -> dict:
+    """Phase 3b: resolve ``autotune_requests`` on the card -- a key's
+    first request sweeps its candidates -- and, for every sweep of the
+    run so far (phase 3's paged rows swept theirs at their first call),
+    print the candidates, the cost model's plan and the winner with their
+    device times (``device_ms`` on the sweep's own sample operands; for
+    paged attention the pair of ticks it times, every row at the end of
+    its table and at half of it) and the sweep's seconds; hold each winner against the plain version
+    (``hold_plan``).  The winners land in ``build/autotune_cache.json``."""
+    import torch
+
+    from repro_torch.kernels import autotune
+
+    t0 = time.perf_counter()
+    resolve(autotune_requests(), dev)
+    rows = []
+    for rec in autotune.SWEEPS:
+        key = rec.key
+        direction, dims = key[0], autotune._dims_of(key)
+        if direction == "paged_attn":
+            run = autotune.make_runner(direction, dims, dev)
+        else:
+            _, _, _, dt, bias, permute, family, _ = key
+            run = autotune.make_runner(direction, dims, dev,
+                                       getattr(torch, dt), bias, permute,
+                                       family)
+        cm_ms = device_ms(run(rec.cost_model))[0]
+        win_ms = cm_ms if rec.winner == rec.cost_model else device_ms(
+            run(rec.winner))[0]
+        row = dict(key="|".join(str(v) for v in key),
+                   candidates=rec.candidates,
+                   cost_model=dataclasses.asdict(rec.cost_model),
+                   cost_model_ms=cm_ms,
+                   cost_model_sweep_ms=rec.cost_model_s * 1e3,
+                   winner=dataclasses.asdict(rec.winner), winner_ms=win_ms,
+                   winner_sweep_ms=rec.winner_s * 1e3,
+                   sweep_s=rec.seconds)
+        row.update(hold_plan(key, autotune.memo()[key], dev))
+        rows.append(row)
+        print(f"[autotune] {row['key']}: {rec.candidates} candidates | cost "
+              f"model {autotune.describe(rec.cost_model)} device "
+              f"{cm_ms:.4f} ms | winner {autotune.describe(rec.winner)} "
+              f"device {win_ms:.4f} ms ({cm_ms / win_ms:.2f}x) | sweep "
+              f"{rec.seconds:.2f} s | plain err {row['max_abs_err']:.2e}",
+              flush=True)
+    n, s = autotune.totals()
+    print(f"[autotune] {n} keys swept in {s:.1f} s, the phase "
+          f"{time.perf_counter() - t0:.1f} s; file "
+          f"{autotune._cache_path()}", flush=True)
+    return dict(rows=rows, sweeps=n, sweep_s=s)
+
+
+def hold_memo(dev, first: int = 0) -> dict:
+    """At the end of the run: every plan the memo holds, against the
+    plain version at its key's shape (``hold_plan``), keys first hit
+    after the autotune phase included; every sweep of the run is listed,
+    and those after the first ``first`` (the autotune phase's) printed."""
+    from repro_torch.kernels import autotune
+
+    t0 = time.perf_counter()
+    memo = autotune.memo()
+    for key, p in memo.items():
+        hold_plan(key, p, dev)
+    info = dict(entries=len(memo), sweeps=autotune.totals()[0],
+                seconds=time.perf_counter() - t0, swept=[])
+    for rec in autotune.SWEEPS:
+        row = dict(key="|".join(str(v) for v in rec.key),
+                   candidates=rec.candidates,
+                   cost_model=autotune.describe(rec.cost_model),
+                   cost_model_sweep_ms=rec.cost_model_s * 1e3,
+                   winner=autotune.describe(rec.winner),
+                   winner_sweep_ms=rec.winner_s * 1e3, sweep_s=rec.seconds)
+        info["swept"].append(row)
+    for row in info["swept"][first:]:
+        print(f"[autotune] swept later: {row['key']}: {row['candidates']} "
+              f"candidates | cost model {row['cost_model']} "
+              f"{row['cost_model_sweep_ms']:.4f} ms | winner "
+              f"{row['winner']} {row['winner_sweep_ms']:.4f} ms (sweep "
+              f"times, best of {autotune.SWEEP_REPS})", flush=True)
+    print(f"[autotune] every memo entry ({info['entries']}; "
+          f"{info['sweeps']} sweeps in the run) held against its plain "
+          f"version in {info['seconds']:.1f} s", flush=True)
+    return info
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-5: serving through the launcher's functions
 # ---------------------------------------------------------------------------
 
@@ -1320,12 +1725,12 @@ def plain_kernels():
              cascade_mod.acdc_cascade, pa_mod.paged_attention,
              bwd_mod.acdc_bwd, cbwd_mod.acdc_cascade_bwd)
 
-    def fused_plain(x, a, d, bias, c, ct):
+    def fused_plain(x, a, d, bias, c, ct, p=None):
         b2 = None if bias is None else bias.reshape(1, -1)
         return ref.acdc_cascade_ref(x, a.reshape(1, -1), d.reshape(1, -1),
                                     b2, c, ct, None)
 
-    def cascade_plain(x, a, d, bias, c, ct, ct_mid, relu=False):
+    def cascade_plain(x, a, d, bias, c, ct, ct_mid, relu=False, p=None):
         return ref.acdc_cascade_ref(x, a, d, bias, c, ct, ct_mid, relu)
 
     def paged_plain(q, kn, vn, kp, vp, tables, position, window, softcap):
@@ -1333,10 +1738,11 @@ def plain_kernels():
                                        kp, vp, tables, position, int(window),
                                        float(softcap))
 
-    def bwd_plain(x, g, a, d, c, ct, with_bias=True):
+    def bwd_plain(x, g, a, d, c, ct, with_bias=True, p=None):
         return ref.acdc_bwd_ref(x, g, a, d, c, ct, with_bias)
 
-    def cascade_bwd_plain(x, g, a, d, bias, c, ct, ct_mid, relu=False):
+    def cascade_bwd_plain(x, g, a, d, bias, c, ct, ct_mid, relu=False,
+                          p=None):
         return ref.acdc_cascade_bwd_ref(x, g, a, d, bias, c, ct, ct_mid,
                                         relu)
 
@@ -1378,18 +1784,18 @@ def kernels_in_fp64():
         return (dx.to(dtype), *(None if t is None else t.float()
                                 for t in rest))
 
-    def cascade64(x, a, d, bias, c, ct, ct_mid, relu=False):
+    def cascade64(x, a, d, bias, c, ct, ct_mid, relu=False, p=None):
         return cascade_fp64(x, a, d, bias, c, ct, ct_mid, relu).to(x.dtype)
 
-    def fused64(x, a, d, bias, c, ct):
+    def fused64(x, a, d, bias, c, ct, p=None):
         return cascade64(x, a[None], d[None],
                          None if bias is None else bias[None], c, ct, None)
 
-    def cascade_bwd64(x, g, a, d, bias, c, ct, ct_mid, relu=False):
+    def cascade_bwd64(x, g, a, d, bias, c, ct, ct_mid, relu=False, p=None):
         return rounded(cascade_bwd_fp64(x, g, a, d, bias, c, ct, ct_mid,
                                         relu), x.dtype)
 
-    def bwd64(x, g, a, d, c, ct, with_bias=True):
+    def bwd64(x, g, a, d, c, ct, with_bias=True, p=None):
         bias = torch.zeros(1, a.shape[-1], device=x.device) \
             if with_bias else None
         dx, da, dd, db = cascade_bwd64(x, g, a[None], d[None], bias, c, ct,
@@ -1836,7 +2242,8 @@ def tick_recorder():
     """Record every ``Engine.tick`` run inside the block: the kernel
     launches it made (the wrappers' counts, ``scaled_matmul`` also by
     regime and ``paged_attn`` by T, tallied at each kernel's ``launch``),
-    the prefills it ran, whether it stepped, and its speculation depth."""
+    the prefills it ran, whether it stepped, and its speculation depth;
+    an autotune sweep inside a tick fails (``no_sweeps``)."""
     import collections
 
     from repro_torch.kernels import paged_attn as pa_mod
@@ -1861,7 +2268,8 @@ def tick_recorder():
         before = counts()
         s0 = (eng.stats["prefill_dispatches"], eng.stats["decode_ticks"])
         k = eng.spec_k_eff
-        n = tick(eng)
+        with no_sweeps(f"tick {len(records)}"):
+            n = tick(eng)
         launched = counts()
         launched.subtract(before)
         records.append(dict(
@@ -2830,8 +3238,9 @@ def profile_full_width(dev):
     eng = Engine(model, cfg, params, n_slots=4, max_len=81,
                  max_prompt_len=64, obs=obs)
     before = read_counts()
-    eng.run([Request(rid=1, prompt=prompts[1], max_new_tokens=1)])
-    obs.close(1)
+    with no_sweeps(f"profile {label}"):
+        eng.run([Request(rid=1, prompt=prompts[1], max_new_tokens=1)])
+        obs.close(1)
     after = read_counts()
     info = check_profile(label, window.logdir, window.summary,
                          {k: after[k] - before[k] for k in after})
@@ -2858,12 +3267,13 @@ def profile_full_width(dev):
     torch.cuda.synchronize(dev)
     before = read_counts()
     prof = profiler_for(dev)
-    prof.start()
-    t0 = time.perf_counter()
-    state, _ = train_step(state, batch)
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    prof.stop()
+    with no_sweeps(f"profile {label}"):
+        prof.start()
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        prof.stop()
     after = read_counts()
     summary = write_profile(prof, str(root / label), 1, wall)
     info = check_profile(label, root / label, summary,
@@ -4014,6 +4424,36 @@ def frames_vs_apply(pieces, dev, frames) -> dict:
     return out
 
 
+def plans_ab(label, argv, pieces) -> dict:
+    """Dense serving on the autotuned plans and on the cost model's
+    (``kernels.ops`` passing no plan: each wrapper's own ``_geometry``,
+    the launch before the autotuner), in turns on the same weights, card
+    and requests (autotuned, cost model, cost model, autotuned): s/tick
+    and prefill s/admission of each run."""
+    from repro_torch.kernels import ops
+
+    out = {"autotuned": [], "cost model": []}
+    saved = ops._plan
+    for side in ("autotuned", "cost model", "cost model", "autotuned"):
+        if side == "cost model":
+            ops._plan = lambda *args, **kw: None
+        try:
+            info = serve_path(f"{label} ({side} plans)", argv, pieces,
+                              {k: 0 for k in KERNEL_MODULES}, ())[0]
+        finally:
+            ops._plan = saved
+        out[side].append(dict(
+            s_per_tick=info["s_per_tick"],
+            prefill_s=info["prefill_s"] / max(info["prefills"], 1)))
+    print(f"[J] {label}, in turns ({smi_line()}): ms a tick autotuned "
+          + " / ".join(f"{r['s_per_tick'] * 1e3:.1f}"
+                       for r in out["autotuned"])
+          + ", cost model " + " / ".join(
+              f"{r['s_per_tick'] * 1e3:.1f}" for r in out["cost model"]),
+          flush=True)
+    return out
+
+
 def seamless_full_width(dev, totals) -> dict:
     """Path J: Seamless-M4T-large-v2 at full width (24 + 24 layers, d
     1024, d_ff 8192, vocab 256206), ``--sell acdc --sell-method pallas``,
@@ -4087,6 +4527,7 @@ def seamless_full_width(dev, totals) -> dict:
     out["paged_vs_dense"] = paged_vs_dense_logits(pieces, dev, frames)
     out["frames"] = frames_vs_apply(pieces, dev, frames)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["plans_ab"] = plans_ab(f"{arch} full width dense", argv, pieces)
     print(f"[memory] {arch} full width serving ({smi_line()}): peak "
           f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
           f" GB (reckoned {out['reckoned_masters_gb']}); init "
@@ -4097,6 +4538,14 @@ def seamless_full_width(dev, totals) -> dict:
     out["train"] = train_full_width(dev, totals, arch, global_batch=4,
                                     seq_len=128, hold="drift")
     release_memory()
+    print(f"[J] on autotuned plans ({smi_line()}): decode tick "
+          f"{out['serve']['s_per_tick'] * 1e3:.1f} dense / "
+          f"{out['paged']['s_per_tick'] * 1e3:.1f} paged ms (on the cost "
+          f"model's plans, PERF.md: 99.4 / 96.0), prefill "
+          f"{out['serve']['prefill_s_per_admission']:.3f} / "
+          f"{out['paged']['prefill_s_per_admission']:.3f} s an admission, "
+          f"train {out['train']['s_per_step']:.3f} s a step (cost model's: "
+          f"2.220)", flush=True)
     return out
 
 
@@ -4369,13 +4818,31 @@ def drill_worker(out: str, argv: list) -> int:
     --drill-worker OUT.json <launcher flags>``): the train launcher's
     ``main(argv)``, then the kernel launches this process counted and the
     steps it ran, written to ``out``."""
+    from repro_torch.kernels import autotune
     from repro_torch.launch import train
 
     reset_counts()
     _, hist = train.main(argv)
-    Path(out).write_text(json.dumps({"launches": read_counts(),
-                                     "steps": len(hist)}))
+    device = argv[argv.index("--device") + 1]
+    Path(out).write_text(json.dumps({
+        "launches": read_counts(), "steps": len(hist),
+        "autotune_sweeps": autotune.totals()[0],
+        "autotune_plans": drill_plans(autotune.memo(), device)}))
     return 0
+
+
+def drill_plans(memo: dict, device) -> dict:
+    """The plans ``memo`` holds for the drill's requests, by key."""
+    from repro_torch.kernels import autotune
+
+    out = {}
+    for direction, *dims in drill_requests(device):
+        m, n, k, dt, bias, permute, fam = dims
+        key = autotune.key_of(direction, (m, n, k), dt, bias, permute, fam)
+        p = memo.get(key)
+        out["|".join(map(str, key))] = (None if p is None
+                                        else dataclasses.asdict(p))
+    return out
 
 
 def drain_drill(totals, device="cuda") -> dict:
@@ -4388,19 +4855,23 @@ def drain_drill(totals, device="cuda") -> dict:
     run's worker is this script's ``--drill-worker`` mode, which reports
     the kernel launches counted in that process: both runs must launch
     exactly ``train_launches_per_step`` at smoke width a step they ran,
-    and nothing else."""
+    and nothing else.  The workers read this process's autotune file
+    (``REPRO_AUTOTUNE_CACHE_PATH``): each must sweep nothing and hold this
+    process's winners for the drill's keys."""
     import os
     import selectors
     import signal
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import registry
+    from repro_torch.kernels import autotune
     from repro_torch.launch import train
 
     ckpt = ROOT / "build" / "chip_smoke_drain"
     shutil.rmtree(ckpt, ignore_errors=True)
     ckpt.mkdir(parents=True)
     env = dict(os.environ, OMP_NUM_THREADS="1",
+               REPRO_AUTOTUNE_CACHE_PATH=autotune._cache_path(),
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src")]
                    + ([os.environ["PYTHONPATH"]]
@@ -4434,6 +4905,12 @@ def drain_drill(totals, device="cuda") -> dict:
                   f"launches {got['launches']}, want {steps_run} steps and "
                   f"{want} ({per_step} a step) and nothing else:\n"
                   + text[-3000:])
+        mine = drill_plans(autotune.memo(), device)
+        if got["autotune_sweeps"] or got["autotune_plans"] != mine \
+                or None in mine.values():
+            _fail(f"[K] drain drill ({tag}): {got['autotune_sweeps']} "
+                  f"autotune sweeps, plans {got['autotune_plans']}; want 0 "
+                  f"sweeps and this process's winners {mine}")
         for name, n in got["launches"].items():
             totals[name] += n
         return got["launches"]
@@ -4501,13 +4978,16 @@ def drain_drill(totals, device="cuda") -> dict:
                 resumed_to=final, agent_returncode=rc1,
                 launches_per_step=per_step, launches_drain=drained,
                 launches_resume=resumed, drain_s=when1, resume_s=when2,
-                seconds=time.perf_counter() - t0)
+                autotune_plans=drill_plans(autotune.memo(), device),
+                worker_autotune_sweeps=0, seconds=time.perf_counter() - t0)
     print(f"[K] drain drill: SIGTERM after step 2, checkpoint at {saved}, "
           f"resumed to {final} (torchrun agent rc {rc1}); "
           f"launches {per_step} a step in both workers (drain "
           f"{ {k: v for k, v in drained.items() if v} }, resume "
-          f"{ {k: v for k, v in resumed.items() if v} }), "
-          f"{info['seconds']:.1f} s", flush=True)
+          f"{ {k: v for k, v in resumed.items() if v} }); 0 autotune "
+          f"sweeps in both, this process's winners for their "
+          f"{len(info['autotune_plans'])} keys; {info['seconds']:.1f} s",
+          flush=True)
     print("[K] drain drill seconds from each launch: drain "
           + ", ".join(f"{k} {v:.1f}" for k, v in when1.items())
           + "; resume " + ", ".join(f"{k} {v:.1f}" for k, v in when2.items()),
@@ -4517,13 +4997,21 @@ def drain_drill(totals, device="cuda") -> dict:
 
 def timed(report: dict, key: str, fn, *args):
     """``report[key] = fn(*args)``, its wall seconds in
-    ``report["phase_s"]``."""
+    ``report["phase_s"]`` and its autotune sweeps (count, seconds) in
+    ``report["autotune"]``."""
+    from repro_torch.kernels import autotune
+
+    n0, s0 = autotune.totals()
     t0 = time.perf_counter()
     report[key] = fn(*args)
     dt = time.perf_counter() - t0
     gc.collect()
     report.setdefault("phase_s", {})[key] = dt
-    print(f"[phase] {key}: {dt:.1f} s", flush=True)
+    n1, s1 = autotune.totals()
+    report.setdefault("autotune", {})[key] = dict(
+        sweeps=n1 - n0, sweep_s=s1 - s0)
+    print(f"[phase] {key}: {dt:.1f} s ({n1 - n0} autotune sweeps, "
+          f"{s1 - s0:.1f} s)", flush=True)
     return report[key]
 
 
@@ -4534,9 +5022,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
 
     dev = torch.device("cuda", 0)
+    # every key is swept in this run: no winner of an earlier one answers
+    Path(autotune._cache_path()).unlink(missing_ok=True)
     smi = smi_line()
     print(f"[device] {smi} | {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -4581,9 +5071,32 @@ def main() -> int:
     report["per_layer_backward"] = per_layer
     report["phase_s"] = {"build": build_s,
                          "kernels": time.perf_counter() - t0 - build_s}
+    report["autotune"] = {"kernels": dict(sweeps=autotune.totals()[0],
+                                          sweep_s=autotune.totals()[1])}
+    timed(report, "autotune_phase", autotune_phase, dev)
+    with plans_at_engine_build():
+        run_paths(report, dev)
+    timed(report, "autotune_memo", hold_memo, dev,
+          report["autotune_phase"]["sweeps"])
+    return finish(report, kern)
+
+
+def run_paths(report: dict, dev) -> None:
+    """Phases 4 - 9 and paths A - K, on the memo of the autotune phase
+    (an engine's keys resolved as it is built)."""
+    import torch
+
+    from repro_torch.kernels import autotune
+
+    def untimed(key, since, n0, s0):
+        n1, s1 = autotune.totals()
+        report["phase_s"][key] = time.perf_counter() - since
+        report["autotune"][key] = dict(sweeps=n1 - n0, sweep_s=s1 - s0)
+
     timed(report, "fig2", fig2_speed, dev)
     totals = {name: 0 for name in KERNEL_MODULES}
     t_serve = time.perf_counter()
+    n0, s0 = autotune.totals()
 
     params_cache = {}
     paths = []
@@ -4604,7 +5117,7 @@ def main() -> int:
             ("scaled_matmul",) + (("paged_attn",) if paged else ()))
         nonspec_streams[label.split()[-1]] = streams_of(reqs)
         paths.append(info)
-    report["phase_s"]["full_width_serve"] = time.perf_counter() - t_serve
+    untimed("full_width_serve", t_serve, n0, s0)
     timed(report, "full_width_logits", compare_full_width_logits, pieces,
           dev)
     timed(report, "full_width_logits_fp32", compare_full_width_logits,
@@ -4619,6 +5132,8 @@ def main() -> int:
     smoke = ["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
              "--sell-method", "pallas", "--slots", "4", "--prompt-len",
              "12", "--gen", "8", "--requests", "8", "--device", "cuda"]
+    t_smoke = time.perf_counter()
+    n0, s0 = autotune.totals()
     for label, extra, sell_k, need in (
             ("smoke dense", [], 2, ("acdc_cascade",)),
             ("smoke paged", ["--paged", "--block-size", "4"], 2,
@@ -4637,6 +5152,7 @@ def main() -> int:
                   f"plain versions")
         info["streams_identical_to_plain"] = True
         paths.append(info)
+    untimed("smoke_serve", t_smoke, n0, s0)
     timed(report, "spec_smoke", smoke_spec, params_cache, totals)
     timed(report, "methods_smoke", smoke_methods, totals, dev)
     report["paths"] = paths
@@ -4669,6 +5185,14 @@ def main() -> int:
     timed(report, "seamless_smoke", smoke_configs, totals,
           ("seamless_m4t_large_v2",), 3, True)
     report["launches"] = totals
+
+
+def finish(report: dict, kern) -> int:
+    """The kernels line and the last line, the report to
+    ``chiprun_out/chip_smoke.json``."""
+    import torch
+
+    totals = report["launches"]
 
     sources = {"scaled_matmul": ("src/repro_torch/csrc/scaled_matmul.cu",
                                  "src/repro/kernels/scaled_matmul.py:59",

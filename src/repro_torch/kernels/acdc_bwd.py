@@ -23,6 +23,8 @@ CPU tensor it takes :func:`repro_torch.kernels.ref.acdc_bwd_ref`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import acdc_cascade_bwd as cascade_bwd_mod
@@ -60,8 +62,10 @@ def _check(x: torch.Tensor, g: torch.Tensor, mats, vecs) -> None:
 
 def acdc_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
              d: torch.Tensor, c: torch.Tensor, ct: torch.Tensor, *,
-             with_bias: bool = True) -> Grads:
-    """Backward of one fused layer over 2-D x, g (M, N); a, d are (N,)."""
+             with_bias: bool = True, p: Optional[fwd.Plan] = None) -> Grads:
+    """Backward of one fused layer over 2-D x, g (M, N); a, d are (N,).
+    The launch is ``p`` (``kernels.ops`` passes the autotuned plan), else
+    :func:`plan`'s."""
     global launches
     if x.dim() != 2 or g.shape != x.shape:
         raise ValueError(f"x, g must be 2-D of one shape, got "
@@ -73,6 +77,6 @@ def acdc_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     _check(x, g, (c, ct), (a, d))
     dx, da, dd, db = cascade_bwd_mod.launch_bwd(
         x, g, a.reshape(1, -1), d.reshape(1, -1), None, c, ct, None, False,
-        with_db=with_bias)
+        p, with_db=with_bias)
     launches += 1
     return dx, da[0], dd[0], None if db is None else db[0]

@@ -102,13 +102,15 @@ def workspaces(p: fwd.Plan, m: int, n: int, k: int
     return stash, (p.clusters, 3, k, n)
 
 
-def max_clusters(p: fwd.Plan, m: int, k: int, riffle: bool) -> int:
+def max_clusters(p: fwd.Plan, m: int, k: int, riffle: bool,
+                 strict: bool = True) -> int:
     """How many of the plan's clusters the card holds at once (raises
-    when none)."""
+    when none, unless not ``strict``)."""
     key = (m, p.n, k, int(riffle), *p.args(), int(p.stash_smem),
            p.smem_bytes)
     return fwd.check_schedulable("acdc_cascade_bwd",
-                                 "acdc_cascade_bwd_max_clusters", p, key)
+                                 "acdc_cascade_bwd_max_clusters", p, key,
+                                 strict)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -128,9 +130,12 @@ def acdc_cascade_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                      d: torch.Tensor, bias: Optional[torch.Tensor],
                      c: torch.Tensor, ct: torch.Tensor,
                      ct_mid: Optional[torch.Tensor], *,
-                     relu: bool = False) -> Grads:
+                     relu: bool = False, p: Optional[fwd.Plan] = None
+                     ) -> Grads:
     """Backward of the fused cascade over 2-D x, g (M, N); a, d, bias are
-    the stacked (K, N) diagonals, ``ct_mid`` None without the riffle."""
+    the stacked (K, N) diagonals, ``ct_mid`` None without the riffle.  The
+    launch is ``p`` (``kernels.ops`` passes the autotuned plan), else
+    :func:`plan_bwd`'s."""
     global launches
     if x.dim() != 2 or g.shape != x.shape:
         raise ValueError(f"x, g must be 2-D of one shape, got "
@@ -157,7 +162,7 @@ def acdc_cascade_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                               or t.device != x.device):
             raise ValueError(f"acdc_cascade_bwd: {name} {tuple(t.shape)} on "
                              f"{t.device}, want {shape} on {x.device}")
-    y = launch_bwd(x, g, a, d, bias, c, ct, ct_mid, relu)
+    y = launch_bwd(x, g, a, d, bias, c, ct, ct_mid, relu, p)
     launches += 1
     return y
 
@@ -187,6 +192,7 @@ def launch_bwd(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     if p is None:
         p, geo = _geometry(m, n, k, riffle, fwd.aligned(c, ct, ct_mid))
     else:
+        fwd.check_given(p, m, n, c, ct, ct_mid)
         max_clusters(p, m, k, riffle)
         geo = (*p.args(), int(p.stash_smem), p.smem_bytes)
     dev = x.device

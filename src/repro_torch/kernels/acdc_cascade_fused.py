@@ -241,27 +241,40 @@ def aligned(*ts: Optional[torch.Tensor]) -> bool:
 _CHECKED = {}
 
 
-def check_schedulable(lib: str, fn: str, p: Plan, key: tuple) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of plan ``p`` (cached): raises
-    when the card cannot hold one of its clusters -- no fallback."""
+def check_schedulable(lib: str, fn: str, p: Plan, key: tuple,
+                      strict: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of plan ``p`` (cached; a failed
+    query raises).  ``strict``: raises when the card cannot hold one of
+    its clusters -- no fallback; else returns 0 then (the autotuner's
+    candidate filter)."""
     n = _CHECKED.get((lib, key))
     if n is None:
         n = build.bind(lib, fn, [build.I32] * len(key))(*key)
         if n < 0:
             build.check(-n, f"{lib} occupancy query {p}")
         _CHECKED[(lib, key)] = n
-    if n == 0:
+    if n == 0 and strict:
         raise ValueError(f"{lib}: the card cannot schedule a cluster of "
                          f"{p.s} CTAs with {p.smem_bytes} bytes of shared "
                          f"memory ({p})")
     return n
 
 
-def max_clusters(p: Plan, m: int, k: int, riffle: bool) -> int:
+def max_clusters(p: Plan, m: int, k: int, riffle: bool,
+                 strict: bool = True) -> int:
     """How many of the forward plan's clusters the card holds at once."""
     key = (m, p.n, k, int(riffle), *p.args(), p.smem_bytes)
     return check_schedulable("acdc_cascade", "acdc_cascade_max_clusters", p,
-                             key)
+                             key, strict)
+
+
+def check_given(p: Plan, m: int, n: int, *mats) -> None:
+    """Refuse a given plan that does not cut x (m, n): another N or M, or
+    16-byte copies of transforms that are not 16-byte aligned."""
+    if p.n != n or p.clusters != _cdiv(m, p.bm) or (p.vec == 4
+                                                    and not aligned(*mats)):
+        raise ValueError(f"plan {p} does not launch x ({m}, {n}) on these "
+                         f"transforms")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -314,6 +327,7 @@ def launch_cascade(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     if p is None:
         p, geo = _geometry(m, n, k, riffle, aligned(c, ct, ct_mid))
     else:
+        check_given(p, m, n, c, ct, ct_mid)
         max_clusters(p, m, k, riffle)
         geo = (*p.args(), p.smem_bytes)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -328,8 +342,11 @@ def launch_cascade(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
 def acdc_cascade(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                  bias: Optional[torch.Tensor], c: torch.Tensor,
                  ct: torch.Tensor, ct_mid: Optional[torch.Tensor], *,
-                 relu: bool = False) -> torch.Tensor:
-    """Fused order-K cascade over 2-D x (M, N); a/d/bias are (K, N)."""
+                 relu: bool = False, p: Optional[Plan] = None
+                 ) -> torch.Tensor:
+    """Fused order-K cascade over 2-D x (M, N); a/d/bias are (K, N).  The
+    launch is ``p`` (``kernels.ops`` passes the autotuned plan), else
+    :func:`plan`'s."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
@@ -337,6 +354,6 @@ def acdc_cascade(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
         return ref.acdc_cascade_ref(x, a, d, bias, c, ct, ct_mid, relu)
     if x.device.type != "cuda":
         raise ValueError(f"acdc_cascade: unsupported device {x.device}")
-    y = launch_cascade(x, a, d, bias, c, ct, ct_mid, relu)
+    y = launch_cascade(x, a, d, bias, c, ct, ct_mid, relu, p)
     launches += 1
     return y

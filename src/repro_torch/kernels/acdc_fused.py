@@ -26,8 +26,11 @@ launches = 0
 
 def acdc_fused(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                bias: Optional[torch.Tensor], c: torch.Tensor,
-               ct: torch.Tensor) -> torch.Tensor:
-    """One fused layer over 2-D x (M, N); a, d, bias are (N,)."""
+               ct: torch.Tensor, *,
+               p: Optional[cascade_mod.Plan] = None) -> torch.Tensor:
+    """One fused layer over 2-D x (M, N); a, d, bias are (N,).  The launch
+    is ``p`` (``kernels.ops`` passes the autotuned plan), else the K = 1
+    cascade's :func:`~.acdc_cascade_fused.plan`."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
@@ -37,6 +40,6 @@ def acdc_fused(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
         return ref.acdc_cascade_ref(x, a2, d2, b2, c, ct, None, False)
     if x.device.type != "cuda":
         raise ValueError(f"acdc_fused: unsupported device {x.device}")
-    y = cascade_mod.launch_cascade(x, a2, d2, b2, c, ct, None, False)
+    y = cascade_mod.launch_cascade(x, a2, d2, b2, c, ct, None, False, p)
     launches += 1
     return y

@@ -36,8 +36,10 @@ The routing DECISIONS are the reference's, computed here by the port's
 own copy of its arithmetic (``MAX_FUSED_N``, the fused-cascade budget
 and the reverse-sweep budget): they decide where bf16 rounding happens,
 so the port must take the same branches to produce the same numbers.
-The kernels' own tiles are sized from the H100's budgets inside each
-kernel.  Diagonal grads come back in fp32 and are cast to the parameter
+How the chosen kernel is launched is not a routing decision: each cascade
+kernel call takes its plan from :func:`.autotune.autotuned_plan` (swept
+on the card at a key's first call, the cost model's off it), as the
+reference's dispatches ask ``autotune.autotuned_bm`` for their block.  Diagonal grads come back in fp32 and are cast to the parameter
 dtype, as the reference does.
 """
 
@@ -53,6 +55,7 @@ from repro_torch.kernels import acdc_bwd as bwd_mod
 from repro_torch.kernels import acdc_cascade_bwd as cascade_bwd_mod
 from repro_torch.kernels import acdc_cascade_fused as cascade_mod
 from repro_torch.kernels import acdc_fused as fused_mod
+from repro_torch.kernels import autotune
 from repro_torch.kernels import paged_attn as paged_attn_mod
 from repro_torch.kernels import scaled_matmul as smm_mod
 from repro_torch.obs.metrics import REGISTRY, CounterDict
@@ -149,6 +152,14 @@ def _riffle(family: str, n: int, device) -> torch.Tensor:
                            dtype=torch.long, device=device)
 
 
+def _plan(direction: str, x2: torch.Tensor, k: int, bias: bool,
+          permute: bool, family: str):
+    """The autotuned launch of one cascade kernel call over 2-D x."""
+    return autotune.autotuned_plan(
+        direction, x2.shape[0], x2.shape[-1], k, device=x2.device,
+        dtype=x2.dtype, bias=bias, permute=permute, family=family)
+
+
 def _flatten(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]), x.shape
 
@@ -183,11 +194,15 @@ def _layer_fwd(x2: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     n = x2.shape[-1]
     c, ct, _ = _mats(family, n, x2.device, False)
     if n <= MAX_FUSED_N:
+        def run(xg, ag, dg, bg):
+            return fused_mod.acdc_fused(
+                xg, ag, dg, bg, c, ct,
+                p=_plan("fwd", xg, 1, bg is not None, False, family))
+
         if not _grouped(a, False):
-            return fused_mod.acdc_fused(x2, a, d, bias, c, ct)
-        return torch.cat([
-            fused_mod.acdc_fused(xg, a[g], d[g], _each(bias, g), c, ct)
-            for g, xg in enumerate(_group_rows(x2, a.shape[0]))])
+            return run(x2, a, d, bias)
+        return torch.cat([run(xg, a[g], d[g], _each(bias, g)) for g, xg
+                          in enumerate(_group_rows(x2, a.shape[0]))])
     h2 = smm_mod.scaled_matmul(x2, c, pre=a)
     bias_t = None
     if bias is not None:
@@ -205,10 +220,14 @@ def _layer_bwd(x2: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     groups = a.shape[0] if _grouped(a, False) else None
     c, ct, _ = _mats(family, n, x2.device, False)
     if n <= MAX_FUSED_N:
+        def run(xg, gg, ag, dg):
+            return bwd_mod.acdc_bwd(
+                xg, gg, ag, dg, c, ct, with_bias=with_bias,
+                p=_plan("bwd", xg, 1, with_bias, False, family))
+
         if groups is None:
-            return bwd_mod.acdc_bwd(x2, g2, a, d, c, ct, with_bias=with_bias)
-        outs = [bwd_mod.acdc_bwd(xg, gg, a[g], d[g], c, ct,
-                                 with_bias=with_bias)
+            return run(x2, g2, a, d)
+        outs = [run(xg, gg, a[g], d[g])
                 for g, (xg, gg) in enumerate(zip(_group_rows(x2, groups),
                                                  _group_rows(g2, groups)))]
         dx, da, dd, db = zip(*outs)
@@ -339,8 +358,10 @@ class _Cascade(torch.autograd.Function):
         c, ct, ct_mid = _mats(family, x2.shape[-1], x.device, permute)
 
         def run(xg, ag, dg, bg):
-            return cascade_mod.acdc_cascade(xg, ag, dg, bg, c, ct, ct_mid,
-                                            relu=relu)
+            return cascade_mod.acdc_cascade(
+                xg, ag, dg, bg, c, ct, ct_mid, relu=relu,
+                p=_plan("cascade", xg, ag.shape[0], bg is not None,
+                        permute, family))
 
         if _grouped(a, True):
             y = torch.cat([run(xg, a[g], d[g], _each(bias, g)) for g, xg
@@ -364,7 +385,9 @@ class _Cascade(torch.autograd.Function):
 
             def run(xg, gg, ag, dg, bg):
                 return cascade_bwd_mod.acdc_cascade_bwd(
-                    xg, gg, ag, dg, bg, c, ct, ct_mid, relu=relu)
+                    xg, gg, ag, dg, bg, c, ct, ct_mid, relu=relu,
+                    p=_plan("cascade_bwd", xg, ag.shape[0], bg is not None,
+                            permute, family))
         else:
             CASCADE_BWD_DISPATCHES["per_layer_scan"] += 1
 

@@ -14,8 +14,10 @@ The kernel splits each (slot, KV head)'s keys over ``splits`` CTAs
 ``group * T`` query rows.  How is decided here, by :func:`plan`, from host
 integers alone (slots, KV heads, table width, page size, query rows,
 head dim, dtype): never from ``position``, whose read would synchronise
-every tick.  Splits cover the virtual row ``MB * bs`` in whole pages; a
-split beyond a slot's position streams nothing.  One split needs no
+every tick.  A call's launch is :func:`.autotune.autotuned_plan`'s for
+these integers: a grid around :func:`plan`'s answer, swept at the first
+call on the card.  Splits cover the virtual row ``MB * bs`` in whole
+pages; a split beyond a slot's position streams nothing.  One split needs no
 combine; up to ``CLUSTER_MAX`` are combined by a thread block cluster;
 more through a workspace and a second kernel.
 
@@ -191,13 +193,19 @@ def plan(b: int, hkv: int, mb: int, bs: int, group: int, t: int, dh: int,
                      cluster=one_group)
 
 
-def plan_of(q: torch.Tensor, k_pages: torch.Tensor,
-            block_tables: torch.Tensor) -> Plan:
-    """:func:`plan` for a call's inputs."""
+def plan_dims(q: torch.Tensor, k_pages: torch.Tensor,
+              block_tables: torch.Tensor) -> Tuple[int, ...]:
+    """:func:`plan`'s arguments for a call's inputs."""
     b, t, hq, dh = q.shape
     hkv = k_pages.shape[2]
-    return plan(b, hkv, block_tables.shape[1], k_pages.shape[1], hq // hkv,
-                t, dh, k_pages.element_size())
+    return (b, hkv, block_tables.shape[1], k_pages.shape[1], hq // hkv, t,
+            dh, k_pages.element_size())
+
+
+def plan_of(q: torch.Tensor, k_pages: torch.Tensor,
+            block_tables: torch.Tensor) -> Plan:
+    """:func:`plan` (the cost model's launch) for a call's inputs."""
+    return plan(*plan_dims(q, k_pages, block_tables))
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,8 +282,13 @@ def paged_attention(q: torch.Tensor, knew: torch.Tensor, vnew: torch.Tensor,
             f"paged_attention kernel needs Dh a multiple of 16 in "
             f"[{MIN_HEAD_DIM}, {MAX_HEAD_DIM}] and T <= {MAX_T}; got "
             f"Dh={dh} T={t}")
+    from repro_torch.kernels import autotune    # it imports this module
+
+    p = autotune.autotuned_plan("paged_attn",
+                                *plan_dims(q, k_pages, block_tables),
+                                device=q.device)
     out = launch(q.contiguous(), knew.contiguous(), vnew.contiguous(),
                  k_pages, v_pages, _int32(block_tables), _int32(position),
-                 window, softcap, plan_of(q, k_pages, block_tables))
+                 window, softcap, p)
     launches += 1
     return out

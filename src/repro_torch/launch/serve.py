@@ -161,14 +161,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build(args: argparse.Namespace, **overrides):
-    """(cfg, model, params) for the launcher flags; ``overrides`` replace
-    fields of the resulting config (e.g. ``sell_k=1``)."""
+def config(args: argparse.Namespace, **overrides):
+    """The model config of the launcher flags; ``overrides`` replace its
+    fields (e.g. ``sell_k=1``)."""
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     cfg = registry.with_sell(cfg, args.sell, method=args.sell_method,
                              transform=args.sell_transform)
-    cfg = dataclasses.replace(cfg, **overrides)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def build(args: argparse.Namespace, **overrides):
+    """(cfg, model, params) for the launcher flags; ``overrides`` replace
+    fields of the resulting config (e.g. ``sell_k=1``)."""
+    cfg = config(args, **overrides)
     model = get_model(cfg)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = model.init(gen, cfg, args.device)

@@ -27,6 +27,7 @@ from repro_torch.kernels import acdc_bwd as bwd_mod
 from repro_torch.kernels import acdc_cascade_bwd as cbwd_mod
 from repro_torch.kernels import acdc_cascade_fused as cascade_mod
 from repro_torch.kernels import acdc_fused as fused_mod
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attn as pa_mod
 from repro_torch.kernels import ref
@@ -43,6 +44,18 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def autotune_file(tmp_path_factory):
+    """The autotune winners of this module's sweeps in a file of its own
+    (the launches through ``ops`` and ``paged_attention`` sweep a key's
+    plans at its first call), not the repository's ``build/``."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv(autotune.CACHE_ENV + "_PATH",
+              str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+    yield
+    mp.undo()
 
 
 def _close(got, want, tol):
@@ -770,3 +783,79 @@ def test_dct_matrices_on_the_card_match_numpy(dev, n):
     print(f"dct_matrix({n}) on the card: {differ} of {n * n} fp32 entries "
           f"one ulp from numpy's")
     assert differ <= max(4, n * n // 10 ** 6)
+
+
+#: one small key of each autotuned direction: (direction, dims, permute)
+AUTOTUNE_KEYS = [("fwd", (37, 256, 1), False), ("bwd", (37, 256, 1), False),
+                 ("cascade", (64, 256, 2), True),
+                 ("cascade_bwd", (64, 256, 2), True),
+                 ("paged_attn", (2, 2, 3, 16, 2, 5, 64, 4), False)]
+
+
+def _plan_vs_plain(dev, direction, dims, permute, p):
+    """Run plan ``p`` at ``dims`` on random inputs (ragged rows past the
+    bucket's) against the plain version, twice for identical bits."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    if direction == "paged_attn":
+        b, hkv, mb, bs, group, t, dh, _ = dims
+        args = _long_paged_case(dev, b, mb * bs - t, t, torch.float32, 5,
+                                hkv=hkv, group=group, dh=dh, bs=bs)
+        got, want, same = _paged_pair(args, p=p)
+        _close(got, want, F32)
+        assert same and torch.equal(got, _paged_pair(args, p=p)[0])
+        return
+    m, n, k = dims
+    fam = families.get_family("acdc")
+    c, ct = fam.matrices(n, torch.float32, dev)
+    mid = None
+    if permute and k > 1:
+        perm = torch.as_tensor(fam.riffle(n), dtype=torch.long, device=dev)
+        mid = ct[:, perm].contiguous()
+    x, a, d = r(m, n), 1.0 + 0.061 * r(k, n), 1.0 + 0.061 * r(k, n)
+    if direction in ("fwd", "cascade"):
+        got = cascade_mod.launch_cascade(x, a, d, None, c, ct, mid, False, p)
+        _close(got, ref.acdc_cascade_ref(x, a, d, None, c, ct, mid), F32)
+        assert torch.equal(got, cascade_mod.launch_cascade(
+            x, a, d, None, c, ct, mid, False, p))
+        return
+    gy = r(m, n)
+    got = cbwd_mod.launch_bwd(x, gy, a, d, None, c, ct, mid, False, p)
+    _close_grads(got, ref.acdc_cascade_bwd_ref(x, gy, a, d, None, c, ct, mid,
+                                               False), torch.float32)
+    again = cbwd_mod.launch_bwd(x, gy, a, d, None, c, ct, mid, False, p)
+    assert all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("direction,dims,permute", AUTOTUNE_KEYS)
+def test_autotune_sweeps_persists_and_reloads(dev, tmp_path, monkeypatch,
+                                              direction, dims, permute):
+    """A key's first call on the card sweeps once (no wrapper launch
+    counted); the winner is held against the plain version at the call's
+    own M, lands in the file, and a fresh memo reads it back without a
+    sweep."""
+    monkeypatch.setenv(autotune.CACHE_ENV + "_PATH",
+                       str(tmp_path / "cache.json"))
+    for name, value in (("_CACHE", {}), ("_PERSIST_LOADED", set()),
+                        ("SWEEPS", [])):
+        monkeypatch.setattr(autotune, name, value)
+    counts = [mod.launches for mod in (cascade_mod, fused_mod, bwd_mod,
+                                       cbwd_mod, pa_mod)]
+    before = autotune.totals()[0]
+    p = autotune.autotuned_plan(direction, *dims, device=dev,
+                                permute=permute)
+    assert autotune.totals()[0] == before + 1
+    rec = autotune.SWEEPS[-1]
+    assert rec.winner_s <= rec.cost_model_s
+    assert counts == [mod.launches for mod in (cascade_mod, fused_mod,
+                                               bwd_mod, cbwd_mod, pa_mod)]
+    _plan_vs_plain(dev, direction, dims, permute, p)
+    assert (tmp_path / "cache.json").exists()
+    monkeypatch.setattr(autotune, "_CACHE", {})
+    monkeypatch.setattr(autotune, "_PERSIST_LOADED", set())
+    assert autotune.autotuned_plan(direction, *dims, device=dev,
+                                   permute=permute) == p
+    assert autotune.totals()[0] == before + 1

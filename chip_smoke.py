@@ -238,6 +238,17 @@ K. data-parallel training (right after phase 6): a world-of-one NCCL
    (``REPRO_AUTOTUNE_CACHE_PATH``) and must sweep nothing and hold its
    winners for their keys.  On the CPU the
    launcher runs the same path over gloo (``torchrun ... --device cpu``).
+   The compressed state is placed at rest on the (1, 1) mesh.
+L. placement at rest (right after path K, on its world-of-one group):
+   full-width Qwen3-1.7B, 3 steps with the state placed by the sharding
+   rules (each layer gathered inside its checkpointed function, each
+   gradient reduce-scattered by its gather's backward, the mesh-wide
+   norm) beside 3 replicated steps from the same seed and batches:
+   losses, grad and update norms and every param and moment bitwise
+   equal, ``scaled_matmul`` launched 1568 times a step on both sides,
+   peak memory and s/step of each; the faulty control (layer 0's gather
+   served stale after step 0) must differ; then one placed smoke step
+   (cascade kernels at N = 128 / 256) bitwise against a replicated one.
 
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
 cut to keep the whole run within its time with paths G - I added.
@@ -1522,13 +1533,18 @@ def drill_requests(device="cuda") -> set:
     return sell_requests(cfg, 4 * 64, train=True)
 
 
-def hold_plan(key, p, dev) -> dict:
+def hold_plan(key, p, dev, timed: bool = False) -> dict:
     """A memo entry's plan against the plain version at its key's shape
     (the ACDC directions at the M bucket, in fp32: a plan does not depend
     on x's dtype; paged attention in its pools' dtype): fp32 atol 2e-4,
     rtol 1e-3 (bf16 pools: ``check_paged_attn``'s), bitwise on a repeat,
     and the cascades' fp32 error against fp64 within 2 x the plain
-    version's."""
+    version's.  ``timed`` adds the device times of the plan's launch
+    (``ms``), of the plain version and of the library call (SDPA for paged
+    attention, one fp32 matmul with the composed matrix for a forward
+    cascade without bias or a K = 1 one with it; none for a backward), all
+    on these operands (paged: ragged slots, the last parked), and their
+    bound, as phase 3 reckons its rows'."""
     import torch
 
     from repro_torch.core import families
@@ -1572,7 +1588,18 @@ def hold_plan(key, p, dev) -> dict:
         if not torch.equal(got, pa_mod.launch(q, kn, vn, kp, vp, tables,
                                               pos, 0, 0.0, p)):
             _fail(f"autotune {label}: plan {p}: two runs differ in bits")
-        return dict(max_abs_err=max_err(got, want), bitwise_repeat=True)
+        out = dict(max_abs_err=max_err(got, want), bitwise_repeat=True)
+        if timed:
+            nbytes, flops, _ = paged_bytes_flops(q, kp, tables, pos)
+            lib, _ = sdpa_library(q, kp, vp, tables, pos, kn, vn)
+            out.update(zip(("bound_ms", "bound_by"),
+                           bound_ms(nbytes, flops)))
+            out.update(ms=device_ms(lambda: pa_mod.launch(
+                q, kn, vn, kp, vp, tables, pos, 0, 0.0, p))[0],
+                plain_ms=device_ms(lambda: ref.paged_attention_ref(
+                    q, kn, vn, kp2, vp2, tables, pos, 0, 0.0), reps=3,
+                    warmup=1)[0], library_ms=device_ms(lib)[0])
+        return out
 
     direction, n, k, _, bias, permute, family, m = key
     fam = families.get_family(family)
@@ -1584,11 +1611,27 @@ def hold_plan(key, p, dev) -> dict:
     x = randn(m, n)
     a, d = 1.0 + 0.061 * randn(k, n), 1.0 + 0.061 * randn(k, n)
     bb = 0.1 * randn(k, n) if bias and direction != "bwd" else None
+    n_mats = 3 if mid is not None else 2
     if direction in ("fwd", "cascade"):
         def kernel():
             return cascade_mod.launch_cascade(x, a, d, bb, c, ct, mid, False,
                                               p)
-        got, want = kernel(), ref.acdc_cascade_ref(x, a, d, bb, c, ct, mid)
+
+        def plain():
+            return ref.acdc_cascade_ref(x, a, d, bb, c, ct, mid)
+
+        library = None
+        if bb is None or k == 1:
+            w = composed_matrix(a, d, c, ct, mid)
+            bvec = None if bb is None else (bb[0].double()
+                                            @ ct.double()).float()
+
+            def library():
+                return (torch.matmul(x, w) if bvec is None
+                        else torch.addmm(bvec, x, w))
+        work = (2 * m * n * 4 + (3 if bias else 2) * k * n * 4
+                + n_mats * n * n * 4, 4.0 * k * m * n * n)
+        got, want = kernel(), plain()
         y64 = cascade_fp64(x, a, d, bb, c, ct, mid)
         err = {"kernel": drift(got, y64), "plain": drift(want, y64)}
         ok, same = (rel_close(got, want, rtol=1e-3, atol=2e-4),
@@ -1603,8 +1646,15 @@ def hold_plan(key, p, dev) -> dict:
         def kernel():
             return cbwd_mod.launch_bwd(x, gy, a, d, bb, c, ct, mid, False,
                                        p, with_db=bias)
+
+        def plain():
+            return ref.acdc_cascade_bwd_ref(x, gy, a, d, b64, c, ct, mid,
+                                            False)
+        library = None
+        work = (3 * m * n * 4 + 2 * (3 if bias else 2) * k * n * 4
+                + n_mats * n * n * 4, 2.0 * m * n * n * (5 * k - 2))
         got = kernel()
-        want = ref.acdc_cascade_bwd_ref(x, gy, a, d, b64, c, ct, mid, False)
+        want = plain()
         w64 = cascade_bwd_fp64(x, gy, a, d, b64, c, ct, mid)
         err = {"kernel": grads_drift(got, w64),
                "plain": grads_drift(want, w64)}
@@ -1616,8 +1666,14 @@ def hold_plan(key, p, dev) -> dict:
     if not same:
         _fail(f"autotune {label}: plan {p}: two runs differ in bits")
     fp32_gate("autotune", f"{label} plan {p}", err)
-    return dict(max_abs_err=abs_err, bitwise_repeat=True,
-                fp32_err_vs_fp64=err)
+    out = dict(max_abs_err=abs_err, bitwise_repeat=True,
+               fp32_err_vs_fp64=err)
+    if timed:
+        out.update(zip(("bound_ms", "bound_by"), bound_ms(*work)))
+        out.update(ms=device_ms(kernel)[0], plain_ms=device_ms(plain)[0],
+                   library_ms=None if library is None
+                   else device_ms(library)[0])
+    return out
 
 
 def autotune_phase(dev) -> dict:
@@ -1657,14 +1713,18 @@ def autotune_phase(dev) -> dict:
                    winner=dataclasses.asdict(rec.winner), winner_ms=win_ms,
                    winner_sweep_ms=rec.winner_s * 1e3,
                    sweep_s=rec.seconds)
-        row.update(hold_plan(key, autotune.memo()[key], dev))
+        row.update(hold_plan(key, autotune.memo()[key], dev, timed=True))
         rows.append(row)
+        lib = row["library_ms"]
         print(f"[autotune] {row['key']}: {rec.candidates} candidates | cost "
               f"model {autotune.describe(rec.cost_model)} device "
               f"{cm_ms:.4f} ms | winner {autotune.describe(rec.winner)} "
               f"device {win_ms:.4f} ms ({cm_ms / win_ms:.2f}x) | sweep "
-              f"{rec.seconds:.2f} s | plain err {row['max_abs_err']:.2e}",
-              flush=True)
+              f"{rec.seconds:.2f} s | plain err {row['max_abs_err']:.2e} | "
+              f"held sample: winner {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, library "
+              f"{'none' if lib is None else f'{lib:.4f}'}, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}", flush=True)
     n, s = autotune.totals()
     print(f"[autotune] {n} keys swept in {s:.1f} s, the phase "
           f"{time.perf_counter() - t0:.1f} s; file "
@@ -1676,13 +1736,17 @@ def hold_memo(dev, first: int = 0) -> dict:
     """At the end of the run: every plan the memo holds, against the
     plain version at its key's shape (``hold_plan``), keys first hit
     after the autotune phase included; every sweep of the run is listed,
-    and those after the first ``first`` (the autotune phase's) printed."""
+    and those after the first ``first`` (the autotune phase's) printed
+    with the device times of the winner, the plain version and the
+    library call on ``hold_plan``'s operands and their bound (its
+    ``timed``)."""
     from repro_torch.kernels import autotune
 
     t0 = time.perf_counter()
     memo = autotune.memo()
-    for key, p in memo.items():
-        hold_plan(key, p, dev)
+    later = {rec.key for rec in autotune.SWEEPS[first:]}
+    held = {key: hold_plan(key, p, dev, timed=key in later)
+            for key, p in memo.items()}
     info = dict(entries=len(memo), sweeps=autotune.totals()[0],
                 seconds=time.perf_counter() - t0, swept=[])
     for rec in autotune.SWEEPS:
@@ -1692,13 +1756,20 @@ def hold_memo(dev, first: int = 0) -> dict:
                    cost_model_sweep_ms=rec.cost_model_s * 1e3,
                    winner=autotune.describe(rec.winner),
                    winner_sweep_ms=rec.winner_s * 1e3, sweep_s=rec.seconds)
+        row.update({k: v for k, v in held.get(rec.key, {}).items()
+                    if k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")})
         info["swept"].append(row)
     for row in info["swept"][first:]:
+        lib = row.get("library_ms")
         print(f"[autotune] swept later: {row['key']}: {row['candidates']} "
               f"candidates | cost model {row['cost_model']} "
               f"{row['cost_model_sweep_ms']:.4f} ms | winner "
               f"{row['winner']} {row['winner_sweep_ms']:.4f} ms (sweep "
-              f"times, best of {autotune.SWEEP_REPS})", flush=True)
+              f"times, best of {autotune.SWEEP_REPS}) | held sample: "
+              f"winner {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+              f"library {'none' if lib is None else f'{lib:.4f}'}, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}", flush=True)
     print(f"[autotune] every memo entry ({info['entries']}; "
           f"{info['sweeps']} sweeps in the run) held against its plain "
           f"version in {info['seconds']:.1f} s", flush=True)
@@ -4670,7 +4741,8 @@ def compressed_leaf_checks(grads: dict, errors: dict, group) -> dict:
 def dist_full_width(dev, totals) -> dict:
     """Path K: full-width Qwen3-1.7B trained data-parallel through the
     train launcher with ``--compress-grads`` over a world-of-one NCCL
-    process group: the int8 bound, the error-feedback identity, the
+    process group (``world_of_one``; the compressed state placed at rest
+    on its (1, 1) mesh): the int8 bound, the error-feedback identity, the
     quantizer on the card against the CPU, equal step-0 losses with and
     without compression, three timed compressed steps (exact SELL
     launches: compression launches no SELL kernel) beside three
@@ -4684,116 +4756,107 @@ def dist_full_width(dev, totals) -> dict:
     from repro_torch.launch import train
     from repro_torch.optim.optimizers import tree_map
 
-    pg = ROOT / "build" / "chip_smoke_pg"
-    pg.parent.mkdir(parents=True, exist_ok=True)
-    pg.unlink(missing_ok=True)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
-                            world_size=1)
-    try:
-        mesh = mesh_mod.make_host_mesh(1, dev.type)
-        if tuple(mesh.shape) != (1, 1):
-            _fail(f"[K] world-of-one mesh {mesh}")
-        args = train.parse_args([
-            "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
-            "pallas", "--compress-grads", "--global-batch", "4",
-            "--seq-len", "128", "--steps", "3", "--device", str(dev)])
-        cfg, model, opt, step_c, pipeline = train.build(args)
-        dp = pipeline.dp
-        backend = dist.get_backend(dp.group) if dp.group else None
-        if backend != mesh_mod.BACKENDS[dev.type]:
-            _fail(f"[K] the data group runs {backend} on {dev.type}")
-        step_u = steps_mod.make_train_step(model, cfg, opt, group=dp.group)
-        tokens = args.global_batch * args.seq_len
-        want = train_launches_per_step(cfg, tokens)
+    mesh = mesh_mod.make_host_mesh(1, dev.type)
+    if tuple(mesh.shape) != (1, 1):
+        _fail(f"[K] world-of-one mesh {mesh}")
+    args = train.parse_args([
+        "--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
+        "pallas", "--compress-grads", "--global-batch", "4",
+        "--seq-len", "128", "--steps", "3", "--device", str(dev)])
+    cfg, model, opt, step_c, pipeline = train.build(args)
+    dp = pipeline.dp
+    backend = dist.get_backend(dp.group) if dp.group else None
+    if backend != mesh_mod.BACKENDS[dev.type]:
+        _fail(f"[K] the data group runs {backend} on {dev.type}")
+    step_u = steps_mod.make_train_step(model, cfg, opt, group=dp.group)
+    tokens = args.global_batch * args.seq_len
+    want = train_launches_per_step(cfg, tokens)
 
-        def fresh(compress: bool) -> dict:
-            gen = torch.Generator(device=dev).manual_seed(0)
-            return steps_mod.init_state(model, cfg, opt, gen, dev,
-                                        compress_dp=int(compress))
+    def fresh(compress: bool) -> dict:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return steps_mod.init_state(model, cfg, opt, gen, dev,
+                                    compress_dp=int(compress),
+                                    mesh=dp.mesh if compress else None)
 
-        # one seeded state and batch: the bound and the identity on a
-        # carried (non-zero) residual, and the card against the CPU
-        state = fresh(True)
-        wire, raw = train._grad_wire_bytes(state["params"])
-        _, grads = steps_mod.loss_and_grads(model, cfg, state["params"],
-                                            train.batch_on(pipeline, 0, dev))
-        zeros = tree_map(lambda e: e[0], state["grad_error"])
-        _, carried = compression.compressed_all_reduce_tree(grads, zeros,
-                                                            dp.group)
-        leaf = compressed_leaf_checks(grads, carried, dp.group)
-        del state, grads, zeros, carried
+    # one seeded state and batch: the bound and the identity on a
+    # carried (non-zero) residual, and the card against the CPU
+    state = fresh(True)
+    wire, raw = train._grad_wire_bytes(state["params"])
+    _, grads = steps_mod.loss_and_grads(model, cfg, state["params"],
+                                        train.batch_on(pipeline, 0, dev))
+    zeros = tree_map(lambda e: e[0], state["grad_error"])
+    _, carried = compression.compressed_all_reduce_tree(grads, zeros,
+                                                        dp.group)
+    leaf = compressed_leaf_checks(grads, carried, dp.group)
+    del state, grads, zeros, carried
+    torch.cuda.empty_cache()
+    print(f"[K] {leaf['leaves']} grad leaves, {leaf['entries']} "
+          f"entries: |ghat - (g + e)| <= {leaf['worst_bound_ratio']:.6f}"
+          f" scale, |ghat + new_e - (g + e)| <= "
+          f"{leaf['identity_max_abs']:.2e}; quantize_int8 card vs CPU: "
+          f"{leaf['q_differ']} q and {leaf['scale_differ']} scales "
+          f"differ", flush=True)
+
+    def run(label, step_fn, compress, record=None, drop=False):
+        state = fresh(compress)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        ctx = (compression_recorder(record, drop) if record is not None
+               else contextlib.nullcontext())
+        with ctx:
+            for step in range(args.steps):
+                batch = train.batch_on(pipeline, step, dev)
+                before = read_counts()
+                t0 = time.perf_counter()
+                state, met = step_fn(state, batch)
+                torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t0
+                delta = {k: v - before[k]
+                         for k, v in read_counts().items() if v - before[k]}
+                loss = float(met["loss"])
+                if not math.isfinite(loss):
+                    _fail(f"[K] {label} step {step}: loss {loss}")
+                if delta != want:
+                    _fail(f"[K] {label} step {step}: launches {delta}, "
+                          f"want {want} and nothing else")
+                out.append(dict(loss=loss, s=dt, launches=delta,
+                                grad_norm=float(met["grad_norm"])))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
         torch.cuda.empty_cache()
-        print(f"[K] {leaf['leaves']} grad leaves, {leaf['entries']} "
-              f"entries: |ghat - (g + e)| <= {leaf['worst_bound_ratio']:.6f}"
-              f" scale, |ghat + new_e - (g + e)| <= "
-              f"{leaf['identity_max_abs']:.2e}; quantize_int8 card vs CPU: "
-              f"{leaf['q_differ']} q and {leaf['scale_differ']} scales "
-              f"differ", flush=True)
+        timed_s = [o["s"] for o in out[1:]]
+        info = dict(steps=out, s_per_step=sum(timed_s) / len(timed_s),
+                    peak_mem_gb=peak)
+        print(f"[K] {label}: losses {[o['loss'] for o in out]}, "
+              f"{info['s_per_step']:.3f} s/step, peak {peak:.2f} GB",
+              flush=True)
+        return info
 
-        def run(label, step_fn, compress, record=None, drop=False):
-            state = fresh(compress)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            out = []
-            ctx = (compression_recorder(record, drop) if record is not None
-                   else contextlib.nullcontext())
-            with ctx:
-                for step in range(args.steps):
-                    batch = train.batch_on(pipeline, step, dev)
-                    before = read_counts()
-                    t0 = time.perf_counter()
-                    state, met = step_fn(state, batch)
-                    torch.cuda.synchronize(dev)
-                    dt = time.perf_counter() - t0
-                    delta = {k: v - before[k]
-                             for k, v in read_counts().items() if v - before[k]}
-                    loss = float(met["loss"])
-                    if not math.isfinite(loss):
-                        _fail(f"[K] {label} step {step}: loss {loss}")
-                    if delta != want:
-                        _fail(f"[K] {label} step {step}: launches {delta}, "
-                              f"want {want} and nothing else")
-                    out.append(dict(loss=loss, s=dt, launches=delta,
-                                    grad_norm=float(met["grad_norm"])))
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            del state
-            torch.cuda.empty_cache()
-            timed_s = [o["s"] for o in out[1:]]
-            info = dict(steps=out, s_per_step=sum(timed_s) / len(timed_s),
-                        peak_mem_gb=peak)
-            print(f"[K] {label}: losses {[o['loss'] for o in out]}, "
-                  f"{info['s_per_step']:.3f} s/step, peak {peak:.2f} GB",
-                  flush=True)
-            return info
-
-        reset_counts()
-        plain = run("uncompressed", step_u, False)
-        comp = run("compressed", step_c, True)
-        if plain["steps"][0]["loss"] != comp["steps"][0]["loss"]:
-            _fail(f"[K] step-0 loss compressed {comp['steps'][0]['loss']} "
-                  f"!= uncompressed {plain['steps'][0]['loss']}")
-        sums_ef, sums_off = {}, {}
-        run("compressed, recorded", step_c, True, sums_ef)
-        run("compressed, feedback dropped", step_c, True, sums_off,
-            drop=True)
-        counts = read_counts()
-        with_ef = steps_from_true_sum(sums_ef)
-        without = steps_from_true_sum(sums_off)
-        del sums_ef, sums_off
-        torch.cuda.empty_cache()
-        print(f"[K] accumulated transmitted gradient after {args.steps} "
-              f"steps: {with_ef:.4f} quantization steps from the true sum "
-              f"with error feedback, {without:.4f} without", flush=True)
-        if not with_ef <= 0.5 + 1e-3:
-            _fail(f"[K] with error feedback the transmitted sum drifts "
-                  f"{with_ef} steps from the true one (> 1/2)")
-        if not without > 1.0:
-            _fail(f"[K] the faulty control (no feedback) stays within one "
-                  f"quantization step ({without}): the check cannot tell")
-    finally:
-        mesh_mod.shutdown()
+    reset_counts()
+    plain = run("uncompressed", step_u, False)
+    comp = run("compressed", step_c, True)
+    if plain["steps"][0]["loss"] != comp["steps"][0]["loss"]:
+        _fail(f"[K] step-0 loss compressed {comp['steps'][0]['loss']} "
+              f"!= uncompressed {plain['steps'][0]['loss']}")
+    sums_ef, sums_off = {}, {}
+    run("compressed, recorded", step_c, True, sums_ef)
+    run("compressed, feedback dropped", step_c, True, sums_off,
+        drop=True)
+    counts = read_counts()
+    with_ef = steps_from_true_sum(sums_ef)
+    without = steps_from_true_sum(sums_off)
+    del sums_ef, sums_off
+    torch.cuda.empty_cache()
+    print(f"[K] accumulated transmitted gradient after {args.steps} "
+          f"steps: {with_ef:.4f} quantization steps from the true sum "
+          f"with error feedback, {without:.4f} without", flush=True)
+    if not with_ef <= 0.5 + 1e-3:
+        _fail(f"[K] with error feedback the transmitted sum drifts "
+              f"{with_ef} steps from the true one (> 1/2)")
+    if not without > 1.0:
+        _fail(f"[K] the faulty control (no feedback) stays within one "
+              f"quantization step ({without}): the check cannot tell")
     for name, n in counts.items():
         totals[name] += n
     info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters, "
@@ -4810,6 +4873,185 @@ def dist_full_width(dev, totals) -> dict:
           f"({info['s_per_step_ratio']:.3f}x), peak {comp['peak_mem_gb']:.2f}"
           f" / {plain['peak_mem_gb']:.2f} GB, wire {wire} vs raw {raw} "
           f"bytes ({wire / raw:.4f}x), launches a step {want}", flush=True)
+    return info
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A world-of-one process group (NCCL on the card) for paths K and L,
+    left on exit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    pg = ROOT / "build" / "chip_smoke_pg"
+    pg.parent.mkdir(parents=True, exist_ok=True)
+    pg.unlink(missing_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(mesh_mod.BACKENDS[dev.type],
+                            init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        mesh_mod.shutdown()
+
+
+@contextlib.contextmanager
+def stale_layer_gather(state: dict):
+    """The faulty control of path L: layer 0's gather served from the
+    copy it gathered first, once ``state["stale"]`` is set (after step
+    0), as a gather cache that missed the update would serve it."""
+    from repro_torch.dist import sharding
+    from repro_torch.optim.optimizers import tree_map
+
+    real = sharding.PlacedStack.layer
+
+    def layer(self, i):
+        if i != 0:
+            return real(self, i)
+        if state.get("stale") and "copy" in state:
+            return state["copy"]
+        out = real(self, i)
+        state["copy"] = tree_map(lambda t: t.detach().clone(), out)
+        return out
+
+    sharding.PlacedStack.layer = layer
+    try:
+        yield
+    finally:
+        sharding.PlacedStack.layer = real
+
+
+def placed_full_width(dev, totals) -> dict:
+    """Path L: full-width Qwen3-1.7B trained with its state placed at
+    rest by the sharding rules on the world-of-one (1, 1) mesh of path K
+    (every leaf spec'd over its size-1 axes: each layer gathered inside
+    its checkpointed function, each gradient reduce-scattered by its
+    gather's backward, the mesh-wide norm), 3 steps beside 3 replicated
+    ones from the same seed and batches: losses, grad and update norms
+    and every param and moment bitwise equal, ``scaled_matmul`` launched
+    1568 times a step on both sides; the faulty control (layer 0's gather
+    served stale after step 0) must differ; then one placed smoke step
+    (K = 2: the cascade kernels at N = 128 / 256) bitwise against a
+    replicated one, with equal launches."""
+    import torch
+
+    from repro_torch.dist import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_flatten
+
+    def host(state) -> dict:
+        paths, leaves = tree_flatten({k: state[k] for k in ("params",
+                                                             "opt")})
+        return {p: t.detach().cpu() for p, t in zip(paths, leaves)}
+
+    def differs(a: dict, b: dict) -> list:
+        return [p for p in a if not torch.equal(a[p], b[p])]
+
+    def sides(argv, n_steps, control=False):
+        args = train.parse_args(argv + ["--steps", str(n_steps), "--device",
+                                        str(dev)])
+        cfg, model, opt, step_p, pipeline = train.build(args)
+        dp = pipeline.dp
+        if dp.mesh is None or tuple(dp.mesh.shape) != (1, 1):
+            _fail(f"[L] world-of-one mesh {dp.mesh}")
+        step_r = steps_mod.make_train_step(model, cfg, opt, group=dp.group)
+        want = train_launches_per_step(cfg,
+                                       args.global_batch * args.seq_len)
+
+        def run(label, step_fn, mesh, fault=None):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = steps_mod.init_state(model, cfg, opt, gen, dev,
+                                         mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = []
+            with (stale_layer_gather(fault) if fault is not None
+                  else contextlib.nullcontext()):
+                for step in range(n_steps):
+                    batch = train.batch_on(pipeline, step, dev)
+                    before = read_counts()
+                    t0 = time.perf_counter()
+                    state, met = step_fn(state, batch)
+                    torch.cuda.synchronize(dev)
+                    dt = time.perf_counter() - t0
+                    delta = {k: v - before[k] for k, v in
+                             read_counts().items() if v - before[k]}
+                    if fault is None and delta != want:
+                        _fail(f"[L] {label} step {step}: launches {delta},"
+                              f" want {want} and nothing else")
+                    out.append(dict(s=dt, launches=delta, **{
+                        k: float(v) for k, v in met.items()}))
+                    if fault is not None:
+                        fault["stale"] = True
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            final = host(state)
+            del state
+            torch.cuda.empty_cache()
+            timed_s = [o["s"] for o in out[1:]] or [out[0]["s"]]
+            return dict(steps=out, peak_mem_gb=peak,
+                        s_per_step=sum(timed_s) / len(timed_s)), final
+
+        reset_counts()
+        rep, rep_final = run("replicated", step_r, None)
+        placed, placed_final = run("placed", step_p, dp.mesh)
+        counts = read_counts()
+        metrics = ("loss", "grad_norm", "update_norm")
+        for a, b in zip(rep["steps"], placed["steps"]):
+            if any(a[k] != b[k] for k in metrics):
+                _fail(f"[L] {argv[1:4]}: placed metrics {b} != replicated "
+                      f"{a}")
+        bad = differs(rep_final, placed_final)
+        if bad:
+            _fail(f"[L] {len(bad)} leaves differ between the placed and "
+                  f"the replicated state, e.g. {bad[:3]}")
+        info = dict(replicated=rep, placed=placed, launches=counts,
+                    launches_per_step=want, leaves=len(rep_final))
+        if control:
+            ctl, ctl_final = run("control", step_p, dp.mesh, fault={})
+            bad = differs(rep_final, ctl_final)
+            moved = [a["loss"] != b["loss"]
+                     for a, b in zip(rep["steps"], ctl["steps"])]
+            if not bad or not any(moved):
+                _fail(f"[L] the faulty control (layer 0's gather stale "
+                      f"after step 0) passes the check: {len(bad)} leaves "
+                      f"differ, losses moved {moved}")
+            info["control"] = dict(leaves_differing=len(bad),
+                                   losses=[c["loss"] for c in ctl["steps"]],
+                                   losses_moved=moved)
+        del rep_final, placed_final
+        return info
+
+    full = sides(["--arch", "qwen3_1_7b", "--sell", "acdc",
+                  "--sell-method", "pallas", "--global-batch", "4",
+                  "--seq-len", "128"], 3, control=True)
+    for side in ("replicated", "placed"):
+        r = full[side]
+        print(f"[L] full width {side}: losses "
+              f"{[o['loss'] for o in r['steps']]}, {r['s_per_step']:.3f} "
+              f"s/step, peak {r['peak_mem_gb']:.2f} GB", flush=True)
+    print(f"[L] full width: {full['leaves']} leaves bitwise equal, "
+          f"launches a step {full['launches_per_step']} on both sides; "
+          f"control: {full['control']['leaves_differing']} leaves differ, "
+          f"losses {full['control']['losses']}", flush=True)
+    smoke = sides(["--arch", "qwen3_1_7b", "--smoke", "--sell", "acdc",
+                   "--sell-method", "pallas", "--global-batch", "4",
+                   "--seq-len", "64"], 1)
+    print(f"[L] smoke K=2 placed step: bitwise equal to replicated, "
+          f"launches {smoke['launches']} over both sides", flush=True)
+    for info in (full, smoke):
+        for name, n in info["launches"].items():
+            totals[name] += n
+    info = dict(config="qwen3_1_7b full width, bf16 compute, fp32 masters, "
+                       "placed at rest on a world-of-one (1, 1) NCCL mesh",
+                full_width=full, smoke=smoke, device=smi_line())
+    print(f"[L] ({info['device']}): placed {full['placed']['s_per_step']:.3f}"
+          f" s/step vs replicated {full['replicated']['s_per_step']:.3f}, "
+          f"peak {full['placed']['peak_mem_gb']:.2f} / "
+          f"{full['replicated']['peak_mem_gb']:.2f} GB", flush=True)
     return info
 
 
@@ -5082,7 +5324,7 @@ def main() -> int:
 
 
 def run_paths(report: dict, dev) -> None:
-    """Phases 4 - 9 and paths A - K, on the memo of the autotune phase
+    """Phases 4 - 9 and paths A - L, on the memo of the autotune phase
     (an engine's keys resolved as it is built)."""
     import torch
 
@@ -5157,7 +5399,9 @@ def run_paths(report: dict, dev) -> None:
     timed(report, "methods_smoke", smoke_methods, totals, dev)
     report["paths"] = paths
     timed(report, "train_full_width", train_full_width, dev, totals)
-    timed(report, "dist_full_width", dist_full_width, dev, totals)
+    with world_of_one(dev):
+        timed(report, "dist_full_width", dist_full_width, dev, totals)
+        timed(report, "placed_full_width", placed_full_width, dev, totals)
     timed(report, "drain_drill", drain_drill, totals)
     timed(report, "train_methods_full_width", train_methods_full_width, dev,
           totals)

@@ -16,7 +16,10 @@ reference casts every leaf.  ``save_async`` copies to host memory at
 once and writes from a thread (joined by the next save or ``wait``).
 Arrays are stored in their global layout, as the reference stores them;
 under data parallelism one rank writes (the train launcher gathers the
-per-rank ``grad_error`` rows first), and every rank restores.
+per-rank ``grad_error`` rows and the placed leaves first, one at a time),
+and every rank restores, a placed state through ``restore``'s ``shard``:
+each full leaf is read on the host and only this rank's block goes to the
+device, whatever mesh the checkpoint was saved at.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -115,11 +118,14 @@ class CheckpointManager:
         for s in steps[: max(0, len(steps) - self.keep)]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                shard: Optional[Callable] = None) -> Any:
         """A new tree shaped like ``like``: each tensor leaf takes its
         dtype from ``like`` and its device from ``device`` when given
         (``like`` may then live on ``meta``), else from ``like``; an int
-        leaf comes back an int.  A leaf takes the stored array's shape."""
+        leaf comes back an int.  A leaf takes the stored array's shape,
+        or with ``shard(path, array) -> block`` the shape of the block
+        that ``shard`` cuts from it on the host."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -131,6 +137,8 @@ class CheckpointManager:
             if entry is None:
                 raise KeyError(f"checkpoint missing leaf {path!r}")
             arr = np.load(os.path.join(d, "arrays", entry["file"]))
+            if shard is not None and isinstance(leaf, torch.Tensor):
+                arr = shard(path, arr)
             if isinstance(leaf, torch.Tensor):
                 out.append(torch.from_numpy(np.array(arr)).to(
                     device=leaf.device if device is None else device,

@@ -28,17 +28,32 @@ On top of the engine, :func:`param_specs` walks a model/optimizer state
 tree and assigns logical axes by parameter role (path pattern), as the
 reference does.  :func:`placements` turns a spec into DTensor placements
 for one ``DeviceMesh``.  The train launcher reads :func:`data_specs` to
-decide whether a batch's rows split over "data"; placing parameters at
-rest by :func:`param_specs` waits for the next slice (ROADMAP.md), so
-parameters stay replicated on every data rank.
+decide whether a batch's rows split over "data".
+
+The runtime half places a train state at rest by :func:`param_specs` on a
+``("data", "model")`` ``DeviceMesh``, as the reference's jit places it by
+``param_shardings``: ZeRO-3 over "data" (features, SELL diagonals) and
+shards over "model" (heads, ffn, vocab, experts).  Each rank keeps its
+block of every parameter and moment (:func:`local_shard`,
+:func:`place_state`); the model gathers a leaf where it is used
+(:func:`gather`, differentiable), one stacked layer at a time
+(:class:`PlacedStack`, read by ``models.transformer.layer_params``).  The
+gather's backward differs by axis: over "data" the ranks hold different
+rows, so the gradient is reduce-scattered (summed) and divided by the
+data size; over "model" the ranks of one data row compute the same loss,
+so the gradient is sliced, never summed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
-from repro_torch.optim.optimizers import tree_map, tree_paths
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.optimizers import (global_norm, tree_flatten,
+                                          tree_map, tree_paths)
 
 # logical axis -> ordered mesh-axis candidates
 RULES = {
@@ -193,3 +208,286 @@ def placements(spec: Spec, mesh) -> list:
                 owner[axis] = dim
     return [Shard(owner[a]) if a in owner else Replicate()
             for a in mesh.mesh_dim_names]
+
+
+# ---------------------------------------------------------------------------
+# Placement at rest: this rank's blocks and the gathers.
+# ---------------------------------------------------------------------------
+
+#: the mesh axes a batch's rows split over: a gradient is summed over these
+ROW_AXES = RULES["batch"]
+#: top-level subtrees of stacked layers (leading L axis), gathered one
+#: layer at a time; every other subtree is gathered once a step
+STACKED = ("layers", "encoder", "decoder")
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _padded(spec: Spec, ndim: int) -> Spec:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def shard_slices(shape: Sequence[int], spec: Spec, sizes: Mapping,
+                 coord: Mapping) -> tuple:
+    """The block (one slice a dim) that the device at mesh coordinate
+    ``coord`` ({axis: index}) holds of a ``shape`` leaf placed by
+    ``spec``: a dim split over axes (a0, a1), major first, is cut into
+    ``sizes[a0] * sizes[a1]`` equal blocks and the device holds block
+    ``coord[a0] * sizes[a1] + coord[a1]``, as the reference's
+    ``NamedSharding(mesh, spec).devices_indices_map(shape)`` gives it."""
+    out = []
+    for dim, entry in zip(shape, _padded(spec, len(shape))):
+        n, idx = 1, 0
+        for axis in _axes(entry):
+            n *= sizes[axis]
+            idx = idx * sizes[axis] + coord[axis]
+        size = dim // n
+        out.append(slice(idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """The shape of one rank's block of a ``shape`` leaf."""
+    sizes = _axis_sizes(mesh)
+    return tuple(d // math.prod(sizes[a] for a in _axes(e))
+                 for d, e in zip(shape, _padded(spec, len(shape))))
+
+
+def _stacked(path: str) -> bool:
+    """Whether state leaf ``path`` (``params/...``, ``opt/<moment>/...``)
+    belongs to a stacked-layer subtree."""
+    segs = path.split("/")
+    return segs[2 if segs[0] == "opt" else 1] in STACKED
+
+
+def _coord(mesh) -> dict:
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def local_shard(full, spec: Spec, mesh):
+    """This rank's block of ``full`` (a view; an int leaf as it is)."""
+    if not isinstance(full, torch.Tensor):
+        return full
+    return full[shard_slices(full.shape, spec, _axis_sizes(mesh),
+                             _coord(mesh))]
+
+
+def _all_gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf from every rank's block (minor axis of a dim first)."""
+    x = local
+    for dim, entry in enumerate(_padded(spec, local.dim())):
+        for axis in reversed(_axes(entry)):
+            group = mesh.get_group(axis)
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            x = torch.cat(parts, dim)
+    return x
+
+
+def _grad_block(grad: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The gradient of this rank's block from the full leaf's gradient:
+    over a row axis reduce-scattered (summed) and divided by its size
+    (the mean), over any other axis sliced (every rank of it computed the
+    same gradient)."""
+    sizes = _axis_sizes(mesh)
+    ranks = 1
+    for dim, entry in enumerate(_padded(spec, grad.dim())):
+        for axis in _axes(entry):
+            chunks = torch.split(grad, grad.shape[dim] // sizes[axis], dim)
+            if axis in ROW_AXES:
+                out = torch.empty_like(chunks[0],
+                                       memory_format=torch.contiguous_format)
+                dist.reduce_scatter(out, [c.contiguous() for c in chunks],
+                                    group=mesh.get_group(axis))
+                grad, ranks = out, ranks * sizes[axis]
+            else:
+                grad = chunks[mesh.get_local_rank(axis)]
+    return grad / ranks if ranks > 1 else grad
+
+
+class _Gather(torch.autograd.Function):
+    """``_all_gather`` forward, ``_grad_block`` backward."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _all_gather(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _grad_block(grad, ctx.spec, ctx.mesh), None, None
+
+
+def gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf of ``local`` blocks placed by ``spec``,
+    differentiable: its backward gives this rank's block of the data
+    ranks' mean gradient for a leaf split over "data" (a leaf that is
+    not is summed over "data" by the train step)."""
+    return _Gather.apply(local, tuple(spec), mesh)
+
+
+class PlacedStack:
+    """A stacked-layer subtree at rest: this rank's blocks of every
+    ``(L, ...)`` leaf beside their specs (the leading axis never split).
+    :meth:`layer` gathers layer ``i``."""
+
+    def __init__(self, local: dict, specs: dict, mesh):
+        self.local, self.specs, self.mesh = local, specs, mesh
+
+    def layer(self, i: int) -> dict:
+        return tree_map(lambda t, s: gather(t[i], s[1:], self.mesh),
+                        self.local, self.specs)
+
+
+class Placement:
+    """Where each leaf of a train state lives at rest on ``mesh`` (a
+    ``DeviceMesh`` with axes "data" and "model"): the specs of
+    :func:`param_specs` over the FULL state ``like`` (shapes only: a
+    ``meta`` tree does), by state path (``params/...``, ``opt/m/...``).
+    A ``grad_error`` subtree is left out: each rank keeps its own row."""
+
+    def __init__(self, like: dict, mesh):
+        like = {k: v for k, v in like.items() if k != "grad_error"}
+        self.mesh = mesh
+        self.sizes = _axis_sizes(mesh)
+        paths, specs = tree_flatten(param_specs(like, mesh))
+        self.specs = dict(zip(paths, specs))
+        self.shapes = {p: _shape(leaf)
+                       for p, leaf in zip(*tree_flatten(like))}
+
+    def axes(self, path: str) -> set:
+        """The mesh axes (of any size) leaf ``path`` is split over."""
+        return {a for e in self.specs[path] for a in _axes(e)}
+
+    def _by_path(self, fn, tree, prefix: str):
+        return tree_map(lambda leaf, p: fn(leaf, f"{prefix}/{p}"), tree,
+                        tree_paths(tree))
+
+    def place(self, tree: dict, prefix: str) -> dict:
+        """This rank's blocks of the full ``tree`` at ``prefix`` (``params``,
+        ``opt``), each copied out; the tree's full leaves are dropped one
+        by one as their blocks are made, so the peak is the full tree plus
+        the blocks."""
+        for key in list(tree):
+            path = f"{prefix}/{key}"
+            if isinstance(tree[key], dict):
+                tree[key] = self.place(tree[key], path)
+            else:
+                tree[key] = local_shard(tree[key], self.specs[path],
+                                        self.mesh).clone(
+                    memory_format=torch.contiguous_format)
+        return tree
+
+    def local(self, tree: dict, prefix: str = "params") -> dict:
+        """Views of this rank's blocks of a full tree."""
+        return self._by_path(
+            lambda t, p: local_shard(t, self.specs[p], self.mesh), tree,
+            prefix)
+
+    def view(self, params: dict) -> dict:
+        """The model's view of this rank's blocks ``params``: stacked
+        subtrees as :class:`PlacedStack` (a layer gathered where the
+        model slices it), every other leaf gathered now (differentiable)."""
+        out = {}
+        for key, sub in params.items():
+            specs = self._by_path(lambda _, p: self.specs[p], sub,
+                                  f"params/{key}")
+            if key in STACKED:
+                out[key] = PlacedStack(sub, specs, self.mesh)
+            else:
+                out[key] = tree_map(lambda t, s: gather(t, s, self.mesh),
+                                    sub, specs)
+        return out
+
+    def gathered(self, tree: dict, prefix: str = "params") -> dict:
+        """The full tree of this rank's blocks (no autograd), gathered
+        leaf by leaf on every rank."""
+        with torch.no_grad():
+            return self._by_path(
+                lambda t, p: _all_gather(t, self.specs[p], self.mesh), tree,
+                prefix)
+
+    def to_host(self, tree: dict, prefix: str, keep: bool) -> Optional[dict]:
+        """The full tree on the host where ``keep`` (else None): gathered
+        one leaf at a time, a stacked leaf one layer at a time, so a card
+        holds one layer of one leaf beyond its blocks.  Every rank calls
+        it."""
+        def one(t, path):
+            spec = self.specs[path]
+            if not _stacked(path):
+                full = _all_gather(t, spec, self.mesh)
+                return full.cpu() if keep else None
+            host = (torch.empty(self.shapes[path], dtype=t.dtype)
+                    if keep else None)
+            for i in range(t.shape[0]):
+                full = _all_gather(t[i], spec[1:], self.mesh)
+                if keep:
+                    host[i].copy_(full)
+            return host
+
+        with torch.no_grad():
+            return self._by_path(one, tree, prefix)
+
+    def reduce_sums(self, prefix: str) -> Callable:
+        """``reduce(paths, sums) -> sums`` for
+        :func:`repro_torch.optim.optimizers.global_norm`: each leaf's
+        partial sum over this rank's block completed over the axes the
+        leaf is split over (a replicated leaf counts once)."""
+        def reduce(paths: List[str], sums: list) -> list:
+            sums = list(sums)
+            by_axes: dict = {}
+            for i, path in enumerate(paths):
+                axes = tuple(a for a in self.mesh.mesh_dim_names
+                             if a in self.axes(f"{prefix}/{path}"))
+                if axes:
+                    by_axes.setdefault(axes, []).append(i)
+            for axes, idx in by_axes.items():
+                vec = torch.stack([sums[i] for i in idx])
+                for axis in axes:
+                    dist.all_reduce(vec, group=self.mesh.get_group(axis))
+                for i, v in zip(idx, vec.unbind()):
+                    sums[i] = v
+            return sums
+        return reduce
+
+    def norm(self, prefix: str = "params") -> Callable:
+        """The mesh-wide global norm of a tree of this rank's blocks (each
+        element counted once), for the clip and the step's metrics."""
+        reduce = self.reduce_sums(prefix)
+        return lambda tree: global_norm(tree, reduce)
+
+    def shard_array(self, path: str, arr):
+        """This rank's block of a full host array of state leaf ``path``
+        (its spec from the array's own shape: a checkpoint saved at any
+        mesh restores onto this one)."""
+        spec = spec_for(self.mesh, arr.shape,
+                        logical_axes_for(path, arr.ndim))
+        return arr[shard_slices(arr.shape, spec, self.sizes,
+                                _coord(self.mesh))]
+
+    def nbytes(self, state: dict, full: bool = False) -> int:
+        """Bytes of the tensor leaves of ``state`` (keys ``params``,
+        ``opt``: this rank's blocks), or of their full leaves."""
+        paths, leaves = tree_flatten(state)
+        return sum((math.prod(self.shapes[p]) if full else t.numel())
+                   * t.element_size() for p, t in zip(paths, leaves)
+                   if isinstance(t, torch.Tensor))
+
+
+def place_state(state: dict, mesh) -> dict:
+    """``state`` (full leaves) placed at rest: this rank's blocks of the
+    params and of the optimizer moments (each moment takes its
+    parameter's spec through its ``opt/m/...`` path); ``step`` and a
+    ``grad_error`` row as they are.  The full leaves are dropped from
+    ``state``'s own dicts as their blocks are made."""
+    placement = Placement(state, mesh)
+    out = dict(state)
+    out["params"] = placement.place(state["params"], "params")
+    out["opt"] = placement.place(state["opt"], "opt")
+    return out

@@ -18,6 +18,12 @@ The reference keeps ``grad_error`` as one fp32 leaf ``(dp, *param.shape)``
 a parameter, row r being data rank r's residual; that is the layout of
 checkpoints and of the bridge.  In memory a rank of the port holds only
 its own row, ``(1, *param.shape)``.
+
+On a mesh (``init_state(..., mesh=)``, ``make_train_step(..., mesh=)``)
+the params and moments are placed at rest by
+:func:`repro_torch.dist.sharding.param_specs`: a rank holds its block of
+each, the model gathers a stacked layer where it slices it, and AdamW
+updates the blocks in place (:mod:`repro_torch.dist.sharding`).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.dist import compression
+from repro_torch.dist import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.optim.optimizers import (global_norm, tree_flatten,
                                           tree_map, tree_unflatten)
@@ -36,39 +43,57 @@ from repro_torch.serving import sampler as sampler_mod
 
 
 def init_state(model, cfg, opt, gen: torch.Generator,
-               device=DEFAULT_DEVICE, compress_dp: int = 0) -> dict:
+               device=DEFAULT_DEVICE, compress_dp: int = 0,
+               mesh=None) -> dict:
     """Train state: random params from ``gen``, zero moments, step 0.
 
     ``compress_dp > 0`` adds a ``grad_error`` tree of fp32 zeros
     ``(compress_dp, *param.shape)``: the int8 residuals of that many data
     ranks (a rank training in memory takes ``compress_dp=1``, its row).
+
+    ``mesh`` places the state at rest: the full masters are drawn as
+    without it (the same generator sequence, so the same values), this
+    rank keeps its block of each and drops the full leaf as it goes, and
+    the moments are made at block size.  The peak is the full masters
+    plus the blocks.
     """
     params = model.init(gen, cfg, device)
+    error_like = params
+    if mesh is not None:
+        error_like = tree_map(lambda p: p.to("meta"), params)
+        params = sharding.Placement({"params": params}, mesh).place(
+            params, "params")
     state = {"params": params, "opt": opt.init(params), "step": 0}
     if compress_dp > 0:
         state["grad_error"] = tree_map(
             lambda p: torch.zeros((compress_dp,) + tuple(p.shape),
-                                  dtype=torch.float32, device=p.device),
-            params)
+                                  dtype=torch.float32, device=device),
+            error_like)
     return state
 
 
-def abstract_state(model, cfg, opt, compress_dp: int = 0) -> dict:
+def abstract_state(model, cfg, opt, compress_dp: int = 0,
+                   mesh=None) -> dict:
     """:func:`init_state`'s tree on the ``meta`` device: every shape and
-    dtype, no storage.  The parameters are drawn on ``meta`` from a CPU
-    generator, which draws nothing there."""
+    dtype, no storage (one rank's blocks under ``mesh``).  The parameters
+    are drawn on ``meta`` from a CPU generator, which draws nothing
+    there."""
     return init_state(model, cfg, opt, torch.Generator().manual_seed(0),
-                      "meta", compress_dp)
+                      "meta", compress_dp, mesh)
 
 
-def loss_and_grads(model, cfg, params: dict, batch: dict):
+def loss_and_grads(model, cfg, params: dict, batch: dict,
+                   view: Optional[Callable] = None):
     """(loss, grads) of ``model.loss_fn`` at ``params``: grads a tree
-    shaped like ``params`` (zeros for an unused leaf)."""
+    shaped like ``params`` (zeros for an unused leaf).  ``view(params)``,
+    when given, is what the model reads (a placed tree's gathers:
+    :meth:`repro_torch.dist.sharding.Placement.view`)."""
     paths, leaves = tree_flatten(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = model.loss_fn(params, batch, cfg)
+        loss = model.loss_fn(params if view is None else view(params),
+                             batch, cfg)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
@@ -80,7 +105,7 @@ def loss_and_grads(model, cfg, params: dict, batch: dict):
 
 def make_train_step(model, cfg, opt, accum_steps: int = 1,
                     group: Optional[dist.ProcessGroup] = None,
-                    compress: bool = False) -> Callable:
+                    compress: bool = False, mesh=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` with metrics ``{loss,
     grad_norm, update_norm}`` (fp32 scalars).
 
@@ -91,8 +116,19 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     :func:`repro_torch.dist.compression.compressed_all_reduce_tree`
     (int8 quantization with error feedback; with no group, over this
     process alone); the state must then carry this rank's ``grad_error``
-    row (``init_state(..., compress_dp=1)``).  Parameters are replicated
-    on every rank (the reference's compressed path).
+    row (``init_state(..., compress_dp=1)``).
+
+    ``mesh`` (a ``("data", "model")`` ``DeviceMesh``; the group is then
+    its "data" group) takes a state placed at rest
+    (``init_state(..., mesh=mesh)``).  The model gathers what it reads
+    (:meth:`~repro_torch.dist.sharding.Placement.view`): a leaf split
+    over "data" gets this rank's block of the mean gradient from its
+    gather's backward, every other leaf is summed over "data" here.  The
+    clip and the metrics take the mesh-wide norm.  With ``compress`` (a
+    model axis of 1 only, as in the reference) the step gathers the whole
+    tree, sums the full gradients by the int8 path unchanged, updates
+    this rank's blocks and drops the gathered copy, as the reference's
+    ``shard_map`` with replicated params does.
 
     The parameters and moments of ``state`` are updated IN PLACE (the
     returned state holds the same tensors).  ``accum_steps > 1`` splits
@@ -102,9 +138,20 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     The gradients of the SELL projections come from the ACDC ops'
     ``autograd.Function``s (:mod:`repro_torch.kernels.ops`).
     """
+    placement = None
+    if mesh is not None:
+        if compress and sharding._axis_sizes(mesh).get("model", 1) > 1:
+            raise ValueError("--compress-grads supports data-parallel "
+                             "meshes only (model axis must be 1)")
+        placement = sharding.Placement(abstract_state(model, cfg, opt),
+                                       mesh)
+        group = mesh.get_group("data")
+    view = (placement.view if placement is not None and not compress
+            else None)
+
     def grads_of(params, batch):
         if accum_steps <= 1:
-            return loss_and_grads(model, cfg, params, batch)
+            return loss_and_grads(model, cfg, params, batch, view)
         b = batch["tokens"].shape[0]
         if b % accum_steps:
             raise ValueError(
@@ -113,7 +160,7 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         loss = grads = None
         for i in range(accum_steps):
             micro = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
-            l, g = loss_and_grads(model, cfg, params, micro)
+            l, g = loss_and_grads(model, cfg, params, micro, view)
             g = tree_map(lambda t: t.float(), g)
             loss = l if loss is None else loss + l
             grads = g if grads is None else tree_map(torch.add, grads, g)
@@ -121,6 +168,12 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         return loss * inv, tree_map(lambda t: t * inv, grads)
 
     dsize = 1 if group is None else dist.get_world_size(group)
+
+    def summed_here(path: str) -> bool:
+        """Whether leaf ``path``'s gradient is summed over "data" by the
+        step (not by its gather's backward)."""
+        return view is None or not (placement.axes(f"params/{path}")
+                                    & set(sharding.ROW_AXES))
 
     def summed(loss, grads, error):
         """(mean loss, mean grads, new error rows) over the group."""
@@ -135,10 +188,14 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
             grads = tree_map(lambda g: g / dsize, grads)
             new_error = tree_map(lambda e: e[None], new_err)
         elif group is not None:
-            grads = tree_map(lambda g: g.contiguous(), grads)
-            for g in tree_flatten(grads)[1]:
-                dist.all_reduce(g, group=group)
-            grads = tree_map(lambda g: g / dsize, grads)
+            paths, leaves = tree_flatten(grads)
+            leaves = [g.contiguous() for g in leaves]
+            for path, g in zip(paths, leaves):
+                if summed_here(path):
+                    dist.all_reduce(g, group=group)
+            grads = tree_unflatten(paths, [
+                g / dsize if summed_here(path) else g
+                for path, g in zip(paths, leaves)])
         if group is not None:
             loss = loss.float().clone()
             dist.all_reduce(loss, group=group)
@@ -147,15 +204,27 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
 
     def step(state, batch):
         params = state["params"]
-        loss, grads = grads_of(params, batch)
+        if placement is not None and compress:
+            full = placement.gathered(params)
+            loss, grads = grads_of(full, batch)
+            del full
+        else:
+            loss, grads = grads_of(params, batch)
         loss, grads, new_error = summed(loss, grads,
                                         state.get("grad_error"))
+        norm = update_norm = global_norm
+        if placement is not None:
+            norm = update_norm = placement.norm()
+            if compress:    # full grads, equal on every rank
+                full_norm = global_norm(grads)
+                grads = placement.local(grads)
+                norm = lambda _: full_norm  # noqa: E731
         updates, new_opt = opt.update(grads, state["opt"], params,
-                                      state["step"])
+                                      state["step"], norm=norm)
         with torch.no_grad():
             tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
-        metrics = {"loss": loss.float(), "grad_norm": global_norm(grads),
-                   "update_norm": global_norm(updates)}
+        metrics = {"loss": loss.float(), "grad_norm": norm(grads),
+                   "update_norm": update_norm(updates)}
         new_state = {"params": params, "opt": new_opt,
                      "step": state["step"] + 1}
         if new_error is not None:

@@ -14,18 +14,29 @@ int8 with error feedback (:mod:`repro_torch.dist.compression`)::
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --smoke --sell acdc --sell-method pallas --device cpu --compress-grads
 
-Parameters stay replicated on every rank; ``--model-parallel M`` resolves
-the (data, model) mesh from the world size through ``ElasticPolicy``,
-ranks outside it exit, and a resolved model axis above 1 is refused
-(placing parameters over "model" is not ported: ROADMAP.md).  Without
-``torchrun`` the launcher runs as one process.
+Under ``torchrun`` the train state is placed at rest by the sharding
+rules (:mod:`repro_torch.dist.sharding`): ZeRO-3 over "data", shards over
+"model", a stacked layer gathered where the model uses it.
+``--model-parallel M`` resolves the (data, model) mesh from the world
+size through ``ElasticPolicy`` (ranks outside it exit); batch rows split
+over "data" only::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --smoke --sell acdc \\
+        --sell-method pallas --device cpu --model-parallel 2
+
+A model axis above 1 with ``--compress-grads`` is refused, as the
+reference refuses it.  Checkpoints hold full leaves (gathered to rank 0
+one at a time) and restore onto any mesh.  Without ``torchrun`` the
+launcher runs as one process with the whole state.
 
 Prints (rank 0) ``step N loss ... |g| ... ms`` lines (every
 ``--log-every`` steps and the last), ``resumed from step N`` when
 ``--resume`` finds a checkpoint, ``[straggler]`` lines for steps a
 ``StragglerMonitor`` flags, ``[compress]`` and ``[elastic]`` lines, the
 ``[preempt]`` line when SIGTERM drains the run (the ranks agree on the
-step; the state is saved at the next step's number), and ``done.``.  The
+step; the state is saved at the next step's number), a ``[placement]``
+line a rank (its bytes at rest), and ``done.``.  The
 step loss, tokens/s, step time, the gradient wire and raw bytes and every
 cascade's diagonal norms go to the process-global obs registry;
 ``--metrics-jsonl PATH`` appends its snapshot on the ``--log-every``
@@ -126,6 +137,9 @@ class DataParallel:
     size: int = 1
     split_rows: bool = False            # batch rows split over "data"
     in_mesh: bool = True
+    lead: bool = True                   # global rank 0: prints and saves
+    mesh: Optional[object] = None       # the (data, model) DeviceMesh
+    placement: Optional[shard_mod.Placement] = None   # set by ``build``
 
 
 def data_parallel(args: argparse.Namespace) -> DataParallel:
@@ -141,21 +155,22 @@ def data_parallel(args: argparse.Namespace) -> DataParallel:
         if not joined or dist.get_rank() == 0:
             print(f"[elastic] resolved mesh data={data} model={model} "
                   f"from {world} devices", flush=True)
-    if model > 1:
-        raise ValueError(
-            f"a model axis of {model} is not ported: parameters stay "
-            f"replicated on every data rank, and placing them over "
-            f"\"model\" is queued in ROADMAP.md (section 1)")
+    if model > 1 and args.compress_grads:
+        # the compressed sum treats params as replicated across the whole
+        # mesh: on a model axis it would gather the full tree everywhere
+        raise ValueError("--compress-grads supports data-parallel meshes "
+                         "only (model axis must be 1)")
     if not joined:
         return DataParallel()
     mesh = mesh_mod.make_host_mesh(model, device_type, data * model)
     if mesh.get_coordinate() is None:
-        return DataParallel(in_mesh=False)
+        return DataParallel(in_mesh=False, lead=False)
     rows = (args.global_batch, args.seq_len)
     split = shard_mod.data_specs(mesh, {"tokens": rows})["tokens"][0]
     return DataParallel(group=mesh.get_group("data"),
                         rank=mesh.get_local_rank("data"), size=data,
-                        split_rows=split is not None)
+                        split_rows=split is not None,
+                        lead=dist.get_rank() == 0, mesh=mesh)
 
 
 class RankBatches:
@@ -187,9 +202,12 @@ def build(args: argparse.Namespace, **overrides):
         OptimizerConfig(kind="adamw", lr=args.lr, groups=SELL_GROUPS),
         cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps))
     dp = data_parallel(args)
+    if dp.mesh is not None:
+        dp.placement = shard_mod.Placement(
+            steps_mod.abstract_state(model, cfg, opt), dp.mesh)
     train_step = steps_mod.make_train_step(
         model, cfg, opt, args.accum_steps, group=dp.group,
-        compress=args.compress_grads)
+        compress=args.compress_grads, mesh=dp.mesh)
     source = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.global_batch, frontend=cfg.frontend,
@@ -205,12 +223,16 @@ def _restore(ckpt, step, model, cfg, opt, args, dp: DataParallel) -> dict:
     model state, so a checkpoint that lacks them (compression turned on
     after the save) or carries them for another data-parallel size
     (elastic shrink/grow changed the rank axis) restores everything else
-    and re-zeros the residuals; otherwise each rank takes its row."""
+    and re-zeros the residuals; otherwise each rank takes its row.  A
+    placed state reads each full leaf on the host and keeps this rank's
+    block, whatever mesh the checkpoint was saved at."""
     like = steps_mod.abstract_state(model, cfg, opt,
                                     compress_dp=dp.size
                                     if args.compress_grads else 0)
     err_like = like.pop("grad_error", None)
-    state = ckpt.restore(step, like, device=args.device)
+    state = ckpt.restore(step, like, device=args.device,
+                         shard=dp.placement.shard_array
+                         if dp.placement is not None else None)
     if err_like is None:
         return state
     try:    # host first: every rank reads every row, keeps its own
@@ -223,13 +245,13 @@ def _restore(ckpt, step, model, cfg, opt, args, dp: DataParallel) -> dict:
         state["grad_error"] = tree_map(
             lambda e: e[dp.rank:dp.rank + 1].to(args.device), err)
     else:
-        if dp.rank == 0:
+        if dp.lead:
             print(f"[compress] residual rank axis {lead} -> {dp.size}: "
                   f"resetting error feedback", flush=True)
         state["grad_error"] = tree_map(
-            lambda p: torch.zeros((1,) + tuple(p.shape),
-                                  dtype=torch.float32, device=p.device),
-            state["params"])
+            lambda e: torch.zeros((1,) + tuple(e.shape[1:]),
+                                  dtype=torch.float32, device=args.device),
+            err_like)
     return state
 
 
@@ -243,9 +265,9 @@ def init_or_resume(args, cfg, model, opt, ckpt: CheckpointManager,
         gen = torch.Generator(device=args.device).manual_seed(0)
         return steps_mod.init_state(
             model, cfg, opt, gen, args.device,
-            compress_dp=1 if args.compress_grads else 0), 0
+            compress_dp=1 if args.compress_grads else 0, mesh=dp.mesh), 0
     state = _restore(ckpt, latest, model, cfg, opt, args, dp)
-    if dp.rank == 0:
+    if dp.lead:
         print(f"resumed from step {latest} (elastic restore onto "
               f"data={dp.size})", flush=True)
     return state, latest
@@ -269,8 +291,15 @@ def _grad_wire_bytes(params) -> tuple:
 
 
 def _gathered(state: dict, dp: DataParallel) -> dict:
-    """The state in its checkpoint layout: every data rank's
-    ``grad_error`` row gathered on rank 0 (all ranks must call this)."""
+    """The state in its checkpoint layout: a placed state's params and
+    moments gathered to rank 0's host one leaf at a time, every data
+    rank's ``grad_error`` row gathered on rank 0 (all ranks must call
+    this; other ranks get None leaves)."""
+    if dp.placement is not None:
+        state = {**state,
+                 "params": dp.placement.to_host(state["params"], "params",
+                                                dp.lead),
+                 "opt": dp.placement.to_host(state["opt"], "opt", dp.lead)}
     if "grad_error" not in state or dp.size == 1:
         return state
     dst = dist.get_global_rank(dp.group, 0)
@@ -287,20 +316,22 @@ def _gathered(state: dict, dp: DataParallel) -> dict:
 def _save(ckpt, step: int, state: dict, args, dp: DataParallel,
           blocking: bool) -> None:
     out = _gathered(state, dp)
-    if dp.rank == 0:
+    if dp.lead:
         save = ckpt.save if blocking else ckpt.save_async
         save(step, out, extra={"arch": args.arch})
 
 
 def _agreed_stop(hb: elastic.Heartbeat, dp: DataParallel, device) -> bool:
-    """The drain flag, agreed by every data rank (MAX over the group): a
-    rank that checkpointed while another entered the next all-reduce
-    would leave that one waiting forever."""
+    """The drain flag, agreed by every rank of the mesh (MAX over "data",
+    then over "model"): a rank that checkpointed while another entered
+    the next collective would leave that one waiting forever."""
     if dp.group is None:
         return hb.should_stop
     flag = torch.tensor([int(hb.should_stop)], dtype=torch.int32,
                         device=device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.group)
+    for axis in dp.mesh.mesh_dim_names:
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=dp.mesh.get_group(axis))
     return bool(flag.item())
 
 
@@ -326,15 +357,19 @@ def _train_metrics() -> dict:
     }
 
 
-def _emit_diag_norms(gauge, params) -> None:
+def _emit_diag_norms(gauge, params, placement=None) -> None:
     """Per-cascade ||A||_2 / ||D||_2 gauges, labelled by the parameter
-    path: the paper's init/depth sensitivity lives in these diagonals."""
-    for path, leaf in zip(*tree_flatten(params)):
-        for suffix in ("a", "d"):
-            if path.endswith(f"sell/{suffix}"):
-                cascade = path[: -len(f"/sell/{suffix}")]
-                gauge.labels(param=suffix, cascade=cascade).set(
-                    float(torch.linalg.vector_norm(leaf.float())))
+    path: the paper's init/depth sensitivity lives in these diagonals.
+    Of a placed tree every rank must call it (the norms are mesh-wide)."""
+    diag = [(path, leaf) for path, leaf in zip(*tree_flatten(params))
+            if path.endswith(("sell/a", "sell/d"))]
+    sums = [torch.sum(torch.square(leaf.float())) for _, leaf in diag]
+    if placement is not None:
+        sums = placement.reduce_sums("params")([p for p, _ in diag], sums)
+    for (path, _), sq in zip(diag, sums):
+        cascade, _, suffix = path.rpartition("/sell/")
+        gauge.labels(param=suffix, cascade=cascade).set(
+            float(torch.sqrt(sq)))
 
 
 def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
@@ -346,7 +381,7 @@ def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
         print(f"[elastic] rank {dist.get_rank()} is outside the resolved "
               f"mesh: exiting", flush=True)
         return None, []
-    lead = dp.rank == 0
+    lead = dp.lead
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)
     state, start = init_or_resume(args, cfg, model, opt, ckpt, dp)
     cuda = torch.device(args.device).type == "cuda"
@@ -356,8 +391,17 @@ def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
     exporter = (JsonlExporter(args.metrics_jsonl, REGISTRY,
                               every=args.log_every, clock=time.time)
                 if args.metrics_jsonl and lead else None)
+    if dp.placement is not None:
+        at_rest = {k: state[k] for k in ("params", "opt")}
+        print(f"[placement] rank {dist.get_rank()} at (data "
+              f"{dp.mesh.get_local_rank('data')}, model "
+              f"{dp.mesh.get_local_rank('model')}) of mesh "
+              f"{tuple(dp.mesh.shape)}: {dp.placement.nbytes(at_rest)} "
+              f"bytes of params and moments at rest, of "
+              f"{dp.placement.nbytes(at_rest, full=True)}", flush=True)
     if args.compress_grads:
-        wire, raw = _grad_wire_bytes(state["params"])
+        wire, raw = _grad_wire_bytes(
+            steps_mod.abstract_state(model, cfg, opt)["params"])
         obs["wire"].set(wire)
         obs["raw"].set(raw)
         if lead:
@@ -377,12 +421,13 @@ def run(args: argparse.Namespace, cfg, model, opt, train_step, pipeline):
             obs["loss"].set(history[-1]["loss"])
             obs["tps"].set(args.global_batch * args.seq_len / max(dt, 1e-9))
             obs["step_s"].observe(dt)
-            if lead and (step % args.log_every == 0
-                         or step == args.steps - 1):
-                print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
-                      f"|g| {history[-1]['grad_norm']:.3f} "
-                      f"{dt * 1e3:.0f}ms", flush=True)
-                _emit_diag_norms(obs["diag"], state["params"])
+            if step % args.log_every == 0 or step == args.steps - 1:
+                _emit_diag_norms(obs["diag"], state["params"],
+                                 dp.placement)
+                if lead:
+                    print(f"step {step:5d} loss {history[-1]['loss']:.4f} "
+                          f"|g| {history[-1]['grad_norm']:.3f} "
+                          f"{dt * 1e3:.0f}ms", flush=True)
                 if exporter is not None:
                     exporter.export(step)
             # the first step pays the set-up (kernel loads, allocator

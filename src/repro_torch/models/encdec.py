@@ -32,7 +32,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import attention as attn_mod
@@ -47,7 +46,7 @@ from repro_torch.models.common import (
     stack_init,
     unembed,
 )
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, run_layer
 
 
 def init_encoder_layer(gen: torch.Generator, cfg: ModelConfig,
@@ -97,12 +96,7 @@ def _run_layers(fn, stacked: dict, n: int, x: torch.Tensor, *args,
     is recomputed whole in the backward (``nothing_saveable``)."""
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n):
-        layer = layer_params(stacked, i)
-        if remat:
-            x = checkpoint(fn, layer, x, *args, cfg, use_reentrant=False,
-                           early_stop=False)
-        else:
-            x = fn(layer, x, *args, cfg)
+        x = run_layer(fn, stacked, i, x, *args, cfg, remat=remat)
     return x
 
 

@@ -26,7 +26,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import linear
@@ -40,7 +39,7 @@ from repro_torch.models.common import (
     stack_init,
     unembed,
 )
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, run_layer
 
 
 def _dims(cfg: ModelConfig):
@@ -429,12 +428,7 @@ def run_layers(layers: dict, x: torch.Tensor, cfg: ModelConfig,
     backward (the reference's ``nothing_saveable`` policy)."""
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(start, cfg.n_layers if stop is None else stop):
-        layer = layer_params(layers, i)
-        if remat:
-            x = checkpoint(_layer_fn, layer, x, cfg, use_reentrant=False,
-                           early_stop=False)
-        else:
-            x = _layer_fn(layer, x, cfg)
+        x = run_layer(_layer_fn, layers, i, x, cfg, remat=remat)
     return x
 
 

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.dist.sharding import PlacedStack
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
@@ -36,10 +37,31 @@ from repro_torch.models.common import (
 )
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Views of layer ``i`` of the stacked layer parameters."""
+def layer_params(layers, i: int) -> dict:
+    """Views of layer ``i`` of the stacked layer parameters; of a stack
+    placed at rest (:class:`repro_torch.dist.sharding.PlacedStack`), layer
+    ``i`` gathered from this rank's blocks."""
+    if isinstance(layers, PlacedStack):
+        return layers.layer(i)
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
+
+
+def _layer_at(fn, layers, i: int, *args):
+    return fn(layer_params(layers, i), *args)
+
+
+def run_layer(fn, layers, i: int, *args, remat: bool):
+    """``fn(layer_params(layers, i), *args)``.  Under ``remat`` it runs
+    under ``torch.utils.checkpoint``, saves only its inputs and is
+    recomputed whole in the backward (the reference's
+    ``nothing_saveable``); the layer is sliced inside the checkpointed
+    function, so a placed layer's gather is recomputed too and no
+    gathered layer outlives its own forward or backward."""
+    if remat:
+        return checkpoint(_layer_at, fn, layers, i, *args,
+                          use_reentrant=False, early_stop=False)
+    return _layer_at(fn, layers, i, *args)
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -103,13 +125,8 @@ def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.n_layers):
-        layer = layer_params(params["layers"], i)
-        if remat:
-            x, aux = checkpoint(_layer_fn, layer, x, positions,
-                                int(windows[i]), cfg, use_reentrant=False,
-                                early_stop=False)
-        else:
-            x, aux = _layer_fn(layer, x, positions, int(windows[i]), cfg)
+        x, aux = run_layer(_layer_fn, params["layers"], i, x, positions,
+                           int(windows[i]), cfg, remat=remat)
         auxes.append(aux)
     return (rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps),
             torch.mean(torch.stack(auxes)))

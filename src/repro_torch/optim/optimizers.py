@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -79,12 +79,16 @@ def tree_paths(tree, prefix: str = "") -> dict:
             for k, v in tree.items()}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce: Optional[Callable] = None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted order) of each leaf's fp32 sum
-    of squares."""
-    _, leaves = tree_flatten(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in leaves))
+    of squares.  ``reduce(paths, sums) -> sums`` completes each leaf's
+    sum over the ranks that hold the rest of it (a tree of this rank's
+    blocks: ``dist.sharding.Placement.norm``)."""
+    paths, leaves = tree_flatten(tree)
+    sums = [torch.sum(torch.square(t.float())) for t in leaves]
+    if reduce is not None:
+        sums = reduce(paths, sums)
+    return torch.sqrt(sum(sums))
 
 
 # ---------------------------------------------------------------------------
@@ -133,10 +137,26 @@ def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
 
 
-def _clipped(cfg: OptimizerConfig, grads):
+#: elements of a leaf the AdamW update computes at a time, so that its
+#: elementwise temporaries stay this size and not the leaf's (one rank's
+#: block of a stacked DeepSeek-67B projection is 6.4 GB on four ranks);
+#: the arithmetic is elementwise, so the values do not depend on it
+UPDATE_CHUNK = 1 << 26
+
+
+def _chunks(t: torch.Tensor) -> list:
+    """Slices of ``t``'s leading dim of at most ``UPDATE_CHUNK`` elements
+    each (one slice of all of it for a small or 0-d leaf)."""
+    if t.dim() == 0 or t.numel() <= UPDATE_CHUNK:
+        return [slice(None)]
+    rows = max(1, UPDATE_CHUNK // (t.numel() // t.shape[0]))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _clipped(cfg: OptimizerConfig, grads, norm: Callable):
     gf = tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
-        gn = global_norm(gf)
+        gn = norm(gf)
         scale = torch.clamp_max(cfg.grad_clip / (gn + 1e-9), 1.0)
         gf = tree_map(lambda g: g * scale, gf)
     return gf
@@ -155,16 +175,19 @@ def adamw(cfg: OptimizerConfig, schedule: Callable) -> Optimizer:
 
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(grads, state, params, step: int):
-        """(updates, state); the moments are written into ``state``."""
+    def update(grads, state, params, step: int,
+               norm: Callable = global_norm):
+        """(updates, state); the moments are written into ``state``.
+        ``norm`` gives the clip its global norm of the grads (mesh-wide
+        for a placed tree: every rank must clip by the same scale)."""
         lr = _f32(schedule(step))
         lr_mults, wds = _group_maps(cfg, params)
-        gf = _clipped(cfg, grads)
+        gf = _clipped(cfg, grads, norm)
         t = _f32(step) + 1.0
         bc1 = 1.0 - _f32(cfg.b1) ** t
         bc2 = 1.0 - _f32(cfg.b2) ** t
 
-        def upd(m, v, g, p, mult, wd):
+        def part(m, v, g, p, mult, wd):
             m.copy_((cfg.b1 * m.float() + (1 - cfg.b1) * g).to(state_dtype))
             v.copy_((cfg.b2 * v.float()
                      + (1 - cfg.b2) * torch.square(g)).to(state_dtype))
@@ -173,6 +196,15 @@ def adamw(cfg: OptimizerConfig, schedule: Callable) -> Optimizer:
             u = mhat / (torch.sqrt(vhat) + cfg.eps)
             u = u + wd * p.float()
             return ((-lr * mult) * u).to(p.dtype)
+
+        def upd(m, v, g, p, mult, wd):
+            parts = _chunks(p)
+            if len(parts) == 1:
+                return part(m, v, g, p, mult, wd)
+            out = torch.empty_like(p)
+            for sl in parts:
+                out[sl] = part(m[sl], v[sl], g[sl], p[sl], mult, wd)
+            return out
 
         with torch.no_grad():
             updates = tree_map(upd, state["m"], state["v"], gf, params,
@@ -192,12 +224,14 @@ def sgd_momentum(cfg: OptimizerConfig, schedule: Callable) -> Optimizer:
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), params)}
 
-    def update(grads, state, params, step: int):
+    def update(grads, state, params, step: int,
+               norm: Callable = global_norm):
         """(updates, state); the momentum is written into ``state``.
-        Caffe-style: mom = mu*mom + lr_eff*(g + wd*p); p -= mom."""
+        Caffe-style: mom = mu*mom + lr_eff*(g + wd*p); p -= mom.  ``norm``
+        as in AdamW's."""
         lr = _f32(schedule(step))
         lr_mults, wds = _group_maps(cfg, params)
-        gf = _clipped(cfg, grads)
+        gf = _clipped(cfg, grads, norm)
 
         def upd(mom, g, p, mult, wd):
             g = g + wd * p.float()

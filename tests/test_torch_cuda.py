@@ -859,3 +859,58 @@ def test_autotune_sweeps_persists_and_reloads(dev, tmp_path, monkeypatch,
     assert autotune.autotuned_plan(direction, *dims, device=dev,
                                    permute=permute) == p
     assert autotune.totals()[0] == before + 1
+
+
+def test_placed_step_equals_replicated_on_a_world_of_one(dev, tmp_path):
+    """Smoke Qwen3-1.7B (the cascade kernels at N = 128 / 256) trained
+    two steps with its state placed at rest on a world-of-one NCCL (1, 1)
+    mesh: every leaf spec'd over a size-1 axis is gathered, its gradient
+    reduce-scattered, the norm reduced, and the step equals the
+    replicated one bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import steps
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import SELL_GROUPS
+    from repro_torch.models import get_model
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.optim import schedules
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh(1, "cuda")
+        cfg = registry.with_sell(registry.get_smoke_config("qwen3_1_7b"),
+                                 "acdc", method="pallas")
+        model = get_model(cfg)
+        opt = opt_mod.make_optimizer(
+            opt_mod.OptimizerConfig(kind="adamw", lr=3e-3,
+                                    groups=SELL_GROUPS),
+            schedules.cosine_schedule(3e-3, 1, 6))
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=4))
+        out = {}
+        for side, m in (("replicated", None), ("placed", mesh)):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = steps.init_state(model, cfg, opt, gen, dev, mesh=m)
+            step = steps.make_train_step(model, cfg, opt,
+                                         group=mesh.get_group("data"),
+                                         mesh=m)
+            before = cbwd_mod.launches
+            mets = []
+            for s in range(2):
+                batch = {k: t.to(dev) for k, t in data.batch_at(s).items()}
+                state, met = step(state, batch)
+                mets.append([float(met[k]) for k in sorted(met)])
+            out[side] = (mets, cbwd_mod.launches - before,
+                         opt_mod.tree_flatten({k: state[k]
+                                               for k in ("params", "opt")}))
+        (rm, rn, (rp, rl)), (pm, pn, (pp, pl)) = (out["replicated"],
+                                                  out["placed"])
+        assert rm == pm and rn == pn == 24 and rp == pp
+        assert all(torch.equal(a, b) for a, b in zip(rl, pl))
+    finally:
+        mesh_mod.shutdown()

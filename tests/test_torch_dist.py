@@ -14,7 +14,8 @@ live reference where it has the same function.
   same shapes, keyed by bridge path, on the meshes {data 1, model 1},
   {data 2, model 2}, {data 4, model 2} and {pod 2, data 4, model 2};
 * ``placements`` of a spec on a world-of-one gloo ``DeviceMesh`` from
-  ``make_host_mesh``; the launcher's refusal of a model axis above 1;
+  ``make_host_mesh``; the launcher's refusal of a model axis above 1
+  with ``--compress-grads`` (the reference's);
 * ``shard_at``: the rows of ``batch_at``, the shards tiling the batch.
 """
 
@@ -259,8 +260,9 @@ def test_launcher_refuses_a_model_axis(monkeypatch, capsys):
     monkeypatch.setattr(mesh_mod, "init_process_group", lambda _: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 4)
     monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-    args = ttrain.parse_args(["--device", "cpu", "--model-parallel", "2"])
-    with pytest.raises(ValueError, match="ROADMAP"):
+    args = ttrain.parse_args(["--device", "cpu", "--model-parallel", "2",
+                              "--compress-grads"])
+    with pytest.raises(ValueError, match="model axis must be 1"):
         ttrain.data_parallel(args)
     assert "[elastic] resolved mesh data=2 model=2 from 4 devices" in \
         capsys.readouterr().out

@@ -250,6 +250,22 @@ L. placement at rest (right after path K, on its world-of-one group):
    served stale after step 0) must differ; then one placed smoke step
    (cascade kernels at N = 128 / 256) bitwise against a replicated one.
 
+M. the dry run and placed serving (right after path L, on its group):
+   full-width Qwen3-1.7B (bf16, ``--sell-method pallas``): a placed
+   ``full_logits`` prefill of 4 prompts (64 positions, ragged) and 8
+   greedy decode steps on the (1, 1) mesh, params placed by
+   ``param_specs`` and the cache by ``cache_specs``, beside the unplaced
+   steps: logits, cache and streams bitwise equal, ``scaled_matmul``
+   launched as often on each side; the faulty control (layer 0's K cut
+   from the wrong rows) must read unequal.  Then the dry run's reckoning
+   of the same prefill and decode, and of a 4 x 1024 prefill, on
+   ``auto`` at (1, 1), traced on meta tensors in a subprocess with its
+   own fake group (``launch/dryrun.py --reckon``), against the same
+   cells run on the card under the same counters: FLOPs, collectives by
+   kind and argument and output bytes exactly equal, the predicted peak
+   above the arguments within ``dryrun.PEAK_REL`` of
+   ``torch.cuda.max_memory_allocated``'s.
+
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
 cut to keep the whole run within its time with paths G - I added.
 
@@ -5055,6 +5071,189 @@ def placed_full_width(dev, totals) -> dict:
     return info
 
 
+#: path M's cells held against the dry run (Qwen3-1.7B, ``acdc`` on
+#: ``auto``, the (1, 1) mesh): the served prefill and decode, and a
+#: prefill whose activations (full fp32 logits) outweigh the gathered
+#: embedding, so that the peak check covers what the dry run's table
+#: reports
+PATH_M_RECKON = ("qwen3_1_7b:prefill:64:4:1x1", "qwen3_1_7b:decode:80:4:1x1",
+                 "qwen3_1_7b:prefill:1024:4:1x1")
+
+
+@contextlib.contextmanager
+def rows_cut_wrong():
+    """The faulty control of path M: each layer's new K kept from rows
+    rolled by one, as a cut that took the wrong rows would keep it."""
+    import torch
+
+    from repro_torch.dist import sharding
+
+    real = sharding.LayerCut.__call__
+
+    def cut(self, name, layer):
+        out = real(self, name, layer)
+        return torch.roll(out, 1, 0) if name == "k" else out
+
+    sharding.LayerCut.__call__ = cut
+    try:
+        yield
+    finally:
+        sharding.LayerCut.__call__ = real
+
+
+def placed_serving(dev, totals) -> dict:
+    """Path M: placed serving beside the unplaced steps, then the dry
+    run's reckoning against the card (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import sharding
+    from repro_torch.dist import steps as steps_mod
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import get_model
+    from repro_torch.optim.optimizers import tree_map
+
+    out_json = ROOT / "build" / "chip_smoke_dryrun.json"
+    reckoner = dryrun.start_reckoning(list(PATH_M_RECKON), "acdc", out_json)
+    try:
+        cfg = registry.with_sell(registry.get_config("qwen3_1_7b"), "acdc",
+                                 method="pallas")
+        model = get_model(cfg)
+        mesh = mesh_mod.make_host_mesh(1, dev.type)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+        gen = torch.Generator().manual_seed(1)
+        b, s, max_len, n_decode = 4, 64, 80, 8
+        tokens = torch.randint(0, cfg.vocab_size, (b, s),
+                               generator=gen).to(dev)
+        lengths = torch.tensor([64, 50, 64, 37], dtype=torch.int32,
+                               device=dev)
+
+        def run(label, placed: bool, decode: bool = True) -> dict:
+            m = mesh if placed else None
+            prefill = steps_mod.make_prefill_step(model, cfg,
+                                                  full_logits=True, mesh=m)
+            serve = steps_mod.make_serve_step(model, cfg, mesh=m)
+            p = params
+            cache = model.init_cache(cfg, b, max_len, device=dev)
+            if placed:
+                p = sharding.place_params(tree_map(torch.clone, params),
+                                          mesh)
+                cache = sharding.place_cache(cache, mesh)
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = prefill(p, cache, tokens, lengths)
+                torch.cuda.synchronize()
+                t_prefill = time.perf_counter() - t0
+                prefill_cache = {k: v.clone() for k, v in cache.items()}
+                tok = logits[torch.arange(b, device=dev),
+                             lengths.long() - 1].argmax(-1)
+                pos, stream = lengths.clone(), [tok]
+                t1 = time.perf_counter()
+                for _ in range(n_decode if decode else 0):
+                    tok, cache = serve(p, cache, tok, pos)
+                    pos = pos + 1
+                    stream.append(tok)
+                torch.cuda.synchronize()
+            t_decode = (time.perf_counter() - t1) / max(n_decode, 1)
+            launches = {k: v - before[k] for k, v in read_counts().items()
+                        if v - before[k]}
+            out = dict(logits=logits, prefill_cache=prefill_cache,
+                       cache={k: v.clone() for k, v in cache.items()},
+                       streams=torch.stack(stream).cpu(),
+                       launches=launches, prefill_s=t_prefill,
+                       decode_s=t_decode)
+            del p, cache
+            print(f"[M] {label}: prefill {t_prefill:.3f} s, decode "
+                  f"{t_decode * 1e3:.1f} ms a step, launches {launches}",
+                  flush=True)
+            return out
+
+        def same(a: dict, b: dict) -> list:
+            """The parts of two runs that differ (bitwise)."""
+            bad = [] if torch.equal(a["logits"], b["logits"]) else ["logits"]
+            for part in ("prefill_cache", "cache"):
+                bad += [f"{part}/{k}" for k in a[part]
+                        if not torch.equal(a[part][k], b[part][k])]
+            if not torch.equal(a["streams"], b["streams"]):
+                bad.append("streams")
+            return bad
+
+        plain = run("unplaced", False)
+        placed = run("placed (1, 1)", True)
+        bad = same(plain, placed)
+        if bad:
+            _fail(f"[M] placed serving differs from unplaced: {bad}")
+        if (placed["launches"] != plain["launches"]
+                or not placed["launches"].get("scaled_matmul")):
+            _fail(f"[M] launches placed {placed['launches']} vs unplaced "
+                  f"{plain['launches']}")
+        for side in (plain, placed):
+            for name, n in side["launches"].items():
+                totals[name] += n
+        with rows_cut_wrong():
+            ctl = run("control (K rows rolled)", True, decode=False)
+        if torch.equal(ctl["prefill_cache"]["k"], plain["prefill_cache"]["k"]):
+            _fail("[M] the faulty control (K cut from the wrong rows) "
+                  "passes the check")
+        info = dict(
+            config="qwen3_1_7b full width, bf16 compute, acdc on pallas, "
+                   "placed on a world-of-one (1, 1) NCCL mesh",
+            streams=plain["streams"].tolist(),
+            launches={"unplaced": plain["launches"],
+                      "placed": placed["launches"]},
+            prefill_s={"unplaced": plain["prefill_s"],
+                       "placed": placed["prefill_s"]},
+            decode_s={"unplaced": plain["decode_s"],
+                      "placed": placed["decode_s"]},
+            control_differs=["prefill_cache/k"])
+        del plain, placed, ctl, params
+        torch.cuda.empty_cache()
+        print("[M] placed prefill + 8 decode steps bitwise equal to the "
+              "unplaced steps; the control reads unequal", flush=True)
+
+        card = {}
+        for spec in PATH_M_RECKON:
+            arch, cell, _, overrides = dryrun.parse_reckon(spec)
+            fn, args = dryrun.build_cell(arch, cell, mesh, sell="acdc",
+                                         cfg_overrides=overrides,
+                                         device=dev.type)
+            card[spec] = dryrun.measure_on_device(fn, args)
+            del fn, args
+            torch.cuda.empty_cache()
+        want = dryrun.reckoned(reckoner, out_json, timeout=600)
+    finally:
+        if reckoner.poll() is None:
+            reckoner.kill()
+            reckoner.communicate()
+    checks = {}
+    for spec, got in card.items():
+        w = want[spec]
+        held = dryrun.compare(got, w, peak_rel=dryrun.PEAK_REL)
+        if held["mismatches"]:
+            _fail(f"[M] {spec}: the card against the dry run: "
+                  f"{held['mismatches']}")
+        checks[spec] = dict(dryrun=w, card=got, **held)
+        gb = 1e9
+        print(f"[M] {spec} on auto: flops {w['flops_per_device']:.4g} "
+              f"equal, collectives {w['collectives']['count']} / "
+              f"{w['collectives']['total_bytes']} B equal, arguments "
+              f"{w['memory']['argument_size_in_bytes'] / gb:.4f} GB and "
+              f"outputs {w['memory']['output_size_in_bytes'] / gb:.4f} GB "
+              f"equal; peak above the arguments predicted "
+              f"{w['memory']['temp_size_in_bytes'] / gb:.4f} GB, measured "
+              f"{got['measured_temp_bytes'] / gb:.4f} GB "
+              f"({held['peak_rel_err']:.5f}); dry-run trace "
+              f"{w['trace_s']:.2f} s", flush=True)
+    info["dryrun_vs_card"] = checks
+    info["device"] = smi_line()
+    print(f"[M] ({info['device']})", flush=True)
+    return info
+
+
 def drill_worker(out: str, argv: list) -> int:
     """One ``torchrun`` worker of the drain drill (``chip_smoke.py
     --drill-worker OUT.json <launcher flags>``): the train launcher's
@@ -5402,6 +5601,7 @@ def run_paths(report: dict, dev) -> None:
     with world_of_one(dev):
         timed(report, "dist_full_width", dist_full_width, dev, totals)
         timed(report, "placed_full_width", placed_full_width, dev, totals)
+        timed(report, "placed_serving", placed_serving, dev, totals)
     timed(report, "drain_drill", drain_drill, totals)
     timed(report, "train_methods_full_width", train_methods_full_width, dev,
           totals)

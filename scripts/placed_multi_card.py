@@ -19,11 +19,39 @@ with its whole state on every rank, data-parallel over the same mesh's
 the whole global batch (the other ranks wait), for the losses to compare.
 Rank 0 prints a line a run and writes every rank's numbers, with the
 card's name and power limit, to ``--out``.
+
+``--train`` runs come first, then ``--serve`` and ``--pod-train``.
+``--serve ARCH`` serves ARCH placed at (data = world, model 1), one row
+a rank: a ``full_logits`` prefill of 4 prompts (64 positions, ragged)
+and 8 greedy decode steps through ``make_prefill_step(mesh=)`` /
+``make_serve_step(mesh=)``, in fp32 and in bf16 compute, beside the same
+steps unplaced on rank 0 alone: the fp32 logits of every row within
+``SERVE_FP32_ATOL`` of one card's, the bf16 streams equal or departing
+first at a near-tie (the two tokens' one-card fp32 logits apart by no
+more than the two bf16 sides' largest logit difference at the prefill;
+what follows a near-tie is reported, not held).  ``--pod-train
+ARCH:STEPS`` trains ARCH with its state placed at (pod 2, data world/2,
+model 1), the rows split over ("pod", "data") as (world, 1) splits them,
+beside the same steps at (world, 1): losses within ``POD_LOSS_RTOL``.
+Each placed run is set beside the dry run's reckoning of the same cell
+at the same mesh, traced on meta tensors in a subprocess with its own
+fake group (``launch/dryrun.py --reckon``; ``acdc`` on ``auto``: the
+kernel wrappers have no meta implementation) and held by
+``dryrun.compare``: the pod run's first step's collectives and argument
+bytes, counted on rank 0 by the dry run's ``Collectives`` (the
+FLOP counter is left off: it runs the decompositions of ops it has no
+formula for, which moves the step's numbers); for serving, the
+same prefill cell (prompts as long as its cache, as the dry run's cells
+are) built by ``build_cell`` on the cards and measured there by
+``dryrun.measure_on_device``: FLOPs, collectives, argument and output
+bytes, and the peak above the arguments within ``dryrun.PEAK_REL`` of
+``torch.cuda.max_memory_allocated``'s.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,12 +63,25 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.dist import sharding  # noqa: E402
 from repro_torch.dist import steps as steps_mod  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.optim.optimizers import tree_map  # noqa: E402
 
 #: the device the ranks train on (a rehearsal on the CPU sets "cpu")
 DEVICE = "cuda"
+#: placed fp32 logits against one card's (PERF.md §2, stated before the
+#: first four-card run)
+SERVE_FP32_ATOL = 1e-4
+#: pod-placed losses against (world, 1) data parallelism, relative
+POD_LOSS_RTOL = 1e-4
+#: the serving cells: rows, prompt positions, cache length, decode steps
+SERVE_ROWS, SERVE_LEN, SERVE_CACHE, SERVE_STEPS = 4, 64, 80, 8
 
 
 def smi() -> str:
@@ -119,11 +160,221 @@ def replicated_run(pieces, steps: int, group=None) -> dict:
     return out
 
 
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_spec(arch: str, world: int) -> str:
+    """The dry run's cell of a ``--serve`` run: its bf16 prefill at
+    (world, 1), prompts as long as their cache (as the dry run's are)."""
+    return f"{arch}:prefill:{SERVE_LEN}:{SERVE_ROWS}:{world}x1:bfloat16"
+
+
+def pod_spec(arch: str, world: int) -> str:
+    """The dry run's cell of a ``--pod-train`` run's step."""
+    return f"{arch}:train:128:4:2x{world // 2}x1"
+
+
+def card_record(spec: str) -> dict:
+    """The dry run's cell ``spec`` built by ``build_cell`` on the cards
+    (``acdc`` on ``auto``) and measured there by the dry run's counters
+    (:func:`repro_torch.launch.dryrun.measure_on_device`).  Every rank
+    calls it."""
+    arch, cell, shape, overrides = dryrun.parse_reckon(spec)
+    fn, args = dryrun.build_cell(arch, cell, dryrun.mesh_of(shape, DEVICE),
+                                 sell="acdc", cfg_overrides=overrides,
+                                 device=DEVICE)
+    rec = dryrun.measure_on_device(fn, args)
+    del fn, args
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def serve_run(arch: str, dtype: str) -> dict:
+    """Placed serving at (world, 1) and, on rank 0, the unplaced steps;
+    rank 0 gets the comparison."""
+    cfg = registry.with_sell(registry.get_config(arch), "acdc",
+                             method="pallas")
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = get_model(cfg)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = dryrun.mesh_of((world, 1), DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                        DEVICE)
+    gen = torch.Generator().manual_seed(1)
+    b = SERVE_ROWS
+    tokens = torch.randint(0, cfg.vocab_size, (b, SERVE_LEN), generator=gen,
+                           dtype=torch.int32).to(DEVICE)
+    lengths = torch.tensor([64, 50, 64, 37][:b], dtype=torch.int32,
+                           device=DEVICE)
+
+    def steps_of(m):
+        return (steps_mod.make_prefill_step(model, cfg, full_logits=True,
+                                            mesh=m),
+                steps_mod.make_serve_step(model, cfg, mesh=m))
+
+    def decode(serve, p, cache, first):
+        pos, tok, stream, secs = lengths.clone(), first, [first], []
+        for _ in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            tok, cache = serve(p, cache, tok, pos)
+            _sync()
+            secs.append(time.perf_counter() - t0)
+            pos = pos + 1
+            stream.append(tok)
+        return torch.stack(stream, 1).cpu(), secs
+
+    prefill, serve = steps_of(mesh)
+    placed_p = sharding.place_params(tree_map(torch.clone, params), mesh)
+    cache = sharding.place_cache(model.init_cache(cfg, b, SERVE_CACHE,
+                                                  device=DEVICE), mesh)
+    spec = sharding.rows_spec(mesh, b)
+    rows = sharding.local_shard(torch.arange(b), spec, mesh)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(placed_p, cache, tokens[rows.to(DEVICE)],
+                            lengths)
+    _sync()
+    prefill_s = time.perf_counter() - t0
+    last = logits[torch.arange(len(rows)), lengths[rows.to(DEVICE)].long()
+                  - 1].float()
+    full_last = sharding._all_gather(last.contiguous(), spec, mesh)
+    first = full_last.argmax(-1)
+    streams, secs = decode(serve, placed_p, cache, first)
+    out = dict(rows=rows.tolist(), prefill_s=prefill_s,
+               decode_s=sum(secs[1:]) / max(len(secs) - 1, 1),
+               peak=(torch.cuda.max_memory_allocated()
+                     if DEVICE == "cuda" else 0),
+               streams=streams.tolist())
+    del placed_p, cache, logits
+    if rank == 0:
+        prefill, serve = steps_of(None)
+        cache = model.init_cache(cfg, b, SERVE_CACHE, device=DEVICE)
+        with torch.no_grad():
+            one_logits, cache = prefill(params, cache, tokens, lengths)
+            one_last = one_logits[torch.arange(b), lengths.long()
+                                  - 1].float()
+            one_streams, one_secs = decode(serve, params, cache,
+                                           one_last.argmax(-1))
+        out["one_card"] = dict(streams=one_streams.tolist(),
+                               decode_s=sum(one_secs[1:])
+                               / max(len(one_secs) - 1, 1))
+        diff = (full_last - one_last).abs()
+        out["last_logits_max_abs"] = float(diff.max())
+        if dtype == "float32":
+            out["logits_ok"] = bool(diff.max() <= SERVE_FP32_ATOL)
+        else:
+            out["streams"] = hold_streams(
+                model, cfg, params, tokens, lengths, streams, one_streams,
+                float(diff.max()))
+        del one_logits, cache
+    del params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_streams(model, cfg, params, tokens, lengths, placed, one,
+                 drift: float) -> dict:
+    """The bf16 streams: equal, or a row's first difference a near-tie
+    (the two tokens' fp32 logits after that context, one card, apart by
+    at most ``drift``)."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    rows = []
+    for r in range(placed.shape[0]):
+        a, b = placed[r].tolist(), one[r].tolist()
+        if a == b:
+            rows.append(dict(equal=True))
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        n = int(lengths[r])
+        ctx = tokens[r, :n].tolist() + b[:j]
+        toks = torch.tensor([ctx], dtype=torch.int32, device=DEVICE)
+        cache = model.init_cache(f32, 1, len(ctx), device=DEVICE)
+        with torch.no_grad():
+            logits, _ = model.prefill(params, cache, toks, f32,
+                                      torch.tensor([len(ctx)],
+                                                   dtype=torch.int32,
+                                                   device=DEVICE))
+        gap = abs(float(logits[0, -1, a[j]] - logits[0, -1, b[j]]))
+        rows.append(dict(equal=False, first_difference=j, tokens=[a[j],
+                                                                  b[j]],
+                         gap=gap, drift=drift, near_tie=gap <= drift))
+    return dict(rows=rows, held=all(r["equal"] or r["near_tie"]
+                                    for r in rows))
+
+
+def pod_train(arch: str, n_steps: int) -> dict:
+    """``arch`` trained placed at (pod 2, data world/2, model 1) and
+    replicated data-parallel over (world, 1), the same rows a rank, from
+    the same seed."""
+    world = dist.get_world_size()
+    args = launcher_args(arch, 1, n_steps)
+    cfg, model, opt, _, pipeline = train.build(args)
+    out = {}
+    for tag, shape in (("pod", (2, world // 2, 1)),
+                       ("replicated", (world, 1))):
+        mesh = dryrun.mesh_of(shape, DEVICE)
+        placed = tag == "pod"
+        step = (steps_mod.make_train_step(model, cfg, opt, mesh=mesh)
+                if placed else steps_mod.make_train_step(
+                    model, cfg, opt, group=mesh.get_group("data")))
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state = steps_mod.init_state(model, cfg, opt, gen, DEVICE,
+                                     mesh=mesh if placed else None)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        losses, secs, rec = [], [], None
+        for s in range(n_steps):
+            batch = {k: t.to(DEVICE)
+                     for k, t in pipeline.source.batch_at(s).items()}
+            specs = sharding.data_specs(mesh, batch)
+            rows = {k: sharding.local_shard(t, specs[k], mesh).contiguous()
+                    for k, t in batch.items()}
+            _sync()
+            t0 = time.perf_counter()
+            if s == 0:
+                # collectives only: FlopCounterMode runs the decompositions
+                # of ops it has no formula for, which moves the numbers
+                coll = dryrun.Collectives()
+                rec = {"memory": {"argument_size_in_bytes":
+                                  dryrun.tensor_bytes((state, rows))}}
+                with coll:
+                    state, met = step(state, rows)
+                rec["collectives"] = coll.record()
+            else:
+                state, met = step(state, rows)
+            _sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        out[tag] = dict(mesh=list(shape), losses=losses,
+                        s_per_step=sum(secs[1:]) / max(len(secs) - 1, 1),
+                        peak=(torch.cuda.max_memory_allocated()
+                              if DEVICE == "cuda" else 0),
+                        record=rec)
+        del state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        out["pod"]["losses"], out["replicated"]["losses"]))
+    out.update(loss_rel=rel, losses_ok=rel <= POD_LOSS_RTOL)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--train", action="append", required=True,
+    ap.add_argument("--train", action="append", default=[],
                     help="ARCH:MODEL_PARALLEL:STEPS (repeatable; not "
                          "--run, which torchrun takes for --run-path)")
+    ap.add_argument("--serve", action="append", default=[],
+                    help="ARCH served placed at (world, 1)")
+    ap.add_argument("--pod-train", action="append", default=[],
+                    help="ARCH:STEPS trained at (2, world/2, 1) beside "
+                         "(world, 1)")
     ap.add_argument("--replicated", action="append", default=[],
                     help="ARCH also trained on rank 0 alone")
     ap.add_argument("--out", default="chiprun_out/placed_multi_card.json")
@@ -133,6 +384,10 @@ def main() -> int:
         return 2
     mesh_mod.init_process_group(DEVICE)
     rank = dist.get_rank()
+    if DEVICE == "cuda":        # one build, before any timed call
+        if rank == 0:
+            build.build_all()
+        dist.barrier()
     report = {"device": smi(), "world": dist.get_world_size(), "runs": []}
     try:
         for spec in args.train:
@@ -163,7 +418,76 @@ def main() -> int:
                          f"{run['data_parallel']}, on one card "
                          f"{run['replicated']}" if "replicated" in run
                          else ""), flush=True)
+        world = dist.get_world_size()
+        specs = ([serve_spec(a, world) for a in args.serve]
+                 + [pod_spec(p.split(":")[0], world) for p in args.pod_train])
+        reckon_out = Path("build") / "placed_multi_card" / "reckon.json"
+        reckoning = (dryrun.start_reckoning(specs, "acdc", reckon_out)
+                     if rank == 0 and specs else None)
+        served, pods = [], []
+        for arch in args.serve:
+            for dtype in ("float32", "bfloat16"):
+                mine = serve_run(arch, dtype)
+                ranks = [None] * world
+                dist.all_gather_object(ranks, mine)
+                served.append(dict(arch=arch, dtype=dtype, ranks=ranks))
+                if rank == 0:
+                    r0 = ranks[0]
+                    print(f"[serve] {arch} {dtype} placed ({world}, 1) "
+                          f"({report['device']}): prefill "
+                          f"{[round(r['prefill_s'], 3) for r in ranks]} s, "
+                          f"decode {[round(r['decode_s'] * 1e3, 1) for r in ranks]}"
+                          f" ms a step (one card {r0['one_card']['decode_s'] * 1e3:.1f});"
+                          f" last logits max |diff| "
+                          f"{r0['last_logits_max_abs']:.3g}; "
+                          + (f"logits ok {r0['logits_ok']}"
+                             if dtype == "float32"
+                             else f"streams held {r0['streams']['held']}"),
+                          flush=True)
+            served[-1]["card_cell"] = card_record(serve_spec(arch, world))
+        for spec in args.pod_train:
+            arch, n = spec.split(":")
+            mine = pod_train(arch, int(n))
+            ranks = [None] * world
+            dist.all_gather_object(ranks, mine)
+            pods.append(dict(arch=arch, ranks=ranks))
+            if rank == 0:
+                r0 = ranks[0]
+                print(f"[pod] {arch} ({report['device']}): losses "
+                      f"{r0['pod']['losses']} placed at {r0['pod']['mesh']}"
+                      f" vs {r0['replicated']['losses']} replicated at "
+                      f"{r0['replicated']['mesh']} (max rel "
+                      f"{r0['loss_rel']:.3g}, ok {r0['losses_ok']}); "
+                      f"s/step {r0['pod']['s_per_step']:.3f} / "
+                      f"{r0['replicated']['s_per_step']:.3f}; peak "
+                      f"{[round(r['pod']['peak'] / 1e9, 2) for r in ranks]}"
+                      f" GB", flush=True)
         if rank == 0:
+            recs = (dryrun.reckoned(reckoning, reckon_out)
+                    if reckoning is not None else {})
+            for run in served[1::2]:
+                spec = serve_spec(run["arch"], world)
+                held = dryrun.compare(
+                    run["card_cell"], recs[spec],
+                    peak_rel=dryrun.PEAK_REL if DEVICE == "cuda" else None)
+                run["reckoned"] = dict(held, spec=spec, record=recs[spec])
+                print(f"[reckon] {spec} (acdc on auto) on the cards against "
+                      f"the dry run: mismatches {held['mismatches']}; "
+                      f"peak above the arguments "
+                      f"{recs[spec]['memory']['temp_size_in_bytes']} B "
+                      f"reckoned vs "
+                      f"{run['card_cell'].get('measured_temp_bytes')} "
+                      f"measured ({held['peak_rel_err']})", flush=True)
+            for run in pods:
+                spec = pod_spec(run["arch"], world)
+                held = dryrun.compare(run["ranks"][0]["pod"]["record"],
+                                      recs[spec],
+                                      exact=("collectives", "arguments"))
+                run["reckoned"] = dict(held, spec=spec, record=recs[spec])
+                print(f"[reckon] {spec}: the first placed step's "
+                      f"collectives and argument bytes against the dry "
+                      f"run: mismatches {held['mismatches']}", flush=True)
+            report.update(served=served, pod_train=pods)
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
     finally:

@@ -31,9 +31,10 @@ for one ``DeviceMesh``.  The train launcher reads :func:`data_specs` to
 decide whether a batch's rows split over "data".
 
 The runtime half places a train state at rest by :func:`param_specs` on a
-``("data", "model")`` ``DeviceMesh``, as the reference's jit places it by
-``param_shardings``: ZeRO-3 over "data" (features, SELL diagonals) and
-shards over "model" (heads, ffn, vocab, experts).  Each rank keeps its
+``("data", "model")`` or ``("pod", "data", "model")`` ``DeviceMesh``, as
+the reference's jit places it by ``param_shardings``: ZeRO-3 over "data"
+(features, SELL diagonals) and shards over "model" (heads, ffn, vocab,
+experts); no parameter splits over "pod".  Each rank keeps its
 block of every parameter and moment (:func:`local_shard`,
 :func:`place_state`); the model gathers a leaf where it is used
 (:func:`gather`, differentiable), one stacked layer at a time
@@ -182,17 +183,20 @@ def cache_specs(cache: dict, mesh) -> dict:
     SSM states are (L, B, H, P, N) and conv windows (L, B, W-1, C).
     """
     def one(leaf, path):
-        name = path.split("/")[-1]
         shape = _shape(leaf)
-        nd = len(shape)
-        if name in _KV_NAMES and nd == 5:
-            logical = (None, "batch", "seq", "heads", None)
-        elif name == "ssm" and nd == 5:
-            logical = (None, "batch", "heads", None, None)
-        else:
-            logical = ((None, "batch") + (None,) * max(nd - 2, 0))[:nd]
-        return spec_for(mesh, shape, logical)
+        return spec_for(mesh, shape,
+                        cache_logical(path.split("/")[-1], len(shape)))
     return tree_map(one, cache, tree_paths(cache))
+
+
+def cache_logical(name: str, nd: int) -> Tuple[Optional[str], ...]:
+    """The logical axes of an ``nd``-dim cache leaf ``name``
+    (:func:`cache_specs`' rule)."""
+    if name in _KV_NAMES and nd == 5:
+        return (None, "batch", "seq", "heads", None)
+    if name == "ssm" and nd == 5:
+        return (None, "batch", "heads", None, None)
+    return ((None, "batch") + (None,) * max(nd - 2, 0))[:nd]
 
 
 def placements(spec: Spec, mesh) -> list:
@@ -216,6 +220,20 @@ def placements(spec: Spec, mesh) -> list:
 
 #: the mesh axes a batch's rows split over: a gradient is summed over these
 ROW_AXES = RULES["batch"]
+
+
+def row_axes(mesh) -> tuple:
+    """The row axes of ``mesh`` (``ROW_AXES`` it has), major first."""
+    return tuple(a for a in ROW_AXES if a in _axis_sizes(mesh))
+
+
+def rows_spec(mesh, batch: int) -> Spec:
+    """The spec of a ``(batch,)`` vector of a batch's rows
+    (:func:`data_specs`' rule): split over the row axes when they divide
+    it, else replicated."""
+    return spec_for(mesh, (batch,), ("batch",))
+
+
 #: top-level subtrees of stacked layers (leading L axis), gathered one
 #: layer at a time; every other subtree is gathered once a step
 STACKED = ("layers", "encoder", "decoder")
@@ -326,9 +344,9 @@ class _Gather(torch.autograd.Function):
 
 def gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The full leaf of ``local`` blocks placed by ``spec``,
-    differentiable: its backward gives this rank's block of the data
-    ranks' mean gradient for a leaf split over "data" (a leaf that is
-    not is summed over "data" by the train step)."""
+    differentiable: its backward gives this rank's block of the mean
+    gradient over the row axes the leaf is split over (the train step
+    sums it over the other row axes)."""
     return _Gather.apply(local, tuple(spec), mesh)
 
 
@@ -347,7 +365,8 @@ class PlacedStack:
 
 class Placement:
     """Where each leaf of a train state lives at rest on ``mesh`` (a
-    ``DeviceMesh`` with axes "data" and "model"): the specs of
+    ``DeviceMesh`` over ("data", "model") or ("pod", "data", "model")):
+    the specs of
     :func:`param_specs` over the FULL state ``like`` (shapes only: a
     ``meta`` tree does), by state path (``params/...``, ``opt/m/...``).
     A ``grad_error`` subtree is left out: each rank keeps its own row."""
@@ -491,3 +510,146 @@ def place_state(state: dict, mesh) -> dict:
     out["params"] = placement.place(state["params"], "params")
     out["opt"] = placement.place(state["opt"], "opt")
     return out
+
+
+def place_params(params: dict, mesh) -> dict:
+    """``params`` (full leaves) placed at rest by :func:`param_specs`:
+    this rank's blocks, each copied out as its full leaf is dropped."""
+    return Placement({"params": params}, mesh).place(params, "params")
+
+
+# ---------------------------------------------------------------------------
+# A decode cache at rest.
+# ---------------------------------------------------------------------------
+
+class CacheSplitError(ValueError):
+    """A decode asked of a placed cache with a leaf split beyond the row
+    axes (heads over "model", a sequence over the rows): decoding on such
+    a block needs head-parallel attention and SSM, which the port does
+    not have.  ``leaf`` and ``spec`` name the first such leaf."""
+
+    def __init__(self, leaf: str, spec: Spec):
+        self.leaf, self.spec = leaf, tuple(spec)
+        super().__init__(
+            f"cache leaf {leaf!r} is placed {self.spec}: a decode on a "
+            f"placed cache needs every leaf split over the batch axes "
+            f"only (head-parallel decode is not ported)")
+
+
+def _placed_logical(name: str, nd: int) -> Tuple[Optional[str], ...]:
+    """:func:`cache_logical`, but a per-slot vector (B,) (the port's own
+    ``xlen``: the reference has no such leaf, and :func:`cache_specs`'
+    generic rule reads its one dim as a layer axis) goes with its rows."""
+    return ("batch",) if nd == 1 else cache_logical(name, nd)
+
+
+class CachePlacement:
+    """Where each leaf of a decode cache lives at rest on ``mesh``: the
+    specs of :func:`cache_specs` over the FULL cache ``like`` (shapes
+    only: a ``meta`` tree does), by leaf name; a per-slot vector (B,)
+    splits with the rows (:func:`_placed_logical`)."""
+
+    def __init__(self, like: dict, mesh):
+        self.mesh = mesh
+        self.sizes = _axis_sizes(mesh)
+        self.shapes = {k: _shape(v) for k, v in like.items()}
+        self.specs = {k: spec_for(mesh, shape,
+                                  _placed_logical(k, len(shape)))
+                      for k, shape in self.shapes.items()}
+
+    def place(self, cache: dict) -> "PlacedCache":
+        """This rank's blocks of the full ``cache``, each copied out."""
+        return PlacedCache({k: local_shard(t, self.specs[k], self.mesh)
+                            .clone(memory_format=torch.contiguous_format)
+                            for k, t in cache.items()}, self)
+
+    def batch_dim(self, name: str) -> int:
+        return _placed_logical(name, len(self.shapes[name])).index("batch")
+
+    def rows_only(self, name: str) -> bool:
+        """Whether leaf ``name`` splits over row axes on its batch dim
+        only (its block is the full leaf on this rank's rows; an axis of
+        size 1 splits nothing)."""
+        b = self.batch_dim(name)
+        for d, e in enumerate(self.specs[name]):
+            axes = {a for a in _axes(e) if self.sizes[a] > 1}
+            if axes and (d != b or not axes <= set(ROW_AXES)):
+                return False
+        return True
+
+    def undecodable(self) -> Optional[Tuple[str, Spec]]:
+        """None when a decode can run on this placement (every leaf split
+        over the row axes on its batch dim only), else the first other
+        leaf and its spec."""
+        for name in self.shapes:
+            if not self.rows_only(name):
+                return name, self.specs[name]
+        return None
+
+    def rows_view(self, blocks: dict) -> dict:
+        """What a prefill reads of a placed cache: each leaf at its full
+        size on this rank's rows (a leaf split beyond the rows stands as
+        a ``meta`` tensor of that size: only its shape and dtype are
+        read)."""
+        out = {}
+        for k, t in blocks.items():
+            if self.rows_only(k):
+                out[k] = t
+            else:
+                shape = list(self.shapes[k])
+                b = self.batch_dim(k)
+                shape[b] = t.shape[b]
+                out[k] = torch.empty(shape, dtype=t.dtype, device="meta")
+        return out
+
+    def cutter(self) -> "LayerCut":
+        return LayerCut(self)
+
+
+class LayerCut:
+    """``cut(name, layer)``: this rank's block of one layer's new cache
+    leaf ``layer`` (computed on this rank's rows, so its batch dim is
+    already local), copied out so the full layer can be freed; the spec
+    is :func:`cache_specs`' for the stacked leaf of the placement's depth
+    and global batch and ``layer``'s other dims (a prefill may bring more
+    cross frames than the cache held).  ``shapes`` records each stacked
+    leaf's full shape."""
+
+    def __init__(self, placement: CachePlacement):
+        self.placement = placement
+        self.shapes: dict = {}
+
+    def __call__(self, name: str, layer: torch.Tensor) -> torch.Tensor:
+        pl = self.placement
+        depth, batch = pl.shapes[name][:2]
+        full = (depth, batch) + tuple(layer.shape[1:])
+        self.shapes[name] = full
+        spec = spec_for(pl.mesh, full, _placed_logical(name, len(full)))
+        coord = _coord(pl.mesh)
+        index = shard_slices(full, spec, pl.sizes, coord)[2:]
+        if all(s.start == 0 and s.stop == n
+               for s, n in zip(index, layer.shape[1:])):
+            return layer
+        return layer[(slice(None),) + index].clone(
+            memory_format=torch.contiguous_format)
+
+    def placement_after(self, cache: dict) -> CachePlacement:
+        """The placement of a prefill's new cache: the leaves this cut
+        made at their recorded full shapes, the others as before."""
+        like = {k: torch.empty(self.shapes.get(k, self.placement.shapes[k]),
+                               device="meta") for k in cache}
+        return CachePlacement(like, self.placement.mesh)
+
+
+class PlacedCache(dict):
+    """A decode cache at rest: this rank's blocks of every leaf, by name,
+    beside their :class:`CachePlacement` (``placement``)."""
+
+    def __init__(self, blocks: dict, placement: CachePlacement):
+        super().__init__(blocks)
+        self.placement = placement
+
+
+def place_cache(cache: dict, mesh) -> PlacedCache:
+    """``cache`` (full leaves) placed at rest by :func:`cache_specs`."""
+    return CachePlacement(cache, mesh).place(cache)

@@ -23,7 +23,12 @@ On a mesh (``init_state(..., mesh=)``, ``make_train_step(..., mesh=)``)
 the params and moments are placed at rest by
 :func:`repro_torch.dist.sharding.param_specs`: a rank holds its block of
 each, the model gathers a stacked layer where it slices it, and AdamW
-updates the blocks in place (:mod:`repro_torch.dist.sharding`).
+updates the blocks in place (:mod:`repro_torch.dist.sharding`).  The
+serving steps take a mesh too (``make_prefill_step(..., mesh=)``,
+``make_serve_step(..., mesh=)``): params placed the same way, read
+without autograd, and a decode cache placed at rest by
+:func:`~repro_torch.dist.sharding.cache_specs`
+(:class:`~repro_torch.dist.sharding.PlacedCache`).
 """
 
 from __future__ import annotations
@@ -118,17 +123,22 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     process alone); the state must then carry this rank's ``grad_error``
     row (``init_state(..., compress_dp=1)``).
 
-    ``mesh`` (a ``("data", "model")`` ``DeviceMesh``; the group is then
-    its "data" group) takes a state placed at rest
-    (``init_state(..., mesh=mesh)``).  The model gathers what it reads
-    (:meth:`~repro_torch.dist.sharding.Placement.view`): a leaf split
-    over "data" gets this rank's block of the mean gradient from its
-    gather's backward, every other leaf is summed over "data" here.  The
-    clip and the metrics take the mesh-wide norm.  With ``compress`` (a
-    model axis of 1 only, as in the reference) the step gathers the whole
-    tree, sums the full gradients by the int8 path unchanged, updates
-    this rank's blocks and drops the gathered copy, as the reference's
-    ``shard_map`` with replicated params does.
+    ``mesh`` (a ``DeviceMesh`` over ``("data", "model")`` or ``("pod",
+    "data", "model")``; every rank passes its rows of the global batch
+    split over the row axes, ``sharding.data_specs``) takes a state
+    placed at rest (``init_state(..., mesh=mesh)``).  The model gathers
+    what it reads (:meth:`~repro_torch.dist.sharding.Placement.view`): a
+    leaf split over a row axis gets this rank's block of the mean
+    gradient over that axis from its gather's backward; here every
+    gradient is summed over each row axis its gather's backward did not
+    reduce-scatter and divided by the product of those axes' sizes, and
+    the loss is the mean over all row ranks.  The clip and the metrics
+    take the mesh-wide norm.  With ``compress`` (a model axis of 1 and
+    no pod axis above 1 only: the reference compresses over one data
+    axis) the step gathers the whole tree, sums the full gradients by
+    the int8 path over "data" unchanged, updates this rank's blocks and
+    drops the gathered copy, as the reference's ``shard_map`` with
+    replicated params does.
 
     The parameters and moments of ``state`` are updated IN PLACE (the
     returned state holds the same tensors).  ``accum_steps > 1`` splits
@@ -139,13 +149,20 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     ``autograd.Function``s (:mod:`repro_torch.kernels.ops`).
     """
     placement = None
+    row_groups = {} if group is None else {"data": group}
     if mesh is not None:
-        if compress and sharding._axis_sizes(mesh).get("model", 1) > 1:
+        sizes = sharding._axis_sizes(mesh)
+        if compress and sizes.get("model", 1) > 1:
             raise ValueError("--compress-grads supports data-parallel "
                              "meshes only (model axis must be 1)")
+        if compress and sizes.get("pod", 1) > 1:
+            raise ValueError("--compress-grads sums over one data axis; "
+                             "a pod axis above 1 is not supported")
         placement = sharding.Placement(abstract_state(model, cfg, opt),
                                        mesh)
         group = mesh.get_group("data")
+        row_groups = {a: mesh.get_group(a)
+                      for a in sharding.row_axes(mesh)}
     view = (placement.view if placement is not None and not compress
             else None)
 
@@ -169,11 +186,19 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
 
     dsize = 1 if group is None else dist.get_world_size(group)
 
-    def summed_here(path: str) -> bool:
-        """Whether leaf ``path``'s gradient is summed over "data" by the
-        step (not by its gather's backward)."""
-        return view is None or not (placement.axes(f"params/{path}")
-                                    & set(sharding.ROW_AXES))
+    def summed_here(path: str) -> tuple:
+        """The row axes leaf ``path``'s gradient is summed over by the
+        step (not by its gather's backward), in mesh order."""
+        if view is None:
+            return tuple(row_groups)
+        split = placement.axes(f"params/{path}")
+        return tuple(a for a in row_groups if a not in split)
+
+    def row_size(axes) -> int:
+        n = 1
+        for a in axes:
+            n *= dist.get_world_size(row_groups[a])
+        return n
 
     def summed(loss, grads, error):
         """(mean loss, mean grads, new error rows) over the group."""
@@ -187,19 +212,20 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
                 grads, tree_map(lambda e: e[0], error), group)
             grads = tree_map(lambda g: g / dsize, grads)
             new_error = tree_map(lambda e: e[None], new_err)
-        elif group is not None:
+        elif row_groups:
             paths, leaves = tree_flatten(grads)
-            leaves = [g.contiguous() for g in leaves]
+            out = []
             for path, g in zip(paths, leaves):
-                if summed_here(path):
-                    dist.all_reduce(g, group=group)
-            grads = tree_unflatten(paths, [
-                g / dsize if summed_here(path) else g
-                for path, g in zip(paths, leaves)])
-        if group is not None:
+                g, axes = g.contiguous(), summed_here(path)
+                for axis in axes:
+                    dist.all_reduce(g, group=row_groups[axis])
+                out.append(g / row_size(axes) if axes else g)
+            grads = tree_unflatten(paths, out)
+        if row_groups:
             loss = loss.float().clone()
-            dist.all_reduce(loss, group=group)
-            loss = loss / dsize
+            for axis in row_groups:
+                dist.all_reduce(loss, group=row_groups[axis])
+            loss = loss / row_size(row_groups)
         return loss, grads, new_error
 
     def step(state, batch):
@@ -239,14 +265,45 @@ def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return logits[torch.arange(logits.shape[0], device=logits.device), idx]
 
 
-def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
+def _serving_placement(model, cfg, mesh) -> sharding.Placement:
+    """Where the params live at rest on ``mesh`` (a serving step's)."""
+    like = model.init(torch.Generator().manual_seed(0), cfg, "meta")
+    return sharding.Placement({"params": like}, mesh)
+
+
+def _placed_cache(cache) -> sharding.PlacedCache:
+    if not isinstance(cache, sharding.PlacedCache):
+        raise TypeError("a placed serving step takes a cache placed at "
+                        "rest (sharding.place_cache / CachePlacement.place)")
+    return cache
+
+
+#: cache leaves a family's prefill reads by value when no frontend
+#: embeddings come (the cross K/V it attends over)
+_PREFILL_READS = {"encdec": ("xk", "xv")}
+
+
+def make_prefill_step(model, cfg, full_logits: bool = False,
+                      paged: bool = False, mesh=None) -> Callable:
     """``step(params, cache, tokens, lengths[, frontend_embeds]) ->
     (logits, new_cache)``.
 
     Runs the model over right-padded prompts and returns the logits at
-    each row's last real token (B, V) plus a new dense cache shaped like
-    ``cache``: K/V for attention, SSM and conv state for the recurrent
-    families, both for the hybrid.
+    each row's last real token (B, V), or with ``full_logits`` all of
+    them (B, S, V), plus a new dense cache shaped like ``cache``: K/V for
+    attention, SSM and conv state for the recurrent families, both for
+    the hybrid.
+
+    ``mesh`` places the step as the reference's dry run places its
+    prefill: ``params`` are this rank's blocks by ``param_specs``
+    (``sharding.place_params``), read through
+    :meth:`~repro_torch.dist.sharding.Placement.view` without autograd;
+    ``cache`` is a :class:`~repro_torch.dist.sharding.PlacedCache`;
+    ``tokens`` and ``frontend_embeds`` are this rank's rows
+    (``data_specs``) and ``lengths`` every row's (B,), replicated.  Each
+    layer's new K/V or state is cut to this rank's blocks as it is made
+    (at most one layer's full leaf beyond the blocks); the logits are
+    this rank's rows and the new cache a ``PlacedCache``.
 
     ``paged=True`` builds the paged admission step instead:
     ``step(params, cache, template, tokens, lengths, phys_blocks[, slot,
@@ -259,6 +316,42 @@ def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
     """
     if model.prefill is None:
         raise ValueError(f"family {cfg.family!r} has no prefill path")
+
+    def logits_out(logits, lengths):
+        return logits if full_logits else _last_logits(logits, lengths)
+
+    if mesh is not None:
+        if paged:
+            raise ValueError("a placed paged prefill is not supported: "
+                             "the page pool is not placed")
+        placement = _serving_placement(model, cfg, mesh)
+
+        def placed_step(params, cache, tokens, lengths,
+                        frontend_embeds=None):
+            cache = _placed_cache(cache)
+            cp = cache.placement
+            if lengths is None:
+                raise ValueError("a placed prefill takes every row's "
+                                 "length (B,)")
+            here = sharding.local_shard(
+                lengths, sharding.rows_spec(mesh, lengths.shape[0]), mesh)
+            if tokens.shape[0] != here.shape[0]:
+                raise ValueError(f"tokens hold {tokens.shape[0]} rows; this "
+                                 f"rank's are {here.shape[0]} of "
+                                 f"{lengths.shape[0]}")
+            if frontend_embeds is None:
+                for name in _PREFILL_READS.get(cfg.family, ()):
+                    if not cp.rows_only(name):
+                        raise sharding.CacheSplitError(name, cp.specs[name])
+            cut = cp.cutter()
+            with torch.no_grad():
+                logits, new = model.prefill(
+                    placement.view(params), cp.rows_view(cache), tokens, cfg,
+                    here, frontend_embeds, cut=cut)
+            return (logits_out(logits, here),
+                    sharding.PlacedCache(new, cut.placement_after(new)))
+
+        return placed_step
 
     if paged:
         if model.init_cache_paged is None:
@@ -285,17 +378,28 @@ def make_prefill_step(model, cfg, paged: bool = False) -> Callable:
     def step(params, cache, tokens, lengths, frontend_embeds=None):
         logits, new_cache = model.prefill(params, cache, tokens, cfg,
                                           lengths, frontend_embeds)
-        return _last_logits(logits, lengths), new_cache
+        return logits_out(logits, lengths), new_cache
 
     return step
 
 
 def make_serve_step(model, cfg, sample: str = "greedy",
                     temperature: float = 1.0, top_k: int = 0,
-                    top_p: float = 0.0, paged: bool = False) -> Callable:
+                    top_p: float = 0.0, paged: bool = False,
+                    mesh=None) -> Callable:
     """``step(params, cache, tokens, position, generator) -> (next,
     cache)``, or with ``paged=True`` ``step(params, cache, tokens,
-    position, block_tables, generator)``: one decode step and a sample."""
+    position, block_tables, generator)``: one decode step and a sample.
+
+    ``mesh`` places it as the reference's dry run places its decode:
+    ``params`` this rank's blocks (read without autograd), ``cache`` a
+    :class:`~repro_torch.dist.sharding.PlacedCache` whose leaves split
+    over the row axes only (any other raises
+    :class:`~repro_torch.dist.sharding.CacheSplitError`, naming the
+    leaf: nothing is gathered), ``tokens`` and ``position`` every row's,
+    replicated; each rank decodes its rows and the next tokens are
+    gathered to every row's.  A sampled (``temp``) placed step draws each
+    rank's rows from its own ``generator``."""
     if sample not in ("greedy", "temp"):
         raise ValueError(f"unknown sampler {sample!r}")
 
@@ -303,6 +407,29 @@ def make_serve_step(model, cfg, sample: str = "greedy",
         return sampler_mod.sample(logits, method=sample,
                                   temperature=temperature, top_k=top_k,
                                   top_p=top_p, generator=generator)
+
+    if mesh is not None:
+        if paged:
+            raise ValueError("a placed paged decode is not supported: the "
+                             "page pool is not placed")
+        placement = _serving_placement(model, cfg, mesh)
+
+        def placed_step(params, cache, tokens, position, generator=None):
+            cache = _placed_cache(cache)
+            bad = cache.placement.undecodable()
+            if bad is not None:
+                raise sharding.CacheSplitError(*bad)
+            spec = sharding.rows_spec(mesh, tokens.shape[0])
+            with torch.no_grad():
+                logits, new = model.decode_step(
+                    placement.view(params), cache,
+                    sharding.local_shard(tokens, spec, mesh),
+                    sharding.local_shard(position, spec, mesh), cfg)
+                nxt = sharding._all_gather(_sample(logits, generator), spec,
+                                           mesh)
+            return nxt, sharding.PlacedCache(new, cache.placement)
+
+        return placed_step
 
     if paged:
         if model.decode_step_paged is None:

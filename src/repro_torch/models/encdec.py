@@ -46,7 +46,7 @@ from repro_torch.models.common import (
     stack_init,
     unembed,
 )
-from repro_torch.models.transformer import layer_params, run_layer
+from repro_torch.models.transformer import keep, layer_params, run_layer
 
 
 def init_encoder_layer(gen: torch.Generator, cfg: ModelConfig,
@@ -193,28 +193,21 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
     return {**kv, **_cross_cache(cfg, batch, device)}
 
 
-def prefill_cross(params: dict, cache: dict, frames: torch.Tensor,
-                  cfg: ModelConfig) -> dict:
-    """Run the encoder once and project each decoder layer's cross K/V:
-    a NEW cache whose ``xk``/``xv`` hold the F frames of ``frames``
-    (B, F, D) and whose ``xlen`` is F a row."""
-    enc = encode(params, frames, cfg)
+def _cross_kv(cross: dict, enc: torch.Tensor, cfg: ModelConfig):
+    """One decoder layer's cross K/V (B, F, Hkv, Dh) of encoder states
+    ``enc`` (B, F, D), in the compute dtype."""
     dh, hkv = cfg.head_dim_, cfg.n_kv_heads
-    xks, xvs = [], []
-    for i in range(cfg.n_layers):
-        cross = layer_params(params["decoder"], i)["cross"]
-        k = attn_mod.linear.linear_apply(cross["wk"], enc, cfg.d_model,
-                                         hkv * dh, cfg, "attn_qkv")
-        v = attn_mod.linear.linear_apply(cross["wv"], enc, cfg.d_model,
-                                         hkv * dh, cfg, "attn_qkv")
-        xks.append(k.reshape(*enc.shape[:-1], hkv, dh))
-        xvs.append(v.reshape(*enc.shape[:-1], hkv, dh))
+    k = attn_mod.linear.linear_apply(cross["wk"], enc, cfg.d_model,
+                                     hkv * dh, cfg, "attn_qkv")
+    v = attn_mod.linear.linear_apply(cross["wv"], enc, cfg.d_model,
+                                     hkv * dh, cfg, "attn_qkv")
+    return (k.reshape(*enc.shape[:-1], hkv, dh).to(cfg.compute_dtype),
+            v.reshape(*enc.shape[:-1], hkv, dh).to(cfg.compute_dtype))
+
+
+def _frame_counts(frames: torch.Tensor) -> torch.Tensor:
     b, f = frames.shape[:2]
-    return {**cache,
-            "xk": torch.stack(xks).to(cfg.compute_dtype),
-            "xv": torch.stack(xvs).to(cfg.compute_dtype),
-            "xlen": torch.full((b,), f, dtype=torch.int32,
-                               device=frames.device)}
+    return torch.full((b,), f, dtype=torch.int32, device=frames.device)
 
 
 def _cross_attend(layer: dict, h: torch.Tensor, xk: torch.Tensor,
@@ -239,30 +232,36 @@ def _cross_attend(layer: dict, h: torch.Tensor, xk: torch.Tensor,
         "attn_out")
 
 
-def _cross_and_mlp(layer: dict, x: torch.Tensor, cache: dict, i: int,
+def _cross_and_mlp(layer: dict, x: torch.Tensor, xk: torch.Tensor,
+                   xv: torch.Tensor, xlen: Optional[torch.Tensor],
                    cfg: ModelConfig) -> torch.Tensor:
     """The decoder layer after its self-attention: cross-attention over
-    layer ``i``'s cached frames, then the MLP (residuals included)."""
+    one layer's frames ``xk``/``xv`` (``xlen`` a row), then the MLP
+    (residuals included)."""
     h = rms_norm(x, layer["norm_x"]["scale"], cfg.norm_eps)
-    x = x + _cross_attend(layer, h, cache["xk"][i], cache["xv"][i],
-                          cache["xlen"], cfg)
+    x = x + _cross_attend(layer, h, xk, xv, xlen, cfg)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
     return x + mlp_mod.mlp(layer["mlp"], h, cfg)
 
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds: Optional[torch.Tensor] = None
+            frontend_embeds: Optional[torch.Tensor] = None, cut=keep
             ) -> Tuple[torch.Tensor, dict]:
     """Batched decoder prompt pass -> (logits (B, S, V), a NEW cache).
 
-    With ``frontend_embeds`` the encoder runs first
-    (:func:`prefill_cross`); otherwise the cache's cross K/V is used, the
-    layout :func:`decode_step` reads, so prefill-then-decode agrees with
-    a token-at-a-time decode.  The self-attention K/V of each row is
-    zero at and beyond its length."""
-    if frontend_embeds is not None:
-        cache = prefill_cross(params, cache, frontend_embeds, cfg)
+    With ``frontend_embeds`` the encoder runs first and each decoder
+    layer projects its cross K/V as it comes to it, and the new cache
+    holds them with ``xlen`` F a row; otherwise the cache's cross K/V is
+    used, the layout :func:`decode_step` reads, so prefill-then-decode
+    agrees with a token-at-a-time decode.  The self-attention K/V of each
+    row is zero at and beyond its length.  ``cut`` as in
+    :func:`repro_torch.models.transformer.prefill` (the cross K/V too,
+    when the frames come here)."""
+    enc = (encode(params, frontend_embeds, cfg)
+           if frontend_embeds is not None else None)
+    xlen = (_frame_counts(frontend_embeds) if enc is not None
+            else cache["xlen"])
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
@@ -270,20 +269,31 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
                              device=tokens.device)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    ks, vs = [], []
+    ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         layer = layer_params(params["decoder"], i)
+        if enc is not None:
+            xk, xv = _cross_kv(layer["cross"], enc, cfg)
+        else:
+            xk, xv = cache["xk"][i], cache["xv"][i]
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, k, v = attn_mod.attention_prefill(layer["attn"], h, positions,
                                                0, cfg)
-        x = _cross_and_mlp(layer, x + out, cache, i, cfg)
+        x = _cross_and_mlp(layer, x + out, xk, xv, xlen, cfg)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(ck)
-        vs.append(cv)
+        ks.append(cut("k", ck))
+        vs.append(cut("v", cv))
+        if enc is not None:
+            xks.append(cut("xk", xk))
+            xvs.append(cut("xv", xv))
+        del xk, xv
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(params["embed"], x)
-    return logits, {**cache, "k": torch.stack(ks).to(cache["k"].dtype),
-                    "v": torch.stack(vs).to(cache["v"].dtype)}
+    new = {**cache, "k": torch.stack(ks).to(cache["k"].dtype),
+           "v": torch.stack(vs).to(cache["v"].dtype)}
+    if enc is not None:
+        new.update(xk=torch.stack(xks), xv=torch.stack(xvs), xlen=xlen)
+    return logits, new
 
 
 def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -298,7 +308,8 @@ def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, _, _ = attn_mod.attention_verify(
             layer["attn"], h, cache["k"][i], cache["v"][i], position, 0, cfg)
-        x = _cross_and_mlp(layer, x + out, cache, i, cfg)
+        x = _cross_and_mlp(layer, x + out, cache["xk"][i], cache["xv"][i],
+                           cache["xlen"], cfg)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), cache, None
 
@@ -315,7 +326,8 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
         out, _, _ = attn_mod.attention_verify_paged(
             layer["attn"], h, cache["k_pages"][i], cache["v_pages"][i],
             block_tables, position, 0, cfg)
-        x = _cross_and_mlp(layer, x + out, cache, i, cfg)
+        x = _cross_and_mlp(layer, x + out, cache["xk"][i], cache["xv"][i],
+                           cache["xlen"], cfg)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), cache, None
 

@@ -39,7 +39,7 @@ from repro_torch.models.common import (
     stack_init,
     unembed,
 )
-from repro_torch.models.transformer import layer_params, run_layer
+from repro_torch.models.transformer import keep, layer_params, run_layer
 
 
 def _dims(cfg: ModelConfig):
@@ -280,10 +280,11 @@ def lengths_mask(tokens: torch.Tensor, lengths: Optional[torch.Tensor]):
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds=None, cut=keep) -> Tuple[torch.Tensor, dict]:
     """Batched prompt pass -> (logits (B, S, V), a NEW ``{"ssm",
     "conv"}`` cache shaped like ``cache``).  ``frontend_embeds`` is
-    accepted and unused, as in the reference."""
+    accepted and unused, as in the reference; ``cut`` as in
+    :func:`repro_torch.models.transformer.prefill`."""
     del frontend_embeds
     lengths, mask = lengths_mask(tokens, lengths)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
@@ -294,8 +295,8 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
         y, ssm, conv = mamba_block_prefill(layer["mixer"], h, cfg, mask,
                                            lengths)
         x = x + y
-        ssms.append(ssm)
-        convs.append(conv)
+        ssms.append(cut("ssm", ssm))
+        convs.append(cut("conv", conv))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), {
         "ssm": torch.stack(ssms).to(cache["ssm"].dtype),

@@ -189,13 +189,23 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
                                         device)
 
 
+def keep(name: str, layer: torch.Tensor) -> torch.Tensor:
+    """A prefill's default ``cut``: each layer's new cache leaf whole."""
+    del name
+    return layer
+
+
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds: Optional[torch.Tensor] = None
+            frontend_embeds: Optional[torch.Tensor] = None, cut=keep
             ) -> Tuple[torch.Tensor, dict]:
     """Forward over right-padded prompts -> (logits (B, S, V), a NEW
     cache shaped like ``cache`` holding each row's prompt K/V, zero at
-    and beyond its length); ``frontend_embeds`` as in :func:`apply`."""
+    and beyond its length); ``frontend_embeds`` as in :func:`apply`.
+    ``cut(name, layer)`` takes each layer's new leaf as it is made (a
+    placed prefill keeps this rank's block:
+    :class:`repro_torch.dist.sharding.LayerCut`); ``cache`` is read for
+    its shapes and dtypes only."""
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
@@ -212,8 +222,8 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
                                                int(windows[i]), cfg)
         x = _ffn(layer, x + out, cfg)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(ck)
-        vs.append(cv)
+        ks.append(cut("k", ck))
+        vs.append(cut("v", cv))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(params["embed"], x)
     return logits, {"k": torch.stack(ks).to(cache["k"].dtype),

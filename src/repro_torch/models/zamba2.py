@@ -37,7 +37,7 @@ from repro_torch.models.common import (
     stack_init,
     unembed,
 )
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import keep, layer_params
 
 
 def _n_groups(cfg: ModelConfig) -> List[int]:
@@ -131,11 +131,12 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds=None, cut=keep) -> Tuple[torch.Tensor, dict]:
     """:func:`apply` over right-padded prompts keeping every decode cache:
     each layer's SSM and conv state and each shared-block application's
     K/V (zero at and beyond a row's length) -> (logits (B, S, V), a NEW
-    cache shaped like ``cache``)."""
+    cache shaped like ``cache``); ``cut`` as in
+    :func:`repro_torch.models.transformer.prefill`."""
     del frontend_embeds
     smax = cache["attn_k"].shape[2]
     lengths, mask = mamba_mod.lengths_mask(tokens, lengths)
@@ -151,15 +152,15 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             y, ssm, conv = mamba_mod.mamba_block_prefill(
                 layer["mixer"], h, cfg, mask, lengths)
             x = x + y
-            ssms.append(ssm)
-            convs.append(conv)
+            ssms.append(cut("ssm", ssm))
+            convs.append(cut("conv", conv))
         h, a = _shared_in(shared, x, emb, cfg)
         out, k, v = attn_mod.attention_prefill(shared["attn"], a, positions,
                                                0, cfg)
         x = _shared_out(shared, x, h, out, cfg)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(ck)
-        vs.append(cv)
+        ks.append(cut("attn_k", ck))
+        vs.append(cut("attn_v", cv))
         start += size
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), {

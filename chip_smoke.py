@@ -66,9 +66,9 @@ result line if any fails):
    controls (TF32 on; the diagonals dropped, which must exceed the
    limit); and hold ``scaled_matmul``'s fp32 error on every call of the
    prefill within 2 x cuBLAS fp32's (the first call where it passes 2 x
-   the plain version's is recorded); then serve it speculatively
-   (``--spec --spec-k 4``, the default depth-1 truncated-cascade draft),
-   dense and paged: every tick's kernel launches exact (the verify's
+   the plain version's is recorded); then serve its first 4 requests
+   speculatively (``--spec --spec-k 4``, the default depth-1
+   truncated-cascade draft), dense and paged: every tick's kernel launches exact (the verify's
    ``scaled_matmul`` on the tensor cores at M = 20, the draft passes in
    the weight stream at M = 4, ``paged_attn`` at T = 5), s/tick,
    tokens/s, tokens a tick and the acceptance rate; the bf16 streams
@@ -93,7 +93,8 @@ result line if any fails):
    against the plain versions, ``acdc_cascade_bwd`` / ``acdc_bwd`` launched
    12 times a step, and a checkpoint-and-resume run that continues the
    uninterrupted one;
-8. overload at full width (paged, 16-token pages) through the serve
+8. overload at full width (8 of Qwen3's 28 layers: ``CUT_DEPTH``; paged,
+   16-token pages) through the serve
    launcher's functions: deadlines on half the requests, two priority
    bands, metrics JSONL and a span trace, under a ``FaultPlan`` (corrupt
    ticks, denied pages, slow ticks): every request terminal, the pool
@@ -105,8 +106,8 @@ result line if any fails):
    more slow ticks: the ladder must walk down ``spec_half``,
    ``spec_off``, ``shed`` and back to ``full``, every segment again
    exactly a fault-free speculative run's;
-9. ``torch.profiler`` windows at full width (8 decode ticks dense and
-   paged and 3 speculative ticks paged through
+9. ``torch.profiler`` windows at full width (2 decode ticks dense and
+   paged and 1 speculative tick paged through
    ``obs.prof.ProfileWindow``, one prefill admission, one train step):
    device busy share, host time and kernels a step, the ten kernels with
    the most device time; the window must hold kernels, and
@@ -163,7 +164,8 @@ E. Gemma3-27B (paged, 16-token pages), ChatGLM3-6B (paged, then
    dense, paged and speculative paged: launches exact, streams identical
    with the kernels, the plain versions and without speculation, and 3
    train steps each against the plain versions;
-F. DeepSeekMoE-16B at full width served dense and paged (bf16, 8
+F. DeepSeekMoE-16B at full width (8 of its 28 layers) served dense and
+   paged (bf16, 8
    requests, 16 new tokens): launches exact, one grouped
    ``scaled_matmul`` a projection call for all 64 experts; one prefill's
    and one decode step's logits against the plain versions in fp32
@@ -176,11 +178,12 @@ F. DeepSeekMoE-16B at full width served dense and paged (bf16, 8
    Moonshot-v1-16B-A3B (fp32) dense, paged and speculative paged, streams
    identical with kernels and plain versions, 5 train steps each;
 G. Mamba2-1.3B (the ssm family: SSM/conv state a slot, no paged cache) at
-   full width, ``--sell acdc --sell-method pallas``, bf16, dense: 4
+   full width (12 of its 48 layers), ``--sell acdc --sell-method
+   pallas``, bf16, dense: 4
    requests x 16 new tokens, then ``--spec --spec-k 4`` (the truncated
    draft; the verify re-selects each slot's state at its accepted length
-   from the T + 1 snapshots): every tick's launches exact (384
-   ``scaled_matmul`` a decode tick), s/tick beside the tick's weight-read
+   from the T + 1 snapshots): every tick's launches exact (8
+   ``scaled_matmul`` a layer a decode tick), s/tick beside the tick's weight-read
    floor, tok/s, prefill s/admission, peak memory beside the reckoned fp32
    masters; the bf16 speculative streams against the non-speculative ones
    reported; one prefill's and one decode step's logits with the kernels,
@@ -193,11 +196,12 @@ G. Mamba2-1.3B (the ssm family: SSM/conv state a slot, no paged cache) at
    3 AdamW steps at 2 x 256 tokens (the SSD's 256-token chunk): s/step,
    peak memory, exact launches, fp32 grads held by drift the same way
    with the no-d control over it;
-H. Zamba2-1.2B (hybrid: 38 mamba layers, one shared attention block
-   applied 7 times) the same, with 16-token pages (``paged_attn`` 7 times
-   a tick), and its fp32 paged decode's logits against the dense one
+H. Zamba2-1.2B (hybrid: 12 of its 38 mamba layers, the shared attention
+   block applied after every 6th) the same, with 16-token pages
+   (``paged_attn`` once a shared block a tick), and its fp32 paged decode's logits against the dense one
    within ``FP32_METHOD_REL_L2`` (a rolled block table over it);
-I. LLaVA-NeXT-34B's backbone at full width, paged: 2 requests whose
+I. LLaVA-NeXT-34B's backbone at full width (20 of its 60 layers), paged:
+   2 requests whose
    first 576 positions are the stub patch prefix (``--frontend``),
    ``max_prompt_len`` 640, 8 new tokens each; the decode step's logits
    after a prefixed probe against the plain versions within
@@ -214,8 +218,8 @@ J. Seamless-M4T-large-v2 at full width, dense, paged and speculative,
    measured on the cost model's plans, PERF.md);
 K. data-parallel training (right after phase 6): a world-of-one NCCL
    process group (``file://`` rendezvous under ``build/``) and
-   ``launch.mesh.make_host_mesh()``; full-width Qwen3-1.7B through the
-   train launcher with ``--compress-grads`` (4 x 128 tokens): on one
+   ``launch.mesh.make_host_mesh()``; full-width Qwen3-1.7B (8 of its 28
+   layers) through the train launcher with ``--compress-grads`` (4 x 128 tokens): on one
    seeded state and batch, every gradient leaf's int8 bound
    |ghat - (g + e)| <= scale / 2 and the identity ghat + new_e = g + e
    (atol 1e-5, the reference's) on a carried residual, ``quantize_int8``
@@ -240,13 +244,14 @@ K. data-parallel training (right after phase 6): a world-of-one NCCL
    launcher runs the same path over gloo (``torchrun ... --device cpu``).
    The compressed state is placed at rest on the (1, 1) mesh.
 L. placement at rest (right after path K, on its world-of-one group):
-   full-width Qwen3-1.7B, 3 steps with the state placed by the sharding
+   full-width Qwen3-1.7B (8 of its 28 layers), 3 steps with the state
+   placed by the sharding
    rules (each layer gathered inside its checkpointed function, each
    gradient reduce-scattered by its gather's backward, the mesh-wide
    norm) beside 3 replicated steps from the same seed and batches:
    losses, grad and update norms and every param and moment bitwise
-   equal, ``scaled_matmul`` launched 1568 times a step on both sides,
-   peak memory and s/step of each; the faulty control (layer 0's gather
+   equal, ``scaled_matmul`` launched ``train_launches_per_step`` times a
+   step on both sides, peak memory and s/step of each; the faulty control (layer 0's gather
    served stale after step 0) must differ; then one placed smoke step
    (cascade kernels at N = 128 / 256) bitwise against a replicated one.
 
@@ -267,7 +272,12 @@ M. the dry run and placed serving (right after path L, on its group):
    ``torch.cuda.max_memory_allocated``'s.
 
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
-cut to keep the whole run within its time with paths G - I added.
+cut to keep the whole run within its time with paths G - I added.  For
+the same reason phase 9's windows hold 2 decode ticks and 1 speculative
+tick, phase 4's speculative serve takes one wave of 4 requests, and
+phases 8, 8b and paths F - L run their full-width configs at the depth
+of ``CUT_DEPTH`` (``cut_depth``): every width the published one, the
+layers cut.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX
 or of the JAX package.
@@ -2064,8 +2074,8 @@ def compare_full_width_logits(pieces, dev, dtype=None):
     def run():
         residuals = []
 
-        def ffn_recording(layer, x, cfg_):
-            y = ffn(layer, x, cfg_)
+        def ffn_recording(layer, x, cfg_, rows=None):
+            y = ffn(layer, x, cfg_, rows)
             residuals.append(y[0, :PROBE_LEN].float())
             return y
 
@@ -2610,19 +2620,19 @@ def compare_streams(label, pieces, prompts, got, want, dev, hold: bool,
 def spec_full_width(pieces, dev, totals, nonspec_streams):
     """Full-width speculative serving through the launcher (``--spec
     --spec-k 4``, the default depth-1 draft), dense and with 16-token
-    pages, 4 slots, 8 requests: exact launches every tick (the verify's
+    pages, 4 slots, phase 4's first 4 requests (one wave of the 4 slots):
+    exact launches every tick (the verify's
     448 ``scaled_matmul`` on the tensor cores at M = 20, 224 a draft pass
     in the weight stream at M = 4, 28 ``paged_attn`` at T = 5 a paged
     verify), s/tick, tokens/s, tokens a tick and the acceptance rate.
     bf16 streams against phase 4's non-speculative ones are reported; in
-    fp32 compute both are run again over the first 4 requests (one wave
-    of the 4 slots) and any difference must be a near-tie
+    fp32 compute both are run again and any difference must be a near-tie
     (``near_tie``)."""
     cfg, model, params = pieces
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     base = ["--arch", "qwen3_1_7b", "--sell", "acdc", "--sell-method",
             "pallas", "--slots", "4", "--prompt-len", "64", "--gen", "16",
-            "--requests", "8", "--device", "cuda"]
+            "--requests", "4", "--device", "cuda"]
     spec = ["--spec", "--spec-k", str(SPEC_K)]
     out = {}
     for paged in (False, True):
@@ -2639,8 +2649,8 @@ def spec_full_width(pieces, dev, totals, nonspec_streams):
               f"{json.dumps(info['ticks'])}", flush=True)
         info["bf16_vs_nonspec"] = compare_streams(
             label + " bf16", (cfg, model, params), prompts, streams_of(reqs),
-            nonspec_streams[name], dev, hold=False)
-        wave = base[:-4] + ["--requests", "4"] + base[-2:] + layout
+            nonspec_streams[name][:len(reqs)], dev, hold=False)
+        wave = base + layout
         nonspec32 = streams_of(serve_path(
             f"full width {name} fp32 (no speculation)", wave,
             (cfg32, model, params), totals, ("scaled_matmul",))[1])
@@ -3274,9 +3284,9 @@ def profile_ticks(label, root, pieces, dev, paged, spec_k, first, last):
 
 
 def profile_full_width(dev):
-    """``torch.profiler`` windows at full width: 4 steady decode ticks
-    (ticks 4..7, every slot decoding, no admission) dense and paged and
-    2 steady speculative ticks paged (ticks 4..5, ``spec_k`` 4, the
+    """``torch.profiler`` windows at full width: 2 steady decode ticks
+    (ticks 4..5, every slot decoding, no admission) dense and paged and
+    1 steady speculative tick paged (tick 4, ``spec_k`` 4, the
     depth-1 draft; their ``smm_stream`` / ``smm_tc`` kernels each held to
     the launches in that regime) through the ported ``ProfileWindow``,
     one 64-token prefill admission
@@ -3302,9 +3312,9 @@ def profile_full_width(dev):
         "--device", str(dev)])
     cfg, model, params = serve.build(args)
     for label, paged, spec_k, first, last in (
-            ("decode dense", False, 0, 4, 7),
-            ("decode paged", True, 0, 4, 7),
-            ("spec paged", True, SPEC_K, 4, 5)):
+            ("decode dense", False, 0, 4, 5),
+            ("decode paged", True, 0, 4, 5),
+            ("spec paged", True, SPEC_K, 4, 4)):
         out[label] = profile_ticks(label, root, (cfg, model, params), dev,
                                    paged, spec_k, first, last)
 
@@ -3759,6 +3769,47 @@ RECKONED_MASTERS_GB = {"deepseek_67b": 35.0, "gemma3_27b": 16.6,
                        "llava_next_34b": 17.7,
                        "seamless_m4t_large_v2": 1.98}
 
+#: the depth of the full-width configs on the paths that ``cut_depth``
+#: runs (F - J, K, L and phases 8 / 8b): every width is the published one,
+#: the layers are cut so the whole run keeps inside its time limit (PERF.md
+#: has their times at full depth)
+CUT_DEPTH = {"qwen3_1_7b": dict(n_layers=8),
+             "deepseek_moe_16b": dict(n_layers=8),
+             "mamba2_1_3b": dict(n_layers=12),
+             "zamba2_1_2b": dict(n_layers=12),
+             "llava_next_34b": dict(n_layers=20),
+             "seamless_m4t_large_v2": dict(n_layers=6, n_encoder_layers=6)}
+
+
+@contextlib.contextmanager
+def cut_depth():
+    """Inside, every full config the launchers look up
+    (``registry.get_config``) has the depth of ``CUT_DEPTH``; the smoke
+    configs are left as they are."""
+    from repro_torch.configs import registry
+
+    full = registry.get_config
+
+    def get_config(arch):
+        return dataclasses.replace(full(arch), **CUT_DEPTH.get(arch, {}))
+
+    registry.get_config = get_config
+    try:
+        yield
+    finally:
+        registry.get_config = full
+
+
+def depth_note(cfg) -> str:
+    """`` (N of M layers)`` where ``cut_depth`` cut ``cfg``, else ''."""
+    from repro_torch.configs import registry
+
+    full = registry._module(
+        next(a for a in registry.ARCHS
+             if registry._module(a).CONFIG.name == cfg.name)).CONFIG
+    return ("" if full.n_layers == cfg.n_layers
+            else f" ({cfg.n_layers} of {full.n_layers} layers)")
+
 #: path E, full width: (arch, requests, paged, then speculative paged)
 DENSE_FULL_WIDTH = (("gemma3_27b", 4, True, False),
                     ("chatglm3_6b", 4, True, True),
@@ -3823,8 +3874,8 @@ def route_recorder(calls: list):
 
     saved = mlp_mod._route
 
-    def recording(xt, params, cfg):
-        out = saved(xt, params, cfg)
+    def recording(xt, params, cfg, rows=None):
+        out = saved(xt, params, cfg, rows)
         calls.append(torch.sort(out[1], dim=-1).values.cpu())
         return out
 
@@ -4197,6 +4248,7 @@ def moe_full_width(dev, totals) -> dict:
     cfg = pieces[0]
     out = dict(params_gb=params_gb(pieces[2]),
                reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               n_layers=cfg.n_layers,
                matrices_s=build_matrices(cfg, dev))
     torch.cuda.reset_peak_memory_stats()
     per_tick = forward_launches(cfg, 4)["scaled_matmul"]
@@ -4219,7 +4271,8 @@ def moe_full_width(dev, totals) -> dict:
     out["logits_bf16"] = logits_vs_plain(f"{arch} full width", pieces, dev,
                                          BF16_LOGIT_REL_L2, faulty,
                                          hold=())
-    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+    print(f"[memory] {arch} full width{depth_note(cfg)} serving "
+          f"({smi_line()}): peak "
           f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
           f" GB (reckoned {out['reckoned_masters_gb']})", flush=True)
     del pieces
@@ -4372,6 +4425,7 @@ def recurrent_full_width(dev, totals, arch, paged) -> dict:
     out = dict(init_s=time.perf_counter() - t0,
                params_gb=params_gb(pieces[2]),
                reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               n_layers=cfg.n_layers,
                cache=serve.cache_kind(cfg, pieces[1], 81),
                matrices_s=build_matrices(cfg, dev))
     print(f"[cache] {arch} full width: {out['cache']}", flush=True)
@@ -4393,7 +4447,8 @@ def recurrent_full_width(dev, totals, arch, paged) -> dict:
     if paged:
         out["paged_vs_dense"] = paged_vs_dense_logits(pieces, dev)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+    print(f"[memory] {arch} full width{depth_note(cfg)} serving "
+          f"({smi_line()}): peak "
           f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
           f" GB (reckoned {out['reckoned_masters_gb']})", flush=True)
     del pieces
@@ -4429,6 +4484,7 @@ def llava_full_width(dev, totals) -> dict:
     out = dict(init_s=time.perf_counter() - t0,
                params_gb=params_gb(pieces[2]),
                reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               n_layers=cfg.n_layers,
                matrices_s=build_matrices(cfg, dev))
     torch.cuda.reset_peak_memory_stats()
     out["serve"] = serve_full_width(f"{arch} full width paged", argv, pieces,
@@ -4440,7 +4496,8 @@ def llava_full_width(dev, totals) -> dict:
         lambda: scaled_matmul_as(scaled_matmul_without_pre),
         hold=("decode",), prefix=prefix)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+    print(f"[memory] {arch} full width{depth_note(cfg)} serving "
+          f"({smi_line()}): peak "
           f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
           f" GB (reckoned {out['reckoned_masters_gb']}); init "
           f"{out['init_s']:.1f} s, transform matrices "
@@ -4542,8 +4599,9 @@ def plans_ab(label, argv, pieces) -> dict:
 
 
 def seamless_full_width(dev, totals) -> dict:
-    """Path J: Seamless-M4T-large-v2 at full width (24 + 24 layers, d
-    1024, d_ff 8192, vocab 256206), ``--sell acdc --sell-method pallas``,
+    """Path J: Seamless-M4T-large-v2 at full width (d 1024, d_ff 8192,
+    vocab 256206; 6 + 6 of its 24 + 24 layers under ``cut_depth``),
+    ``--sell acdc --sell-method pallas``,
     bf16 compute, fp32 masters: 4 slots, 4 requests of <= 64 tokens plus
     16 stub frames each (the launcher's), 16 new tokens, served dense,
     paged (16-token pages) and ``--spec --spec-k 4`` paged with every
@@ -4578,6 +4636,7 @@ def seamless_full_width(dev, totals) -> dict:
     out = dict(init_s=time.perf_counter() - t0,
                params_gb=params_gb(pieces[2]),
                reckoned_masters_gb=RECKONED_MASTERS_GB[arch],
+               n_layers=cfg.n_layers,
                cache=serve.cache_kind(cfg, pieces[1], 81),
                matrices_s=build_matrices(cfg, dev))
     print(f"[cache] {arch} full width: {out['cache']}", flush=True)
@@ -4615,7 +4674,8 @@ def seamless_full_width(dev, totals) -> dict:
     out["frames"] = frames_vs_apply(pieces, dev, frames)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["plans_ab"] = plans_ab(f"{arch} full width dense", argv, pieces)
-    print(f"[memory] {arch} full width serving ({smi_line()}): peak "
+    print(f"[memory] {arch} full width{depth_note(cfg)} serving "
+          f"({smi_line()}): peak "
           f"{out['peak_mem_gb']:.2f} GB; fp32 masters {out['params_gb']:.2f}"
           f" GB (reckoned {out['reckoned_masters_gb']}); init "
           f"{out['init_s']:.1f} s, transform matrices "
@@ -4625,14 +4685,12 @@ def seamless_full_width(dev, totals) -> dict:
     out["train"] = train_full_width(dev, totals, arch, global_batch=4,
                                     seq_len=128, hold="drift")
     release_memory()
-    print(f"[J] on autotuned plans ({smi_line()}): decode tick "
-          f"{out['serve']['s_per_tick'] * 1e3:.1f} dense / "
-          f"{out['paged']['s_per_tick'] * 1e3:.1f} paged ms (on the cost "
-          f"model's plans, PERF.md: 99.4 / 96.0), prefill "
+    print(f"[J] on autotuned plans{depth_note(cfg)} ({smi_line()}): "
+          f"decode tick {out['serve']['s_per_tick'] * 1e3:.1f} dense / "
+          f"{out['paged']['s_per_tick'] * 1e3:.1f} paged ms, prefill "
           f"{out['serve']['prefill_s_per_admission']:.3f} / "
           f"{out['paged']['prefill_s_per_admission']:.3f} s an admission, "
-          f"train {out['train']['s_per_step']:.3f} s a step (cost model's: "
-          f"2.220)", flush=True)
+          f"train {out['train']['s_per_step']:.3f} s a step", flush=True)
     return out
 
 
@@ -4942,14 +5000,16 @@ def stale_layer_gather(state: dict):
 
 
 def placed_full_width(dev, totals) -> dict:
-    """Path L: full-width Qwen3-1.7B trained with its state placed at
+    """Path L: full-width Qwen3-1.7B (at the depth its caller sets)
+    trained with its state placed at
     rest by the sharding rules on the world-of-one (1, 1) mesh of path K
     (every leaf spec'd over its size-1 axes: each layer gathered inside
     its checkpointed function, each gradient reduce-scattered by its
     gather's backward, the mesh-wide norm), 3 steps beside 3 replicated
     ones from the same seed and batches: losses, grad and update norms
     and every param and moment bitwise equal, ``scaled_matmul`` launched
-    1568 times a step on both sides; the faulty control (layer 0's gather
+    ``train_launches_per_step`` times a step on both sides; the faulty
+    control (layer 0's gather
     served stale after step 0) must differ; then one placed smoke step
     (K = 2: the cascade kernels at N = 128 / 256) bitwise against a
     replicated one, with equal launches."""
@@ -5599,15 +5659,19 @@ def run_paths(report: dict, dev) -> None:
     report["paths"] = paths
     timed(report, "train_full_width", train_full_width, dev, totals)
     with world_of_one(dev):
-        timed(report, "dist_full_width", dist_full_width, dev, totals)
-        timed(report, "placed_full_width", placed_full_width, dev, totals)
+        with cut_depth():
+            timed(report, "dist_full_width", dist_full_width, dev, totals)
+            timed(report, "placed_full_width", placed_full_width, dev,
+                  totals)
         timed(report, "placed_serving", placed_serving, dev, totals)
     timed(report, "drain_drill", drain_drill, totals)
     timed(report, "train_methods_full_width", train_methods_full_width, dev,
           totals)
     timed(report, "train_smoke", train_smoke, totals)
-    timed(report, "overload", overload_full_width, dev, totals)
-    timed(report, "overload_spec", overload_spec_full_width, dev, totals)
+    with cut_depth():
+        timed(report, "overload", overload_full_width, dev, totals)
+        timed(report, "overload_spec", overload_spec_full_width, dev,
+              totals)
     timed(report, "profile", profile_full_width, dev)
     del params_cache
     torch.cuda.empty_cache()
@@ -5615,17 +5679,21 @@ def run_paths(report: dict, dev) -> None:
           totals)
     timed(report, "dense_configs_smoke", smoke_configs, totals,
           ("gemma3_27b", "chatglm3_6b", "deepseek_67b"), 3, True)
-    timed(report, "moe_full_width", moe_full_width, dev, totals)
+    with cut_depth():
+        timed(report, "moe_full_width", moe_full_width, dev, totals)
     timed(report, "moe_smoke", smoke_configs, totals,
           ("deepseek_moe_16b", "moonshot_v1_16b_a3b"), 5, False)
-    timed(report, "mamba2_full_width", recurrent_full_width, dev, totals,
-          "mamba2_1_3b", False)
-    timed(report, "zamba2_full_width", recurrent_full_width, dev, totals,
-          "zamba2_1_2b", True)
-    timed(report, "llava_full_width", llava_full_width, dev, totals)
+    with cut_depth():
+        timed(report, "mamba2_full_width", recurrent_full_width, dev,
+              totals, "mamba2_1_3b", False)
+        timed(report, "zamba2_full_width", recurrent_full_width, dev,
+              totals, "zamba2_1_2b", True)
+        timed(report, "llava_full_width", llava_full_width, dev, totals)
     timed(report, "recurrent_smoke", smoke_configs, totals,
           ("mamba2_1_3b", "zamba2_1_2b", "llava_next_34b"), 3, True)
-    timed(report, "seamless_full_width", seamless_full_width, dev, totals)
+    with cut_depth():
+        timed(report, "seamless_full_width", seamless_full_width, dev,
+              totals)
     timed(report, "seamless_smoke", smoke_configs, totals,
           ("seamless_m4t_large_v2",), 3, True)
     report["launches"] = totals

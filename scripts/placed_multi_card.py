@@ -20,16 +20,27 @@ the whole global batch (the other ranks wait), for the losses to compare.
 Rank 0 prints a line a run and writes every rank's numbers, with the
 card's name and power limit, to ``--out``.
 
-``--train`` runs come first, then ``--serve`` and ``--pod-train``.
-``--serve ARCH`` serves ARCH placed at (data = world, model 1), one row
-a rank: a ``full_logits`` prefill of 4 prompts (64 positions, ragged)
+``--train`` runs come first, then ``--serve``, ``--serve-long`` and
+``--pod-train``.  ``--serve ARCH[:MODEL_PARALLEL]`` serves ARCH placed
+at (data = world / MODEL_PARALLEL, model = MODEL_PARALLEL; 1 by
+default): a ``full_logits`` prefill of 4 prompts (64 positions, ragged)
 and 8 greedy decode steps through ``make_prefill_step(mesh=)`` /
-``make_serve_step(mesh=)``, in fp32 and in bf16 compute, beside the same
-steps unplaced on rank 0 alone: the fp32 logits of every row within
-``SERVE_FP32_ATOL`` of one card's, the bf16 streams equal or departing
-first at a near-tie (the two tokens' one-card fp32 logits apart by no
-more than the two bf16 sides' largest logit difference at the prefill;
-what follows a near-tie is reported, not held).  ``--pod-train
+``make_serve_step(mesh=)`` on a cache placed by ``cache_specs`` (K/V or
+SSM heads over "model" where they divide it: head-parallel decode), in
+fp32 and in bf16 compute, beside the same steps unplaced on rank 0
+alone.  ``--serve-long ARCH:MODEL_PARALLEL`` serves one row the same
+way on an 8192-position cache (its sequence split over "data"): a
+4090-token prompt, then 12 decode steps through position 4101, across
+the blocks' boundary at 4096 for two data ranks.  Held: the fp32 logits
+of every row, at the prefill's last token and at one more decode step
+after the streams, within ``SERVE_FP32_ATOL`` of one card's; the streams
+(both dtypes) equal or departing first at a near-tie (the two tokens'
+one-card fp32 logits apart by no more than the two sides' largest logit
+difference at the prefill; what follows a near-tie is reported, not
+held).  Controls beside the decode step's: one card's step taken again
+on each row alone (its sums in another order) and, for Mamba2, the
+whole decode on one card with each layer's recurrence in MODEL_PARALLEL
+head blocks (the placed steps' sums without their collectives).  ``--pod-train
 ARCH:STEPS`` trains ARCH with its state placed at (pod 2, data world/2,
 model 1), the rows split over ("pod", "data") as (world, 1) splits them,
 beside the same steps at (world, 1): losses within ``POD_LOSS_RTOL``.
@@ -41,10 +52,12 @@ kernel wrappers have no meta implementation) and held by
 bytes, counted on rank 0 by the dry run's ``Collectives`` (the
 FLOP counter is left off: it runs the decompositions of ops it has no
 formula for, which moves the step's numbers); for serving, the
-same prefill cell (prompts as long as its cache, as the dry run's cells
-are) built by ``build_cell`` on the cards and measured there by
-``dryrun.measure_on_device``: FLOPs, collectives, argument and output
-bytes, and the peak above the arguments within ``dryrun.PEAK_REL`` of
+same prefill cell at (world, 1) (prompts as long as its cache, as the
+dry run's cells are), or the same decode cell (4 rows, an 80-position
+cache, bf16) where MODEL_PARALLEL > 1, built by ``build_cell`` on the
+cards and measured there by ``dryrun.measure_on_device``: FLOPs,
+collectives, argument and output bytes, and the peak above the
+arguments within ``dryrun.PEAK_REL`` of
 ``torch.cuda.max_memory_allocated``'s.
 """
 
@@ -82,6 +95,8 @@ SERVE_FP32_ATOL = 1e-4
 POD_LOSS_RTOL = 1e-4
 #: the serving cells: rows, prompt positions, cache length, decode steps
 SERVE_ROWS, SERVE_LEN, SERVE_CACHE, SERVE_STEPS = 4, 64, 80, 8
+#: the long row: prompt positions, cache length, decode steps
+LONG_LEN, LONG_CACHE, LONG_STEPS = 4090, 8192, 12
 
 
 def smi() -> str:
@@ -165,10 +180,14 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-def serve_spec(arch: str, world: int) -> str:
+def serve_spec(arch: str, world: int, model_parallel: int = 1) -> str:
     """The dry run's cell of a ``--serve`` run: its bf16 prefill at
-    (world, 1), prompts as long as their cache (as the dry run's are)."""
-    return f"{arch}:prefill:{SERVE_LEN}:{SERVE_ROWS}:{world}x1:bfloat16"
+    (world, 1), prompts as long as their cache (as the dry run's are);
+    with a model axis, its bf16 decode at (world / model, model)."""
+    if model_parallel == 1:
+        return f"{arch}:prefill:{SERVE_LEN}:{SERVE_ROWS}:{world}x1:bfloat16"
+    return (f"{arch}:decode:{SERVE_CACHE}:{SERVE_ROWS}:"
+            f"{world // model_parallel}x{model_parallel}:bfloat16")
 
 
 def pod_spec(arch: str, world: int) -> str:
@@ -192,23 +211,92 @@ def card_record(spec: str) -> dict:
     return rec
 
 
-def serve_run(arch: str, dtype: str) -> dict:
-    """Placed serving at (world, 1) and, on rank 0, the unplaced steps;
-    rank 0 gets the comparison."""
+def _decode_logits(model, cfg, params, cache, tok, pos, mesh=None):
+    """One more decode step's logits (every row's), fed ``tok`` at
+    ``pos``: unplaced, or placed as ``make_serve_step(mesh=)`` runs it
+    (each rank's rows on its block of the cache, gathered to every
+    row's)."""
+    with torch.no_grad():
+        if mesh is None:
+            return model.decode_step(params, cache, tok, pos, cfg)[0]
+        view = sharding.Placement(
+            {"params": model.init(torch.Generator().manual_seed(0), cfg,
+                                  "meta")}, mesh).view(params)
+        spec = sharding.rows_spec(mesh, tok.shape[0])
+        logits, _ = model.decode_step(
+            view, cache, sharding.local_shard(tok, spec, mesh),
+            sharding.local_shard(pos, spec, mesh), cfg,
+            split=cache.placement.split())
+        return sharding._all_gather(logits.float().contiguous(), spec, mesh)
+
+
+class _HeadBlock:
+    """One rank's head block of an SSM state, in one process: its heads,
+    no collective (the caller joins the blocks)."""
+
+    def __init__(self, heads: slice):
+        self.heads, self.seq = heads, None
+
+    def gather_heads(self, x, dim):
+        return x
+
+
+def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
+    """Mamba2's decode step (``models.mamba2.decode_step``) on one card,
+    each layer's recurrence run on ``n_blocks`` contiguous head blocks of
+    the state one after another, their outputs and states joined in head
+    order: a placed step's arithmetic at model = ``n_blocks`` without its
+    collectives.  Updates ``cache`` in place; returns the logits."""
+    from repro_torch.models import mamba2
+    from repro_torch.models.common import embed_lookup, rms_norm, unembed
+    from repro_torch.models.transformer import layer_params
+    size = cfg.d_inner_ // cfg.ssm_head_dim // n_blocks
+    x = embed_lookup(params["embed"], tok[:, None], cfg.compute_dtype)
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            layer = layer_params(params["layers"], i)
+            h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
+            z, xbc, dt = mamba2._split_proj(layer["mixer"], h, cfg)
+            ys, states = [], []
+            for j in range(n_blocks):
+                hs = slice(j * size, (j + 1) * size)
+                y, ssm, conv = mamba2._recur(
+                    layer["mixer"], xbc, dt,
+                    cache["ssm"][i][:, hs].contiguous(), cache["conv"][i],
+                    cfg, split=_HeadBlock(hs))
+                ys.append(y.reshape(*y.shape[:2], size, cfg.ssm_head_dim))
+                states.append(ssm)
+            cache["ssm"][i] = torch.cat(states, dim=1)
+            cache["conv"][i] = conv
+            y = torch.cat(ys, dim=2).flatten(2)
+            x = x + mamba2._gate_out(layer["mixer"], y, z, cfg)
+        x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        return unembed(params["embed"], x)[:, 0]
+
+
+def serve_run(arch: str, dtype: str, model_parallel: int = 1,
+              long: bool = False) -> dict:
+    """Placed serving at (world / model_parallel, model_parallel) and, on
+    rank 0, the unplaced steps; rank 0 gets the comparison."""
     cfg = registry.with_sell(registry.get_config(arch), "acdc",
                              method="pallas")
     cfg = dataclasses.replace(cfg, dtype=dtype)
     model = get_model(cfg)
     world, rank = dist.get_world_size(), dist.get_rank()
-    mesh = dryrun.mesh_of((world, 1), DEVICE)
+    mesh = dryrun.mesh_of((world // model_parallel, model_parallel), DEVICE)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                         DEVICE)
     gen = torch.Generator().manual_seed(1)
-    b = SERVE_ROWS
-    tokens = torch.randint(0, cfg.vocab_size, (b, SERVE_LEN), generator=gen,
+    if long:
+        b, plen, cache_len, n_steps = 1, LONG_LEN, LONG_CACHE, LONG_STEPS
+        lengths = torch.tensor([plen], dtype=torch.int32, device=DEVICE)
+    else:
+        b, plen, cache_len, n_steps = (SERVE_ROWS, SERVE_LEN, SERVE_CACHE,
+                                       SERVE_STEPS)
+        lengths = torch.tensor([64, 50, 64, 37][:b], dtype=torch.int32,
+                               device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
                            dtype=torch.int32).to(DEVICE)
-    lengths = torch.tensor([64, 50, 64, 37][:b], dtype=torch.int32,
-                           device=DEVICE)
 
     def steps_of(m):
         return (steps_mod.make_prefill_step(model, cfg, full_logits=True,
@@ -217,18 +305,18 @@ def serve_run(arch: str, dtype: str) -> dict:
 
     def decode(serve, p, cache, first):
         pos, tok, stream, secs = lengths.clone(), first, [first], []
-        for _ in range(SERVE_STEPS):
+        for _ in range(n_steps):
             t0 = time.perf_counter()
             tok, cache = serve(p, cache, tok, pos)
             _sync()
             secs.append(time.perf_counter() - t0)
             pos = pos + 1
             stream.append(tok)
-        return torch.stack(stream, 1).cpu(), secs
+        return torch.stack(stream, 1).cpu(), secs, cache, tok, pos
 
     prefill, serve = steps_of(mesh)
     placed_p = sharding.place_params(tree_map(torch.clone, params), mesh)
-    cache = sharding.place_cache(model.init_cache(cfg, b, SERVE_CACHE,
+    cache = sharding.place_cache(model.init_cache(cfg, b, cache_len,
                                                   device=DEVICE), mesh)
     spec = sharding.rows_spec(mesh, b)
     rows = sharding.local_shard(torch.arange(b), spec, mesh)
@@ -244,34 +332,76 @@ def serve_run(arch: str, dtype: str) -> dict:
                   - 1].float()
     full_last = sharding._all_gather(last.contiguous(), spec, mesh)
     first = full_last.argmax(-1)
-    streams, secs = decode(serve, placed_p, cache, first)
-    out = dict(rows=rows.tolist(), prefill_s=prefill_s,
+    del logits
+    streams, secs, cache, tok, pos = decode(serve, placed_p, cache, first)
+    step_logits = _decode_logits(model, cfg, placed_p, cache, tok, pos,
+                                 mesh)
+    out = dict(mesh=list(mesh.shape), rows=rows.tolist(),
+               specs={k: list(v) for k, v in cache.placement.specs.items()},
+               prefill_s=prefill_s,
                decode_s=sum(secs[1:]) / max(len(secs) - 1, 1),
                peak=(torch.cuda.max_memory_allocated()
                      if DEVICE == "cuda" else 0),
                streams=streams.tolist())
-    del placed_p, cache, logits
+    del placed_p, cache
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     if rank == 0:
         prefill, serve = steps_of(None)
-        cache = model.init_cache(cfg, b, SERVE_CACHE, device=DEVICE)
+        cache = model.init_cache(cfg, b, cache_len, device=DEVICE)
         with torch.no_grad():
             one_logits, cache = prefill(params, cache, tokens, lengths)
             one_last = one_logits[torch.arange(b), lengths.long()
                                   - 1].float()
-            one_streams, one_secs = decode(serve, params, cache,
-                                           one_last.argmax(-1))
+            del one_logits
+            blocks = None
+            if cfg.family == "ssm" and model_parallel > 1:
+                # control: the whole decode in head blocks on one card
+                ctl = {k: v.clone() for k, v in cache.items()}
+                tok, ctl_stream = one_last.argmax(-1), []
+                for _ in range(n_steps + 1):
+                    ctl_stream.append(tok)
+                    blocks = _ssm_blocks_step(cfg, params, ctl, tok,
+                                              model_parallel).float()
+                    tok = blocks.argmax(-1)
+                ctl_stream = torch.stack(ctl_stream, 1).cpu().tolist()
+                del ctl
+            one_streams, one_secs, cache, one_tok, one_pos = decode(
+                serve, params, cache, one_last.argmax(-1))
+            alone = [{k: (v[r:r + 1] if v.dim() == 1 else v[:, r:r + 1])
+                      .clone() for k, v in cache.items()} for r in range(b)]
+            one_step = _decode_logits(model, cfg, params, cache, one_tok,
+                                      one_pos).float()
+            # control: the same step on each row alone (one card's sums
+            # in another order)
+            one_rows = torch.cat([_decode_logits(
+                model, cfg, params, c, one_tok[r:r + 1],
+                one_pos[r:r + 1]).float() for r, c in enumerate(alone)])
+            del alone
         out["one_card"] = dict(streams=one_streams.tolist(),
                                decode_s=sum(one_secs[1:])
                                / max(len(one_secs) - 1, 1))
         diff = (full_last - one_last).abs()
         out["last_logits_max_abs"] = float(diff.max())
+        same = streams.tolist() == one_streams.tolist()
+        out["step_logits_max_abs"] = (float((step_logits - one_step).abs()
+                                            .max()) if same else None)
+        out["rows_alone_max_abs"] = float((one_rows - one_step).abs().max())
+        if blocks is not None:      # Mamba2: the placed steps' sums
+            out["head_blocks"] = dict(
+                streams_equal=ctl_stream == streams.tolist(),
+                vs_one_card=float((blocks - one_step).abs().max()),
+                vs_placed=(float((blocks - step_logits).abs().max())
+                           if same else None))
         if dtype == "float32":
-            out["logits_ok"] = bool(diff.max() <= SERVE_FP32_ATOL)
-        else:
-            out["streams"] = hold_streams(
-                model, cfg, params, tokens, lengths, streams, one_streams,
-                float(diff.max()))
-        del one_logits, cache
+            out["logits_ok"] = bool(
+                diff.max() <= SERVE_FP32_ATOL
+                and (not same or out["step_logits_max_abs"]
+                     <= SERVE_FP32_ATOL))
+        out["streams_held"] = hold_streams(
+            model, cfg, params, tokens, lengths, streams, one_streams,
+            float(diff.max()))
+        del cache
     del params
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -371,7 +501,11 @@ def main() -> int:
                     help="ARCH:MODEL_PARALLEL:STEPS (repeatable; not "
                          "--run, which torchrun takes for --run-path)")
     ap.add_argument("--serve", action="append", default=[],
-                    help="ARCH served placed at (world, 1)")
+                    help="ARCH[:MODEL_PARALLEL] served placed at (world / "
+                         "MODEL_PARALLEL, MODEL_PARALLEL); 1 by default")
+    ap.add_argument("--serve-long", action="append", default=[],
+                    help="ARCH:MODEL_PARALLEL: one row on an 8192-position "
+                         "cache, a 4090-token prompt, 12 decode steps")
     ap.add_argument("--pod-train", action="append", default=[],
                     help="ARCH:STEPS trained at (2, world/2, 1) beside "
                          "(world, 1)")
@@ -419,32 +553,45 @@ def main() -> int:
                          f"{run['replicated']}" if "replicated" in run
                          else ""), flush=True)
         world = dist.get_world_size()
-        specs = ([serve_spec(a, world) for a in args.serve]
+        serves = [(a.split(":")[0], int(a.split(":")[1]) if ":" in a
+                   else 1, False) for a in args.serve]
+        serves += [(a.split(":")[0], int(a.split(":")[1]), True)
+                   for a in args.serve_long]
+        specs = ([serve_spec(a, world, mp) for a, mp, lg in serves
+                  if not lg]
                  + [pod_spec(p.split(":")[0], world) for p in args.pod_train])
         reckon_out = Path("build") / "placed_multi_card" / "reckon.json"
         reckoning = (dryrun.start_reckoning(specs, "acdc", reckon_out)
                      if rank == 0 and specs else None)
         served, pods = [], []
-        for arch in args.serve:
+        for arch, mp, long in serves:
             for dtype in ("float32", "bfloat16"):
-                mine = serve_run(arch, dtype)
+                mine = serve_run(arch, dtype, mp, long)
                 ranks = [None] * world
                 dist.all_gather_object(ranks, mine)
-                served.append(dict(arch=arch, dtype=dtype, ranks=ranks))
+                served.append(dict(arch=arch, dtype=dtype, long=long,
+                                   model_parallel=mp, ranks=ranks))
                 if rank == 0:
                     r0 = ranks[0]
-                    print(f"[serve] {arch} {dtype} placed ({world}, 1) "
+                    print(f"[serve] {arch} {dtype} placed {r0['mesh']}"
+                          f"{' long row' if long else ''} "
                           f"({report['device']}): prefill "
                           f"{[round(r['prefill_s'], 3) for r in ranks]} s, "
                           f"decode {[round(r['decode_s'] * 1e3, 1) for r in ranks]}"
                           f" ms a step (one card {r0['one_card']['decode_s'] * 1e3:.1f});"
-                          f" last logits max |diff| "
-                          f"{r0['last_logits_max_abs']:.3g}; "
-                          + (f"logits ok {r0['logits_ok']}"
-                             if dtype == "float32"
-                             else f"streams held {r0['streams']['held']}"),
+                          f" logits max |diff| at the prefill "
+                          f"{r0['last_logits_max_abs']:.3g}, after the "
+                          f"streams {r0['step_logits_max_abs']} (one card, "
+                          f"each row alone: {r0['rows_alone_max_abs']:.3g}"
+                          + (f"; in head blocks: {r0['head_blocks']}"
+                             if "head_blocks" in r0 else "") + "); "
+                          + (f"logits ok {r0['logits_ok']}; "
+                             if dtype == "float32" else "")
+                          + f"streams held {r0['streams_held']['held']}",
                           flush=True)
-            served[-1]["card_cell"] = card_record(serve_spec(arch, world))
+            if not long:
+                served[-1]["card_cell"] = card_record(
+                    serve_spec(arch, world, mp))
         for spec in args.pod_train:
             arch, n = spec.split(":")
             mine = pod_train(arch, int(n))
@@ -465,8 +612,10 @@ def main() -> int:
         if rank == 0:
             recs = (dryrun.reckoned(reckoning, reckon_out)
                     if reckoning is not None else {})
-            for run in served[1::2]:
-                spec = serve_spec(run["arch"], world)
+            for run in served:
+                if "card_cell" not in run:
+                    continue
+                spec = serve_spec(run["arch"], world, run["model_parallel"])
                 held = dryrun.compare(
                     run["card_cell"], recs[spec],
                     peak_rel=dryrun.PEAK_REL if DEVICE == "cuda" else None)

@@ -42,6 +42,10 @@ def _host(leaf) -> np.ndarray:
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        elif t.device.type == "cpu":
+            # .cpu() of a CPU tensor is the tensor itself: without a copy
+            # an async write would race the next step's in-place updates
+            t = t.clone()
         return t.cpu().numpy()
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32)

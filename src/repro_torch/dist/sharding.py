@@ -523,17 +523,18 @@ def place_params(params: dict, mesh) -> dict:
 # ---------------------------------------------------------------------------
 
 class CacheSplitError(ValueError):
-    """A decode asked of a placed cache with a leaf split beyond the row
-    axes (heads over "model", a sequence over the rows): decoding on such
-    a block needs head-parallel attention and SSM, which the port does
-    not have.  ``leaf`` and ``spec`` name the first such leaf."""
+    """A decode asked of a placed cache with a leaf split where no step
+    reads it: every dim of a leaf may split only as :func:`cache_specs`
+    splits it (the batch over the row axes the step's rows split over, a
+    K/V leaf's sequence over row axes, K/V or SSM heads over "model").
+    ``leaf`` and ``spec`` name the first other leaf."""
 
     def __init__(self, leaf: str, spec: Spec):
         self.leaf, self.spec = leaf, tuple(spec)
         super().__init__(
-            f"cache leaf {leaf!r} is placed {self.spec}: a decode on a "
-            f"placed cache needs every leaf split over the batch axes "
-            f"only (head-parallel decode is not ported)")
+            f"cache leaf {leaf!r} is placed {self.spec}: a placed decode "
+            f"reads a leaf split over the row axes on its batch or "
+            f"sequence dim and over \"model\" on its heads dim only")
 
 
 def _placed_logical(name: str, nd: int) -> Tuple[Optional[str], ...]:
@@ -563,47 +564,134 @@ class CachePlacement:
                             .clone(memory_format=torch.contiguous_format)
                             for k, t in cache.items()}, self)
 
-    def batch_dim(self, name: str) -> int:
-        return _placed_logical(name, len(self.shapes[name])).index("batch")
+    def _split_axes(self, name: str) -> list:
+        """(logical axis, mesh axes of size > 1) of each dim of leaf
+        ``name``."""
+        logical = _placed_logical(name, len(self.shapes[name]))
+        return [(lg, tuple(a for a in _axes(e) if self.sizes[a] > 1))
+                for lg, e in zip(logical, _padded(self.specs[name],
+                                                  len(logical)))]
 
     def rows_only(self, name: str) -> bool:
         """Whether leaf ``name`` splits over row axes on its batch dim
         only (its block is the full leaf on this rank's rows; an axis of
         size 1 splits nothing)."""
-        b = self.batch_dim(name)
-        for d, e in enumerate(self.specs[name]):
-            axes = {a for a in _axes(e) if self.sizes[a] > 1}
-            if axes and (d != b or not axes <= set(ROW_AXES)):
-                return False
-        return True
+        return all(not axes or (lg == "batch" and set(axes) <= set(ROW_AXES))
+                   for lg, axes in self._split_axes(name))
 
-    def undecodable(self) -> Optional[Tuple[str, Spec]]:
-        """None when a decode can run on this placement (every leaf split
-        over the row axes on its batch dim only), else the first other
-        leaf and its spec."""
-        for name in self.shapes:
-            if not self.rows_only(name):
-                return name, self.specs[name]
-        return None
+    def split(self) -> "DecodeSplit":
+        """What a decode reads of this rank's blocks (raises
+        :class:`CacheSplitError` for a placement no step reads)."""
+        return DecodeSplit(self)
 
-    def rows_view(self, blocks: dict) -> dict:
+    def rows_view(self, blocks: dict, reads=()) -> dict:
         """What a prefill reads of a placed cache: each leaf at its full
-        size on this rank's rows (a leaf split beyond the rows stands as
-        a ``meta`` tensor of that size: only its shape and dtype are
-        read)."""
+        size on this rank's rows, a leaf of ``reads`` (read by value
+        through a :class:`DecodeSplit`) as this rank's block; any other
+        leaf split beyond the rows stands as a ``meta`` tensor of that
+        size (only its shape and dtype are read)."""
         out = {}
         for k, t in blocks.items():
-            if self.rows_only(k):
+            if self.rows_only(k) or k in reads:
                 out[k] = t
             else:
                 shape = list(self.shapes[k])
-                b = self.batch_dim(k)
+                b = _placed_logical(k, len(shape)).index("batch")
                 shape[b] = t.shape[b]
                 out[k] = torch.empty(shape, dtype=t.dtype, device="meta")
         return out
 
     def cutter(self) -> "LayerCut":
         return LayerCut(self)
+
+
+class Blocks:
+    """A dim split in ``n`` blocks over the mesh ``axes`` (of size > 1,
+    major first): this rank holds block ``index``, and :meth:`gather`
+    stacks a tensor of every block's rank (the ranks that share this
+    rank's coordinates on every other axis) in block order."""
+
+    def __init__(self, mesh, axes: tuple):
+        sizes, coord = _axis_sizes(mesh), _coord(mesh)
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.n, self.index = 1, 0
+        for a in self.axes:
+            self.n *= sizes[a]
+            self.index = self.index * sizes[a] + coord[a]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _all_gather(x[None], (self.axes,), self.mesh)
+
+
+class LeafSplit:
+    """This rank's block of one cache leaf beyond its rows, as the models
+    read it: ``heads`` the leaf's heads it holds (a slice, None for all)
+    and ``seq`` the key positions it holds (a slice, None for all).
+    :meth:`gather_heads` and :meth:`gather_blocks` are the collectives a
+    model completes a head-parallel or sequence-parallel step with."""
+
+    def __init__(self, mesh, heads: Optional[slice], seq: Optional[slice],
+                 seq_axes: tuple):
+        self.mesh, self.heads, self.seq = mesh, heads, seq
+        self._seq_blocks = Blocks(mesh, seq_axes)
+
+    def gather_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` computed on this rank's heads, gathered over "model"
+        along ``dim`` in head order (as it is without a head split)."""
+        if self.heads is None:
+            return x
+        return _all_gather(x, (None,) * dim + ("model",), self.mesh)
+
+    def gather_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every rank holding a block of this rank's heads and
+        rows, stacked on a new leading dim in sequence order."""
+        return self._seq_blocks.gather(x)
+
+
+class DecodeSplit:
+    """Where a decode reads each leaf of a placed cache
+    (:meth:`CachePlacement.split`): :meth:`leaf` gives a leaf's
+    :class:`LeafSplit`, or None where the leaf splits over the rows on
+    its batch dim only (the models then read it as an unplaced cache).
+    Every leaf must split as :func:`cache_specs` splits it: its batch
+    over the row axes the step's rows split over (:func:`rows_spec`), a
+    K/V sequence over row axes, K/V or SSM heads over "model"; any other
+    split raises :class:`CacheSplitError`.  ``rows`` is the step's batch
+    split over the row axes (:class:`Blocks`; None when every rank holds
+    every row): a layer that mixes the batch's tokens (the MoE's capacity
+    queues) completes its step over them."""
+
+    def __init__(self, placement: CachePlacement):
+        mesh, sizes = placement.mesh, placement.sizes
+        coord = _coord(mesh)
+        self.leaves: dict = {}
+        self.rows = None
+        for name, shape in placement.shapes.items():
+            dims = placement._split_axes(name)
+            batch = shape[[lg for lg, _ in dims].index("batch")]
+            rows = tuple(a for a in _axes(rows_spec(mesh, batch)[0])
+                         if sizes[a] > 1)
+            if rows:
+                self.rows = Blocks(mesh, rows)
+            allowed = {"batch": rows, "seq": tuple(ROW_AXES),
+                       "heads": ("model",)}
+            for lg, axes in dims:
+                if axes and (lg not in allowed
+                             or not set(axes) <= set(allowed[lg])
+                             or (lg == "batch" and axes != rows)):
+                    raise CacheSplitError(name, placement.specs[name])
+            if placement.rows_only(name):
+                self.leaves[name] = None
+                continue
+            index = shard_slices(shape, placement.specs[name], sizes, coord)
+            got = {lg: (index[d], axes) for d, (lg, axes) in enumerate(dims)
+                   if axes and lg in ("heads", "seq")}
+            heads, _ = got.get("heads", (None, ()))
+            seq, seq_axes = got.get("seq", (None, ()))
+            self.leaves[name] = LeafSplit(mesh, heads, seq, seq_axes)
+
+    def leaf(self, name: str) -> Optional[LeafSplit]:
+        return self.leaves[name]
 
 
 class LayerCut:

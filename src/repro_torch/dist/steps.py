@@ -303,7 +303,11 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
     (``data_specs``) and ``lengths`` every row's (B,), replicated.  Each
     layer's new K/V or state is cut to this rank's blocks as it is made
     (at most one layer's full leaf beyond the blocks); the logits are
-    this rank's rows and the new cache a ``PlacedCache``.
+    this rank's rows and the new cache a ``PlacedCache``.  An
+    encoder-decoder's prefill without frames reads the cache's cross K/V
+    as this rank's block of it, split over heads or frames as the cache
+    is, and an MoE layer queues the whole batch's tokens
+    (:class:`~repro_torch.dist.sharding.DecodeSplit`).
 
     ``paged=True`` builds the paged admission step instead:
     ``step(params, cache, template, tokens, lengths, phys_blocks[, slot,
@@ -339,15 +343,14 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
                 raise ValueError(f"tokens hold {tokens.shape[0]} rows; this "
                                  f"rank's are {here.shape[0]} of "
                                  f"{lengths.shape[0]}")
-            if frontend_embeds is None:
-                for name in _PREFILL_READS.get(cfg.family, ()):
-                    if not cp.rows_only(name):
-                        raise sharding.CacheSplitError(name, cp.specs[name])
+            reads = (_PREFILL_READS.get(cfg.family, ())
+                     if frontend_embeds is None else ())
             cut = cp.cutter()
             with torch.no_grad():
                 logits, new = model.prefill(
-                    placement.view(params), cp.rows_view(cache), tokens, cfg,
-                    here, frontend_embeds, cut=cut)
+                    placement.view(params), cp.rows_view(cache, reads),
+                    tokens, cfg, here, frontend_embeds, cut=cut,
+                    split=cp.split())
             return (logits_out(logits, here),
                     sharding.PlacedCache(new, cut.placement_after(new)))
 
@@ -393,13 +396,20 @@ def make_serve_step(model, cfg, sample: str = "greedy",
 
     ``mesh`` places it as the reference's dry run places its decode:
     ``params`` this rank's blocks (read without autograd), ``cache`` a
-    :class:`~repro_torch.dist.sharding.PlacedCache` whose leaves split
-    over the row axes only (any other raises
+    :class:`~repro_torch.dist.sharding.PlacedCache` placed by
+    :func:`~repro_torch.dist.sharding.cache_specs`, ``tokens`` and
+    ``position`` every row's, replicated.  Each rank decodes its rows on
+    its block of the cache
+    (:class:`~repro_torch.dist.sharding.DecodeSplit`): its K/V and SSM
+    heads where they split over "model" (the heads' outputs gathered
+    over "model" a layer), its block of a sequence split over the row
+    axes (the blocks' softmax terms combined over them); the next tokens
+    are gathered to every row's.  A placement that no step reads raises
     :class:`~repro_torch.dist.sharding.CacheSplitError`, naming the
-    leaf: nothing is gathered), ``tokens`` and ``position`` every row's,
-    replicated; each rank decodes its rows and the next tokens are
-    gathered to every row's.  A sampled (``temp``) placed step draws each
-    rank's rows from its own ``generator``."""
+    leaf.  A sampled (``temp``) placed step draws a row's token once, on
+    the first rank of its "model" group from that rank's ``generator``,
+    and gives it to the others, so every block of the row writes the
+    same token's K/V."""
     if sample not in ("greedy", "temp"):
         raise ValueError(f"unknown sampler {sample!r}")
 
@@ -413,20 +423,24 @@ def make_serve_step(model, cfg, sample: str = "greedy",
             raise ValueError("a placed paged decode is not supported: the "
                              "page pool is not placed")
         placement = _serving_placement(model, cfg, mesh)
+        one_draw = (sample == "temp"
+                    and sharding._axis_sizes(mesh).get("model", 1) > 1)
 
         def placed_step(params, cache, tokens, position, generator=None):
             cache = _placed_cache(cache)
-            bad = cache.placement.undecodable()
-            if bad is not None:
-                raise sharding.CacheSplitError(*bad)
+            split = cache.placement.split()
             spec = sharding.rows_spec(mesh, tokens.shape[0])
             with torch.no_grad():
                 logits, new = model.decode_step(
                     placement.view(params), cache,
                     sharding.local_shard(tokens, spec, mesh),
-                    sharding.local_shard(position, spec, mesh), cfg)
-                nxt = sharding._all_gather(_sample(logits, generator), spec,
-                                           mesh)
+                    sharding.local_shard(position, spec, mesh), cfg,
+                    split=split)
+                nxt = _sample(logits, generator)
+                if one_draw:    # the first model rank's draw, everywhere
+                    nxt = sharding._all_gather(nxt[None], ("model",),
+                                               mesh)[0]
+                nxt = sharding._all_gather(nxt, spec, mesh)
             return nxt, sharding.PlacedCache(new, cache.placement)
 
         return placed_step

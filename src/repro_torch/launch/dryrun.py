@@ -30,13 +30,13 @@ issue, from the real steps rather than a model of them:
   a reduce-scatter by this rank's block), as the reference's
   ``collective_bytes`` sizes them (:class:`Collectives`).
 
-A cell is ``ok``, ``skipped`` (the reference's reason), ``unsupported``
-(a decode on a cache split beyond the batch axes: the leaf and its spec,
-:class:`repro_torch.dist.sharding.CacheSplitError`) or ``error`` (the
-traceback).  The dry run runs the config's own SELL route (``auto``:
-cuBLAS or ``torch.fft``, whose meta tensors work); a cell asked on
-``pallas`` raises, since the kernel wrappers have no meta
-implementation.
+A cell is ``ok``, ``skipped`` (the reference's reason) or ``error`` (the
+traceback).  A decode cell runs on its cache as ``cache_specs`` places
+it: heads over "model", the batch or (batch 1) the sequence over the row
+axes (:class:`repro_torch.dist.sharding.DecodeSplit`).  The dry run runs
+the config's own SELL route (``auto``: cuBLAS or ``torch.fft``, whose
+meta tensors work); a cell asked on ``pallas`` raises, since the kernel
+wrappers have no meta implementation.
 
 Not ported: the reference's HLO text parsers (``collective_bytes``,
 ``hlo_text_analysis``, ``_shape_bytes``, ``bytes_accessed_per_device``:
@@ -341,9 +341,7 @@ def build_cell(arch: str, shape_name, mesh, sell: str = "dense",
     make on gloo, passes ``cpu`` or ``cuda`` and gets values drawn from
     :data:`SEED`).  ``shape_name`` is a name of ``registry.SHAPES`` or a
     ``ShapeCell``; ``smoke`` takes the arch's SMOKE config;
-    ``n_layers`` > 0 overrides the depth (and the encoder's).  A decode
-    cell whose placed cache splits beyond the batch axes raises
-    :class:`~repro_torch.dist.sharding.CacheSplitError`."""
+    ``n_layers`` > 0 overrides the depth (and the encoder's)."""
     cfg = _config(arch, sell, n_layers, cfg_overrides, smoke)
     shape = (shape_name if isinstance(shape_name, registry.ShapeCell)
              else registry.get_shape(shape_name))
@@ -367,10 +365,6 @@ def build_cell(arch: str, shape_name, mesh, sell: str = "dense",
     b, s = shape.global_batch, shape.seq_len
     cache_like = model.init_cache(cfg, b, s, device="meta")
     placement = sharding.CachePlacement(cache_like, mesh)
-    if shape.kind == "decode":
-        bad = placement.undecodable()
-        if bad is not None:
-            raise sharding.CacheSplitError(*bad)
     cache = placement.place(cache_like if device == "meta"
                             else model.init_cache(cfg, b, s, device=device))
 
@@ -420,9 +414,6 @@ def trace_cell(arch: str, shape_name, mesh, sell: str = "dense",
         _, rec = measure(fn, args)
         del fn, args
         return {"status": "ok", **rec}
-    except sharding.CacheSplitError as e:
-        return {"status": "unsupported", "leaf": e.leaf,
-                "spec": list(e.spec), "reason": str(e)}
     except Exception as e:  # noqa: BLE001 -- a failed cell is a port fault
         return {"status": "error", "error": f"{type(e).__name__}: {e}",
                 "trace": traceback.format_exc()[-4000:]}
@@ -459,8 +450,6 @@ def summary(rec: dict) -> str:
                 f"flops={rec['flops_per_device']:.3g} "
                 f"coll={rec['collectives']['total_bytes'] / 2**30:.3f}GiB "
                 f"({rec['trace_s']:.1f}s)")
-    if rec["status"] == "unsupported":
-        return f" {rec['leaf']} {rec['spec']}"
     if rec["status"] == "error":
         return " " + rec["error"][:200]
     return ""
@@ -490,9 +479,7 @@ def table(sell: str = "dense") -> str:
             continue
         status = {r["status"] for r in recs}
         if status != {"ok"}:
-            what = both(recs, lambda r: r["status"] + (
-                f" `{r['leaf']}` {tuple(r['spec'])}"
-                if r["status"] == "unsupported" else ""))
+            what = both(recs, lambda r: r["status"])
             lines.append(f"| {arch} {shape} | {what} | | | | | | |")
             continue
         mem = [r["memory"] for r in recs]
@@ -621,8 +608,7 @@ def main(argv=None) -> None:
                 path = RESULTS_DIR / f"{cid}.json"
                 if not args.force and path.exists():
                     prev = json.loads(path.read_text())
-                    if prev.get("status") in ("ok", "skipped",
-                                              "unsupported"):
+                    if prev.get("status") in ("ok", "skipped"):
                         print(f"[skip-cached] {cid}")
                         continue
                 rec = run_cell(arch, shape, mp, sell=args.sell)

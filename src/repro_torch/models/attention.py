@@ -82,9 +82,11 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
     return q, k, v
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-    """q (B, Sq, Hq, Dh), k/v (B, Sk, Hkv, Dh) -> (B, Sq, Hq, Dh)."""
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """The fp32 scores (B, Hkv, group, Sq, Sk) of q (B, Sq, Hq, Dh)
+    against k (B, Sk, Hkv, Dh): scaled, soft-capped, -1e30 where ``mask``
+    (B, Sq, Sk) is false."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
@@ -96,7 +98,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores,
                              torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """q (B, Sq, Hq, Dh), k/v (B, Sk, Hkv, Dh) -> (B, Sq, Hq, Dh)."""
+    b, sq, hq, dh = q.shape
+    probs = torch.softmax(_scores(q, k, mask, cfg), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
@@ -138,6 +147,64 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
     return out.to(q.dtype)
+
+
+def _rank_heads(t: torch.Tensor, split, group: int = 1) -> torch.Tensor:
+    """The heads of ``t`` (B, T, H, Dh) that go with this rank's block of
+    a cache split over heads (``split.heads`` of its KV heads; ``group``
+    query heads a KV head, contiguous, so a group stays on one rank)."""
+    hs = split.heads
+    return t if hs is None else t[:, :, hs.start * group:hs.stop * group]
+
+
+def key_positions(split, n: int, device) -> torch.Tensor:
+    """The global positions (n,) of the keys of a cache block of ``n``
+    rows (``split.seq``; from 0 without a sequence split)."""
+    keys = torch.arange(n, device=device)
+    if split is None or split.seq is None:
+        return keys
+    return keys + split.seq.start
+
+
+def _sdpa_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], cfg: ModelConfig,
+                 gather) -> torch.Tensor:
+    """:func:`_sdpa` over keys split in blocks across ranks: each rank
+    scores its block of keys k/v (B, Sk, Hkv, Dh) (max ``m``, sum ``l``
+    and the weighted values ``acc``), ``gather`` stacks every block's
+    (the ranks' in sequence order) and they combine by the log-sum-exp
+    rule under the global max, so a block whose keys are all masked adds
+    nothing (and where every key is masked, as :func:`_sdpa`, the uniform
+    average of all of them)."""
+    b, sq, hq, dh = q.shape
+    scores = _scores(q, k, mask, cfg)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    parts = gather(torch.cat([acc, m[..., None], p.sum(dim=-1)[..., None]],
+                             dim=-1))
+    acc, m, l = parts[..., :dh], parts[..., dh], parts[..., dh + 1]
+    w = torch.exp(m - m.amax(dim=0))
+    out = (acc * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def attend_split(q: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, mask: Optional[torch.Tensor],
+                 cfg: ModelConfig, split) -> torch.Tensor:
+    """Queries q (B, T, Hq, Dh) against this rank's block of a placed
+    cache (B, Sk, Hkv_rank, Dh) (``split`` a
+    :class:`repro_torch.dist.sharding.LeafSplit`; ``mask`` (B, T, Sk)
+    over the block's keys, or None): the rank's query heads attend its
+    KV heads, over its block of keys combined across the sequence blocks,
+    and the heads' outputs are gathered over "model" -> (B, T, Hq, Dh)."""
+    q = _rank_heads(q, split, q.shape[2] // cfg.n_kv_heads)
+    if split.seq is None:
+        out = _sdpa(q, cache_k, cache_v, mask, cfg)
+    else:
+        out = _sdpa_blocks(q, cache_k, cache_v, mask, cfg,
+                           split.gather_blocks)
+    return split.gather_heads(out, 2)
 
 
 def attention_prefill(params: dict, x: torch.Tensor,
@@ -253,7 +320,7 @@ def _set_rows(caches, pos: torch.Tensor, news) -> None:
 
 def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, position: torch.Tensor,
-                     window: int, cfg: ModelConfig
+                     window: int, cfg: ModelConfig, split=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Append-and-score T tokens against the dense cache in one pass (the
     speculative verify; decode is T = 1).
@@ -264,7 +331,14 @@ def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     beyond the frontier sit past the causal mask until the next write
     replaces them).  Positions at or beyond ``Smax`` write nothing, so
     parked rows leave the cache alone.  Returns (out (B, T, D), cache_k,
-    cache_v)."""
+    cache_v).
+
+    ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit`; a placed
+    decode, T = 1) says which block of the cache this rank holds: the
+    projections still compute every head, the rank writes and attends its
+    KV heads and the query heads of their groups, the position's K/V is
+    written by the rank whose sequence block holds it, and the heads'
+    outputs are gathered before ``wo`` (:func:`attend_split`)."""
     b, t, _ = x.shape
     smax = cache_k.shape[1]
     q, k, v = _project_qkv(params, x, x, cfg)
@@ -273,10 +347,21 @@ def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
         pos = pos + torch.arange(t, device=x.device)[None, :]
     q = apply_rope(q, pos, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_fraction, cfg.rope_theta)
-    _set_rows((cache_k, cache_v), pos, (k, v))
-    k_pos = torch.arange(smax, device=x.device)[None, :]
-    mask = causal_window_mask(pos, k_pos, window)           # (B, T, Smax)
-    out = _sdpa(q, cache_k, cache_v, mask, cfg)
+    if split is None:
+        _set_rows((cache_k, cache_v), pos, (k, v))
+        k_pos = torch.arange(smax, device=x.device)[None, :]
+        mask = causal_window_mask(pos, k_pos, window)       # (B, T, Smax)
+        out = _sdpa(q, cache_k, cache_v, mask, cfg)
+    else:
+        if t != 1:
+            raise ValueError("a placed cache is written one token a step")
+        k_pos = key_positions(split, smax, x.device)
+        local = pos - k_pos[0]          # outside the block: dropped
+        local = torch.where(local >= 0, local, torch.full_like(local, smax))
+        _set_rows((cache_k, cache_v), local,
+                  (_rank_heads(k, split), _rank_heads(v, split)))
+        mask = causal_window_mask(pos, k_pos[None, :], window)
+        out = attend_split(q, cache_k, cache_v, mask, cfg, split)
     dh = cfg.head_dim_
     out = out.reshape(b, t, cfg.n_heads * dh)
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,

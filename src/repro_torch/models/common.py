@@ -236,3 +236,11 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     if window > 0:
         mask = mask & (dq - dk < window)
     return mask
+
+
+def leaf_split(split, name: str):
+    """The block of cache leaf ``name`` that a placed decode reads (a
+    :class:`repro_torch.dist.sharding.LeafSplit`), or None for the whole
+    leaf: no ``split`` (a ``DecodeSplit``), or a leaf split over its rows
+    only."""
+    return None if split is None else split.leaf(name)

@@ -42,6 +42,7 @@ from repro_torch.models.common import (
     embed_init,
     embed_lookup,
     init_rms_norm,
+    leaf_split,
     rms_norm,
     stack_init,
     unembed,
@@ -212,20 +213,26 @@ def _frame_counts(frames: torch.Tensor) -> torch.Tensor:
 
 def _cross_attend(layer: dict, h: torch.Tensor, xk: torch.Tensor,
                   xv: torch.Tensor, xlen: Optional[torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, split=None) -> torch.Tensor:
     """Cross-attention of (B, T, D) queries over one layer's cached
     encoder K/V (B, F, Hkv, Dh), keys at and beyond ``xlen`` (B,) masked
-    (shared by the prefill, decode and verify bodies: T = S, 1, k + 1)."""
+    (shared by the prefill, decode and verify bodies: T = S, 1, k + 1).
+    With ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit`)
+    ``xk``/``xv`` are this rank's block of a placed cross cache
+    (:func:`repro_torch.models.attention.attend_split`)."""
     dh = cfg.head_dim_
     q = attn_mod.linear.linear_apply(
         layer["cross"]["wq"], h, cfg.d_model, cfg.n_heads * dh, cfg,
         "attn_qkv").reshape(*h.shape[:-1], cfg.n_heads, dh)
     mask = None
     if xlen is not None:
-        keys = torch.arange(xk.shape[1], device=h.device)
+        keys = attn_mod.key_positions(split, xk.shape[1], h.device)
         mask = (keys[None, :] < xlen[:, None])[:, None, :].expand(
             -1, h.shape[1], -1)
-    out = attn_mod._sdpa(q, xk, xv, mask, cfg)
+    if split is None:
+        out = attn_mod._sdpa(q, xk, xv, mask, cfg)
+    else:
+        out = attn_mod.attend_split(q, xk, xv, mask, cfg, split)
     out = out.reshape(*h.shape[:-1], cfg.n_heads * dh)
     return attn_mod.linear.linear_apply(
         layer["cross"]["wo"], out, cfg.n_heads * dh, cfg.d_model, cfg,
@@ -234,20 +241,20 @@ def _cross_attend(layer: dict, h: torch.Tensor, xk: torch.Tensor,
 
 def _cross_and_mlp(layer: dict, x: torch.Tensor, xk: torch.Tensor,
                    xv: torch.Tensor, xlen: Optional[torch.Tensor],
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, split=None) -> torch.Tensor:
     """The decoder layer after its self-attention: cross-attention over
-    one layer's frames ``xk``/``xv`` (``xlen`` a row), then the MLP
-    (residuals included)."""
+    one layer's frames ``xk``/``xv`` (``xlen`` a row; ``split`` as in
+    :func:`_cross_attend`), then the MLP (residuals included)."""
     h = rms_norm(x, layer["norm_x"]["scale"], cfg.norm_eps)
-    x = x + _cross_attend(layer, h, xk, xv, xlen, cfg)
+    x = x + _cross_attend(layer, h, xk, xv, xlen, cfg, split)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
     return x + mlp_mod.mlp(layer["mlp"], h, cfg)
 
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds: Optional[torch.Tensor] = None, cut=keep
-            ) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds: Optional[torch.Tensor] = None, cut=keep,
+            split=None) -> Tuple[torch.Tensor, dict]:
     """Batched decoder prompt pass -> (logits (B, S, V), a NEW cache).
 
     With ``frontend_embeds`` the encoder runs first and each decoder
@@ -257,7 +264,9 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
     agrees with a token-at-a-time decode.  The self-attention K/V of each
     row is zero at and beyond its length.  ``cut`` as in
     :func:`repro_torch.models.transformer.prefill` (the cross K/V too,
-    when the frames come here)."""
+    when the frames come here).  ``split`` (a placed prefill's
+    :class:`repro_torch.dist.sharding.DecodeSplit`) says which block of
+    the cache's cross K/V this rank holds, where no frames come."""
     enc = (encode(params, frontend_embeds, cfg)
            if frontend_embeds is not None else None)
     xlen = (_frame_counts(frontend_embeds) if enc is not None
@@ -269,6 +278,7 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
                              device=tokens.device)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x_split = leaf_split(split, "xk") if enc is None else None
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         layer = layer_params(params["decoder"], i)
@@ -279,7 +289,7 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, k, v = attn_mod.attention_prefill(layer["attn"], h, positions,
                                                0, cfg)
-        x = _cross_and_mlp(layer, x + out, xk, xv, xlen, cfg)
+        x = _cross_and_mlp(layer, x + out, xk, xv, xlen, cfg, x_split)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
         ks.append(cut("k", ck))
         vs.append(cut("v", cv))
@@ -297,19 +307,23 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict, None]:
     """Speculative append-and-score of tokens (B, T) at ``position ..
     position + T - 1`` -> (logits (B, T, V), cache, None): the decoder's
-    self-attention K/V set-written in place, the cross K/V read only."""
+    self-attention K/V set-written in place, the cross K/V read only.
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
+    placed decode's: both attentions run on this rank's block."""
+    kv_split, x_split = leaf_split(split, "k"), leaf_split(split, "xk")
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     for i in range(cfg.n_layers):
         layer = layer_params(params["decoder"], i)
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, _, _ = attn_mod.attention_verify(
-            layer["attn"], h, cache["k"][i], cache["v"][i], position, 0, cfg)
+            layer["attn"], h, cache["k"][i], cache["v"][i], position, 0, cfg,
+            kv_split)
         x = _cross_and_mlp(layer, x + out, cache["xk"][i], cache["xv"][i],
-                           cache["xlen"], cfg)
+                           cache["xlen"], cfg, x_split)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), cache, None
 
@@ -333,11 +347,12 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One decode step -> (logits (B, V), cache): the verify at T = 1."""
+    """One decode step -> (logits (B, V), cache): the verify at T = 1
+    (``split`` a placed decode's, as there)."""
     logits, cache, _ = verify_step(params, cache, tokens[:, None], position,
-                                   cfg)
+                                   cfg, split)
     return logits[:, 0], cache
 
 

@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     embed_init,
     embed_lookup,
     init_rms_norm,
+    leaf_split,
     rms_norm,
     stack_init,
     unembed,
@@ -280,12 +281,15 @@ def lengths_mask(tokens: torch.Tensor, lengths: Optional[torch.Tensor]):
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None, cut=keep) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds=None, cut=keep, split=None
+            ) -> Tuple[torch.Tensor, dict]:
     """Batched prompt pass -> (logits (B, S, V), a NEW ``{"ssm",
     "conv"}`` cache shaped like ``cache``).  ``frontend_embeds`` is
     accepted and unused, as in the reference; ``cut`` as in
-    :func:`repro_torch.models.transformer.prefill`."""
-    del frontend_embeds
+    :func:`repro_torch.models.transformer.prefill`; ``split`` is
+    accepted and unused (nothing here reads a placed cache's values or
+    mixes the batch's rows)."""
+    del frontend_embeds, split
     lengths, mask = lengths_mask(tokens, lengths)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     ssms, convs = [], []
@@ -323,19 +327,29 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
 def _recur(params: dict, xbc: torch.Tensor, dt: torch.Tensor,
            ssm: torch.Tensor, conv: torch.Tensor, cfg: ModelConfig,
            ssm_steps: Optional[torch.Tensor] = None,
-           conv_steps: Optional[torch.Tensor] = None):
+           conv_steps: Optional[torch.Tensor] = None, split=None):
     """Consume T positions one at a time: the conv window and the SSM
     state, as T single-token decode steps.  xbc (B, T, C) raw conv input
     and dt (B, T, H) raw in_proj output; ``ssm_steps``/``conv_steps``
     (B, T+1, ...), when given, receive the state after each position.
-    Returns (y (B, T, d_inner) in xbc's dtype, ssm, conv)."""
+    Returns (y (B, T, d_inner) in xbc's dtype, ssm, conv).
+
+    ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit` of the SSM
+    state; a placed decode) holds this rank's heads of ``ssm``: the conv
+    runs whole (every model rank updates the same window), the state
+    update runs on the rank's heads, and ``y`` is gathered over "model"
+    to every head."""
     b, t, _ = xbc.shape
     d_in, n_heads, n_state, _ = _dims(cfg)
+    hs = None if split is None else split.heads
     w = params["conv_w"].to(xbc.dtype)                             # (W, C)
     conv_b = params["conv_b"].to(xbc.dtype)
     dt, a = _dt_a(params, dt)                                      # (B,T,H)
+    d_skip = params["d_skip"].float()
+    if hs is not None:
+        dt, a, d_skip = dt[..., hs], a[hs], d_skip[hs]
     decay = torch.exp(dt * a)
-    d_skip = params["d_skip"].float()[None, :, None]
+    d_skip = d_skip[None, :, None]
     ys = []
     for i in range(t):
         window = torch.cat([conv.to(xbc.dtype), xbc[:, i:i + 1]], dim=1)
@@ -343,26 +357,36 @@ def _recur(params: dict, xbc: torch.Tensor, dt: torch.Tensor,
         conv = window[:, 1:]
         xs, bmat, cmat = torch.split(F.silu(cv), [d_in, n_state, n_state],
                                      dim=-1)
-        xs = xs.reshape(b, n_heads, cfg.ssm_head_dim).float()
+        xs = xs.reshape(b, n_heads, cfg.ssm_head_dim)
+        if hs is not None:
+            xs = xs[:, hs]
+        xs = xs.float()
         # h <- decay * h + dt * x B^T ; y = h C
         dx = xs * dt[:, i, :, None]                                # (B,H,P)
         ssm = (ssm * decay[:, i, :, None, None]
                + dx[..., None] * bmat.float()[:, None, None, :])
         y = torch.einsum("bhpn,bn->bhp", ssm, cmat.float()) + xs * d_skip
-        ys.append(y.reshape(b, d_in).to(xbc.dtype))
+        ys.append(y.reshape(b, -1).to(xbc.dtype))
         if ssm_steps is not None:
             ssm_steps[:, i + 1] = ssm
             conv_steps[:, i + 1] = conv
-    return torch.stack(ys, dim=1), ssm, conv
+    y = torch.stack(ys, dim=1)
+    if hs is not None:
+        y = split.gather_heads(y.reshape(b, t, -1, cfg.ssm_head_dim),
+                               2).flatten(2)
+    return y, ssm, conv
 
 
 def mamba_block_decode(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
-                       conv_state: torch.Tensor, cfg: ModelConfig
+                       conv_state: torch.Tensor, cfg: ModelConfig,
+                       split=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, 1, D) against (ssm (B,H,P,N) fp32, conv (B,W-1,C)) ->
-    (out (B, 1, D), new ssm, new conv)."""
+    (out (B, 1, D), new ssm, new conv); with ``split`` (a placed
+    decode's, :func:`_recur`) ``ssm`` holds this rank's heads only."""
     z, xbc, dt = _split_proj(params, x, cfg)
-    y, ssm, conv = _recur(params, xbc, dt, ssm_state, conv_state, cfg)
+    y, ssm, conv = _recur(params, xbc, dt, ssm_state, conv_state, cfg,
+                          split=split)
     return _gate_out(params, y, z, cfg), ssm, conv
 
 
@@ -494,16 +518,20 @@ def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One decode step -> (logits (B, V), cache updated in place)."""
+    """One decode step -> (logits (B, V), cache updated in place);
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
+    placed decode's, whose SSM state may hold this rank's heads only."""
     del position  # the state carries time
+    ssm_split = leaf_split(split, "ssm")
     x = embed_lookup(params["embed"], tokens[:, None], cfg.compute_dtype)
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
         out, ssm, conv = mamba_block_decode(
-            layer["mixer"], h, cache["ssm"][i], cache["conv"][i], cfg)
+            layer["mixer"], h, cache["ssm"][i], cache["conv"][i], cfg,
+            ssm_split)
         cache["ssm"][i] = ssm
         cache["conv"][i] = conv
         x = x + out

@@ -100,14 +100,20 @@ def _router_probs(xt: torch.Tensor, params: dict) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)                            # (T, E)
 
 
-def _route(xt: torch.Tensor, params: dict, cfg: ModelConfig):
+def _route(xt: torch.Tensor, params: dict, cfg: ModelConfig, rows=None):
     """The router -> (gate_vals, gate_idx, pos, keep, cap, onehot): the
     renormalised top-k gates (zero where dropped), each (token, slot)'s
     expert and position in its queue (token-major, slot-minor), whether it
-    is kept under the capacity ``cap``, and the (T, k, E) one-hot."""
+    is kept under the capacity ``cap``, and the (T, k, E) one-hot.
+
+    ``rows`` (a :class:`repro_torch.dist.sharding.Blocks`: a placed
+    step's batch split over ranks, ``xt`` this rank's block of the
+    tokens) makes the queues the whole batch's: the capacity of all the
+    blocks' tokens, and each expert's queue entered after the earlier
+    blocks' tokens, as one call over the whole batch enters it."""
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, t)
+    cap = capacity(cfg, t if rows is None else t * rows.n)
     probs = _router_probs(xt, params)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)              # (T, k)
     gate_vals = gate_vals / (torch.sum(gate_vals, dim=-1, keepdim=True)
@@ -115,6 +121,9 @@ def _route(xt: torch.Tensor, params: dict, cfg: ModelConfig):
     onehot = torch.nn.functional.one_hot(gate_idx, e).float()      # (T,k,E)
     flat = onehot.reshape(t * k, e)
     pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
+    if rows is not None:    # the earlier blocks' tokens queue first
+        counts = rows.gather(flat.sum(dim=0))                       # (n, E)
+        pos_in_expert = pos_in_expert + counts[:rows.index].sum(dim=0)
     pos = torch.sum(pos_in_expert * onehot, dim=-1)                 # (T, k)
     keep = pos < cap                                 # the capacity drop
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
@@ -162,13 +171,17 @@ def _moe_scatter(params, xt, cfg, gate_vals, gate_idx, pos, keep, cap):
     return y.to(xt.dtype)
 
 
-def moe(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
+        rows=None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D): capacity-based top-k dispatch over the
     B*S tokens (``cfg.moe_impl`` "scatter" or the one-hot einsums), then
-    the shared expert added."""
+    the shared expert added.  With ``rows`` (a placed serving step's
+    batch split over ranks, :func:`_route`) ``x`` is this rank's rows and
+    the capacity queues are the whole batch's."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    gate_vals, gate_idx, pos, keep, cap, onehot = _route(xt, params, cfg)
+    gate_vals, gate_idx, pos, keep, cap, onehot = _route(xt, params, cfg,
+                                                         rows)
     if cfg.moe_impl == "scatter":
         y = _moe_scatter(params, xt, cfg, gate_vals, gate_idx, pos, keep,
                          cap)

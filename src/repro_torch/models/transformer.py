@@ -31,6 +31,7 @@ from repro_torch.models.common import (
     embed_init,
     embed_lookup,
     init_rms_norm,
+    leaf_split,
     rms_norm,
     stack_init,
     unembed,
@@ -90,11 +91,13 @@ def init(gen: torch.Generator, cfg: ModelConfig,
             "final_norm": init_rms_norm(cfg.d_model, dtype, device)}
 
 
-def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The residual feed-forward half of a layer: the MLP or the MoE."""
+def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig,
+         rows=None) -> torch.Tensor:
+    """The residual feed-forward half of a layer: the MLP or the MoE
+    (``rows`` a placed step's, :func:`repro_torch.models.mlp.moe`)."""
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
     if "moe" in layer:
-        return x + mlp_mod.moe(layer["moe"], h, cfg)
+        return x + mlp_mod.moe(layer["moe"], h, cfg, rows)
     return x + mlp_mod.mlp(layer["mlp"], h, cfg)
 
 
@@ -197,15 +200,18 @@ def keep(name: str, layer: torch.Tensor) -> torch.Tensor:
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds: Optional[torch.Tensor] = None, cut=keep
-            ) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds: Optional[torch.Tensor] = None, cut=keep,
+            split=None) -> Tuple[torch.Tensor, dict]:
     """Forward over right-padded prompts -> (logits (B, S, V), a NEW
     cache shaped like ``cache`` holding each row's prompt K/V, zero at
     and beyond its length); ``frontend_embeds`` as in :func:`apply`.
     ``cut(name, layer)`` takes each layer's new leaf as it is made (a
     placed prefill keeps this rank's block:
     :class:`repro_torch.dist.sharding.LayerCut`); ``cache`` is read for
-    its shapes and dtypes only."""
+    its shapes and dtypes only.  ``split`` (a placed prefill's
+    :class:`repro_torch.dist.sharding.DecodeSplit`) gives an MoE layer
+    the batch's rows split over ranks."""
+    rows = None if split is None else split.rows
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
@@ -220,7 +226,7 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, k, v = attn_mod.attention_prefill(layer["attn"], h, positions,
                                                int(windows[i]), cfg)
-        x = _ffn(layer, x + out, cfg)
+        x = _ffn(layer, x + out, cfg, rows)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
         ks.append(cut("k", ck))
         vs.append(cut("v", cv))
@@ -231,22 +237,28 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict, None]:
     """Speculative append-and-score: tokens (B, T) at positions
     ``position .. position + T - 1`` in one pass -> (logits (B, T, V),
     cache set-written in place, None).  Logits at ``i`` score the token
     after ``tokens[:, i]``, as ``decode_step`` fed one token at a time
-    would; the KV cache needs no state selection (trailing ``None``)."""
+    would; the KV cache needs no state selection (trailing ``None``).
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
+    placed decode's: each layer attends this rank's block of the cache
+    (:func:`repro_torch.models.attention.attention_verify`), an MoE
+    layer queues the whole batch's tokens."""
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     windows = cfg.layer_windows()
+    kv_split = leaf_split(split, "k")
+    rows = None if split is None else split.rows
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, _, _ = attn_mod.attention_verify(
             layer["attn"], h, cache["k"][i], cache["v"][i], position,
-            int(windows[i]), cfg)
-        x = _ffn(layer, x + out, cfg)
+            int(windows[i]), cfg, kv_split)
+        x = _ffn(layer, x + out, cfg, rows)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["embed"], x), cache, None
 
@@ -270,12 +282,12 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict]:
     """One decode step -> (logits (B, V), cache updated in place): the
-    verify step at T = 1."""
+    verify step at T = 1 (``split`` a placed decode's, as there)."""
     logits, cache, _ = verify_step(params, cache, tokens[:, None], position,
-                                   cfg)
+                                   cfg, split)
     return logits[:, 0], cache
 
 

@@ -33,6 +33,7 @@ from repro_torch.models.common import (
     embed_init,
     embed_lookup,
     init_rms_norm,
+    leaf_split,
     rms_norm,
     stack_init,
     unembed,
@@ -131,13 +132,15 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None, cut=keep) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds=None, cut=keep, split=None
+            ) -> Tuple[torch.Tensor, dict]:
     """:func:`apply` over right-padded prompts keeping every decode cache:
     each layer's SSM and conv state and each shared-block application's
     K/V (zero at and beyond a row's length) -> (logits (B, S, V), a NEW
     cache shaped like ``cache``); ``cut`` as in
-    :func:`repro_torch.models.transformer.prefill`."""
-    del frontend_embeds
+    :func:`repro_torch.models.transformer.prefill`; ``split`` is accepted
+    and unused, as in :func:`repro_torch.models.mamba2.prefill`."""
+    del frontend_embeds, split
     smax = cache["attn_k"].shape[2]
     lengths, mask = mamba_mod.lengths_mask(tokens, lengths)
     emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
@@ -208,14 +211,17 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
 
 def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
           attend: Callable, states: Optional[dict] = None,
-          frozen: Optional[torch.Tensor] = None) -> torch.Tensor:
+          frozen: Optional[torch.Tensor] = None, split=None) -> torch.Tensor:
     """The decode (T = 1) or verify (T tokens) pass over ``tokens`` (B, T)
     -> logits (B, T, V).  ``attend(app, a)`` runs shared-block application
     ``app`` on its input ``a`` (writing its K/V in place).  With
     ``states`` (:func:`repro_torch.models.mamba2.new_states`) every mamba
     layer snapshots its T + 1 states there and ``cache`` keeps its state;
     without, the state is updated in place, except on the rows where
-    ``frozen`` (B,) is set."""
+    ``frozen`` (B,) is set.  ``split`` (a placed decode's
+    :class:`repro_torch.dist.sharding.DecodeSplit`) gives the mamba
+    layers this rank's heads of the SSM state."""
+    ssm_split = leaf_split(split, "ssm")
     emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     shared = params["shared"]
     x, start = emb, 0
@@ -230,7 +236,7 @@ def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
             else:
                 out, ssm, conv = mamba_mod.mamba_block_decode(
                     layer["mixer"], h, cache["ssm"][i], cache["conv"][i],
-                    cfg)
+                    cfg, ssm_split)
                 if frozen is not None:
                     ssm = torch.where(frozen[:, None, None, None],
                                       cache["ssm"][i], ssm)
@@ -246,11 +252,13 @@ def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return unembed(params["embed"], x)
 
 
-def _dense_attend(params, cache, position, cfg):
+def _dense_attend(params, cache, position, cfg, split=None):
+    kv_split = leaf_split(split, "attn_k")
+
     def attend(app, a):
         out, _, _ = attn_mod.attention_verify(
             params["shared"]["attn"], a, cache["attn_k"][app],
-            cache["attn_v"][app], position, 0, cfg)
+            cache["attn_v"][app], position, 0, cfg, kv_split)
         return out
     return attend
 
@@ -300,11 +308,15 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig
+                position: torch.Tensor, cfg: ModelConfig, split=None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One decode step -> (logits (B, V), cache updated in place)."""
+    """One decode step -> (logits (B, V), cache updated in place);
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
+    placed decode's: the mamba layers run on this rank's SSM heads, the
+    shared attention on its block of each application's K/V."""
     logits = _step(params, cache, tokens[:, None], cfg,
-                   _dense_attend(params, cache, position, cfg))
+                   _dense_attend(params, cache, position, cfg, split),
+                   split=split)
     return logits[:, 0], cache
 
 

@@ -44,6 +44,8 @@ COMPARE = (("m22", "qwen3_1_7b", "train_4k"),
            ("m22", "mamba2_1_3b", "prefill_32k"),
            ("m22", "seamless_m4t_large_v2", "prefill_32k"),
            ("m22", "zamba2_1_2b", "train_4k"),
+           ("m22", "gemma3_27b", "decode_32k"),
+           ("m22", "gemma3_27b", "long_500k"),
            ("m221", "qwen3_1_7b", "train_4k"),
            ("m221", "deepseek_67b", "decode_32k"),
            ("m221", "seamless_m4t_large_v2", "prefill_32k"))

@@ -18,8 +18,10 @@ file).  Every rank runs, in order:
   ``make_serve_step(mesh=)`` steps from ``first``: the logits rows, the
   cache blocks after each phase (with the slices of the full leaf they
   are) and the next tokens;
-* ``refused``: smoke Qwen3-1.7B's decode at (2, 2), whose K/V heads split
-  over "model": the leaf and spec it raises with;
+* ``refused``: smoke Qwen3-1.7B's decode at (2, 2) on a cache whose
+  placement was made by hand to split the batch of ``k`` over "model"
+  (no rule makes such a split; no step reads it): the leaf and spec it
+  raises with;
 * ``counted``: the dry run's cells of ``_torch_dryrun_fake.COMPARE``
   built on real CPU tensors (``build_cell(device="cpu")``) and run once
   under the dry run's counters.
@@ -147,6 +149,7 @@ def refused(facts: dict) -> None:
         model.init(torch.Generator().manual_seed(0), cfg, "cpu"), mesh)
     cache = sharding.place_cache(model.init_cache(cfg, 4, CACHE_LEN, "cpu"),
                                  mesh)
+    cache.placement.specs["k"] = (None, "model", None, None, None)
     step = steps.make_serve_step(model, cfg, mesh=mesh)
     try:
         step(params, cache, torch.zeros(4, dtype=torch.int32),

@@ -237,6 +237,34 @@ def test_checkpoint_written_by_port_restores_in_reference(tmp_path):
         np.testing.assert_array_equal(got[path], want[path])
 
 
+def test_async_save_holds_the_state_of_its_call(tmp_path, monkeypatch):
+    """``save_async`` copies every leaf when it is called: an in-place
+    update after the call (the next step's optimizer) does not reach the
+    file, however late its writer thread runs."""
+    import threading
+
+    go = threading.Event()
+    write = TCkpt._write
+
+    def late_write(self, *args):
+        go.wait(30)
+        write(self, *args)
+
+    monkeypatch.setattr(TCkpt, "_write", late_write)
+    state = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+             "m": torch.ones(3)}
+    want = {k: v.clone() for k, v in state.items()}
+    tck = TCkpt(str(tmp_path))
+    tck.save_async(1, state)
+    for t in state.values():
+        t.add_(1.0)
+    go.set()
+    tck.wait()
+    got = tck.restore(1, want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
 def test_checkpoint_written_by_reference_restores_in_port(tmp_path):
     state = _tiny_state()
     jstate = {"params": _nest_jax(state["params"]),

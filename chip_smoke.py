@@ -2074,8 +2074,8 @@ def compare_full_width_logits(pieces, dev, dtype=None):
     def run():
         residuals = []
 
-        def ffn_recording(layer, x, cfg_, rows=None):
-            y = ffn(layer, x, cfg_, rows)
+        def ffn_recording(layer, x, cfg_, rows=None, tp=None):
+            y = ffn(layer, x, cfg_, rows, tp)
             residuals.append(y[0, :PROBE_LEN].float())
             return y
 
@@ -3872,18 +3872,18 @@ def route_recorder(calls: list):
 
     from repro_torch.models import mlp as mlp_mod
 
-    saved = mlp_mod._route
+    saved = mlp_mod._routing
 
     def recording(xt, params, cfg, rows=None):
         out = saved(xt, params, cfg, rows)
         calls.append(torch.sort(out[1], dim=-1).values.cpu())
         return out
 
-    mlp_mod._route = recording
+    mlp_mod._routing = recording
     try:
         yield calls
     finally:
-        mlp_mod._route = saved
+        mlp_mod._routing = saved
 
 
 def scaled_matmul_group0(x, w, pre=None, post=None, bias=None):
@@ -5150,8 +5150,8 @@ def rows_cut_wrong():
 
     real = sharding.LayerCut.__call__
 
-    def cut(self, name, layer):
-        out = real(self, name, layer)
+    def cut(self, name, layer, heads_local=False):
+        out = real(self, name, layer, heads_local)
         return torch.roll(out, 1, 0) if name == "k" else out
 
     sharding.LayerCut.__call__ = cut

@@ -6,7 +6,8 @@ step time.
         --train qwen3_1_7b:2:3 --train deepseek_67b:1:3 \\
         --out chiprun_out/placed_multi_card.json
 
-Each ``--train ARCH:MODEL_PARALLEL:STEPS`` builds the train launcher's
+Each ``--train ARCH:MODEL_PARALLEL:STEPS[:DTYPE]`` (DTYPE overrides the
+compute dtype, e.g. ``float32``) builds the train launcher's
 pieces (``launch.train.build``: ``--sell acdc --sell-method pallas``,
 batch 4 x 128 split over "data", the (data, model) mesh of the world size
 and MODEL_PARALLEL) and trains STEPS steps from seed 0 with no
@@ -16,9 +17,11 @@ the full state's), the peak memory of the placed init and of the steps
 steps after the first.  ``--replicated ARCH`` also trains that config
 with its whole state on every rank, data-parallel over the same mesh's
 "data" group and rows (what placement changes), and on rank 0 alone over
-the whole global batch (the other ranks wait), for the losses to compare.
-Rank 0 prints a line a run and writes every rank's numbers, with the
-card's name and power limit, to ``--out``.
+the whole global batch (the other ranks wait), for the losses to compare:
+the placed losses within ``POD_LOSS_RTOL`` of the data-parallel ones (a
+decoder at MODEL_PARALLEL > 1 computes on its "model" blocks:
+tensor-parallel).  Rank 0 prints a line a run and writes every rank's
+numbers, with the card's name and power limit, to ``--out``.
 
 ``--train`` runs come first, then ``--serve``, ``--serve-long`` and
 ``--pod-train``.  ``--serve ARCH[:MODEL_PARALLEL]`` serves ARCH placed
@@ -58,7 +61,10 @@ cache, bf16) where MODEL_PARALLEL > 1, built by ``build_cell`` on the
 cards and measured there by ``dryrun.measure_on_device``: FLOPs,
 collectives, argument and output bytes, and the peak above the
 arguments within ``dryrun.PEAK_REL`` of
-``torch.cuda.max_memory_allocated``'s.
+``torch.cuda.max_memory_allocated``'s.  ``--cell
+ARCH:KIND:SEQ:BATCH:MESH[:DTYPE]`` (after the rest) builds that dry-run
+cell on the cards the same way and holds it against its reckoning: a
+train cell's step or a prefill cell's at any mesh of the world.
 """
 
 from __future__ import annotations
@@ -126,11 +132,16 @@ def train_steps(step_fn, state, batch_at, n: int) -> tuple:
     return state, losses, secs
 
 
-def placed_run(arch: str, model_parallel: int, steps: int) -> tuple:
-    """(this rank's numbers, (cfg, model, opt, the batch source))."""
+def placed_run(arch: str, model_parallel: int, steps: int,
+               dtype: str = "") -> tuple:
+    """(this rank's numbers, (cfg, model, opt, the batch source));
+    ``dtype`` overrides the compute dtype."""
     args = launcher_args(arch, model_parallel, steps)
     cfg, model, opt, step_fn, pipeline = train.build(args)
     dp = pipeline.dp
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        step_fn = steps_mod.make_train_step(model, cfg, opt, mesh=dp.mesh)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     state = steps_mod.init_state(model, cfg, opt, gen, DEVICE, mesh=dp.mesh)
@@ -328,6 +339,9 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                             lengths)
     _sync()
     prefill_s = time.perf_counter() - t0
+    # a decoder's full logits are this rank's block of the vocabulary
+    logits = steps_mod.gather_vocab(logits,
+                                    steps_mod.tensor_split(cfg, mesh))
     last = logits[torch.arange(len(rows)), lengths[rows.to(DEVICE)].long()
                   - 1].float()
     full_last = sharding._all_gather(last.contiguous(), spec, mesh)
@@ -498,8 +512,8 @@ def pod_train(arch: str, n_steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="append", default=[],
-                    help="ARCH:MODEL_PARALLEL:STEPS (repeatable; not "
-                         "--run, which torchrun takes for --run-path)")
+                    help="ARCH:MODEL_PARALLEL:STEPS[:DTYPE] (repeatable;"
+                         " not --run, which torchrun takes for --run-path)")
     ap.add_argument("--serve", action="append", default=[],
                     help="ARCH[:MODEL_PARALLEL] served placed at (world / "
                          "MODEL_PARALLEL, MODEL_PARALLEL); 1 by default")
@@ -509,6 +523,10 @@ def main() -> int:
     ap.add_argument("--pod-train", action="append", default=[],
                     help="ARCH:STEPS trained at (2, world/2, 1) beside "
                          "(world, 1)")
+    ap.add_argument("--cell", action="append", default=[],
+                    metavar="ARCH:KIND:SEQ:BATCH:MESH[:DTYPE]",
+                    help="the dry run's cell built on the cards and held "
+                         "against its reckoning at that mesh")
     ap.add_argument("--replicated", action="append", default=[],
                     help="ARCH also trained on rank 0 alone")
     ap.add_argument("--out", default="chiprun_out/placed_multi_card.json")
@@ -525,22 +543,27 @@ def main() -> int:
     report = {"device": smi(), "world": dist.get_world_size(), "runs": []}
     try:
         for spec in args.train:
-            arch, mp, n = spec.split(":")
-            mine, pieces = placed_run(arch, int(mp), int(n))
+            arch, mp, n, *dtype = spec.split(":")
+            mine, pieces = placed_run(arch, int(mp), int(n), *dtype)
             ranks = [None] * dist.get_world_size()
             dist.all_gather_object(ranks, mine)
-            run = dict(arch=arch, model_parallel=int(mp), ranks=ranks)
+            run = dict(arch=arch, model_parallel=int(mp), ranks=ranks,
+                       dtype=pieces[0].dtype)
             if arch in args.replicated:
                 run["data_parallel"] = replicated_run(
                     pieces, int(n), pieces[3].dp.group)
                 if rank == 0:
                     run["replicated"] = replicated_run(pieces, int(n))
+                    rel = max(abs(a - b) / abs(b) for a, b in zip(
+                        ranks[0]["losses"], run["data_parallel"]["losses"]))
+                    run.update(loss_rel=rel, losses_ok=rel <= POD_LOSS_RTOL)
                 dist.barrier()
             del pieces
             report["runs"].append(run)
             if rank == 0:
                 gb = 1e9
-                print(f"[placed] {arch} mesh {ranks[0]['mesh']} "
+                print(f"[placed] {arch} {run['dtype']} mesh "
+                      f"{ranks[0]['mesh']} "
                       f"({report['device']}): at rest "
                       f"{[round(r['rest_bytes'] / gb, 3) for r in ranks]} GB"
                       f" of {ranks[0]['full_bytes'] / gb:.3f}; peak init "
@@ -550,8 +573,9 @@ def main() -> int:
                       f"; losses {ranks[0]['losses']}"
                       + (f"; replicated data-parallel "
                          f"{run['data_parallel']}, on one card "
-                         f"{run['replicated']}" if "replicated" in run
-                         else ""), flush=True)
+                         f"{run['replicated']} (losses max rel "
+                         f"{run['loss_rel']:.3g}, ok {run['losses_ok']})"
+                         if "replicated" in run else ""), flush=True)
         world = dist.get_world_size()
         serves = [(a.split(":")[0], int(a.split(":")[1]) if ":" in a
                    else 1, False) for a in args.serve]
@@ -559,7 +583,8 @@ def main() -> int:
                    for a in args.serve_long]
         specs = ([serve_spec(a, world, mp) for a, mp, lg in serves
                   if not lg]
-                 + [pod_spec(p.split(":")[0], world) for p in args.pod_train])
+                 + [pod_spec(p.split(":")[0], world) for p in args.pod_train]
+                 + args.cell)
         reckon_out = Path("build") / "placed_multi_card" / "reckon.json"
         reckoning = (dryrun.start_reckoning(specs, "acdc", reckon_out)
                      if rank == 0 and specs else None)
@@ -609,9 +634,26 @@ def main() -> int:
                       f"{r0['replicated']['s_per_step']:.3f}; peak "
                       f"{[round(r['pod']['peak'] / 1e9, 2) for r in ranks]}"
                       f" GB", flush=True)
+        cells = [dict(spec=spec, card=card_record(spec))
+                 for spec in args.cell]
         if rank == 0:
             recs = (dryrun.reckoned(reckoning, reckon_out)
                     if reckoning is not None else {})
+            for run in cells:
+                held = dryrun.compare(
+                    run["card"], recs[run["spec"]],
+                    peak_rel=dryrun.PEAK_REL if DEVICE == "cuda" else None)
+                run["reckoned"] = dict(held, record=recs[run["spec"]])
+                print(f"[cell] {run['spec']} (acdc on auto) on the cards "
+                      f"against the dry run: mismatches "
+                      f"{held['mismatches']}; FLOPs "
+                      f"{run['card']['flops_per_device']:.6g}, collectives "
+                      f"{run['card']['collectives']['count']}; peak above "
+                      f"the arguments "
+                      f"{recs[run['spec']]['memory']['temp_size_in_bytes']}"
+                      f" B reckoned vs "
+                      f"{run['card'].get('measured_temp_bytes')} measured "
+                      f"({held['peak_rel_err']})", flush=True)
             for run in served:
                 if "card_cell" not in run:
                     continue
@@ -636,7 +678,7 @@ def main() -> int:
                 print(f"[reckon] {spec}: the first placed step's "
                       f"collectives and argument bytes against the dry "
                       f"run: mismatches {held['mismatches']}", flush=True)
-            report.update(served=served, pod_train=pods)
+            report.update(served=served, pod_train=pods, cells=cells)
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
     finally:

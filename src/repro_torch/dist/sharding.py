@@ -43,6 +43,17 @@ gather's backward differs by axis: over "data" the ranks hold different
 rows, so the gradient is reduce-scattered (summed) and divided by the
 data size; over "model" the ranks of one data row compute the same loss,
 so the gradient is sliced, never summed.
+
+Tensor-parallel compute (:class:`TensorSplit`, the decoder family's placed
+train and prefill steps): a leaf the model computes on its "model" block
+(heads, KV heads, ffn columns, experts, vocabulary) is gathered over the
+row axes only and keeps that block (the model-local view,
+``Placement.view(params, split)``); its gather's backward reduce-scatters
+over the row axes and never slices over "model".  The activations move
+instead, by two differentiable collectives over "model":
+:meth:`TensorSplit.copy` (forward identity, backward all-reduce) before a
+projection whose output columns split, :meth:`TensorSplit.reduce`
+(forward all-reduce, backward identity) after one whose input rows split.
 """
 
 from __future__ import annotations
@@ -350,6 +361,49 @@ def gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return _Gather.apply(local, tuple(spec), mesh)
 
 
+def without(spec: Spec, axis: str) -> Spec:
+    """``spec`` with mesh axis ``axis`` taken out of every entry (a dim
+    it split stays at its block size when gathered by the rest)."""
+    def one(entry):
+        kept = tuple(a for a in _axes(entry) if a != axis)
+        return kept[0] if len(kept) == 1 else (kept or None)
+    return tuple(one(e) for e in spec)
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes: tuple,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each mesh axis of ``axes`` (a copy)."""
+    x = x.contiguous().clone()
+    for axis in axes:
+        dist.all_reduce(x, op=op, group=mesh.get_group(axis))
+    return x
+
+
+class _Copy(torch.autograd.Function):
+    """Forward identity, backward the gradient summed over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axes), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward the sum over ``axes``, backward identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
 class PlacedStack:
     """A stacked-layer subtree at rest: this rank's blocks of every
     ``(L, ...)`` leaf beside their specs (the leading axis never split).
@@ -409,13 +463,23 @@ class Placement:
             lambda t, p: local_shard(t, self.specs[p], self.mesh), tree,
             prefix)
 
-    def view(self, params: dict) -> dict:
+    def view(self, params: dict, split: Optional["TensorSplit"] = None
+             ) -> dict:
         """The model's view of this rank's blocks ``params``: stacked
         subtrees as :class:`PlacedStack` (a layer gathered where the
-        model slices it), every other leaf gathered now (differentiable)."""
+        model slices it), every other leaf gathered now (differentiable).
+        With ``split`` (the model-local view) a leaf that ``split.keeps``
+        is gathered over its other axes only and keeps its "model"
+        block."""
+        def spec_of(path: str) -> Spec:
+            spec = self.specs[path]
+            if split is not None and split.keeps(path, spec):
+                return without(spec, "model")
+            return spec
+
         out = {}
         for key, sub in params.items():
-            specs = self._by_path(lambda _, p: self.specs[p], sub,
+            specs = self._by_path(lambda _, p: spec_of(p), sub,
                                   f"params/{key}")
             if key in STACKED:
                 out[key] = PlacedStack(sub, specs, self.mesh)
@@ -522,6 +586,13 @@ def place_params(params: dict, mesh) -> dict:
 # A decode cache at rest.
 # ---------------------------------------------------------------------------
 
+def shape_only(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype`` that holds one element
+    (a broadcast view): read for its shape and dtype only, it adds
+    nothing to what the dry run's ``LiveBytes`` counts."""
+    return torch.empty((), dtype=dtype, device="meta").expand(tuple(shape))
+
+
 class CacheSplitError(ValueError):
     """A decode asked of a placed cache with a leaf split where no step
     reads it: every dim of a leaf may split only as :func:`cache_specs`
@@ -554,6 +625,7 @@ class CachePlacement:
         self.mesh = mesh
         self.sizes = _axis_sizes(mesh)
         self.shapes = {k: _shape(v) for k, v in like.items()}
+        self.dtypes = {k: v.dtype for k, v in like.items()}
         self.specs = {k: spec_for(mesh, shape,
                                   _placed_logical(k, len(shape)))
                       for k, shape in self.shapes.items()}
@@ -583,6 +655,18 @@ class CachePlacement:
         """What a decode reads of this rank's blocks (raises
         :class:`CacheSplitError` for a placement no step reads)."""
         return DecodeSplit(self)
+
+    def rows_shapes(self) -> dict:
+        """Every leaf as a ``meta`` tensor at its full size on this
+        rank's rows: what a prefill that reads no leaf's values takes
+        (its shapes and dtypes only)."""
+        out = {}
+        for k, shape in self.shapes.items():
+            shape = list(shape)
+            b = _placed_logical(k, len(shape)).index("batch")
+            shape[b] = local_shape(shape, self.specs[k], self.mesh)[b]
+            out[k] = shape_only(shape, self.dtypes[k])
+        return out
 
     def rows_view(self, blocks: dict, reads=()) -> dict:
         """What a prefill reads of a placed cache: each leaf at its full
@@ -621,6 +705,114 @@ class Blocks:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _all_gather(x[None], (self.axes,), self.mesh)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every block's rank, differentiable: the
+        backward hands this rank the whole gradient of the sum, so each
+        rank's gradient is its own blocks' share and the ranks' gradients
+        add up to the whole batch's."""
+        if not self.axes:
+            return x
+        return _Reduce.apply(x, self.mesh, self.axes)
+
+
+class Rows(Blocks):
+    """A placed train step's batch split over the row axes (of size > 1),
+    with ``count``: the divisor of a loss's numerator, the whole step's
+    count of unmasked label positions over every row and micro-batch
+    (at least 1) divided by the number of micro-batches.  A loss is then
+    its numerator summed over the rows (:meth:`Blocks.sum`) over
+    ``count``, the reference's masked mean over the whole batch, and the
+    mean over micro-batches the step takes is the masked mean over all
+    of them."""
+
+    def __init__(self, mesh, count: torch.Tensor):
+        sizes = _axis_sizes(mesh)
+        super().__init__(mesh, tuple(a for a in ROW_AXES
+                                     if sizes.get(a, 1) > 1))
+        self.count = count
+
+
+class TensorSplit:
+    """Tensor-parallel compute over "model" for the decoder family's
+    placed train and prefill steps, as the reference's jit computes them
+    on ``param_specs``' blocks: query heads, KV heads, ffn columns,
+    experts and the vocabulary on this rank's "model" block.
+
+    :meth:`keeps` says which leaves the model-local view
+    (``Placement.view(params, split)``) keeps as their block: ``wq`` /
+    ``wo`` where the heads divide "model"; ``wk`` / ``wv`` where the KV
+    heads do too (else they are gathered whole and each rank projects
+    every KV head and keeps those its query heads read); a dense
+    ``wg`` / ``wu`` / ``wd``; an expert stack split on its expert dim;
+    the embedding table.  Every other leaf is gathered whole (the router:
+    its softmax is over all experts; SELL projections are never split
+    over "model").  The model reads which block it holds from the leaf's
+    shape; :meth:`block` gives its slice.  On a "model" axis of size 1
+    the collectives are identities."""
+
+    def __init__(self, mesh, cfg):
+        sizes = _axis_sizes(mesh)
+        self.mesh, self.n = mesh, sizes.get("model", 1)
+        self.index = mesh.get_local_rank("model") if self.n > 1 else 0
+        self.axes = ("model",) if self.n > 1 else ()
+        self.heads = cfg.n_heads % self.n == 0
+        self.kv_heads = self.heads and cfg.n_kv_heads % self.n == 0
+        self.vocab = cfg.vocab_size
+
+    def keeps(self, path: str, spec: Spec) -> bool:
+        """Whether the model computes leaf ``path`` (placed by ``spec``)
+        on its "model" block."""
+        if not any("model" in _axes(e) for e in spec):
+            return False
+        segs = path.split("/")
+        parent = segs[-2] if len(segs) > 1 else ""
+        if "sell" in segs:
+            return False
+        if parent in ("wq", "wo"):
+            return self.heads
+        if parent in ("wk", "wv"):
+            return self.kv_heads
+        if parent in ("wg", "wu", "wd"):
+            return "experts" not in segs or "model" in _axes(spec[-3])
+        return segs[-1] == "table" and segs[-2] == "embed"
+
+    def block(self, full: int, local: int) -> slice:
+        """The slice of a dim of ``full`` entries this rank holds when it
+        holds ``local`` of them (all of them, or its "model" block)."""
+        if local == full:
+            return slice(0, full)
+        if local * self.n != full:
+            raise ValueError(f"a block of {local} of {full} does not split "
+                             f"{full} over {self.n} model ranks")
+        return slice(self.index * local, (self.index + 1) * local)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it is; its gradient summed over "model" (the input of
+        a projection whose output columns this rank computes a block
+        of)."""
+        return _Copy.apply(x, self.mesh, self.axes) if self.axes else x
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's partial sum) summed over "model"; its
+        gradient as it is."""
+        return _Reduce.apply(x, self.mesh, self.axes) if self.axes else x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` (this rank's block along ``dim``) gathered over "model"
+        in block order, differentiable (its backward slices this rank's
+        block: every model rank computes the same gradient of it)."""
+        if not self.axes:
+            return x
+        dim = dim % x.dim()
+        return gather(x, (None,) * dim + ("model",), self.mesh)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over "model" (no gradient)."""
+        if not self.axes:
+            return x
+        return _all_reduce(x.detach(), self.mesh, self.axes,
+                           dist.ReduceOp.MAX)
 
 
 class LeafSplit:
@@ -700,32 +892,47 @@ class LayerCut:
     already local), copied out so the full layer can be freed; the spec
     is :func:`cache_specs`' for the stacked leaf of the placement's depth
     and global batch and ``layer``'s other dims (a prefill may bring more
-    cross frames than the cache held).  ``shapes`` records each stacked
-    leaf's full shape."""
+    cross frames than the cache held).  ``heads_local``: ``layer``
+    already holds this rank's "model" block of its heads (K/V projected
+    on their block, :class:`TensorSplit`), which must be the block the
+    placement gives it.  ``shapes`` records each stacked leaf's full
+    shape."""
 
     def __init__(self, placement: CachePlacement):
         self.placement = placement
         self.shapes: dict = {}
 
-    def __call__(self, name: str, layer: torch.Tensor) -> torch.Tensor:
+    def __call__(self, name: str, layer: torch.Tensor,
+                 heads_local: bool = False) -> torch.Tensor:
         pl = self.placement
         depth, batch = pl.shapes[name][:2]
-        full = (depth, batch) + tuple(layer.shape[1:])
+        full = [depth, batch] + list(layer.shape[1:])
+        logical = _placed_logical(name, len(full))
+        if heads_local:
+            full[logical.index("heads")] *= pl.sizes.get("model", 1)
+        full = tuple(full)
         self.shapes[name] = full
-        spec = spec_for(pl.mesh, full, _placed_logical(name, len(full)))
+        spec = spec_for(pl.mesh, full, logical)
         coord = _coord(pl.mesh)
-        index = shard_slices(full, spec, pl.sizes, coord)[2:]
+        index = list(shard_slices(full, spec, pl.sizes, coord)[2:])
+        if heads_local:
+            h = logical.index("heads")
+            if "model" not in _axes(spec[h]) and pl.sizes.get("model", 1) > 1:
+                raise ValueError(f"cache leaf {name!r} is placed {spec}: "
+                                 f"its heads do not split over \"model\" as "
+                                 f"the K/V heads computed here do")
+            index[h - 2] = slice(0, layer.shape[h - 1])
         if all(s.start == 0 and s.stop == n
                for s, n in zip(index, layer.shape[1:])):
             return layer
-        return layer[(slice(None),) + index].clone(
+        return layer[(slice(None),) + tuple(index)].clone(
             memory_format=torch.contiguous_format)
 
     def placement_after(self, cache: dict) -> CachePlacement:
         """The placement of a prefill's new cache: the leaves this cut
         made at their recorded full shapes, the others as before."""
-        like = {k: torch.empty(self.shapes.get(k, self.placement.shapes[k]),
-                               device="meta") for k in cache}
+        like = {k: shape_only(self.shapes.get(k, self.placement.shapes[k]),
+                              cache[k].dtype) for k in cache}
         return CachePlacement(like, self.placement.mesh)
 
 

@@ -88,24 +88,36 @@ def abstract_state(model, cfg, opt, compress_dp: int = 0,
 
 
 def loss_and_grads(model, cfg, params: dict, batch: dict,
-                   view: Optional[Callable] = None):
+                   view: Optional[Callable] = None, scale: float = 1.0,
+                   **kw):
     """(loss, grads) of ``model.loss_fn`` at ``params``: grads a tree
     shaped like ``params`` (zeros for an unused leaf).  ``view(params)``,
     when given, is what the model reads (a placed tree's gathers:
-    :meth:`repro_torch.dist.sharding.Placement.view`)."""
+    :meth:`repro_torch.dist.sharding.Placement.view`); ``kw`` goes to the
+    loss (a placed step's ``rows`` and ``tp``); the grads are those of
+    ``scale`` times the loss."""
     paths, leaves = tree_flatten(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss = model.loss_fn(params if view is None else view(params),
-                             batch, cfg)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                             batch, cfg, **kw)
+        grads = torch.autograd.grad(loss * scale if scale != 1 else loss,
+                                    leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(paths, grads)
+
+
+def tensor_split(cfg, mesh) -> Optional[sharding.TensorSplit]:
+    """The placed steps' tensor-parallel compute on ``mesh``: the decoder
+    family's (:class:`~repro_torch.dist.sharding.TensorSplit`); None for
+    the families that still compute whole layers on every model rank."""
+    return sharding.TensorSplit(mesh, cfg) if cfg.family == "decoder" \
+        else None
 
 
 def make_train_step(model, cfg, opt, accum_steps: int = 1,
@@ -116,8 +128,9 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
 
     ``group`` is the data-parallel process group: every rank passes its
     own rows of the global batch, the gradients are summed over the group
-    and divided by its size, and the loss is the group's mean, as in the
-    reference's data-parallel step.  ``compress`` sums them with
+    and divided by its size, and the loss is the group's mean of the
+    ranks' masked means, as in the reference's data-parallel
+    (``shard_map``) step.  ``compress`` sums them with
     :func:`repro_torch.dist.compression.compressed_all_reduce_tree`
     (int8 quantization with error feedback; with no group, over this
     process alone); the state must then carry this rank's ``grad_error``
@@ -126,29 +139,37 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     ``mesh`` (a ``DeviceMesh`` over ``("data", "model")`` or ``("pod",
     "data", "model")``; every rank passes its rows of the global batch
     split over the row axes, ``sharding.data_specs``) takes a state
-    placed at rest (``init_state(..., mesh=mesh)``).  The model gathers
-    what it reads (:meth:`~repro_torch.dist.sharding.Placement.view`): a
-    leaf split over a row axis gets this rank's block of the mean
-    gradient over that axis from its gather's backward; here every
-    gradient is summed over each row axis its gather's backward did not
-    reduce-scatter and divided by the product of those axes' sizes, and
-    the loss is the mean over all row ranks.  The clip and the metrics
-    take the mesh-wide norm.  With ``compress`` (a model axis of 1 and
-    no pod axis above 1 only: the reference compresses over one data
-    axis) the step gathers the whole tree, sums the full gradients by
-    the int8 path over "data" unchanged, updates this rank's blocks and
-    drops the gathered copy, as the reference's ``shard_map`` with
-    replicated params does.
+    placed at rest (``init_state(..., mesh=mesh)``) and computes the
+    reference's step jitted on the whole batch: the loss is the whole
+    batch's masked mean (the ranks' numerators summed over the whole
+    step's count of unmasked labels, :class:`~repro_torch.dist.sharding.Rows`)
+    and an MoE layer's queues and aux loss are the whole batch's; each
+    rank's gradient is its rows' share, summed over the row axes.  The
+    model gathers what it reads
+    (:meth:`~repro_torch.dist.sharding.Placement.view`): the decoder
+    family through the model-local view, each rank computing its "model"
+    blocks (:class:`~repro_torch.dist.sharding.TensorSplit`), the other
+    families whole layers.  A leaf split over a row axis gets this rank's
+    block of its gradient from its gather's backward (reduce-scattered);
+    over each other row axis the step all-reduces it.  The clip and the
+    metrics take the mesh-wide norm.  With ``compress`` (a model axis of
+    1 and no pod axis above 1 only: the reference compresses over one
+    data axis) the step gathers the whole tree, sums the full gradients
+    by the int8 path over "data" unchanged, updates this rank's blocks
+    and drops the gathered copy, as the reference's ``shard_map`` with
+    replicated params does (its loss the ranks' mean, as ``group``'s).
 
     The parameters and moments of ``state`` are updated IN PLACE (the
     returned state holds the same tensors).  ``accum_steps > 1`` splits
     the global batch into equal micro-batches run one after another
     (live memory: one micro-batch's activations) and returns the mean
-    loss and mean grads, summed in fp32 as the reference sums them.
+    loss and mean grads, summed in fp32 as the reference sums them (on a
+    mesh the cross-entropy's numerators and counts sum over the
+    micro-batches too).
     The gradients of the SELL projections come from the ACDC ops'
     ``autograd.Function``s (:mod:`repro_torch.kernels.ops`).
     """
-    placement = None
+    placement = tp = None
     row_groups = {} if group is None else {"data": group}
     if mesh is not None:
         sizes = sharding._axis_sizes(mesh)
@@ -163,12 +184,30 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         group = mesh.get_group("data")
         row_groups = {a: mesh.get_group(a)
                       for a in sharding.row_axes(mesh)}
-    view = (placement.view if placement is not None and not compress
-            else None)
+        tp = None if compress else tensor_split(cfg, mesh)
+    placed = placement is not None and not compress
+    view = ((lambda p: placement.view(p, tp)) if placed else None)
+
+    def rows_of(batch) -> Optional[sharding.Rows]:
+        """A placed step's rows and its count (see ``Rows``)."""
+        if not placed:
+            return None
+        count = (batch["labels"] >= 0).sum().to(torch.float32)
+        for g in row_groups.values():
+            dist.all_reduce(count, group=g)
+        return sharding.Rows(mesh, torch.clamp_min(count, 1.0)
+                             / accum_steps)
 
     def grads_of(params, batch):
+        rows = rows_of(batch)
+        kw, scale = {}, 1.0
+        if rows is not None:
+            kw["rows"], scale = rows, float(rows.n)
+            if tp is not None:
+                kw["tp"] = tp
         if accum_steps <= 1:
-            return loss_and_grads(model, cfg, params, batch, view)
+            return loss_and_grads(model, cfg, params, batch, view, scale,
+                                  **kw)
         b = batch["tokens"].shape[0]
         if b % accum_steps:
             raise ValueError(
@@ -177,7 +216,8 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         loss = grads = None
         for i in range(accum_steps):
             micro = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
-            l, g = loss_and_grads(model, cfg, params, micro, view)
+            l, g = loss_and_grads(model, cfg, params, micro, view, scale,
+                                  **kw)
             g = tree_map(lambda t: t.float(), g)
             loss = l if loss is None else loss + l
             grads = g if grads is None else tree_map(torch.add, grads, g)
@@ -188,7 +228,9 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
 
     def summed_here(path: str) -> tuple:
         """The row axes leaf ``path``'s gradient is summed over by the
-        step (not by its gather's backward), in mesh order."""
+        step (not by its gather's backward), in mesh order.  A leaf on
+        its "model" block is never summed over "model": the rank
+        computed that block's gradient itself."""
         if view is None:
             return tuple(row_groups)
         split = placement.axes(f"params/{path}")
@@ -201,7 +243,10 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         return n
 
     def summed(loss, grads, error):
-        """(mean loss, mean grads, new error rows) over the group."""
+        """(mean loss, mean grads, new error rows) over the group (the
+        gradients of a placed step: the ranks' shares, each scaled by the
+        number of row ranks, so the mean is their sum; its loss is the
+        whole batch's already)."""
         new_error = None
         if compress:
             rows = tree_flatten(error)[1]
@@ -221,7 +266,7 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
                     dist.all_reduce(g, group=row_groups[axis])
                 out.append(g / row_size(axes) if axes else g)
             grads = tree_unflatten(paths, out)
-        if row_groups:
+        if row_groups and not placed:
             loss = loss.float().clone()
             for axis in row_groups:
                 dist.all_reduce(loss, group=row_groups[axis])
@@ -259,10 +304,20 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
 
     return step
 
-
 def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     idx = torch.clamp_min(lengths.long() - 1, 0)
     return logits[torch.arange(logits.shape[0], device=logits.device), idx]
+
+
+def gather_vocab(logits: torch.Tensor,
+                 tp: Optional[sharding.TensorSplit]) -> torch.Tensor:
+    """Logits (..., V) from this rank's block of the vocabulary (a
+    placed decoder prefill's ``full_logits``), gathered over "model"
+    (no autograd); whole logits as they are."""
+    if tp is None or logits.shape[-1] == tp.vocab:
+        return logits
+    return sharding._all_gather(logits, (None,) * (logits.dim() - 1)
+                                + ("model",), tp.mesh)
 
 
 def _serving_placement(model, cfg, mesh) -> sharding.Placement:
@@ -298,12 +353,22 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
     prefill: ``params`` are this rank's blocks by ``param_specs``
     (``sharding.place_params``), read through
     :meth:`~repro_torch.dist.sharding.Placement.view` without autograd;
-    ``cache`` is a :class:`~repro_torch.dist.sharding.PlacedCache`;
-    ``tokens`` and ``frontend_embeds`` are this rank's rows
+    ``cache`` is a :class:`~repro_torch.dist.sharding.PlacedCache`, or,
+    where the family reads no value of it (every prefill but an
+    encoder-decoder's without frames), its
+    :class:`~repro_torch.dist.sharding.CachePlacement` alone: the new
+    cache is built from the shapes, as the reference's prefill drops its
+    unread input; ``tokens`` and ``frontend_embeds`` are this rank's rows
     (``data_specs``) and ``lengths`` every row's (B,), replicated.  Each
     layer's new K/V or state is cut to this rank's blocks as it is made
-    (at most one layer's full leaf beyond the blocks); the logits are
-    this rank's rows and the new cache a ``PlacedCache``.  An
+    (at most one layer's full leaf beyond the blocks); the new cache is a
+    ``PlacedCache``.  The decoder family computes on its "model" blocks
+    (:class:`~repro_torch.dist.sharding.TensorSplit`: heads, ffn,
+    experts, vocabulary): the last logits are this rank's rows with the
+    vocabulary blocks of the last position gathered over "model" (B, V),
+    and with ``full_logits`` this rank's rows and block of the
+    vocabulary (B, S, V / model) for the caller to gather
+    (:func:`gather_vocab`); the other families' logits are whole.  An
     encoder-decoder's prefill without frames reads the cache's cross K/V
     as this rank's block of it, split over heads or frames as the cache
     is, and an MoE layer queues the whole batch's tokens
@@ -329,11 +394,20 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
             raise ValueError("a placed paged prefill is not supported: "
                              "the page pool is not placed")
         placement = _serving_placement(model, cfg, mesh)
+        tp = tensor_split(cfg, mesh)
+        kw = {} if tp is None else {"tp": tp}
 
         def placed_step(params, cache, tokens, lengths,
                         frontend_embeds=None):
-            cache = _placed_cache(cache)
-            cp = cache.placement
+            reads = (_PREFILL_READS.get(cfg.family, ())
+                     if frontend_embeds is None else ())
+            if isinstance(cache, sharding.CachePlacement) and not reads:
+                cp, like = cache, cache.rows_shapes()
+            else:
+                cache = _placed_cache(cache)
+                cp = cache.placement
+                like = (cp.rows_view(cache, reads) if reads
+                        else cp.rows_shapes())
             if lengths is None:
                 raise ValueError("a placed prefill takes every row's "
                                  "length (B,)")
@@ -343,16 +417,14 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
                 raise ValueError(f"tokens hold {tokens.shape[0]} rows; this "
                                  f"rank's are {here.shape[0]} of "
                                  f"{lengths.shape[0]}")
-            reads = (_PREFILL_READS.get(cfg.family, ())
-                     if frontend_embeds is None else ())
             cut = cp.cutter()
             with torch.no_grad():
                 logits, new = model.prefill(
-                    placement.view(params), cp.rows_view(cache, reads),
-                    tokens, cfg, here, frontend_embeds, cut=cut,
-                    split=cp.split())
-            return (logits_out(logits, here),
-                    sharding.PlacedCache(new, cut.placement_after(new)))
+                    placement.view(params, tp), like, tokens, cfg, here,
+                    frontend_embeds, cut=cut, split=cp.split(), **kw)
+                if not full_logits:
+                    logits = gather_vocab(_last_logits(logits, here), tp)
+            return logits, sharding.PlacedCache(new, cut.placement_after(new))
 
         return placed_step
 

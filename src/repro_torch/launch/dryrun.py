@@ -5,7 +5,8 @@ step is traced once on ``meta`` tensors as rank 0 of a fake process group
 of 256 or 512 ranks (:func:`repro_torch.launch.mesh.init_fake_group`):
 
     train    steps.abstract_state(..., mesh=) and make_train_step(mesh=)
-    prefill  make_prefill_step(full_logits=True, mesh=), the frontend's
+    prefill  make_prefill_step(full_logits=True, mesh=) on the cache's
+             placement (it reads no value of it), the frontend's
              embeddings where the config has one
     decode   make_serve_step(mesh=) (greedy) on a meta init_cache placed
              by cache_specs
@@ -16,7 +17,9 @@ nothing.  It answers which cells fit a card and what collectives they
 issue, from the real steps rather than a model of them:
 
 * ``memory.argument_size_in_bytes``: this rank's blocks of the state or
-  params and of the cache, plus its inputs as the step takes them;
+  params and of a decode cell's cache (a prefill cell's step takes the
+  cache's placement, shapes only), plus its inputs as the step takes
+  them;
 * ``memory.output_size_in_bytes``: the step's outputs (state updated in
   place counted, as the reference's undonated outputs are);
 * ``memory.temp_size_in_bytes``: the peak of the bytes of storages the
@@ -365,21 +368,23 @@ def build_cell(arch: str, shape_name, mesh, sell: str = "dense",
     b, s = shape.global_batch, shape.seq_len
     cache_like = model.init_cache(cfg, b, s, device="meta")
     placement = sharding.CachePlacement(cache_like, mesh)
-    cache = placement.place(cache_like if device == "meta"
-                            else model.init_cache(cfg, b, s, device=device))
 
     if shape.kind == "prefill":
+        # the cell's prefill reads no value of its input cache (frames
+        # come with every encoder-decoder row): its placement alone
         inputs = _inputs(specs, mesh, device, vocab, True)
         lengths = (torch.empty((b,), dtype=torch.int32, device="meta")
                    if device == "meta" else
                    torch.full((b,), s, dtype=torch.int32, device=device))
         step = steps_mod.make_prefill_step(model, cfg, full_logits=True,
                                            mesh=mesh)
-        args = [params, cache, inputs["tokens"], lengths]
+        args = [params, placement, inputs["tokens"], lengths]
         if "frontend_embeds" in inputs:
             args.append(inputs["frontend_embeds"])
         return step, tuple(args)
 
+    cache = placement.place(cache_like if device == "meta"
+                            else model.init_cache(cfg, b, s, device=device))
     if shape.kind == "decode":
         inputs = _inputs(specs, mesh, device, vocab, False)
         if device != "meta":

@@ -64,22 +64,55 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, tp=None):
+    """q (..., Hq, Dh), k / v (..., Hkv, Dh).  Under ``tp``
+    (:class:`repro_torch.dist.sharding.TensorSplit`) with ``wq`` on its
+    "model" block, q holds this rank's query heads, and k / v this
+    rank's KV heads where ``wk`` / ``wv`` hold their block, else every
+    KV head (:func:`_kv_for_queries` picks those the queries read)."""
     dh = cfg.head_dim_
     d = cfg.d_model
-    q = linear.linear_apply(params["wq"], xq, d, cfg.n_heads * dh, cfg,
-                            "attn_qkv")
-    k = linear.linear_apply(params["wk"], xkv, d, cfg.n_kv_heads * dh, cfg,
-                            "attn_qkv")
-    v = linear.linear_apply(params["wv"], xkv, d, cfg.n_kv_heads * dh, cfg,
-                            "attn_qkv")
-    q = q.reshape(*xq.shape[:-1], cfg.n_heads, dh)
-    k = k.reshape(*xkv.shape[:-1], cfg.n_kv_heads, dh)
-    v = v.reshape(*xkv.shape[:-1], cfg.n_kv_heads, dh)
+    nq, nkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    xq_in = xkv_in = None
+    if tp is not None and linear.splits_out(params["wq"], nq):
+        xq_in = tp.copy(xq)
+        if linear.splits_out(params["wk"], nkv):
+            xkv_in = xq_in if xkv is xq else tp.copy(xkv)
+    q = linear.linear_apply(params["wq"], xq if xq_in is None else xq_in,
+                            d, nq, cfg, "attn_qkv", tp)
+    xk = xkv if xkv_in is None else xkv_in
+    k = linear.linear_apply(params["wk"], xk, d, nkv, cfg, "attn_qkv", tp)
+    v = linear.linear_apply(params["wv"], xk, d, nkv, cfg, "attn_qkv", tp)
+    q = q.reshape(*xq.shape[:-1], q.shape[-1] // dh, dh)
+    k = k.reshape(*xkv.shape[:-1], k.shape[-1] // dh, dh)
+    v = v.reshape(*xkv.shape[:-1], v.shape[-1] // dh, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"]["scale"], cfg.norm_eps)
+        # a scale shared by the heads: on a block of them, its gradient
+        # is this rank's share and sums over "model"
+        qs, ks = params["q_norm"]["scale"], params["k_norm"]["scale"]
+        q = rms_norm(q, qs if xq_in is None else tp.copy(qs), cfg.norm_eps)
+        k = rms_norm(k, ks if xkv_in is None else tp.copy(ks), cfg.norm_eps)
     return q, k, v
+
+
+def _kv_for_queries(k: torch.Tensor, v: torch.Tensor, hq: int,
+                    cfg: ModelConfig, tp=None):
+    """The KV heads (..., S, Hkv', Dh) that ``hq`` query heads read: all
+    of them, unless the queries are this rank's block of heads under
+    ``tp`` and k / v every KV head (their ``wk`` / ``wv`` did not split
+    with the heads): then the KV heads of those queries' groups, whose
+    gradient sums over "model" (each rank's query heads read them)."""
+    hkv = cfg.n_kv_heads
+    if tp is None or hq == cfg.n_heads or k.shape[-2] < hkv:
+        return k, v
+    group = cfg.n_heads // hkv
+    first = tp.index * hq
+    if (hq % group if hq >= group else group % hq) or first % min(
+            group, hq):
+        raise ValueError(f"{hq} query heads a rank straddle the groups of "
+                         f"{group} query heads a KV head")
+    heads = slice(first // group, (first + hq - 1) // group + 1)
+    return tp.copy(k)[..., heads, :], tp.copy(v)[..., heads, :]
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor],
@@ -209,22 +242,27 @@ def attend_split(q: torch.Tensor, cache_k: torch.Tensor,
 
 def attention_prefill(params: dict, x: torch.Tensor,
                       positions: torch.Tensor, window: int,
-                      cfg: ModelConfig
+                      cfg: ModelConfig, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal self-attention over a whole prompt, returning post-RoPE K/V
-    for the cache: x (B, S, D) -> (out (B, S, D), k, v (B, S, Hkv, Dh))."""
-    q, k, v = _project_qkv(params, x, x, cfg)
+    for the cache: x (B, S, D) -> (out (B, S, D), k, v (B, S, Hkv, Dh)).
+    Under ``tp`` each rank projects and attends its query heads (only
+    their scores exist) and ``wo`` completes the output over "model";
+    k / v are then this rank's KV heads where they split with the
+    queries, else every KV head (:func:`_project_qkv`)."""
+    q, k, v = _project_qkv(params, x, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    ka, va = _kv_for_queries(k, v, q.shape[-2], cfg, tp)
     if cfg.attn_impl == "chunked":
-        out = _sdpa_chunked(q, k, v, positions, window, cfg)
+        out = _sdpa_chunked(q, ka, va, positions, window, cfg)
     else:
         mask = causal_window_mask(positions, positions, window)
-        out = _sdpa(q, k, v, mask, cfg)
+        out = _sdpa(q, ka, va, mask, cfg)
     dh = cfg.head_dim_
-    out = out.reshape(*x.shape[:-1], cfg.n_heads * dh)
+    out = out.reshape(*x.shape[:-1], q.shape[-2] * dh)
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
-                              cfg.d_model, cfg, "attn_out")
+                              cfg.d_model, cfg, "attn_out", tp)
     return out, k, v
 
 

@@ -165,14 +165,31 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed_lookup(params: dict, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    # gather then cast == the reference's cast then gather, elementwise
-    return params["table"][tokens.long()].to(dtype)
+                 dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """The tokens' rows of the table, in ``dtype``.  Under ``tp`` (a
+    :class:`repro_torch.dist.sharding.TensorSplit`) with the table on its
+    "model" block of the vocabulary, each rank looks up the tokens in its
+    block, zero for the others, and the blocks' rows are summed over
+    "model"."""
+    table = params["table"]
+    vocab = tp.vocab if tp is not None else table.shape[0]
+    if table.shape[0] == vocab:
+        # gather then cast == the reference's cast then gather, elementwise
+        return table[tokens.long()].to(dtype)
+    block = tp.block(vocab, table.shape[0])
+    idx = tokens.long() - block.start
+    here = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(here, idx, torch.zeros_like(idx))].to(dtype)
+    return tp.reduce(rows * here[..., None].to(dtype))
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    # logits in fp32
-    return torch.matmul(x.float(), params["table"].float().T)
+def unembed(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """fp32 logits (..., V); under ``tp`` with the table on its block of
+    the vocabulary, this rank's block of them (..., V / model)."""
+    x = x.float()
+    if tp is not None and params["table"].shape[0] < tp.vocab:
+        x = tp.copy(x)
+    return torch.matmul(x, params["table"].float().T)
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float,
@@ -204,17 +221,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, rows=None, tp=None) -> torch.Tensor:
     """Masked next-token cross-entropy (positions with label < 0 carry no
     loss), mean over the unmasked positions.  ``cfg.ce_impl``:
 
     * ``"onehot"`` (the default) — ``lse(logits) - sum(logits * onehot)``
       in fp32 with the max shift held constant, as the reference writes it;
     * ``"gather"`` — ``-log_softmax(logits)`` at the label.
+
+    ``rows`` (a placed train step's
+    :class:`repro_torch.dist.sharding.Rows`): ``logits`` are this rank's
+    rows, and the loss is the whole batch's masked mean, the numerators
+    summed over the rows over ``rows.count``.  ``tp`` (a
+    :class:`repro_torch.dist.sharding.TensorSplit`) with ``logits`` this
+    rank's block of the vocabulary (``"onehot"`` only): the max is taken
+    over "model" and held constant, the sum of exponentials and the true
+    logit are summed over "model", the reference's reductions over its
+    split vocabulary axis.
     """
     mask = (labels >= 0).float()
     labels = torch.clamp_min(labels.long(), 0)
-    if cfg.ce_impl == "onehot":
+    if tp is not None and logits.shape[-1] < tp.vocab:
+        if cfg.ce_impl != "onehot":
+            raise ValueError("ce_impl='gather' needs the whole vocabulary; "
+                             "under a vocabulary split over \"model\" use "
+                             "'onehot'")
+        lf = logits.float()
+        block = tp.block(tp.vocab, lf.shape[-1])
+        m = tp.max(torch.amax(lf, dim=-1, keepdim=True))
+        lse = torch.log(tp.reduce(torch.sum(torch.exp(lf - m), dim=-1))) \
+            + m[..., 0]
+        idx = labels - block.start
+        here = (idx >= 0) & (idx < lf.shape[-1])
+        idx = torch.where(here, idx, torch.zeros_like(idx))
+        # lf at the label, 0 off this block: sum(lf * onehot) exactly
+        true = torch.gather(lf, -1, idx[..., None])[..., 0] * here.float()
+        nll = lse - tp.reduce(true)
+    elif cfg.ce_impl == "onehot":
         lf = logits.float()
         m = torch.amax(lf, dim=-1, keepdim=True).detach()
         lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
@@ -223,6 +266,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     else:
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    if rows is not None:
+        return rows.sum(torch.sum(nll * mask)) / rows.count
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 

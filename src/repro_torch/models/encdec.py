@@ -151,12 +151,14 @@ def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return unembed(params["embed"], x)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            rows=None) -> torch.Tensor:
     """Next-token cross-entropy of the decoder over ``batch["tokens"]``
     against ``batch["labels"]``, conditioned on
-    ``batch["frontend_embeds"]``."""
+    ``batch["frontend_embeds"]``; ``rows`` as in
+    :func:`repro_torch.models.transformer.loss_fn`."""
     logits = apply(params, batch["tokens"], cfg, batch["frontend_embeds"])
-    return cross_entropy(logits, batch["labels"], cfg)
+    return cross_entropy(logits, batch["labels"], cfg, rows)
 
 
 # ---------------------------------------------------------------------------

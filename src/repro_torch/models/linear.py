@@ -4,8 +4,18 @@
 A projection whose ``role`` is listed in ``cfg.sell_targets`` (with
 ``cfg.sell_kind != 'dense'``) is a structured efficient linear layer —
 by default an order-K ACDC cascade, lane-aligned to 128 — otherwise a
-dense ``x @ w``.  Single-device port: the reference's batch-sharding
-constraint has nothing to constrain here.
+dense ``x @ w``.
+
+Under tensor parallelism (``tp``, a
+:class:`repro_torch.dist.sharding.TensorSplit`) a dense projection may
+hold its "model" block, read from its weight's shape: output columns
+(``wq``, ``wk``, ``wv``, ``wg``, ``wu``: the caller passes an input whose
+gradient sums over "model", ``tp.copy``) or input rows (``wo``, ``wd``:
+the partial sums are reduced over "model" here).  A SELL projection is
+never split: it runs batch-local on the whole feature dim, as the
+reference's ``_batch_local_constraint`` pins it, and an input that
+arrives split over "model" (the heads before a SELL ``wo``) is gathered
+first.
 """
 
 from __future__ import annotations
@@ -51,13 +61,32 @@ def linear_init(gen: torch.Generator, n_in: int, n_out: int,
                                      dtype=dtype, device=device)}
 
 
+def splits_out(params: dict, n_out: int) -> bool:
+    """Whether a dense projection holds a block of its output columns."""
+    return "w" in params and params["w"].shape[-1] < n_out
+
+
+def splits_in(params: dict, n_in: int) -> bool:
+    """Whether a dense projection holds a block of its input rows."""
+    return "w" in params and params["w"].shape[-2] < n_in
+
+
 def linear_apply(params: dict, x: torch.Tensor, n_in: int, n_out: int,
-                 cfg: ModelConfig, role: str) -> torch.Tensor:
+                 cfg: ModelConfig, role: str, tp=None,
+                 partial: bool = False) -> torch.Tensor:
+    """``x @ w`` or the SELL layer.  Under ``tp`` (see the module's
+    docstring) a projection on a block of its input rows returns the sum
+    over "model" of the blocks' products, or with ``partial`` this
+    rank's own, for the caller to reduce with others."""
     if "sell" in params:
+        if x.shape[-1] < n_in:
+            x = tp.gather(x, -1)
         return sell_mod.structured_linear(params["sell"], x,
                                           _sell_cfg(cfg, n_in, n_out))
-    return torch.matmul(x, params["w"].to(x.dtype))
-
+    out = torch.matmul(x, params["w"].to(x.dtype))
+    if splits_in(params, n_in) and not partial:
+        out = tp.reduce(out)
+    return out
 
 
 def linear_param_count(cfg: ModelConfig, role: str, n_in: int,

@@ -92,44 +92,49 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig,
-         rows=None) -> torch.Tensor:
+         rows=None, tp=None) -> torch.Tensor:
     """The residual feed-forward half of a layer: the MLP or the MoE
-    (``rows`` a placed step's, :func:`repro_torch.models.mlp.moe`)."""
+    (``rows`` a placed step's, :func:`repro_torch.models.mlp.moe`; ``tp``
+    its :class:`repro_torch.dist.sharding.TensorSplit`)."""
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
     if "moe" in layer:
-        return x + mlp_mod.moe(layer["moe"], h, cfg, rows)
-    return x + mlp_mod.mlp(layer["mlp"], h, cfg)
+        return x + mlp_mod.moe(layer["moe"], h, cfg, rows, tp)
+    return x + mlp_mod.mlp(layer["mlp"], h, cfg, tp=tp)
 
 
 def _layer_fn(layer: dict, x: torch.Tensor, positions: torch.Tensor,
-              window: int, cfg: ModelConfig
+              window: int, cfg: ModelConfig, rows=None, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the full-sequence forward -> (x, aux loss: the MoE
-    layer's load-balance loss, else 0)."""
+    layer's load-balance loss, else 0).  ``rows`` (a placed train step's
+    :class:`repro_torch.dist.sharding.Rows`) makes the MoE's queues and
+    its aux loss the whole batch's; ``tp`` computes on "model" blocks."""
     h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
     out, _, _ = attn_mod.attention_prefill(layer["attn"], h, positions,
-                                           window, cfg)
+                                           window, cfg, tp)
     x = x + out
     if "moe" not in layer:
-        return _ffn(layer, x, cfg), torch.zeros((), device=x.device)
+        return _ffn(layer, x, cfg, tp=tp), torch.zeros((), device=x.device)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
-    return (x + mlp_mod.moe(layer["moe"], h, cfg),
-            mlp_mod.moe_aux_loss(layer["moe"], h, cfg))
+    return (x + mlp_mod.moe(layer["moe"], h, cfg, rows, tp),
+            mlp_mod.moe_aux_loss(layer["moe"], h, cfg, rows))
 
 
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+             cfg: ModelConfig, rows=None, tp=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stacked layers and the final norm over x (B, S, D) -> (hidden,
     the layers' mean aux loss).  Under ``cfg.remat`` with grad enabled
     each layer saves only its input and is recomputed whole in the
     backward (no early stop), as the reference's
-    ``jax.checkpoint(..., nothing_saveable)``."""
+    ``jax.checkpoint(..., nothing_saveable)``; a placed layer's gather,
+    model-local or whole, stays inside the checkpointed layer."""
     windows = cfg.layer_windows()
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.n_layers):
         x, aux = run_layer(_layer_fn, params["layers"], i, x, positions,
-                           int(windows[i]), cfg, remat=remat)
+                           int(windows[i]), cfg, rows, tp, remat=remat)
         auxes.append(aux)
     return (rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps),
             torch.mean(torch.stack(auxes)))
@@ -141,11 +146,11 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def embed_with_frontend(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                        frontend_embeds: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        frontend_embeds: Optional[torch.Tensor] = None,
+                        tp=None) -> torch.Tensor:
     """The embedded tokens (B, S, D) with the first P positions replaced
     by a frontend's embeddings (B, P, D) (LLaVA's stub patch prefix)."""
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     if frontend_embeds is None:
         return x
     p = frontend_embeds.shape[1]
@@ -153,25 +158,34 @@ def embed_with_frontend(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward -> fp32 logits (B, S, V)."""
-    x = embed_with_frontend(params, tokens, cfg, frontend_embeds)
-    x, _ = backbone(params, x, _positions(tokens), cfg)
-    return unembed(params["embed"], x)
+          frontend_embeds: Optional[torch.Tensor] = None,
+          tp=None) -> torch.Tensor:
+    """Full-sequence forward -> fp32 logits (B, S, V); under ``tp`` (the
+    model-local view's :class:`repro_torch.dist.sharding.TensorSplit`)
+    this rank's block of the vocabulary (B, S, V / model)."""
+    x = embed_with_frontend(params, tokens, cfg, frontend_embeds, tp)
+    x, _ = backbone(params, x, _positions(tokens), cfg, tp=tp)
+    return unembed(params["embed"], x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rows=None,
+            tp=None) -> torch.Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
     ``batch["labels"]``; positions with label < 0 are masked.  MoE
     configs add ``0.01`` times the layers' mean load-balance loss.  A
     ``batch["frontend_embeds"]`` (B, P, D) replaces the first P embedded
-    positions (the pipeline masks their labels for a vision prefix)."""
+    positions (the pipeline masks their labels for a vision prefix).
+    ``rows`` (a placed train step's
+    :class:`repro_torch.dist.sharding.Rows`): ``batch`` is this rank's
+    rows and the loss the whole batch's (the masked mean and the aux
+    loss over every row), each rank's gradient its rows' share; ``tp``
+    computes on "model" blocks."""
     tokens = batch["tokens"]
     x = embed_with_frontend(params, tokens, cfg,
-                            batch.get("frontend_embeds"))
-    x, aux = backbone(params, x, _positions(tokens), cfg)
-    logits = unembed(params["embed"], x)
-    loss = cross_entropy(logits, batch["labels"], cfg)
+                            batch.get("frontend_embeds"), tp)
+    x, aux = backbone(params, x, _positions(tokens), cfg, rows, tp)
+    logits = unembed(params["embed"], x, tp)
+    loss = cross_entropy(logits, batch["labels"], cfg, rows, tp)
     if cfg.n_experts > 0:
         loss = loss + 0.01 * aux
     return loss
@@ -192,32 +206,37 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
                                         device)
 
 
-def keep(name: str, layer: torch.Tensor) -> torch.Tensor:
+def keep(name: str, layer: torch.Tensor,
+         heads_local: bool = False) -> torch.Tensor:
     """A prefill's default ``cut``: each layer's new cache leaf whole."""
-    del name
+    del name, heads_local
     return layer
 
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None, cut=keep,
-            split=None) -> Tuple[torch.Tensor, dict]:
+            split=None, tp=None) -> Tuple[torch.Tensor, dict]:
     """Forward over right-padded prompts -> (logits (B, S, V), a NEW
     cache shaped like ``cache`` holding each row's prompt K/V, zero at
     and beyond its length); ``frontend_embeds`` as in :func:`apply`.
-    ``cut(name, layer)`` takes each layer's new leaf as it is made (a
-    placed prefill keeps this rank's block:
+    ``cut(name, layer, heads_local)`` takes each layer's new leaf as it
+    is made (a placed prefill keeps this rank's block:
     :class:`repro_torch.dist.sharding.LayerCut`); ``cache`` is read for
     its shapes and dtypes only.  ``split`` (a placed prefill's
     :class:`repro_torch.dist.sharding.DecodeSplit`) gives an MoE layer
-    the batch's rows split over ranks."""
+    the batch's rows split over ranks.  ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`): each layer computes
+    on "model" blocks, the new K/V are this rank's KV heads where they
+    split over "model", and the logits this rank's block of the
+    vocabulary (B, S, V / model)."""
     rows = None if split is None else split.rows
     b, s = tokens.shape
     smax = cache["k"].shape[2]
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
-    x = embed_with_frontend(params, tokens, cfg, frontend_embeds)
+    x = embed_with_frontend(params, tokens, cfg, frontend_embeds, tp)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     windows = cfg.layer_windows()
     ks, vs = [], []
@@ -225,13 +244,14 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, k, v = attn_mod.attention_prefill(layer["attn"], h, positions,
-                                               int(windows[i]), cfg)
-        x = _ffn(layer, x + out, cfg, rows)
+                                               int(windows[i]), cfg, tp)
+        x = _ffn(layer, x + out, cfg, rows, tp)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(cut("k", ck))
-        vs.append(cut("v", cv))
+        local = k.shape[2] < cfg.n_kv_heads
+        ks.append(cut("k", ck, local))
+        vs.append(cut("v", cv, local))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = unembed(params["embed"], x)
+    logits = unembed(params["embed"], x, tp)
     return logits, {"k": torch.stack(ks).to(cache["k"].dtype),
                     "v": torch.stack(vs).to(cache["v"].dtype)}
 

@@ -120,9 +120,12 @@ def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return unembed(params["embed"], x)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            rows=None) -> torch.Tensor:
+    """Next-token cross-entropy; ``rows`` as in
+    :func:`repro_torch.models.transformer.loss_fn`."""
     logits = apply(params, batch["tokens"], cfg)
-    return cross_entropy(logits, batch["labels"], cfg)
+    return cross_entropy(logits, batch["labels"], cfg, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -123,6 +123,8 @@ def serve(src, arrays: dict, facts: dict) -> None:
         prefill = steps.make_prefill_step(model, cfg, full_logits=True,
                                           mesh=mesh)
         logits, cache = prefill(params, cache, tokens[rows], lengths)
+        # this rank's block of the vocabulary, gathered over "model"
+        logits = steps.gather_vocab(logits, steps.tensor_split(cfg, mesh))
         arrays[pre + "logits"] = logits.numpy().copy()
         arrays.update({f"{pre}cache/{k}": v.numpy().copy()
                        for k, v in cache.items()})

@@ -76,6 +76,8 @@ def serve(src, case: str, mesh, arrays: dict, facts: dict) -> None:
     prefill = steps.make_prefill_step(model, cfg, full_logits=True,
                                       mesh=mesh)
     logits, cache = prefill(params, cache, tokens[rows], lengths, frames)
+    # a decoder's are this rank's block of the vocabulary: gathered
+    logits = steps.gather_vocab(logits, steps.tensor_split(cfg, mesh))
     arrays[pre + "logits"] = logits.numpy().copy()
     step = steps.make_serve_step(model, cfg, mesh=mesh)
     tok, pos = torch.from_numpy(src[pre + "first"]), lengths.clone()

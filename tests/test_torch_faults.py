@@ -41,6 +41,7 @@ from repro_torch.serving import FaultPlan as TFault
 from repro_torch.serving import FinishReason
 from repro_torch.serving import Request as TRequest
 
+from _torch_clock import StepClock
 from _torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -185,9 +186,11 @@ def test_chaos_run_recovers_clean_like_reference(models):
     runs = []
     for eng_cls, req_cls, fault_cls, model, cfg, params in models:
         def build(fault=None):
+            # its own step clock: on the wall clock a loaded machine's
+            # slow ticks moved one engine's ladder and not the other's
             return eng_cls(model, cfg, params, n_slots=3, max_len=48,
                            max_prompt_len=24, paged=True, block_size=8,
-                           n_blocks=10, fault=fault)
+                           n_blocks=10, fault=fault, clock=StepClock())
 
         base = _mk_requests(req_cls, cfg.vocab_size)
         build().run(base, max_ticks=2000)
@@ -235,7 +238,7 @@ def test_out_of_range_decode_ids_requeue_like_reference(models, paged):
         kw = dict(n_slots=2, max_len=32, max_prompt_len=24)
         if paged:
             kw.update(paged=True, block_size=4)
-        eng = eng_cls(model, cfg, params, **kw)
+        eng = eng_cls(model, cfg, params, clock=StepClock(), **kw)
         decode, calls = eng._decode, [0]
 
         def corrupt(*args, decode=decode, calls=calls, bad=bad,

@@ -110,7 +110,9 @@ result line if any fails):
    paged and 1 speculative tick paged through
    ``obs.prof.ProfileWindow``, one prefill admission, one train step):
    device busy share, host time and kernels a step, the ten kernels with
-   the most device time; the window must hold kernels, and
+   the most device time; the window must hold kernels, its trace every
+   kernel launch of the window with its device record (a session opens
+   with a primer: ``obs.prof.start_profiler``), and
    ``scaled_matmul`` (by regime in the windows of ticks) / ``paged_attn``
    kernels in the trace must equal the wrappers' counts;
 10. print ``{"kernels": [...]}`` (six kernels), then the final
@@ -3203,9 +3205,16 @@ def check_profile(label, logdir, summary, wrapper_counts,
     CUDA kernels, and each wrapper's primary kernels in the trace must
     number the wrapper's own launch count over the same window (with
     ``regimes``, ``smm_stream`` and ``smm_tc`` each the count of launches
-    in that regime)."""
+    in that regime).  First the trace must be whole: every kernel launch
+    call of the window with its device record (``window_launches_lost``;
+    the records a session loses fall on the primer it opens with)."""
     if summary["kernels"] == 0:
         _fail(f"profile {label}: no CUDA kernel events in the window")
+    if summary["window_launches_lost"]:
+        _fail(f"profile {label}: the trace lost the device records of "
+              f"{summary['window_launches_lost']} kernel launches of the "
+              f"window ({summary['launches_lost']} lost in all, "
+              f"{summary['primer_kernels']} primer kernels kept)")
     trace = json.loads((Path(logdir) / "trace.json").read_text())
     kernels = [e["name"] for e in trace["traceEvents"]
                if e.get("ph") == "X" and e.get("cat") == "kernel"]
@@ -3230,7 +3239,8 @@ def check_profile(label, logdir, summary, wrapper_counts,
           f"{s['host_s_per_step'] * 1e3:.3f} ms a step, device busy "
           f"{s['device_busy_s'] / max(s['steps'], 1) * 1e3:.3f} ms a step "
           f"({s['device_busy_share']:.1%}), {s['kernels_per_step']:.1f} "
-          f"kernels a step; wrappers {seen}", flush=True)
+          f"kernels a step; wrappers {seen}; launch records lost "
+          f"{s['launches_lost']}, all of them the primer's", flush=True)
     for name, cnt, sec in s["top"]:
         print(f"[profile]   {sec * 1e3:9.3f} ms {cnt:6d} x {name[:110]}",
               flush=True)
@@ -3301,7 +3311,7 @@ def profile_full_width(dev):
     from repro_torch.dist import steps as steps_mod
     from repro_torch.launch import serve, train
     from repro_torch.obs import Observability, Prof, ProfileWindow
-    from repro_torch.obs.prof import profiler_for, write_profile
+    from repro_torch.obs.prof import start_profiler, write_profile
     from repro_torch.serving import Engine, Request
 
     root = ROOT / "build" / "chip_smoke_profile"
@@ -3363,16 +3373,15 @@ def profile_full_width(dev):
     batch = train.batch_on(pipeline, 2, dev)
     torch.cuda.synchronize(dev)
     before = read_counts()
-    prof = profiler_for(dev)
     with no_sweeps(f"profile {label}"):
-        prof.start()
+        prof, primer = start_profiler(dev)
         t0 = time.perf_counter()
         state, _ = train_step(state, batch)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         prof.stop()
     after = read_counts()
-    summary = write_profile(prof, str(root / label), 1, wall)
+    summary = write_profile(prof, str(root / label), 1, wall, primer=primer)
     info = check_profile(label, root / label, summary,
                          {k: after[k] - before[k] for k in after})
     info["unprofiled_tick_s"] = unprofiled[1:]

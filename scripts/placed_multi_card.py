@@ -6,20 +6,24 @@ step time.
         --train qwen3_1_7b:2:3 --train deepseek_67b:1:3 \\
         --out chiprun_out/placed_multi_card.json
 
-Each ``--train ARCH:MODEL_PARALLEL:STEPS[:DTYPE]`` (DTYPE overrides the
-compute dtype, e.g. ``float32``) builds the train launcher's
-pieces (``launch.train.build``: ``--sell acdc --sell-method pallas``,
-batch 4 x 128 split over "data", the (data, model) mesh of the world size
-and MODEL_PARALLEL) and trains STEPS steps from seed 0 with no
-checkpoint.  Per rank: the bytes of its params and moments at rest (and
-the full state's), the peak memory of the placed init and of the steps
+Each ``--train ARCH:MODEL_PARALLEL:STEPS[:OPTION...]`` builds the train
+launcher's pieces (``launch.train.build``: ``--sell acdc --sell-method
+pallas``, batch 4 x 128 split over "data", the (data, model) mesh of the
+world size and MODEL_PARALLEL) and trains STEPS steps from seed 0 with no
+checkpoint; an OPTION is a compute dtype that overrides the config's
+(``float32``, ``bfloat16``), a SELL kind (``dense``: plain projections,
+which split over "model"; ``acdc``) or a sequence length (an integer,
+e.g. 256: Mamba2's and Zamba2's SSD chunk).  Per rank: the bytes of its
+params and moments at rest (and the full state's), the peak memory of
+the placed init and of the steps
 (``torch.cuda.max_memory_allocated``), the losses and the s/step of the
 steps after the first.  ``--replicated ARCH`` also trains that config
 with its whole state on every rank, data-parallel over the same mesh's
-"data" group and rows (what placement changes), and on rank 0 alone over
-the whole global batch (the other ranks wait), for the losses to compare:
-the placed losses within ``POD_LOSS_RTOL`` of the data-parallel ones (a
-decoder at MODEL_PARALLEL > 1 computes on its "model" blocks:
+"data" group and rows (what placement changes), and, where that group
+holds more than one rank, on rank 0 alone over the whole global batch
+(the other ranks wait), for the losses to compare: the placed losses
+within ``POD_LOSS_RTOL`` of the data-parallel ones (a decoder, Mamba2 or
+Zamba2 at MODEL_PARALLEL > 1 computes on its "model" blocks:
 tensor-parallel).  Rank 0 prints a line a run and writes every rank's
 numbers, with the card's name and power limit, to ``--out``.
 
@@ -31,7 +35,8 @@ and 8 greedy decode steps through ``make_prefill_step(mesh=)`` /
 ``make_serve_step(mesh=)`` on a cache placed by ``cache_specs`` (K/V or
 SSM heads over "model" where they divide it: head-parallel decode), in
 fp32 and in bf16 compute, beside the same steps unplaced on rank 0
-alone.  ``--serve-long ARCH:MODEL_PARALLEL`` serves one row the same
+alone (the ``full_logits`` prefill's logits at every real position held
+too, beside one card's prefill of each row alone).  ``--serve-long ARCH:MODEL_PARALLEL`` serves one row the same
 way on an 8192-position cache (its sequence split over "data"): a
 4090-token prompt, then 12 decode steps through position 4101, across
 the blocks' boundary at 4096 for two data ranks.  Held: the fp32 logits
@@ -112,11 +117,28 @@ def smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def launcher_args(arch: str, model_parallel: int, steps: int):
+def launcher_args(arch: str, model_parallel: int, steps: int,
+                  sell: str = "acdc", seq_len: int = 128):
     return train.parse_args([
-        "--arch", arch, "--sell", "acdc", "--sell-method", "pallas",
-        "--global-batch", "4", "--seq-len", "128", "--steps", str(steps),
-        "--model-parallel", str(model_parallel), "--device", DEVICE])
+        "--arch", arch, "--sell", sell, "--sell-method", "pallas",
+        "--global-batch", "4", "--seq-len", str(seq_len), "--steps",
+        str(steps), "--model-parallel", str(model_parallel), "--device",
+        DEVICE])
+
+
+def train_spec(spec: str) -> dict:
+    """``ARCH:MODEL_PARALLEL:STEPS[:OPTION...]`` -> :func:`placed_run`'s
+    keywords (see the module's docstring)."""
+    arch, mp, n, *opts = spec.split(":")
+    out = dict(arch=arch, model_parallel=int(mp), steps=int(n))
+    for opt in opts:
+        if opt.isdigit():
+            out["seq_len"] = int(opt)
+        elif opt in ("float32", "bfloat16"):
+            out["dtype"] = opt
+        else:
+            out["sell"] = opt
+    return out
 
 
 def train_steps(step_fn, state, batch_at, n: int) -> tuple:
@@ -133,10 +155,11 @@ def train_steps(step_fn, state, batch_at, n: int) -> tuple:
 
 
 def placed_run(arch: str, model_parallel: int, steps: int,
-               dtype: str = "") -> tuple:
+               dtype: str = "", sell: str = "acdc",
+               seq_len: int = 128) -> tuple:
     """(this rank's numbers, (cfg, model, opt, the batch source));
     ``dtype`` overrides the compute dtype."""
-    args = launcher_args(arch, model_parallel, steps)
+    args = launcher_args(arch, model_parallel, steps, sell, seq_len)
     cfg, model, opt, step_fn, pipeline = train.build(args)
     dp = pipeline.dp
     if dtype:
@@ -339,12 +362,15 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                             lengths)
     _sync()
     prefill_s = time.perf_counter() - t0
-    # a decoder's full logits are this rank's block of the vocabulary
+    # a tensor-parallel prefill's full logits are this rank's block of
+    # the vocabulary
     logits = steps_mod.gather_vocab(logits,
                                     steps_mod.tensor_split(cfg, mesh))
     last = logits[torch.arange(len(rows)), lengths[rows.to(DEVICE)].long()
                   - 1].float()
     full_last = sharding._all_gather(last.contiguous(), spec, mesh)
+    full_logits = (None if long else sharding._all_gather(
+        logits.float().contiguous(), tuple(spec) + (None, None), mesh))
     first = full_last.argmax(-1)
     del logits
     streams, secs, cache, tok, pos = decode(serve, placed_p, cache, first)
@@ -367,7 +393,17 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
             one_logits, cache = prefill(params, cache, tokens, lengths)
             one_last = one_logits[torch.arange(b), lengths.long()
                                   - 1].float()
+            one_full = None if long else one_logits.float()
             del one_logits
+            if one_full is not None:
+                # control: one card's prefill of each row alone (its sums
+                # in another order), at every real position
+                out["prefill_rows_alone_max_abs"] = max(
+                    float((prefill(params, model.init_cache(
+                        cfg, 1, cache_len, device=DEVICE),
+                        tokens[r:r + 1], lengths[r:r + 1])[0][0, :n]
+                        .float() - one_full[r, :n]).abs().max())
+                    for r, n in enumerate(lengths.tolist()))
             blocks = None
             if cfg.family == "ssm" and model_parallel > 1:
                 # control: the whole decode in head blocks on one card
@@ -397,6 +433,13 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                                / max(len(one_secs) - 1, 1))
         diff = (full_last - one_last).abs()
         out["last_logits_max_abs"] = float(diff.max())
+        if full_logits is not None:     # every real position's
+            real = (torch.arange(plen, device=DEVICE)[None, :]
+                    < lengths[:, None])
+            gap = (full_logits - one_full).abs().amax(-1) * real
+            worst = int(gap.argmax())
+            out["full_logits_max_abs"] = float(gap.max())
+            out["full_logits_worst"] = [worst // plen, worst % plen]
         same = streams.tolist() == one_streams.tolist()
         out["step_logits_max_abs"] = (float((step_logits - one_step).abs()
                                             .max()) if same else None)
@@ -410,6 +453,7 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
         if dtype == "float32":
             out["logits_ok"] = bool(
                 diff.max() <= SERVE_FP32_ATOL
+                and out.get("full_logits_max_abs", 0.0) <= SERVE_FP32_ATOL
                 and (not same or out["step_logits_max_abs"]
                      <= SERVE_FP32_ATOL))
         out["streams_held"] = hold_streams(
@@ -543,17 +587,21 @@ def main() -> int:
     report = {"device": smi(), "world": dist.get_world_size(), "runs": []}
     try:
         for spec in args.train:
-            arch, mp, n, *dtype = spec.split(":")
-            mine, pieces = placed_run(arch, int(mp), int(n), *dtype)
+            kw = train_spec(spec)
+            arch, n = kw["arch"], kw["steps"]
+            mine, pieces = placed_run(**kw)
             ranks = [None] * dist.get_world_size()
             dist.all_gather_object(ranks, mine)
-            run = dict(arch=arch, model_parallel=int(mp), ranks=ranks,
-                       dtype=pieces[0].dtype)
+            run = dict(arch=arch, model_parallel=kw["model_parallel"],
+                       ranks=ranks, dtype=pieces[0].dtype,
+                       sell=pieces[0].sell_kind,
+                       seq_len=kw.get("seq_len", 128))
             if arch in args.replicated:
-                run["data_parallel"] = replicated_run(
-                    pieces, int(n), pieces[3].dp.group)
+                group = pieces[3].dp.group
+                run["data_parallel"] = replicated_run(pieces, n, group)
                 if rank == 0:
-                    run["replicated"] = replicated_run(pieces, int(n))
+                    if dist.get_world_size(group) > 1:
+                        run["replicated"] = replicated_run(pieces, n)
                     rel = max(abs(a - b) / abs(b) for a, b in zip(
                         ranks[0]["losses"], run["data_parallel"]["losses"]))
                     run.update(loss_rel=rel, losses_ok=rel <= POD_LOSS_RTOL)
@@ -562,8 +610,8 @@ def main() -> int:
             report["runs"].append(run)
             if rank == 0:
                 gb = 1e9
-                print(f"[placed] {arch} {run['dtype']} mesh "
-                      f"{ranks[0]['mesh']} "
+                print(f"[placed] {arch} {run['sell']} {run['dtype']} "
+                      f"4 x {run['seq_len']} mesh {ranks[0]['mesh']} "
                       f"({report['device']}): at rest "
                       f"{[round(r['rest_bytes'] / gb, 3) for r in ranks]} GB"
                       f" of {ranks[0]['full_bytes'] / gb:.3f}; peak init "
@@ -573,9 +621,10 @@ def main() -> int:
                       f"; losses {ranks[0]['losses']}"
                       + (f"; replicated data-parallel "
                          f"{run['data_parallel']}, on one card "
-                         f"{run['replicated']} (losses max rel "
-                         f"{run['loss_rel']:.3g}, ok {run['losses_ok']})"
-                         if "replicated" in run else ""), flush=True)
+                         f"{run.get('replicated', 'as data-parallel')} "
+                         f"(losses max rel {run['loss_rel']:.3g}, ok "
+                         f"{run['losses_ok']})"
+                         if "data_parallel" in run else ""), flush=True)
         world = dist.get_world_size()
         serves = [(a.split(":")[0], int(a.split(":")[1]) if ":" in a
                    else 1, False) for a in args.serve]
@@ -605,7 +654,11 @@ def main() -> int:
                           f"decode {[round(r['decode_s'] * 1e3, 1) for r in ranks]}"
                           f" ms a step (one card {r0['one_card']['decode_s'] * 1e3:.1f});"
                           f" logits max |diff| at the prefill "
-                          f"{r0['last_logits_max_abs']:.3g}, after the "
+                          f"{r0['last_logits_max_abs']:.3g} (every real "
+                          f"position {r0.get('full_logits_max_abs')}; one "
+                          f"card, each row alone: "
+                          f"{r0.get('prefill_rows_alone_max_abs')}), "
+                          f"after the "
                           f"streams {r0['step_logits_max_abs']} (one card, "
                           f"each row alone: {r0['rows_alone_max_abs']:.3g}"
                           + (f"; in head blocks: {r0['head_blocks']}"

@@ -44,10 +44,11 @@ rows, so the gradient is reduce-scattered (summed) and divided by the
 data size; over "model" the ranks of one data row compute the same loss,
 so the gradient is sliced, never summed.
 
-Tensor-parallel compute (:class:`TensorSplit`, the decoder family's placed
-train and prefill steps): a leaf the model computes on its "model" block
-(heads, KV heads, ffn columns, experts, vocabulary) is gathered over the
-row axes only and keeps that block (the model-local view,
+Tensor-parallel compute (:class:`TensorSplit`, the placed train and
+prefill steps of the decoder, ssm and hybrid families): a leaf the model
+computes on its "model" block (heads, KV heads, ffn columns, experts, SSM
+heads' ``out_proj`` rows, vocabulary) is gathered over the row axes only
+and keeps that block (the model-local view,
 ``Placement.view(params, split)``); its gather's backward reduce-scatters
 over the row axes and never slices over "model".  The activations move
 instead, by two differentiable collectives over "model":
@@ -734,10 +735,11 @@ class Rows(Blocks):
 
 
 class TensorSplit:
-    """Tensor-parallel compute over "model" for the decoder family's
-    placed train and prefill steps, as the reference's jit computes them
-    on ``param_specs``' blocks: query heads, KV heads, ffn columns,
-    experts and the vocabulary on this rank's "model" block.
+    """Tensor-parallel compute over "model" for the placed train and
+    prefill steps of the decoder, ssm and hybrid families, as the
+    reference's jit computes them on ``param_specs``' blocks: query heads,
+    KV heads, ffn columns, experts, SSM heads and the vocabulary on this
+    rank's "model" block.
 
     :meth:`keeps` says which leaves the model-local view
     (``Placement.view(params, split)``) keeps as their block: ``wq`` /
@@ -745,11 +747,16 @@ class TensorSplit:
     heads do too (else they are gathered whole and each rank projects
     every KV head and keeps those its query heads read); a dense
     ``wg`` / ``wu`` / ``wd``; an expert stack split on its expert dim;
-    the embedding table.  Every other leaf is gathered whole (the router:
-    its softmax is over all experts; SELL projections are never split
-    over "model").  The model reads which block it holds from the leaf's
-    shape; :meth:`block` gives its slice.  On a "model" axis of size 1
-    the collectives are identities."""
+    a mamba layer's dense ``out_proj`` where the SSM heads divide "model"
+    (its rows are ``d_inner`` in head order, so its block is this rank's
+    heads'); the embedding table.  Every other leaf is gathered whole (the
+    router: its softmax is over all experts; a mamba ``in_proj``, whose
+    "model" block of ``[z | x | B | C | dt]`` columns does not line up
+    with heads; Zamba2's shared ``in_proj``, whose output is the residual
+    stream; SELL projections are never split over "model").  The model
+    reads which block it holds from the leaf's shape; :meth:`block` gives
+    its slice, :meth:`ssm_block` its SSM heads.  On a "model" axis of
+    size 1 the collectives are identities."""
 
     def __init__(self, mesh, cfg):
         sizes = _axis_sizes(mesh)
@@ -759,6 +766,10 @@ class TensorSplit:
         self.heads = cfg.n_heads % self.n == 0
         self.kv_heads = self.heads and cfg.n_kv_heads % self.n == 0
         self.vocab = cfg.vocab_size
+        # SSM heads split as cache_specs splits the ssm leaf's heads
+        self.ssm_heads = (cfg.d_inner_ // cfg.ssm_head_dim
+                          if cfg.family in ("ssm", "hybrid") else 0)
+        self.ssm_split = self.ssm_heads > 0 and self.ssm_heads % self.n == 0
 
     def keeps(self, path: str, spec: Spec) -> bool:
         """Whether the model computes leaf ``path`` (placed by ``spec``)
@@ -771,11 +782,21 @@ class TensorSplit:
             return False
         if parent in ("wq", "wo"):
             return self.heads
+        if parent == "out_proj":
+            return self.ssm_split
         if parent in ("wk", "wv"):
             return self.kv_heads
         if parent in ("wg", "wu", "wd"):
             return "experts" not in segs or "model" in _axes(spec[-3])
         return segs[-1] == "table" and segs[-2] == "embed"
+
+    def ssm_block(self) -> Optional[slice]:
+        """This rank's SSM heads (a slice), or None where a mamba layer
+        computes every head (no split, or heads that do not divide
+        "model": the reference's divisibility fallback)."""
+        if not self.axes or not self.ssm_split:
+            return None
+        return self.block(self.ssm_heads, self.ssm_heads // self.n)
 
     def block(self, full: int, local: int) -> slice:
         """The slice of a dim of ``full`` entries this rank holds when it

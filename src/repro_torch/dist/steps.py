@@ -112,12 +112,18 @@ def loss_and_grads(model, cfg, params: dict, batch: dict,
     return loss.detach(), tree_unflatten(paths, grads)
 
 
+#: the families whose placed train and prefill steps compute on their
+#: "model" blocks
+TENSOR_PARALLEL = ("decoder", "ssm", "hybrid")
+
+
 def tensor_split(cfg, mesh) -> Optional[sharding.TensorSplit]:
-    """The placed steps' tensor-parallel compute on ``mesh``: the decoder
-    family's (:class:`~repro_torch.dist.sharding.TensorSplit`); None for
-    the families that still compute whole layers on every model rank."""
-    return sharding.TensorSplit(mesh, cfg) if cfg.family == "decoder" \
-        else None
+    """The placed steps' tensor-parallel compute on ``mesh``
+    (:class:`~repro_torch.dist.sharding.TensorSplit`) for the families
+    of ``TENSOR_PARALLEL``; None for those that still compute whole layers
+    on every model rank (the encoder-decoder)."""
+    return (sharding.TensorSplit(mesh, cfg)
+            if cfg.family in TENSOR_PARALLEL else None)
 
 
 def make_train_step(model, cfg, opt, accum_steps: int = 1,
@@ -146,12 +152,13 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     and an MoE layer's queues and aux loss are the whole batch's; each
     rank's gradient is its rows' share, summed over the row axes.  The
     model gathers what it reads
-    (:meth:`~repro_torch.dist.sharding.Placement.view`): the decoder
-    family through the model-local view, each rank computing its "model"
-    blocks (:class:`~repro_torch.dist.sharding.TensorSplit`), the other
-    families whole layers.  A leaf split over a row axis gets this rank's
-    block of its gradient from its gather's backward (reduce-scattered);
-    over each other row axis the step all-reduces it.  The clip and the
+    (:meth:`~repro_torch.dist.sharding.Placement.view`): the families of
+    ``TENSOR_PARALLEL`` through the model-local view, each rank computing
+    its "model" blocks (:class:`~repro_torch.dist.sharding.TensorSplit`),
+    the encoder-decoder whole layers.  A leaf split over a row axis gets
+    this rank's block of its gradient from its gather's backward
+    (reduce-scattered); over each other row axis the step all-reduces
+    it.  The clip and the
     metrics take the mesh-wide norm.  With ``compress`` (a model axis of
     1 and no pod axis above 1 only: the reference compresses over one
     data axis) the step gathers the whole tree, sums the full gradients
@@ -312,7 +319,7 @@ def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def gather_vocab(logits: torch.Tensor,
                  tp: Optional[sharding.TensorSplit]) -> torch.Tensor:
     """Logits (..., V) from this rank's block of the vocabulary (a
-    placed decoder prefill's ``full_logits``), gathered over "model"
+    placed prefill's ``full_logits``), gathered over "model"
     (no autograd); whole logits as they are."""
     if tp is None or logits.shape[-1] == tp.vocab:
         return logits
@@ -362,17 +369,17 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
     (``data_specs``) and ``lengths`` every row's (B,), replicated.  Each
     layer's new K/V or state is cut to this rank's blocks as it is made
     (at most one layer's full leaf beyond the blocks); the new cache is a
-    ``PlacedCache``.  The decoder family computes on its "model" blocks
-    (:class:`~repro_torch.dist.sharding.TensorSplit`: heads, ffn,
-    experts, vocabulary): the last logits are this rank's rows with the
-    vocabulary blocks of the last position gathered over "model" (B, V),
-    and with ``full_logits`` this rank's rows and block of the
-    vocabulary (B, S, V / model) for the caller to gather
-    (:func:`gather_vocab`); the other families' logits are whole.  An
-    encoder-decoder's prefill without frames reads the cache's cross K/V
-    as this rank's block of it, split over heads or frames as the cache
-    is, and an MoE layer queues the whole batch's tokens
-    (:class:`~repro_torch.dist.sharding.DecodeSplit`).
+    ``PlacedCache``.  The families of ``TENSOR_PARALLEL`` compute on their
+    "model" blocks (:class:`~repro_torch.dist.sharding.TensorSplit`:
+    heads, ffn, experts, SSM heads, vocabulary): the last logits are this
+    rank's rows with the vocabulary blocks of the last position gathered
+    over "model" (B, V), and with ``full_logits`` this rank's rows and
+    block of the vocabulary (B, S, V / model) where it splits, for the
+    caller to gather (:func:`gather_vocab`); the encoder-decoder's logits
+    are whole.  An encoder-decoder's prefill without frames reads the
+    cache's cross K/V as this rank's block of it, split over heads or
+    frames as the cache is, and an MoE layer queues the whole batch's
+    tokens (:class:`~repro_torch.dist.sharding.DecodeSplit`).
 
     ``paged=True`` builds the paged admission step instead:
     ``step(params, cache, template, tokens, lengths, phys_blocks[, slot,

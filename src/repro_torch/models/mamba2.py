@@ -17,6 +17,21 @@ reference pytree (``layers/mixer/in_proj/sell/a`` is ``(L, K, N)``).
 ``decode_step`` updates the cache in place; ``verify_step`` returns new
 state tensors and per-position snapshots (the recurrence cannot rewind,
 so a rollback re-selects the state at the accepted length).
+
+Under tensor parallelism (``tp``, a placed train or prefill step's
+:class:`repro_torch.dist.sharding.TensorSplit`) a mamba layer computes
+this rank's block of SSM heads, as the reference's jit computes them on
+``param_specs``' blocks: its heads' ``z``, ``x`` and ``dt`` columns of
+``in_proj`` and ``B``, ``C`` whole (ngroups = 1: every head reads them),
+the conv on those channels, the SSD on those heads (heads are independent
+given ``B`` and ``C``), the gated norm's mean completed over "model" and
+``out_proj``'s rows of those heads reduced over "model".  Every leaf it
+reads in part (the gathered ``in_proj``, the conv, ``dt_bias``,
+``a_log``, ``d_skip``, the norm's scale) goes through ``tp.copy`` whole
+before its slice, so its gradient is summed over "model" and every rank
+holds the whole one.  A SELL ``in_proj`` runs whole and its output goes
+through ``tp.copy``; before a SELL ``out_proj`` the heads' outputs are
+gathered over "model" and normed whole.
 """
 
 from __future__ import annotations
@@ -153,6 +168,51 @@ def ssd_chunked(x: torch.Tensor, a_log: torch.Tensor, bmat: torch.Tensor,
     return (y_diag + y_off).reshape(b, s, h, p).to(out_dtype)
 
 
+def _proj_cols(t: torch.Tensor, cfg: ModelConfig, hs: slice):
+    """(z, xBC, dt) of ``t`` (..., 2 d_inner + 2 N + H): in_proj's output
+    or its weight's columns, on the SSM heads ``hs``: z and x of those
+    heads, B and C whole, dt of those heads."""
+    d_in, _, n_state, _ = _dims(cfg)
+    p, bc = cfg.ssm_head_dim, 2 * d_in
+    a, b = hs.start * p, hs.stop * p
+    dt0 = bc + 2 * n_state
+    return (t[..., a:b],
+            torch.cat([t[..., d_in + a:d_in + b],
+                       t[..., bc:bc + 2 * n_state]], dim=-1),
+            t[..., dt0 + hs.start:dt0 + hs.stop])
+
+
+def _conv_cols(t: torch.Tensor, cfg: ModelConfig, hs: slice
+               ) -> torch.Tensor:
+    """The conv channels (..., x | B | C) of the SSM heads ``hs``: their
+    x, then B and C."""
+    d_in, p = _dims(cfg)[0], cfg.ssm_head_dim
+    return torch.cat([t[..., hs.start * p:hs.stop * p], t[..., d_in:]],
+                     dim=-1)
+
+
+def heads_of(tp) -> Optional[slice]:
+    """The SSM heads a mamba layer computes under ``tp``: this rank's
+    block, or None for every head."""
+    return None if tp is None else tp.ssm_block()
+
+
+def _mine(params: dict, cfg: ModelConfig, hs: Optional[slice], tp
+          ) -> dict:
+    """The block's leaves as heads ``hs`` read them: the conv on their
+    channels, ``dt_bias`` / ``a_log`` / ``d_skip`` on the heads, each cut
+    from ``tp.copy`` of the whole leaf (its gradient summed over
+    "model"); ``params`` itself for every head."""
+    if hs is None:
+        return params
+    out = dict(params)
+    for k in ("conv_w", "conv_b"):
+        out[k] = _conv_cols(tp.copy(params[k]), cfg, hs)
+    for k in ("dt_bias", "a_log", "d_skip"):
+        out[k] = tp.copy(params[k])[hs]
+    return out
+
+
 def _conv_full(xbc: torch.Tensor, params: dict, cfg: ModelConfig
                ) -> torch.Tensor:
     """Causal depthwise conv over (x, B, C) of a whole sequence, summed
@@ -166,23 +226,61 @@ def _conv_full(xbc: torch.Tensor, params: dict, cfg: ModelConfig
     return conv + params["conv_b"].to(xbc.dtype)
 
 
-def _split_proj(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """in_proj -> (z, xBC (pre-conv), dt), each (B, S, ...)."""
+def _split_proj(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                hs: Optional[slice] = None, tp=None):
+    """in_proj -> (z, xBC (pre-conv), dt), each (B, S, ...); on the SSM
+    heads ``hs`` under ``tp`` (:func:`_proj_cols`): a dense ``in_proj``
+    projects those columns only, from ``tp.copy`` of its whole weight
+    and of ``x``; a SELL one runs whole and its output goes through
+    ``tp.copy``.  The gradients of ``x`` and of the weight are then each
+    rank's share (its heads' columns, its part of B's and C's), summed
+    over "model"."""
     d_in, _, _, conv_dim = _dims(cfg)
-    zxbcdt = linear.linear_apply(params["in_proj"], x, cfg.d_model,
-                                 _proj_out(cfg), cfg, "ssm_in")
+    proj = params["in_proj"]
+    if hs is not None and "w" in proj:
+        cols = _proj_cols(tp.copy(proj["w"]), cfg, hs)
+        out = torch.matmul(tp.copy(x), torch.cat(cols, dim=-1).to(x.dtype))
+        return torch.split(out, [c.shape[-1] for c in cols], dim=-1)
+    zxbcdt = linear.linear_apply(proj, x, cfg.d_model, _proj_out(cfg), cfg,
+                                 "ssm_in")
+    if hs is not None:
+        return _proj_cols(tp.copy(zxbcdt), cfg, hs)
     return torch.split(zxbcdt, [d_in, conv_dim, zxbcdt.shape[-1] - d_in
                                 - conv_dim], dim=-1)
 
 
+def _norm_split(y: torch.Tensor, scale: torch.Tensor, d: int, eps: float,
+                tp) -> torch.Tensor:
+    """:func:`rms_norm` over ``d`` channels of which ``y`` holds this
+    rank's block (``scale`` its block): the sum of squares reduced over
+    "model" and its gradient summed back (``tp.copy`` of ``tp.reduce``):
+    every rank's channels read the mean."""
+    dt = y.dtype
+    yf = y.float()
+    ss = tp.copy(tp.reduce(torch.sum(yf * yf, dim=-1, keepdim=True)))
+    out = yf * torch.rsqrt(ss / d + eps)
+    return (out * (1.0 + scale.float())).to(dt)
+
+
 def _gate_out(params: dict, y: torch.Tensor, z: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """y * silu(z), the inner norm and out_proj."""
+              cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """y * silu(z), the inner norm and out_proj.  Under ``tp`` with ``y``
+    and ``z`` on this rank's heads: a dense ``out_proj`` on those heads'
+    rows takes the norm of :func:`_norm_split` and reduces its partial
+    sums over "model"; otherwise (SELL) the gated heads are gathered over
+    "model" and normed and projected whole."""
     d_in = _dims(cfg)[0]
     y = y * F.silu(z)
-    y = rms_norm(y, params["norm"]["scale"], cfg.norm_eps)
+    scale = params["norm"]["scale"]
+    if y.shape[-1] < d_in and linear.splits_in(params["out_proj"], d_in):
+        mine = tp.copy(scale)[tp.block(d_in, y.shape[-1])]
+        y = _norm_split(y, mine, d_in, cfg.norm_eps, tp)
+    else:
+        if y.shape[-1] < d_in:
+            y = tp.gather(y, -1)
+        y = rms_norm(y, scale, cfg.norm_eps)
     return linear.linear_apply(params["out_proj"], y, d_in, cfg.d_model,
-                               cfg, "ssm_out")
+                               cfg, "ssm_out", tp)
 
 
 def _dt_a(params: dict, dt: torch.Tensor):
@@ -191,20 +289,32 @@ def _dt_a(params: dict, dt: torch.Tensor):
     return dt, -torch.exp(params["a_log"].float())
 
 
-def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D); ``S`` a multiple of ``cfg.ssm_chunk``."""
-    b, s, _ = x.shape
-    d_in, n_heads, n_state, _ = _dims(cfg)
-    z, xbc, dt = _split_proj(params, x, cfg)
+def _conv_split(params: dict, xbc: torch.Tensor, cfg: ModelConfig):
+    """The conv and SiLU over the raw (x, B, C) channels -> (xs (B, S,
+    H', P) on the heads x holds, B, C)."""
+    b, s, _ = xbc.shape
+    n_state = cfg.ssm_state
     xbc = F.silu(_conv_full(xbc, params, cfg))
-    xs, bmat, cmat = torch.split(xbc, [d_in, n_state, n_state], dim=-1)
-    xs = xs.reshape(b, s, n_heads, cfg.ssm_head_dim)
-    dt, a = _dt_a(params, dt)                                      # (B,S,H)
+    xs, bmat, cmat = torch.split(
+        xbc, [xbc.shape[-1] - 2 * n_state, n_state, n_state], dim=-1)
+    return xs.reshape(b, s, -1, cfg.ssm_head_dim), bmat, cmat
+
+
+def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig, tp=None
+                ) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D); ``S`` a multiple of ``cfg.ssm_chunk``;
+    ``tp`` computes this rank's SSM heads (see the module's
+    docstring)."""
+    b, s, _ = x.shape
+    hs = heads_of(tp)
+    mine = _mine(params, cfg, hs, tp)
+    z, xbc, dt = _split_proj(params, x, cfg, hs, tp)
+    xs, bmat, cmat = _conv_split(mine, xbc, cfg)
+    dt, a = _dt_a(mine, dt)                                        # (B,S,H)
     y = ssd_chunked((xs.float() * dt[..., None]).to(x.dtype), dt * a,
                     bmat, cmat, cfg.ssm_chunk)
-    y = y + xs * params["d_skip"].to(x.dtype)[None, None, :, None]
-    return _gate_out(params, y.reshape(b, s, d_in), z, cfg)
+    y = y + xs * mine["d_skip"].to(x.dtype)[None, None, :, None]
+    return _gate_out(params, y.reshape(b, s, -1), z, cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -212,12 +322,14 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 def mamba_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                        mask: torch.Tensor, lengths: torch.Tensor
+                        mask: torch.Tensor, lengths: torch.Tensor, tp=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`mamba_block` over right-padded prompts that also returns
     the decode-ready caches ``(y (B,S,D), ssm_state (B,H,P,N) fp32,
     conv_state (B,W-1,C))``: what ``mamba_block_decode`` holds after the
-    row's ``length`` tokens one at a time.
+    row's ``length`` tokens one at a time.  Under ``tp`` the SSM state
+    holds this rank's heads and the conv window every channel (its heads'
+    x gathered over "model" in head order, B and C as computed).
 
     * pad positions get dt = 0 (decay 1, no input), so the recurrence is
       frozen past each row's length;
@@ -227,12 +339,11 @@ def mamba_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
       the row's length.
     """
     b, s, _ = x.shape
-    d_in, n_heads, n_state, _ = _dims(cfg)
-    z, xbc_raw, dt = _split_proj(params, x, cfg)
-    xbc = F.silu(_conv_full(xbc_raw, params, cfg))
-    xs, bmat, cmat = torch.split(xbc, [d_in, n_state, n_state], dim=-1)
-    xs = xs.reshape(b, s, n_heads, cfg.ssm_head_dim)
-    dt, a = _dt_a(params, dt)                                      # (B,S,H)
+    hs = heads_of(tp)
+    mine = _mine(params, cfg, hs, tp)
+    z, xbc_raw, dt = _split_proj(params, x, cfg, hs, tp)
+    xs, bmat, cmat = _conv_split(mine, xbc_raw, cfg)
+    dt, a = _dt_a(mine, dt)                                        # (B,S,H)
     maskf = mask.float()[..., None]                                # (B,S,1)
     dta = (dt * a) * maskf
     dx = (xs.float() * dt[..., None]) * maskf[..., None]
@@ -247,8 +358,8 @@ def mamba_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     y = ssd_chunked(tpad(dx).to(x.dtype), tpad(dta), tpad(bmat),
                     tpad(cmat), chunk)[:, :s]
-    y = y + xs * params["d_skip"].to(x.dtype)[None, None, :, None]
-    y = _gate_out(params, y.reshape(b, s, d_in), z, cfg)
+    y = y + xs * mine["d_skip"].to(x.dtype)[None, None, :, None]
+    y = _gate_out(params, y.reshape(b, s, -1), z, cfg, tp)
 
     # final SSM state: the decay-weighted sum of every (masked) input
     a_cum = torch.cumsum(dta, dim=1)                               # (B,S,H)
@@ -264,6 +375,10 @@ def mamba_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     taken = torch.gather(xbc_raw, 1, idx[..., None].expand(
         -1, -1, xbc_raw.shape[-1]))
     conv_state = torch.where(valid, taken, torch.zeros_like(taken))
+    if hs is not None:
+        n2 = 2 * cfg.ssm_state
+        conv_state = torch.cat([tp.gather(conv_state[..., :-n2], -1),
+                                conv_state[..., -n2:]], dim=-1)
     return y, ssm_state, conv_state
 
 
@@ -281,28 +396,33 @@ def lengths_mask(tokens: torch.Tensor, lengths: Optional[torch.Tensor]):
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None, cut=keep, split=None
+            frontend_embeds=None, cut=keep, split=None, tp=None
             ) -> Tuple[torch.Tensor, dict]:
     """Batched prompt pass -> (logits (B, S, V), a NEW ``{"ssm",
     "conv"}`` cache shaped like ``cache``).  ``frontend_embeds`` is
     accepted and unused, as in the reference; ``cut`` as in
     :func:`repro_torch.models.transformer.prefill`; ``split`` is
     accepted and unused (nothing here reads a placed cache's values or
-    mixes the batch's rows)."""
+    mixes the batch's rows).  ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`): each layer computes
+    this rank's SSM heads, whose states are cut as this rank's block, and
+    the logits are this rank's block of the vocabulary where it
+    splits."""
     del frontend_embeds, split
     lengths, mask = lengths_mask(tokens, lengths)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
+    local = heads_of(tp) is not None
     ssms, convs = [], []
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
         y, ssm, conv = mamba_block_prefill(layer["mixer"], h, cfg, mask,
-                                           lengths)
+                                           lengths, tp)
         x = x + y
-        ssms.append(cut("ssm", ssm))
+        ssms.append(cut("ssm", ssm, local))
         convs.append(cut("conv", conv))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x), {
+    return unembed(params["embed"], x, tp), {
         "ssm": torch.stack(ssms).to(cache["ssm"].dtype),
         "conv": torch.stack(convs).to(cache["conv"].dtype)}
 
@@ -440,39 +560,46 @@ def init(gen: torch.Generator, cfg: ModelConfig,
             "final_norm": init_rms_norm(cfg.d_model, dtype, device)}
 
 
-def _layer_fn(layer: dict, x: torch.Tensor, cfg: ModelConfig
+def _layer_fn(layer: dict, x: torch.Tensor, cfg: ModelConfig, tp=None
               ) -> torch.Tensor:
     h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
-    return x + mamba_block(layer["mixer"], h, cfg)
+    return x + mamba_block(layer["mixer"], h, cfg, tp)
 
 
 def run_layers(layers: dict, x: torch.Tensor, cfg: ModelConfig,
-               start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+               start: int = 0, stop: Optional[int] = None,
+               tp=None) -> torch.Tensor:
     """Layers ``start .. stop - 1`` of the full-sequence forward; under
     ``cfg.remat`` with grad enabled each is recomputed whole in the
-    backward (the reference's ``nothing_saveable`` policy)."""
+    backward (the reference's ``nothing_saveable`` policy), a placed
+    layer's gather and collectives inside; ``tp`` computes each layer's
+    SSM heads on this rank's block."""
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(start, cfg.n_layers if stop is None else stop):
-        x = run_layer(_layer_fn, layers, i, x, cfg, remat=remat)
+        x = run_layer(_layer_fn, layers, i, x, cfg, tp, remat=remat)
     return x
 
 
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          frontend_embeds=None) -> torch.Tensor:
+          frontend_embeds=None, tp=None) -> torch.Tensor:
     """Full-sequence forward -> fp32 logits (B, S, V); ``S`` a multiple
-    of ``cfg.ssm_chunk``.  ``frontend_embeds`` is unused."""
+    of ``cfg.ssm_chunk``.  ``frontend_embeds`` is unused.  Under ``tp``
+    (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`) this rank's block of
+    the vocabulary (B, S, V / model) where it splits."""
     del frontend_embeds
-    x = run_layers(params["layers"], embed_lookup(params["embed"], tokens, cfg.compute_dtype), cfg)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
+    x = run_layers(params["layers"], x, cfg, tp=tp)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)
+    return unembed(params["embed"], x, tp)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
-            rows=None) -> torch.Tensor:
-    """Next-token cross-entropy; ``rows`` as in
+            rows=None, tp=None) -> torch.Tensor:
+    """Next-token cross-entropy; ``rows`` and ``tp`` as in
     :func:`repro_torch.models.transformer.loss_fn`."""
-    logits = apply(params, batch["tokens"], cfg)
-    return cross_entropy(logits, batch["labels"], cfg, rows)
+    logits = apply(params, batch["tokens"], cfg, tp=tp)
+    return cross_entropy(logits, batch["labels"], cfg, rows, tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

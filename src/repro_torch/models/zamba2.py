@@ -10,6 +10,13 @@ holds ``attn_k``/``attn_v`` (n_apps, B, Smax, Hkv, Dh), the paged one
 ``attn_k_pages``/``attn_v_pages`` (n_apps, n_blocks, bs, Hkv, Dh); the
 SSM and conv states stay dense in both (they are O(1) a slot).
 
+Under tensor parallelism (``tp``, a placed train or prefill step's
+:class:`repro_torch.dist.sharding.TensorSplit`) the mamba layers compute
+this rank's SSM heads (:mod:`repro_torch.models.mamba2`), the shared
+block its attention heads and ffn columns as a decoder layer does (its
+``in_proj`` whole: its output is the residual stream), and the
+embedding and logits this rank's block of the vocabulary.
+
 The K/V writes SET their rows, in place (the port's attention; see
 :mod:`repro_torch.models.attention`).  The SSM/conv state is updated in
 place by the decode steps and snapshotted by the verify steps, whose
@@ -80,22 +87,25 @@ def _shared_in(shared: dict, x: torch.Tensor, emb: torch.Tensor,
 
 
 def _shared_out(shared: dict, x: torch.Tensor, h: torch.Tensor,
-                attn_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The residual attention output, the gated MLP, and the block's
-    residual onto the mamba stream."""
+                attn_out: torch.Tensor, cfg: ModelConfig,
+                tp=None) -> torch.Tensor:
+    """The residual attention output, the gated MLP (on this rank's ffn
+    columns under ``tp``), and the block's residual onto the mamba
+    stream."""
     h = h + attn_out
     m = rms_norm(h, shared["norm2"]["scale"], cfg.norm_eps)
-    return x + (h + mlp_mod.mlp(shared["mlp"], m, cfg))
+    return x + (h + mlp_mod.mlp(shared["mlp"], m, cfg, tp=tp))
 
 
 def _shared_block(shared: dict, x: torch.Tensor, emb: torch.Tensor,
-                  positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                  positions: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     """One application of the shared block over a whole sequence (full
-    causal attention)."""
+    causal attention; this rank's heads under ``tp``)."""
     h, a = _shared_in(shared, x, emb, cfg)
     out, _, _ = attn_mod.attention_prefill(shared["attn"], a, positions, 0,
-                                           cfg)
-    return _shared_out(shared, x, h, out, cfg)
+                                           cfg, tp)
+    return _shared_out(shared, x, h, out, cfg, tp)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -104,28 +114,30 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          frontend_embeds=None) -> torch.Tensor:
+          frontend_embeds=None, tp=None) -> torch.Tensor:
     """Full-sequence forward -> fp32 logits (B, S, V); ``S`` a multiple
-    of ``cfg.ssm_chunk``.  ``frontend_embeds`` is unused."""
+    of ``cfg.ssm_chunk``.  ``frontend_embeds`` is unused.  Under ``tp``
+    (see the module's docstring) this rank's block of the vocabulary
+    (B, S, V / model) where it splits."""
     del frontend_embeds
-    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     positions = _positions(tokens)
     x, start = emb, 0
     for size in _n_groups(cfg):
         x = mamba_mod.run_layers(params["layers"], x, cfg, start,
-                                 start + size)
-        x = _shared_block(params["shared"], x, emb, positions, cfg)
+                                 start + size, tp)
+        x = _shared_block(params["shared"], x, emb, positions, cfg, tp)
         start += size
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)
+    return unembed(params["embed"], x, tp)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
-            rows=None) -> torch.Tensor:
-    """Next-token cross-entropy; ``rows`` as in
+            rows=None, tp=None) -> torch.Tensor:
+    """Next-token cross-entropy; ``rows`` and ``tp`` as in
     :func:`repro_torch.models.transformer.loss_fn`."""
-    logits = apply(params, batch["tokens"], cfg)
-    return cross_entropy(logits, batch["labels"], cfg, rows)
+    logits = apply(params, batch["tokens"], cfg, tp=tp)
+    return cross_entropy(logits, batch["labels"], cfg, rows, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -135,20 +147,23 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
-            frontend_embeds=None, cut=keep, split=None
+            frontend_embeds=None, cut=keep, split=None, tp=None
             ) -> Tuple[torch.Tensor, dict]:
     """:func:`apply` over right-padded prompts keeping every decode cache:
     each layer's SSM and conv state and each shared-block application's
     K/V (zero at and beyond a row's length) -> (logits (B, S, V), a NEW
     cache shaped like ``cache``); ``cut`` as in
     :func:`repro_torch.models.transformer.prefill`; ``split`` is accepted
-    and unused, as in :func:`repro_torch.models.mamba2.prefill`."""
+    and unused, as in :func:`repro_torch.models.mamba2.prefill`.  Under
+    ``tp`` the SSM states and the K/V are this rank's heads where they
+    split over "model" and the logits its block of the vocabulary."""
     del frontend_embeds, split
     smax = cache["attn_k"].shape[2]
     lengths, mask = mamba_mod.lengths_mask(tokens, lengths)
-    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     positions = _positions(tokens)
     shared = params["shared"]
+    local = mamba_mod.heads_of(tp) is not None
     ssms, convs, ks, vs = [], [], [], []
     x, start = emb, 0
     for size in _n_groups(cfg):
@@ -156,20 +171,21 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             layer = layer_params(params["layers"], i)
             h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
             y, ssm, conv = mamba_mod.mamba_block_prefill(
-                layer["mixer"], h, cfg, mask, lengths)
+                layer["mixer"], h, cfg, mask, lengths, tp)
             x = x + y
-            ssms.append(cut("ssm", ssm))
+            ssms.append(cut("ssm", ssm, local))
             convs.append(cut("conv", conv))
         h, a = _shared_in(shared, x, emb, cfg)
         out, k, v = attn_mod.attention_prefill(shared["attn"], a, positions,
-                                               0, cfg)
-        x = _shared_out(shared, x, h, out, cfg)
+                                               0, cfg, tp)
+        x = _shared_out(shared, x, h, out, cfg, tp)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(cut("attn_k", ck))
-        vs.append(cut("attn_v", cv))
+        kv_local = k.shape[2] < cfg.n_kv_heads
+        ks.append(cut("attn_k", ck, kv_local))
+        vs.append(cut("attn_v", cv, kv_local))
         start += size
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x), {
+    return unembed(params["embed"], x, tp), {
         "ssm": torch.stack(ssms).to(cache["ssm"].dtype),
         "conv": torch.stack(convs).to(cache["conv"].dtype),
         "attn_k": torch.stack(ks).to(cache["attn_k"].dtype),

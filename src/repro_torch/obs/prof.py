@@ -15,6 +15,7 @@ profiler, both default-off:
 * :class:`ProfileWindow` — parses the launcher's ``--profile-ticks A:B``
   and runs a ``torch.profiler.profile`` (CPU activity, plus CUDA when the
   device is a GPU) from the start of engine tick A to the end of tick B.
+  On a GPU the session opens with a primer (:func:`start_profiler`).
   On stop it writes, into ``logdir``, the Chrome trace (``trace.json``),
   the ``key_averages()`` table sorted by device time
   (``key_averages.txt``) and :func:`summarize`'s digest
@@ -25,7 +26,8 @@ profiler, both default-off:
 :func:`summarize` reads a Chrome trace of a window of ``steps`` ticks or
 train steps: the device's busy share of the window, the host's wall time
 per step, the CUDA kernels launched per step and the kernels with the most
-device time.
+device time, and what the trace lost: kernel launches whose device
+record is missing.
 """
 
 from __future__ import annotations
@@ -38,12 +40,24 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["Prof", "ProfileWindow", "parse_tick_window", "summarize"]
+__all__ = ["Prof", "ProfileWindow", "parse_tick_window", "start_profiler",
+           "summarize"]
 
 _NULL = contextlib.nullcontext()
 
 #: trace-event categories that occupy the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: trace-event categories of the host's launch calls
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: ``torch.cuda._sleep``'s kernel, the primer a CUDA session opens with
+PRIMER_KERNEL = "spin_kernel"
+#: the least primer a CUDA session opens with: launches and host seconds.
+#: On an H100 (torch 2.11, CUPTI 26) a session lost the device records of
+#: its first kernel launches and kept their launch calls, more of them the
+#: more sessions the process had run (``scripts/profile_primer.py`` counts
+#: them); the primer's kernels take that loss instead of the window's
+PRIMER_LAUNCHES = 2048
+PRIMER_S = 0.02
 
 
 class Prof:
@@ -80,6 +94,25 @@ def profiler_for(device) -> "torch.profiler.profile":
     return torch.profiler.profile(activities=acts)
 
 
+def start_profiler(device) -> Tuple["torch.profiler.profile", int]:
+    """``profiler_for(device)``, started, and its primer's launch count:
+    on a GPU empty spin kernels follow, at least ``PRIMER_LAUNCHES`` and
+    ``PRIMER_S`` of them, then a device synchronise, so the records a new
+    session loses are the primer's.  Pass the count to
+    :func:`write_profile`."""
+    prof = profiler_for(device)
+    prof.start()
+    n = 0
+    if torch.device(device).type == "cuda":
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            while n < PRIMER_LAUNCHES or time.perf_counter() - t0 < PRIMER_S:
+                torch.cuda._sleep(0)
+                n += 1
+        torch.cuda.synchronize(device)
+    return prof, n
+
+
 def _union_us(intervals) -> float:
     """Length of the union of ``(start, end)`` intervals."""
     total, end = 0.0, None
@@ -93,20 +126,33 @@ def _union_us(intervals) -> float:
     return total
 
 
-def summarize(trace: dict, steps: int, wall_s: float, top: int = 10) -> dict:
+def summarize(trace: dict, steps: int, wall_s: float, top: int = 10,
+              primer: int = 0) -> dict:
     """Digest of a Chrome trace (``export_chrome_trace``'s JSON) of a window
     of ``steps`` ticks or train steps that took ``wall_s`` on the host
-    clock (ending in a device synchronise):
+    clock (ending in a device synchronise), opened by ``primer`` launches
+    of ``PRIMER_KERNEL``, which nothing below counts but the last two:
 
     * ``device_busy_s`` — the union of the device's kernel, copy and set
       intervals; ``device_busy_share`` — that over ``wall_s``;
     * ``host_s_per_step`` — ``wall_s / steps``;
     * ``kernels`` / ``kernels_per_step`` — CUDA kernel events;
     * ``top`` — the ``top`` kernel names with the most device time:
-      ``[name, count, device seconds]``.
+      ``[name, count, device seconds]``;
+    * ``primer_kernels`` — the primer's kernel events;
+    * ``launches_lost`` — kernel launch calls whose correlation id no
+      device event carries; ``window_launches_lost`` — those the
+      primer's missing kernels do not account for: the window's own
+      kernels the trace lost (0 for a whole trace).
     """
-    dev = [e for e in trace.get("traceEvents", [])
-           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    every = [e for e in events if e.get("cat") in DEVICE_CATS]
+    dev = [e for e in every if PRIMER_KERNEL not in e["name"]]
+    seen = {e.get("args", {}).get("correlation") for e in every}
+    lost = sum(1 for e in events if e.get("cat") in LAUNCH_CATS
+               and "LaunchKernel" in e["name"]
+               and e.get("args", {}).get("correlation") not in seen)
+    n_primer = len(every) - len(dev)
     busy_us = _union_us((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in dev)
     by_name = {}
     n_kernels = 0
@@ -123,18 +169,22 @@ def summarize(trace: dict, steps: int, wall_s: float, top: int = 10) -> dict:
         "device_busy_share": busy_us * 1e-6 / wall_s if wall_s > 0 else 0.0,
         "kernels": n_kernels, "kernels_per_step": n_kernels / max(steps, 1),
         "top": [[name, cnt, us * 1e-6] for name, (cnt, us) in ranked],
+        "primer_kernels": n_primer, "launches_lost": lost,
+        "window_launches_lost": lost - (primer - n_primer),
     }
 
 
-def write_profile(prof, logdir: str, steps: int, wall_s: float) -> dict:
+def write_profile(prof, logdir: str, steps: int, wall_s: float,
+                  primer: int = 0) -> dict:
     """Write ``prof``'s Chrome trace, its ``key_averages()`` table by
     device time and :func:`summarize`'s digest into ``logdir``; returns
-    the digest."""
+    the digest.  ``primer``: the launches the session opened with
+    (:func:`start_profiler`)."""
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        summary = summarize(json.load(f), steps, wall_s)
+        summary = summarize(json.load(f), steps, wall_s, primer=primer)
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)
     with open(os.path.join(logdir, "key_averages.txt"), "w") as f:
@@ -160,6 +210,7 @@ class ProfileWindow:
         self.done = False
         self.summary: Optional[dict] = None
         self._prof = None
+        self._primer = 0
         self._t0 = 0.0
         self._ticks = 0       # ticks begun inside the window
 
@@ -173,8 +224,7 @@ class ProfileWindow:
         if (not self.done and not self.active
                 and tick_no >= self.start_tick):
             self._sync()
-            self._prof = profiler_for(self.device or "cpu")
-            self._prof.start()
+            self._prof, self._primer = start_profiler(self.device or "cpu")
             self._t0 = time.perf_counter()
             self.active = True
         elif self.active and tick_no > self.stop_tick:
@@ -188,7 +238,8 @@ class ProfileWindow:
             self._sync()
             wall = time.perf_counter() - self._t0
             self._prof.stop()
-            self.summary = write_profile(self._prof, self.logdir,
-                                         self._ticks, wall)
+            self.summary = write_profile(
+                self._prof, self.logdir, self._ticks, wall,
+                primer=self._primer)
             self.active = False
         self.done = True

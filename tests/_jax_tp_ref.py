@@ -10,6 +10,8 @@ set before JAX starts).
 named, or every one): ``arch``,
 ``sell`` ("dense" or "acdc": ``pallas``, interpret mode here),
 ``capacity_factor`` and ``meshes`` (e.g. ``"2x2,1x4"``) as 0-d arrays,
+optionally ``overrides`` (a JSON object of config fields, e.g.
+``{"d_inner": 192}``),
 ``params/<path>``, the train batches ``batch<s>/<name>`` and, where a
 prefill is asked, ``prefill/tokens`` (B, S), ``prefill/lengths`` (B,),
 ``prefill/cache_len`` and ``prefill/frontend_embeds``.  For every mesh
@@ -26,6 +28,7 @@ by ``cache_specs``: ``<case>/prefill/logits`` (B, S, V) and the new cache
 """
 
 import dataclasses
+import json
 import sys
 
 import jax
@@ -68,8 +71,11 @@ def config(src, pre: str):
     cfg = registry.get_smoke_config(str(src[pre + "arch"]))
     if str(src[pre + "sell"]) == "acdc":
         cfg = registry.with_sell(cfg, "acdc", method="pallas")
+    overrides = (json.loads(str(src[pre + "overrides"]))
+                 if pre + "overrides" in src.files else {})
     return dataclasses.replace(
-        cfg, capacity_factor=float(src[pre + "capacity_factor"]))
+        cfg, capacity_factor=float(src[pre + "capacity_factor"]),
+        **overrides)
 
 
 def make_mesh(shape) -> jax.sharding.Mesh:
@@ -165,8 +171,8 @@ def prefill(src, case: str) -> dict:
 def main(src_path: str, out_path: str, cases: str = "") -> None:
     src = np.load(src_path)
     out = {}
-    for case in (cases.split(",") if cases else
-                 sorted({k.split("/")[0] for k in src.files})):
+    every = {k.split("/")[0] for k in src.files} - {"structure"}
+    for case in (cases.split(",") if cases else sorted(every)):
         out.update(train(src, case))
         if f"{case}/prefill/tokens" in src.files:
             out.update(prefill(src, case))

@@ -15,10 +15,12 @@ case with ``accum`` 2 also runs the steps with ``accum_steps=2``
 case with a prefill: ``make_prefill_step(full_logits=True, mesh=)`` at
 (2, 2) on this rank's rows of a fresh cache placed by ``cache_specs``,
 the logits gathered over the vocabulary, and its blocks of the new cache
-with the slices of the full leaves they are.  ``structure``: one placed
-step of smoke Qwen3-1.7B (dense) at (1, 4) counted by the dry run's
-``Collectives``, beside the bytes of its leaves.  A case that raises is
-recorded (``errors``) and the others run on.
+with the slices of the full leaves they are.  A case's optional
+``overrides`` (JSON) replaces fields of its config.  ``structure``: one
+placed step of a smoke config (``structure/arch``, Qwen3-1.7B by
+default; dense) at (1, 4) counted by the dry run's ``Collectives``,
+beside the bytes of its leaves.  A case that raises is recorded
+(``errors``) and the others run on.
 
 Writes ``OUT_DIR/rank<r>.npz`` and ``OUT_DIR/rank<r>.json``.
 """
@@ -55,8 +57,11 @@ def config(src, pre: str):
     cfg = registry.get_smoke_config(str(src[pre + "arch"]))
     if str(src[pre + "sell"]) == "acdc":
         cfg = registry.with_sell(cfg, "acdc", method="pallas")
+    overrides = (json.loads(str(src[pre + "overrides"]))
+                 if pre + "overrides" in src.files else {})
     return dataclasses.replace(
-        cfg, capacity_factor=float(src[pre + "capacity_factor"]))
+        cfg, capacity_factor=float(src[pre + "capacity_factor"]),
+        **overrides)
 
 
 def optimizer():
@@ -138,10 +143,10 @@ def prefill_case(src, case: str, arrays: dict, facts: dict) -> None:
                                     vocab_block=block, slices=slices)
 
 
-def structure(facts: dict) -> None:
-    """One placed step of smoke Qwen3 (dense, fp32) at (1, 4) under the
-    dry run's ``Collectives``, and the full bytes of every leaf."""
-    cfg = registry.get_smoke_config("qwen3_1_7b")
+def structure(facts: dict, arch: str = "qwen3_1_7b") -> None:
+    """One placed step of smoke ``arch`` (dense, fp32) at (1, 4) under
+    the dry run's ``Collectives``, and the full bytes of every leaf."""
+    cfg = registry.get_smoke_config(arch)
     model, opt = get_model(cfg), optimizer()
     mesh = dryrun.mesh_of((1, 4), "cpu")
     gen = torch.Generator().manual_seed(0)
@@ -169,7 +174,8 @@ def main(src: str, out: str) -> None:
     src = np.load(src)
     arrays, facts, errors = {}, {}, {}
     try:
-        for case in sorted({k.split("/")[0] for k in src.files}):
+        for case in sorted({k.split("/")[0] for k in src.files}
+                           - {"structure"}):
             for tag in str(src[f"{case}/meshes"]).split(","):
                 for accum in range(1, int(src[f"{case}/accum"]) + 1):
                     key = f"{case}/{tag}" + (f"/accum{accum}"
@@ -184,7 +190,8 @@ def main(src: str, out: str) -> None:
                 except Exception:  # noqa: BLE001
                     errors[f"{case}/prefill"] = traceback.format_exc()[-3000:]
         try:
-            structure(facts)
+            structure(facts, str(src["structure/arch"])
+                      if "structure/arch" in src.files else "qwen3_1_7b")
         except Exception:  # noqa: BLE001
             errors["structure"] = traceback.format_exc()[-3000:]
         facts["errors"] = errors

@@ -11,7 +11,8 @@ with observability on.
 * the span tracer gives equal Chrome trace JSON;
 * ``Prof`` and ``ProfileWindow`` on ``torch.profiler``: disabled is one
   shared ``nullcontext``, the window starts and stops at its ticks and
-  writes its files;
+  writes its files, its digest leaves a session's primer out and counts
+  the kernel launches whose device record the trace lost;
 * the engine: obs off binds no tracer, exporter or tick hook, streams
   with obs on equal obs off, and a seeded chaos run over a ``FakeClock``
   (paged, a tight pool, corrupt ticks, denied pages, slow ticks, a
@@ -291,6 +292,45 @@ def test_profile_window_ticks_and_files(tmp_path):
     assert digest["device_busy_share"] == pytest.approx(0.2)
     assert digest["kernels"] == 2 and digest["kernels_per_step"] == 1
     assert [row[0] for row in digest["top"]] == ["k1", "k2", "cp"]
+    assert digest["launches_lost"] == digest["window_launches_lost"] == 0
+
+
+def _launch(corr, ts, name="cudaLaunchKernel"):
+    return [{"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts,
+             "dur": 1.0, "args": {"correlation": corr}}]
+
+
+def _kernel(corr, ts, name):
+    return [{"ph": "X", "cat": "kernel", "name": name, "ts": ts + 0.5,
+             "dur": 2.0, "args": {"correlation": corr}}]
+
+
+@pytest.mark.parametrize("lost", [0, 2, 3, 5])
+def test_summarize_counts_primer_and_lost_launches(lost):
+    """A primed window's digest leaves the primer's kernels out of every
+    figure, and counts the launches whose device record the trace lost
+    (a session loses its first ones): those beyond the primer's are the
+    window's own."""
+    primer, window = 3, 4
+    spin = f"void at::cuda::{tprof.PRIMER_KERNEL}(long)"
+    names = [spin] * primer + [f"k{i}" for i in range(window)]
+    events = [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0,
+               "dur": 99.0}]
+    for corr, name in enumerate(names):
+        ts = 10.0 * corr
+        events += _launch(corr, ts, "cuLaunchKernelEx" if corr == 5 else
+                          "cudaLaunchKernel")
+        if corr >= lost:
+            events += _kernel(corr, ts, name)
+    digest = tprof.summarize({"traceEvents": events}, 2, 1e-3,
+                             primer=primer)
+    kept = window - max(lost - primer, 0)
+    assert digest["kernels"] == kept
+    assert digest["device_busy_s"] == pytest.approx(kept * 2e-6)
+    assert spin not in [row[0] for row in digest["top"]]
+    assert digest["primer_kernels"] == max(primer - lost, 0)
+    assert digest["launches_lost"] == lost
+    assert digest["window_launches_lost"] == max(lost - primer, 0)
 
 
 # ---------------------------------------------------------------------------

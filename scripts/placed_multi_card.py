@@ -22,16 +22,18 @@ with its whole state on every rank, data-parallel over the same mesh's
 "data" group and rows (what placement changes), and, where that group
 holds more than one rank, on rank 0 alone over the whole global batch
 (the other ranks wait), for the losses to compare: the placed losses
-within ``POD_LOSS_RTOL`` of the data-parallel ones (a decoder, Mamba2 or
-Zamba2 at MODEL_PARALLEL > 1 computes on its "model" blocks:
-tensor-parallel).  Rank 0 prints a line a run and writes every rank's
+within ``POD_LOSS_RTOL`` of the data-parallel ones (every family at
+MODEL_PARALLEL > 1 computes on its "model" blocks: tensor-parallel;
+Seamless-M4T's rows bring SEQ / 4 stub frames each, as the train
+launcher gives them).  Rank 0 prints a line a run and writes every rank's
 numbers, with the card's name and power limit, to ``--out``.
 
 ``--train`` runs come first, then ``--serve``, ``--serve-long`` and
 ``--pod-train``.  ``--serve ARCH[:MODEL_PARALLEL]`` serves ARCH placed
 at (data = world / MODEL_PARALLEL, model = MODEL_PARALLEL; 1 by
-default): a ``full_logits`` prefill of 4 prompts (64 positions, ragged)
-and 8 greedy decode steps through ``make_prefill_step(mesh=)`` /
+default): a ``full_logits`` prefill of 4 prompts (64 positions, ragged;
+an encoder-decoder's with ``SERVE_FRAMES`` stub frames each) and 8
+greedy decode steps through ``make_prefill_step(mesh=)`` /
 ``make_serve_step(mesh=)`` on a cache placed by ``cache_specs`` (K/V or
 SSM heads over "model" where they divide it: head-parallel decode), in
 fp32 and in bf16 compute, beside the same steps unplaced on rank 0
@@ -106,6 +108,8 @@ SERVE_FP32_ATOL = 1e-4
 POD_LOSS_RTOL = 1e-4
 #: the serving cells: rows, prompt positions, cache length, decode steps
 SERVE_ROWS, SERVE_LEN, SERVE_CACHE, SERVE_STEPS = 4, 64, 80, 8
+#: an encoder-decoder's stub frames a served row (the serve launcher's)
+SERVE_FRAMES = 16
 #: the long row: prompt positions, cache length, decode steps
 LONG_LEN, LONG_CACHE, LONG_STEPS = 4090, 8192, 12
 
@@ -331,6 +335,11 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                                device=DEVICE)
     tokens = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
                            dtype=torch.int32).to(DEVICE)
+    frames = (torch.randn(b, SERVE_FRAMES, cfg.d_model, generator=gen)
+              .to(DEVICE) if cfg.frontend == "audio" else None)
+
+    def frames_of(rows):
+        return None if frames is None else frames[rows]
 
     def steps_of(m):
         return (steps_mod.make_prefill_step(model, cfg, full_logits=True,
@@ -359,7 +368,7 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
     _sync()
     t0 = time.perf_counter()
     logits, cache = prefill(placed_p, cache, tokens[rows.to(DEVICE)],
-                            lengths)
+                            lengths, frames_of(rows.to(DEVICE)))
     _sync()
     prefill_s = time.perf_counter() - t0
     # a tensor-parallel prefill's full logits are this rank's block of
@@ -390,7 +399,8 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
         prefill, serve = steps_of(None)
         cache = model.init_cache(cfg, b, cache_len, device=DEVICE)
         with torch.no_grad():
-            one_logits, cache = prefill(params, cache, tokens, lengths)
+            one_logits, cache = prefill(params, cache, tokens, lengths,
+                                        frames)
             one_last = one_logits[torch.arange(b), lengths.long()
                                   - 1].float()
             one_full = None if long else one_logits.float()
@@ -401,7 +411,8 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                 out["prefill_rows_alone_max_abs"] = max(
                     float((prefill(params, model.init_cache(
                         cfg, 1, cache_len, device=DEVICE),
-                        tokens[r:r + 1], lengths[r:r + 1])[0][0, :n]
+                        tokens[r:r + 1], lengths[r:r + 1],
+                        frames_of(slice(r, r + 1)))[0][0, :n]
                         .float() - one_full[r, :n]).abs().max())
                     for r, n in enumerate(lengths.tolist()))
             blocks = None
@@ -458,7 +469,7 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
                      <= SERVE_FP32_ATOL))
         out["streams_held"] = hold_streams(
             model, cfg, params, tokens, lengths, streams, one_streams,
-            float(diff.max()))
+            float(diff.max()), frames)
         del cache
     del params
     if DEVICE == "cuda":
@@ -467,10 +478,10 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
 
 
 def hold_streams(model, cfg, params, tokens, lengths, placed, one,
-                 drift: float) -> dict:
+                 drift: float, frames=None) -> dict:
     """The bf16 streams: equal, or a row's first difference a near-tie
     (the two tokens' fp32 logits after that context, one card, apart by
-    at most ``drift``)."""
+    at most ``drift``; an encoder-decoder's row with its ``frames``)."""
     f32 = dataclasses.replace(cfg, dtype="float32")
     rows = []
     for r in range(placed.shape[0]):
@@ -487,7 +498,9 @@ def hold_streams(model, cfg, params, tokens, lengths, placed, one,
             logits, _ = model.prefill(params, cache, toks, f32,
                                       torch.tensor([len(ctx)],
                                                    dtype=torch.int32,
-                                                   device=DEVICE))
+                                                   device=DEVICE),
+                                      None if frames is None
+                                      else frames[r:r + 1])
         gap = abs(float(logits[0, -1, a[j]] - logits[0, -1, b[j]]))
         rows.append(dict(equal=False, first_difference=j, tokens=[a[j],
                                                                   b[j]],

@@ -45,10 +45,11 @@ data size; over "model" the ranks of one data row compute the same loss,
 so the gradient is sliced, never summed.
 
 Tensor-parallel compute (:class:`TensorSplit`, the placed train and
-prefill steps of the decoder, ssm and hybrid families): a leaf the model
-computes on its "model" block (heads, KV heads, ffn columns, experts, SSM
-heads' ``out_proj`` rows, vocabulary) is gathered over the row axes only
-and keeps that block (the model-local view,
+prefill steps of every family: the decoders, ssm, hybrid and the
+encoder-decoder): a leaf the model computes on its "model" block (heads,
+KV heads, the encoder's and the cross-attention's heads, ffn columns,
+experts, SSM heads' ``out_proj`` rows, vocabulary) is gathered over the
+row axes only and keeps that block (the model-local view,
 ``Placement.view(params, split)``); its gather's backward reduce-scatters
 over the row axes and never slices over "model".  The activations move
 instead, by two differentiable collectives over "model":
@@ -736,16 +737,19 @@ class Rows(Blocks):
 
 class TensorSplit:
     """Tensor-parallel compute over "model" for the placed train and
-    prefill steps of the decoder, ssm and hybrid families, as the
-    reference's jit computes them on ``param_specs``' blocks: query heads,
-    KV heads, ffn columns, experts, SSM heads and the vocabulary on this
-    rank's "model" block.
+    prefill steps of every family (the decoders, ssm, hybrid and the
+    encoder-decoder), as the reference's jit computes them on
+    ``param_specs``' blocks: query heads, KV heads, ffn columns, experts,
+    SSM heads and the vocabulary on this rank's "model" block.
 
     :meth:`keeps` says which leaves the model-local view
-    (``Placement.view(params, split)``) keeps as their block: ``wq`` /
-    ``wo`` where the heads divide "model"; ``wk`` / ``wv`` where the KV
-    heads do too (else they are gathered whole and each rank projects
-    every KV head and keeps those its query heads read); a dense
+    (``Placement.view(params, split)``) keeps as their block, by path:
+    ``wq`` / ``wo`` where the heads divide "model"; ``wk`` / ``wv`` where
+    the KV heads do too (else they are gathered whole and each rank
+    projects every KV head and keeps those its query heads read); the
+    same for the encoder-decoder's ``encoder/attn``, ``decoder/attn`` and
+    ``decoder/cross`` (the cross K/V then on the rank's KV heads, the
+    block ``cache_specs`` gives the cache's ``xk`` / ``xv``); a dense
     ``wg`` / ``wu`` / ``wd``; an expert stack split on its expert dim;
     a mamba layer's dense ``out_proj`` where the SSM heads divide "model"
     (its rows are ``d_inner`` in head order, so its block is this rank's

@@ -112,18 +112,11 @@ def loss_and_grads(model, cfg, params: dict, batch: dict,
     return loss.detach(), tree_unflatten(paths, grads)
 
 
-#: the families whose placed train and prefill steps compute on their
-#: "model" blocks
-TENSOR_PARALLEL = ("decoder", "ssm", "hybrid")
-
-
-def tensor_split(cfg, mesh) -> Optional[sharding.TensorSplit]:
-    """The placed steps' tensor-parallel compute on ``mesh``
-    (:class:`~repro_torch.dist.sharding.TensorSplit`) for the families
-    of ``TENSOR_PARALLEL``; None for those that still compute whole layers
-    on every model rank (the encoder-decoder)."""
-    return (sharding.TensorSplit(mesh, cfg)
-            if cfg.family in TENSOR_PARALLEL else None)
+def tensor_split(cfg, mesh) -> sharding.TensorSplit:
+    """The placed train and prefill steps' tensor-parallel compute on
+    ``mesh`` (:class:`~repro_torch.dist.sharding.TensorSplit`): every
+    family computes on its "model" blocks."""
+    return sharding.TensorSplit(mesh, cfg)
 
 
 def make_train_step(model, cfg, opt, accum_steps: int = 1,
@@ -152,14 +145,12 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
     and an MoE layer's queues and aux loss are the whole batch's; each
     rank's gradient is its rows' share, summed over the row axes.  The
     model gathers what it reads
-    (:meth:`~repro_torch.dist.sharding.Placement.view`): the families of
-    ``TENSOR_PARALLEL`` through the model-local view, each rank computing
-    its "model" blocks (:class:`~repro_torch.dist.sharding.TensorSplit`),
-    the encoder-decoder whole layers.  A leaf split over a row axis gets
-    this rank's block of its gradient from its gather's backward
-    (reduce-scattered); over each other row axis the step all-reduces
-    it.  The clip and the
-    metrics take the mesh-wide norm.  With ``compress`` (a model axis of
+    (:meth:`~repro_torch.dist.sharding.Placement.view`) through the
+    model-local view, each rank computing its "model" blocks
+    (:class:`~repro_torch.dist.sharding.TensorSplit`).  A leaf split over
+    a row axis gets this rank's block of its gradient from its gather's
+    backward (reduce-scattered); over each other row axis the step
+    all-reduces it.  The clip and the metrics take the mesh-wide norm.  With ``compress`` (a model axis of
     1 and no pod axis above 1 only: the reference compresses over one
     data axis) the step gathers the whole tree, sums the full gradients
     by the int8 path over "data" unchanged, updates this rank's blocks
@@ -210,7 +201,7 @@ def make_train_step(model, cfg, opt, accum_steps: int = 1,
         kw, scale = {}, 1.0
         if rows is not None:
             kw["rows"], scale = rows, float(rows.n)
-            if tp is not None:
+            if tp is not None:      # None with --compress-grads
                 kw["tp"] = tp
         if accum_steps <= 1:
             return loss_and_grads(model, cfg, params, batch, view, scale,
@@ -317,11 +308,11 @@ def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def gather_vocab(logits: torch.Tensor,
-                 tp: Optional[sharding.TensorSplit]) -> torch.Tensor:
+                 tp: sharding.TensorSplit) -> torch.Tensor:
     """Logits (..., V) from this rank's block of the vocabulary (a
     placed prefill's ``full_logits``), gathered over "model"
     (no autograd); whole logits as they are."""
-    if tp is None or logits.shape[-1] == tp.vocab:
+    if logits.shape[-1] == tp.vocab:
         return logits
     return sharding._all_gather(logits, (None,) * (logits.dim() - 1)
                                 + ("model",), tp.mesh)
@@ -369,17 +360,19 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
     (``data_specs``) and ``lengths`` every row's (B,), replicated.  Each
     layer's new K/V or state is cut to this rank's blocks as it is made
     (at most one layer's full leaf beyond the blocks); the new cache is a
-    ``PlacedCache``.  The families of ``TENSOR_PARALLEL`` compute on their
-    "model" blocks (:class:`~repro_torch.dist.sharding.TensorSplit`:
+    ``PlacedCache``.  Every family computes on its "model" blocks
+    (:class:`~repro_torch.dist.sharding.TensorSplit`: heads, cross
     heads, ffn, experts, SSM heads, vocabulary): the last logits are this
     rank's rows with the vocabulary blocks of the last position gathered
     over "model" (B, V), and with ``full_logits`` this rank's rows and
     block of the vocabulary (B, S, V / model) where it splits, for the
-    caller to gather (:func:`gather_vocab`); the encoder-decoder's logits
-    are whole.  An encoder-decoder's prefill without frames reads the
+    caller to gather (:func:`gather_vocab`).  An encoder-decoder's
+    prefill with frames projects each layer's cross K/V on this rank's
+    KV heads, the block the cache holds; without frames it reads the
     cache's cross K/V as this rank's block of it, split over heads or
-    frames as the cache is, and an MoE layer queues the whole batch's
-    tokens (:class:`~repro_torch.dist.sharding.DecodeSplit`).
+    frames as the cache is, and feeds its heads' queries from it; an
+    MoE layer queues the whole batch's tokens
+    (:class:`~repro_torch.dist.sharding.DecodeSplit`).
 
     ``paged=True`` builds the paged admission step instead:
     ``step(params, cache, template, tokens, lengths, phys_blocks[, slot,
@@ -402,7 +395,6 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
                              "the page pool is not placed")
         placement = _serving_placement(model, cfg, mesh)
         tp = tensor_split(cfg, mesh)
-        kw = {} if tp is None else {"tp": tp}
 
         def placed_step(params, cache, tokens, lengths,
                         frontend_embeds=None):
@@ -428,7 +420,7 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
             with torch.no_grad():
                 logits, new = model.prefill(
                     placement.view(params, tp), like, tokens, cfg, here,
-                    frontend_embeds, cut=cut, split=cp.split(), **kw)
+                    frontend_embeds, cut=cut, split=cp.split(), tp=tp)
                 if not full_logits:
                     logits = gather_vocab(_last_logits(logits, here), tp)
             return logits, sharding.PlacedCache(new, cut.placement_after(new))

@@ -232,12 +232,32 @@ def attend_split(q: torch.Tensor, cache_k: torch.Tensor,
     KV heads, over its block of keys combined across the sequence blocks,
     and the heads' outputs are gathered over "model" -> (B, T, Hq, Dh)."""
     q = _rank_heads(q, split, q.shape[2] // cfg.n_kv_heads)
-    if split.seq is None:
-        out = _sdpa(q, cache_k, cache_v, mask, cfg)
-    else:
-        out = _sdpa_blocks(q, cache_k, cache_v, mask, cfg,
-                           split.gather_blocks)
-    return split.gather_heads(out, 2)
+    return split.gather_heads(_attend_blocks(q, cache_k, cache_v, mask, cfg,
+                                             split), 2)
+
+
+def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor], cfg: ModelConfig,
+                   split=None) -> torch.Tensor:
+    """:func:`_sdpa`, or over ``split.seq``'s blocks of keys combined
+    across ranks (:func:`_sdpa_blocks`)."""
+    if split is None or split.seq is None:
+        return _sdpa(q, k, v, mask, cfg)
+    return _sdpa_blocks(q, k, v, mask, cfg, split.gather_blocks)
+
+
+def attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], cfg: ModelConfig, tp,
+                 split=None) -> torch.Tensor:
+    """This rank's query heads q (B, T, Hq / model, Dh) under ``tp`` (a
+    :class:`repro_torch.dist.sharding.TensorSplit`) against k / v (B, Sk,
+    Hkv', Dh): their KV heads (projected on the rank's block, or its
+    block of a cache split over heads) or every KV head (those the
+    queries read are picked: :func:`_kv_for_queries`); ``split``'s
+    sequence blocks combined as in :func:`attend_split`.  The output
+    stays on the rank's heads, for ``wo``'s rows."""
+    k, v = _kv_for_queries(k, v, q.shape[-2], cfg, tp)
+    return _attend_blocks(q, k, v, mask, cfg, split)
 
 
 def attention_prefill(params: dict, x: torch.Tensor,
@@ -269,21 +289,27 @@ def attention_prefill(params: dict, x: torch.Tensor,
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               window: int, cfg: ModelConfig,
               kv: Optional[Tuple[torch.Tensor, ...]] = None,
-              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_positions: Optional[torch.Tensor] = None,
+              tp=None) -> torch.Tensor:
     """Self-attention (``kv=None``: causal, as :func:`attention_prefill`)
     or cross-attention over ``kv[0]`` (B, Sk, D), the encoder states: no
     RoPE and no mask, every query sees every key (``kv_positions`` is
-    unused, as in the reference).  x (B, S, D) -> (B, S, D)."""
+    unused, as in the reference).  x (B, S, D) -> (B, S, D).  Under
+    ``tp`` each rank projects its query heads from ``x`` and their K/V
+    from ``kv[0]`` (:func:`_project_qkv`: one ``copy`` where ``kv[0]`` is
+    ``x``, the encoder's self-attention), and ``wo`` completes the output
+    over "model"."""
     del kv_positions
     if kv is None:
-        out, _, _ = attention_prefill(params, x, positions, window, cfg)
+        out, _, _ = attention_prefill(params, x, positions, window, cfg, tp)
         return out
-    q, k, v = _project_qkv(params, x, kv[0], cfg)
+    q, k, v = _project_qkv(params, x, kv[0], cfg, tp)
+    k, v = _kv_for_queries(k, v, q.shape[-2], cfg, tp)
     out = _sdpa(q, k, v, None, cfg)
     dh = cfg.head_dim_
-    out = out.reshape(*x.shape[:-1], cfg.n_heads * dh)
+    out = out.reshape(*x.shape[:-1], q.shape[-2] * dh)
     return linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
-                               cfg.d_model, cfg, "attn_out")
+                               cfg.d_model, cfg, "attn_out", tp)
 
 
 def scatter_prefill_kv(k: torch.Tensor, v: torch.Tensor,

@@ -25,6 +25,18 @@ the cache.  The port keeps a per-slot frame count ``xlen`` (B,) int32 in
 the cache, set at prefill, and :func:`_cross_attend` masks the keys at
 and beyond it.  When the frames fill the cache the mask is all true and
 the function is the reference's.
+
+**Tensor parallelism.**  Under ``tp`` (a placed train or prefill step's
+:class:`repro_torch.dist.sharding.TensorSplit`) every attention, the
+encoder's, the decoder's self- and cross-attention, projects and attends
+this rank's query and KV heads and completes its output over "model"
+through ``wo``'s rows; the GeGLU MLP computes its ffn columns; the
+embedding and the logits are this rank's block of the vocabulary where
+it splits.  The encoder states feed every decoder layer's cross K/V,
+whose columns split, so they pass through ``tp.copy``: their gradient
+is summed over "model" (each rank computes the whole encoder).  A
+prefill's cross K/V are this rank's KV heads, the block the placed
+cache holds.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import linear
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
     ModelConfig,
@@ -91,74 +104,80 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _run_layers(fn, stacked: dict, n: int, x: torch.Tensor, *args,
-                cfg: ModelConfig) -> torch.Tensor:
-    """``x = fn(layer_i, x, *args, cfg)`` over ``n`` stacked layers; under
-    ``cfg.remat`` with grad enabled each layer saves only its input and
-    is recomputed whole in the backward (``nothing_saveable``)."""
+                cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """``x = fn(layer_i, x, *args, cfg, tp)`` over ``n`` stacked layers;
+    under ``cfg.remat`` with grad enabled each layer saves only its input
+    and is recomputed whole in the backward (``nothing_saveable``), its
+    collectives under ``tp`` with it."""
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n):
-        x = run_layer(fn, stacked, i, x, *args, cfg, remat=remat)
+        x = run_layer(fn, stacked, i, x, *args, cfg, tp, remat=remat)
     return x
 
 
 def _enc_layer(layer: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Bidirectional encoder layer: the self-attention runs the
     cross-attention path over its own input (no causal mask)."""
     h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
     x = x + attn_mod.attention(layer["attn"], h, positions, 0, cfg,
-                               kv=(h,), kv_positions=positions)
+                               kv=(h,), kv_positions=positions, tp=tp)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp_mod.mlp(layer["mlp"], h, cfg)
+    return x + mlp_mod.mlp(layer["mlp"], h, cfg, tp=tp)
 
 
-def encode(params: dict, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+           tp=None) -> torch.Tensor:
     """frames (B, F, D) stub audio embeddings -> encoder states (B, F, D)
-    in the compute dtype."""
+    in the compute dtype (whole on every rank under ``tp``)."""
     b, f, _ = frames.shape
     positions = torch.arange(f, device=frames.device)[None].expand(b, f)
     x = _run_layers(_enc_layer, params["encoder"],
                     cfg.n_encoder_layers or cfg.n_layers,
-                    frames.to(cfg.compute_dtype), positions, cfg=cfg)
+                    frames.to(cfg.compute_dtype), positions, cfg=cfg, tp=tp)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
 def _dec_layer(layer: dict, x: torch.Tensor, enc: torch.Tensor,
-               positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+               positions: torch.Tensor, cfg: ModelConfig,
+               tp=None) -> torch.Tensor:
     h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
-    x = x + attn_mod.attention(layer["attn"], h, positions, 0, cfg)
+    x = x + attn_mod.attention(layer["attn"], h, positions, 0, cfg, tp=tp)
     h = rms_norm(x, layer["norm_x"]["scale"], cfg.norm_eps)
     x = x + attn_mod.attention(layer["cross"], h, positions, 0, cfg,
-                               kv=(enc,))
+                               kv=(enc,), tp=tp)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp_mod.mlp(layer["mlp"], h, cfg)
+    return x + mlp_mod.mlp(layer["mlp"], h, cfg, tp=tp)
 
 
 def apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+          frontend_embeds: Optional[torch.Tensor] = None,
+          tp=None) -> torch.Tensor:
     """tokens (B, S) decoder input, frontend_embeds (B, F, D) audio stub
-    -> fp32 logits (B, S, V)."""
+    -> fp32 logits (B, S, V); under ``tp`` (see the module's docstring)
+    this rank's block of the vocabulary (B, S, V / model) where it
+    splits."""
     if frontend_embeds is None:
         raise ValueError("the encoder-decoder needs frontend_embeds")
-    enc = encode(params, frontend_embeds, cfg)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    enc = encode(params, frontend_embeds, cfg, tp)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x = _run_layers(_dec_layer, params["decoder"], cfg.n_layers, x, enc,
-                    positions, cfg=cfg)
+                    positions, cfg=cfg, tp=tp)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)
+    return unembed(params["embed"], x, tp)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
-            rows=None) -> torch.Tensor:
+            rows=None, tp=None) -> torch.Tensor:
     """Next-token cross-entropy of the decoder over ``batch["tokens"]``
     against ``batch["labels"]``, conditioned on
-    ``batch["frontend_embeds"]``; ``rows`` as in
+    ``batch["frontend_embeds"]``; ``rows`` and ``tp`` as in
     :func:`repro_torch.models.transformer.loss_fn`."""
-    logits = apply(params, batch["tokens"], cfg, batch["frontend_embeds"])
-    return cross_entropy(logits, batch["labels"], cfg, rows)
+    logits = apply(params, batch["tokens"], cfg, batch["frontend_embeds"],
+                   tp)
+    return cross_entropy(logits, batch["labels"], cfg, rows, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -196,16 +215,21 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
     return {**kv, **_cross_cache(cfg, batch, device)}
 
 
-def _cross_kv(cross: dict, enc: torch.Tensor, cfg: ModelConfig):
+def _cross_kv(cross: dict, enc: torch.Tensor, cfg: ModelConfig, tp=None):
     """One decoder layer's cross K/V (B, F, Hkv, Dh) of encoder states
-    ``enc`` (B, F, D), in the compute dtype."""
-    dh, hkv = cfg.head_dim_, cfg.n_kv_heads
-    k = attn_mod.linear.linear_apply(cross["wk"], enc, cfg.d_model,
-                                     hkv * dh, cfg, "attn_qkv")
-    v = attn_mod.linear.linear_apply(cross["wv"], enc, cfg.d_model,
-                                     hkv * dh, cfg, "attn_qkv")
-    return (k.reshape(*enc.shape[:-1], hkv, dh).to(cfg.compute_dtype),
-            v.reshape(*enc.shape[:-1], hkv, dh).to(cfg.compute_dtype))
+    ``enc`` (B, F, D), in the compute dtype; under ``tp`` with ``wk`` /
+    ``wv`` on their "model" block, this rank's KV heads (B, F, Hkv /
+    model, Dh), ``enc`` read through ``tp.copy``."""
+    dh, nkv = cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    if tp is not None and linear.splits_out(cross["wk"], nkv):
+        enc = tp.copy(enc)
+    k = linear.linear_apply(cross["wk"], enc, cfg.d_model, nkv, cfg,
+                            "attn_qkv", tp)
+    v = linear.linear_apply(cross["wv"], enc, cfg.d_model, nkv, cfg,
+                            "attn_qkv", tp)
+    shape = (*enc.shape[:-1], k.shape[-1] // dh, dh)
+    return (k.reshape(shape).to(cfg.compute_dtype),
+            v.reshape(shape).to(cfg.compute_dtype))
 
 
 def _frame_counts(frames: torch.Tensor) -> torch.Tensor:
@@ -215,48 +239,57 @@ def _frame_counts(frames: torch.Tensor) -> torch.Tensor:
 
 def _cross_attend(layer: dict, h: torch.Tensor, xk: torch.Tensor,
                   xv: torch.Tensor, xlen: Optional[torch.Tensor],
-                  cfg: ModelConfig, split=None) -> torch.Tensor:
+                  cfg: ModelConfig, split=None, tp=None) -> torch.Tensor:
     """Cross-attention of (B, T, D) queries over one layer's cached
     encoder K/V (B, F, Hkv, Dh), keys at and beyond ``xlen`` (B,) masked
     (shared by the prefill, decode and verify bodies: T = S, 1, k + 1).
     With ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit`)
     ``xk``/``xv`` are this rank's block of a placed cross cache
-    (:func:`repro_torch.models.attention.attend_split`)."""
-    dh = cfg.head_dim_
-    q = attn_mod.linear.linear_apply(
-        layer["cross"]["wq"], h, cfg.d_model, cfg.n_heads * dh, cfg,
-        "attn_qkv").reshape(*h.shape[:-1], cfg.n_heads, dh)
+    (:func:`repro_torch.models.attention.attend_split`).  Under ``tp``
+    with ``wq`` on its "model" block the queries are this rank's heads,
+    attended against their KV heads in ``xk``/``xv`` (projected on them,
+    or the rank's block of the cache) and completed over "model" by
+    ``wo``'s rows (:func:`repro_torch.models.attention.attend_local`)."""
+    dh, d = cfg.head_dim_, cfg.d_model
+    nq = cfg.n_heads * dh
+    wq = layer["cross"]["wq"]
+    local = tp is not None and linear.splits_out(wq, nq)
+    q = linear.linear_apply(wq, tp.copy(h) if local else h, d, nq, cfg,
+                            "attn_qkv", tp)
+    q = q.reshape(*h.shape[:-1], q.shape[-1] // dh, dh)
     mask = None
     if xlen is not None:
         keys = attn_mod.key_positions(split, xk.shape[1], h.device)
         mask = (keys[None, :] < xlen[:, None])[:, None, :].expand(
             -1, h.shape[1], -1)
-    if split is None:
+    if local:
+        out = attn_mod.attend_local(q, xk, xv, mask, cfg, tp, split)
+    elif split is None:
         out = attn_mod._sdpa(q, xk, xv, mask, cfg)
     else:
         out = attn_mod.attend_split(q, xk, xv, mask, cfg, split)
-    out = out.reshape(*h.shape[:-1], cfg.n_heads * dh)
-    return attn_mod.linear.linear_apply(
-        layer["cross"]["wo"], out, cfg.n_heads * dh, cfg.d_model, cfg,
-        "attn_out")
+    out = out.reshape(*h.shape[:-1], out.shape[-2] * dh)
+    return linear.linear_apply(layer["cross"]["wo"], out, nq, d, cfg,
+                               "attn_out", tp)
 
 
 def _cross_and_mlp(layer: dict, x: torch.Tensor, xk: torch.Tensor,
                    xv: torch.Tensor, xlen: Optional[torch.Tensor],
-                   cfg: ModelConfig, split=None) -> torch.Tensor:
+                   cfg: ModelConfig, split=None, tp=None) -> torch.Tensor:
     """The decoder layer after its self-attention: cross-attention over
-    one layer's frames ``xk``/``xv`` (``xlen`` a row; ``split`` as in
-    :func:`_cross_attend`), then the MLP (residuals included)."""
+    one layer's frames ``xk``/``xv`` (``xlen`` a row; ``split`` and
+    ``tp`` as in :func:`_cross_attend`), then the MLP (residuals
+    included; its ffn columns under ``tp``)."""
     h = rms_norm(x, layer["norm_x"]["scale"], cfg.norm_eps)
-    x = x + _cross_attend(layer, h, xk, xv, xlen, cfg, split)
+    x = x + _cross_attend(layer, h, xk, xv, xlen, cfg, split, tp)
     h = rms_norm(x, layer["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp_mod.mlp(layer["mlp"], h, cfg)
+    return x + mlp_mod.mlp(layer["mlp"], h, cfg, tp=tp)
 
 
 def prefill(params: dict, cache: dict, tokens: torch.Tensor,
             cfg: ModelConfig, lengths: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None, cut=keep,
-            split=None) -> Tuple[torch.Tensor, dict]:
+            split=None, tp=None) -> Tuple[torch.Tensor, dict]:
     """Batched decoder prompt pass -> (logits (B, S, V), a NEW cache).
 
     With ``frontend_embeds`` the encoder runs first and each decoder
@@ -268,8 +301,14 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
     :func:`repro_torch.models.transformer.prefill` (the cross K/V too,
     when the frames come here).  ``split`` (a placed prefill's
     :class:`repro_torch.dist.sharding.DecodeSplit`) says which block of
-    the cache's cross K/V this rank holds, where no frames come."""
-    enc = (encode(params, frontend_embeds, cfg)
+    the cache's cross K/V this rank holds, where no frames come.  ``tp``
+    (the model-local view's :class:`repro_torch.dist.sharding.TensorSplit`):
+    each layer computes on "model" blocks, the new self and cross K/V
+    are this rank's KV heads where they split over "model" (the rank's
+    block of the cache's cross K/V feeds its own heads where no frames
+    come), and the logits this rank's block of the vocabulary
+    (B, S, V / model) where it splits."""
+    enc = (encode(params, frontend_embeds, cfg, tp)
            if frontend_embeds is not None else None)
     xlen = (_frame_counts(frontend_embeds) if enc is not None
             else cache["xlen"])
@@ -278,29 +317,31 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x_split = leaf_split(split, "xk") if enc is None else None
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         layer = layer_params(params["decoder"], i)
         if enc is not None:
-            xk, xv = _cross_kv(layer["cross"], enc, cfg)
+            xk, xv = _cross_kv(layer["cross"], enc, cfg, tp)
         else:
             xk, xv = cache["xk"][i], cache["xv"][i]
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, k, v = attn_mod.attention_prefill(layer["attn"], h, positions,
-                                               0, cfg)
-        x = _cross_and_mlp(layer, x + out, xk, xv, xlen, cfg, x_split)
+                                               0, cfg, tp)
+        x = _cross_and_mlp(layer, x + out, xk, xv, xlen, cfg, x_split, tp)
         ck, cv = attn_mod.scatter_prefill_kv(k, v, lengths, smax)
-        ks.append(cut("k", ck))
-        vs.append(cut("v", cv))
+        local = k.shape[2] < cfg.n_kv_heads
+        ks.append(cut("k", ck, local))
+        vs.append(cut("v", cv, local))
         if enc is not None:
-            xks.append(cut("xk", xk))
-            xvs.append(cut("xv", xv))
+            local = xk.shape[2] < cfg.n_kv_heads
+            xks.append(cut("xk", xk, local))
+            xvs.append(cut("xv", xv, local))
         del xk, xv
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = unembed(params["embed"], x)
+    logits = unembed(params["embed"], x, tp)
     new = {**cache, "k": torch.stack(ks).to(cache["k"].dtype),
            "v": torch.stack(vs).to(cache["v"].dtype)}
     if enc is not None:

@@ -12,7 +12,8 @@ named, or every one): ``arch``,
 ``capacity_factor`` and ``meshes`` (e.g. ``"2x2,1x4"``) as 0-d arrays,
 optionally ``overrides`` (a JSON object of config fields, e.g.
 ``{"d_inner": 192}``),
-``params/<path>``, the train batches ``batch<s>/<name>`` and, where a
+``params/<path>``, the train batches ``batch<s>/<name>`` (with
+``frontend_embeds`` (B, F, D) for the encoder-decoder) and, where a
 prefill is asked, ``prefill/tokens`` (B, S), ``prefill/lengths`` (B,),
 ``prefill/cache_len`` and ``prefill/frontend_embeds``.  For every mesh
 ``("data", "model") = (d, m)`` of the case, over the first d * m devices:

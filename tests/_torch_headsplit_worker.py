@@ -90,7 +90,8 @@ def serve(src, case: str, mesh, arrays: dict, facts: dict) -> None:
                    for k, v in cache.items()})
     if cfg.family == "encdec":
         again, _ = prefill(params, cache, tokens[rows], lengths)
-        arrays[pre + "again"] = again.numpy().copy()
+        arrays[pre + "again"] = steps.gather_vocab(
+            again, steps.tensor_split(cfg, mesh)).numpy().copy()
     facts[case] = dict(rows=[rows.start, rows.stop], next=nxt,
                        final_slices=block_slices(cache),
                        specs={k: list(s) for k, s in

@@ -15,10 +15,15 @@ case with ``accum`` 2 also runs the steps with ``accum_steps=2``
 case with a prefill: ``make_prefill_step(full_logits=True, mesh=)`` at
 (2, 2) on this rank's rows of a fresh cache placed by ``cache_specs``,
 the logits gathered over the vocabulary, and its blocks of the new cache
-with the slices of the full leaves they are.  A case's optional
+with the slices of the full leaves they are; an encoder-decoder's also
+runs the placed prefill without frames on a cache of more frame slots
+than frames (the port's unplaced prefill's cross K/V written into the
+leading slots, ``xlen`` the frame count), whose logits must be the
+prefill's with frames (``prefill/noframes_logits``).  A case's optional
 ``overrides`` (JSON) replaces fields of its config.  ``structure``: one
 placed step of a smoke config (``structure/arch``, Qwen3-1.7B by
-default; dense) at (1, 4) counted by the dry run's ``Collectives``,
+default; dense; 8 stub frames a row for an audio frontend) at (1, 4)
+counted by the dry run's ``Collectives``,
 beside the bytes of its leaves.  A case that raises is recorded
 (``errors``) and the others run on.
 
@@ -133,6 +138,9 @@ def prefill_case(src, case: str, arrays: dict, facts: dict) -> None:
     block = logits.shape[-1]
     logits = steps.gather_vocab(logits, steps.tensor_split(cfg, mesh))
     arrays[pre + "prefill/logits"] = logits.numpy().copy()
+    if cfg.family == "encdec":
+        arrays[pre + "prefill/noframes_logits"] = noframes_logits(
+            src, pre, cfg, model, mesh, step, rows)
     pl = cache.placement
     slices = {}
     for k, t in cache.items():
@@ -141,6 +149,34 @@ def prefill_case(src, case: str, arrays: dict, facts: dict) -> None:
             pl.shapes[k], pl.specs[k], pl.sizes, coord_of(mesh))]
     facts[f"{case}/prefill"] = dict(rows=[rows.start, rows.stop],
                                     vocab_block=block, slices=slices)
+
+
+def noframes_logits(src, pre: str, cfg, model, mesh, step, rows):
+    """The placed prefill without frames, this rank's rows, on a cache
+    whose leading frame slots hold the port's unplaced prefill's cross
+    K/V of the case's frames and ``xlen`` their count: its keys beyond
+    the frames are masked, so its logits are the prefill's with them."""
+    params = bridge.to_torch(under(src, pre + "params/"), "cpu")
+    tokens = torch.from_numpy(src[pre + "prefill/tokens"])
+    lengths = torch.from_numpy(src[pre + "prefill/lengths"])
+    frames = torch.from_numpy(src[pre + "prefill/frontend_embeds"])
+    b, f = frames.shape[:2]
+    cache = model.init_cache(cfg, b, int(src[pre + "prefill/cache_len"]),
+                             device="cpu")
+    if cache["xk"].shape[2] <= f:
+        raise ValueError("the case's frames must leave cache slots empty")
+    with torch.no_grad():
+        _, made = model.prefill(params, model.init_cache(
+            cfg, b, cache["k"].shape[2], device="cpu"), tokens, cfg,
+            lengths, frames)
+    for k in ("xk", "xv"):
+        cache[k][:, :, :f] = made[k]
+    cache["xlen"].fill_(f)
+    logits, _ = step(sharding.place_params(params, mesh),
+                     sharding.place_cache(cache, mesh), tokens[rows],
+                     lengths)
+    return steps.gather_vocab(logits, steps.tensor_split(cfg, mesh)
+                              ).numpy().copy()
 
 
 def structure(facts: dict, arch: str = "qwen3_1_7b") -> None:
@@ -155,9 +191,13 @@ def structure(facts: dict, arch: str = "qwen3_1_7b") -> None:
     g = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=g,
                            dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend == "audio":
+        batch["frontend_embeds"] = torch.randn(4, 8, cfg.d_model,
+                                               generator=g)
     coll = dryrun.Collectives()
     with coll:
-        step(state, {"tokens": tokens, "labels": tokens})
+        step(state, batch)
     like = model.init(torch.Generator(), cfg, "meta")
     paths, leaves = opt_mod.tree_flatten(like)
     facts["structure"] = dict(

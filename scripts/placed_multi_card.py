@@ -29,19 +29,24 @@ launcher gives them).  Rank 0 prints a line a run and writes every rank's
 numbers, with the card's name and power limit, to ``--out``.
 
 ``--train`` runs come first, then ``--serve``, ``--serve-long`` and
-``--pod-train``.  ``--serve ARCH[:MODEL_PARALLEL]`` serves ARCH placed
-at (data = world / MODEL_PARALLEL, model = MODEL_PARALLEL; 1 by
-default): a ``full_logits`` prefill of 4 prompts (64 positions, ragged;
-an encoder-decoder's with ``SERVE_FRAMES`` stub frames each) and 8
-greedy decode steps through ``make_prefill_step(mesh=)`` /
+``--pod-train``.  ``--serve ARCH[:MODEL_PARALLEL[:dense]]`` serves ARCH
+placed at (data = world / MODEL_PARALLEL, model = MODEL_PARALLEL; 1 by
+default; ``acdc`` on ``pallas``, or ``dense`` projections, which split
+over "model" where ``acdc``'s SELL ones run whole): a ``full_logits``
+prefill of 4 prompts (64 positions, ragged; an encoder-decoder's with
+``SERVE_FRAMES`` stub frames each) and 8 greedy decode steps through
+``make_prefill_step(mesh=)`` /
 ``make_serve_step(mesh=)`` on a cache placed by ``cache_specs`` (K/V or
-SSM heads over "model" where they divide it: head-parallel decode), in
+SSM heads over "model" where they divide it: head-parallel decode; every
+rank computing its "model" blocks of the weights: tensor-parallel), in
 fp32 and in bf16 compute, beside the same steps unplaced on rank 0
 alone (the ``full_logits`` prefill's logits at every real position held
 too, beside one card's prefill of each row alone).  ``--serve-long ARCH:MODEL_PARALLEL`` serves one row the same
 way on an 8192-position cache (its sequence split over "data"): a
 4090-token prompt, then 12 decode steps through position 4101, across
-the blocks' boundary at 4096 for two data ranks.  Held: the fp32 logits
+the blocks' boundary at 4096 for two data ranks.  The placed decode
+step after the streams is counted by the dry run's ``Collectives``
+(``step_collectives``).  Held: the fp32 logits
 of every row, at the prefill's last token and at one more decode step
 after the streams, within ``SERVE_FP32_ATOL`` of one card's; the streams
 (both dtypes) equal or departing first at a near-tie (the two tokens'
@@ -64,8 +69,9 @@ FLOP counter is left off: it runs the decompositions of ops it has no
 formula for, which moves the step's numbers); for serving, the
 same prefill cell at (world, 1) (prompts as long as its cache, as the
 dry run's cells are), or the same decode cell (4 rows, an 80-position
-cache, bf16) where MODEL_PARALLEL > 1, built by ``build_cell`` on the
-cards and measured there by ``dryrun.measure_on_device``: FLOPs,
+cache, bf16) where MODEL_PARALLEL > 1 (``acdc`` runs only), built by
+``build_cell`` on the cards and measured there by
+``dryrun.measure_on_device``: FLOPs,
 collectives, argument and output bytes, and the peak above the
 arguments within ``dryrun.PEAK_REL`` of
 ``torch.cuda.max_memory_allocated``'s.  ``--cell
@@ -77,6 +83,7 @@ train cell's step or a prefill cell's at any mesh of the world.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -249,42 +256,30 @@ def card_record(spec: str) -> dict:
     return rec
 
 
-def _decode_logits(model, cfg, params, cache, tok, pos, mesh=None):
+def _decode_logits(model, cfg, params, cache, tok, pos, mesh=None,
+                   coll=None):
     """One more decode step's logits (every row's), fed ``tok`` at
-    ``pos``: unplaced, or placed as ``make_serve_step(mesh=)`` runs it
-    (each rank's rows on its block of the cache, gathered to every
-    row's)."""
+    ``pos``: unplaced, or the logits ``make_serve_step(mesh=)`` samples
+    from (``steps.make_placed_decode``: each rank's rows on its block of
+    the cache and its "model" blocks of the weights; counted by ``coll``,
+    a ``dryrun.Collectives``, when given), gathered to every row's."""
     with torch.no_grad():
         if mesh is None:
             return model.decode_step(params, cache, tok, pos, cfg)[0]
-        view = sharding.Placement(
-            {"params": model.init(torch.Generator().manual_seed(0), cfg,
-                                  "meta")}, mesh).view(params)
+        decode = steps_mod.make_placed_decode(model, cfg, mesh)
+        with coll if coll is not None else contextlib.nullcontext():
+            logits, _ = decode(params, cache, tok, pos)
         spec = sharding.rows_spec(mesh, tok.shape[0])
-        logits, _ = model.decode_step(
-            view, cache, sharding.local_shard(tok, spec, mesh),
-            sharding.local_shard(pos, spec, mesh), cfg,
-            split=cache.placement.split())
         return sharding._all_gather(logits.float().contiguous(), spec, mesh)
-
-
-class _HeadBlock:
-    """One rank's head block of an SSM state, in one process: its heads,
-    no collective (the caller joins the blocks)."""
-
-    def __init__(self, heads: slice):
-        self.heads, self.seq = heads, None
-
-    def gather_heads(self, x, dim):
-        return x
 
 
 def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
     """Mamba2's decode step (``models.mamba2.decode_step``) on one card,
     each layer's recurrence run on ``n_blocks`` contiguous head blocks of
     the state one after another, their outputs and states joined in head
-    order: a placed step's arithmetic at model = ``n_blocks`` without its
-    collectives.  Updates ``cache`` in place; returns the logits."""
+    order: the head-blocked recurrence of a placed step at model =
+    ``n_blocks``, without its collectives (and with the gated norm and
+    ``out_proj`` whole).  Updates ``cache`` in place; returns the logits."""
     from repro_torch.models import mamba2
     from repro_torch.models.common import embed_lookup, rms_norm, unembed
     from repro_torch.models.transformer import layer_params
@@ -301,7 +296,7 @@ def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
                 y, ssm, conv = mamba2._recur(
                     layer["mixer"], xbc, dt,
                     cache["ssm"][i][:, hs].contiguous(), cache["conv"][i],
-                    cfg, split=_HeadBlock(hs))
+                    cfg, heads=hs)
                 ys.append(y.reshape(*y.shape[:2], size, cfg.ssm_head_dim))
                 states.append(ssm)
             cache["ssm"][i] = torch.cat(states, dim=1)
@@ -313,11 +308,12 @@ def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
 
 
 def serve_run(arch: str, dtype: str, model_parallel: int = 1,
-              long: bool = False) -> dict:
+              long: bool = False, sell: str = "acdc") -> dict:
     """Placed serving at (world / model_parallel, model_parallel) and, on
     rank 0, the unplaced steps; rank 0 gets the comparison."""
-    cfg = registry.with_sell(registry.get_config(arch), "acdc",
-                             method="pallas")
+    cfg = registry.get_config(arch)
+    if sell == "acdc":
+        cfg = registry.with_sell(cfg, "acdc", method="pallas")
     cfg = dataclasses.replace(cfg, dtype=dtype)
     model = get_model(cfg)
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -383,15 +379,16 @@ def serve_run(arch: str, dtype: str, model_parallel: int = 1,
     first = full_last.argmax(-1)
     del logits
     streams, secs, cache, tok, pos = decode(serve, placed_p, cache, first)
+    coll = dryrun.Collectives()
     step_logits = _decode_logits(model, cfg, placed_p, cache, tok, pos,
-                                 mesh)
+                                 mesh, coll)
     out = dict(mesh=list(mesh.shape), rows=rows.tolist(),
                specs={k: list(v) for k, v in cache.placement.specs.items()},
                prefill_s=prefill_s,
                decode_s=sum(secs[1:]) / max(len(secs) - 1, 1),
                peak=(torch.cuda.max_memory_allocated()
                      if DEVICE == "cuda" else 0),
-               streams=streams.tolist())
+               streams=streams.tolist(), step_collectives=coll.record())
     del placed_p, cache
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -572,8 +569,9 @@ def main() -> int:
                     help="ARCH:MODEL_PARALLEL:STEPS[:DTYPE] (repeatable;"
                          " not --run, which torchrun takes for --run-path)")
     ap.add_argument("--serve", action="append", default=[],
-                    help="ARCH[:MODEL_PARALLEL] served placed at (world / "
-                         "MODEL_PARALLEL, MODEL_PARALLEL); 1 by default")
+                    help="ARCH[:MODEL_PARALLEL[:dense]] served placed at "
+                         "(world / MODEL_PARALLEL, MODEL_PARALLEL); 1 and "
+                         "acdc by default")
     ap.add_argument("--serve-long", action="append", default=[],
                     help="ARCH:MODEL_PARALLEL: one row on an 8192-position "
                          "cache, a 4090-token prompt, 12 decode steps")
@@ -639,28 +637,33 @@ def main() -> int:
                          f"{run['losses_ok']})"
                          if "data_parallel" in run else ""), flush=True)
         world = dist.get_world_size()
-        serves = [(a.split(":")[0], int(a.split(":")[1]) if ":" in a
-                   else 1, False) for a in args.serve]
-        serves += [(a.split(":")[0], int(a.split(":")[1]), True)
+        serves = []
+        for a in args.serve:
+            arch, *rest = a.split(":")
+            serves.append((arch, int(rest[0]) if rest else 1, False,
+                           rest[1] if len(rest) > 1 else "acdc"))
+        serves += [(a.split(":")[0], int(a.split(":")[1]), True, "acdc")
                    for a in args.serve_long]
-        specs = ([serve_spec(a, world, mp) for a, mp, lg in serves
-                  if not lg]
+        specs = ([serve_spec(a, world, mp) for a, mp, lg, sl in serves
+                  if not lg and sl == "acdc"]
                  + [pod_spec(p.split(":")[0], world) for p in args.pod_train]
                  + args.cell)
         reckon_out = Path("build") / "placed_multi_card" / "reckon.json"
         reckoning = (dryrun.start_reckoning(specs, "acdc", reckon_out)
                      if rank == 0 and specs else None)
         served, pods = [], []
-        for arch, mp, long in serves:
+        for arch, mp, long, sell in serves:
             for dtype in ("float32", "bfloat16"):
-                mine = serve_run(arch, dtype, mp, long)
+                mine = serve_run(arch, dtype, mp, long, sell)
                 ranks = [None] * world
                 dist.all_gather_object(ranks, mine)
                 served.append(dict(arch=arch, dtype=dtype, long=long,
-                                   model_parallel=mp, ranks=ranks))
+                                   model_parallel=mp, sell=sell,
+                                   ranks=ranks))
                 if rank == 0:
                     r0 = ranks[0]
-                    print(f"[serve] {arch} {dtype} placed {r0['mesh']}"
+                    print(f"[serve] {arch} {sell} {dtype} placed "
+                          f"{r0['mesh']}"
                           f"{' long row' if long else ''} "
                           f"({report['device']}): prefill "
                           f"{[round(r['prefill_s'], 3) for r in ranks]} s, "
@@ -678,9 +681,12 @@ def main() -> int:
                              if "head_blocks" in r0 else "") + "); "
                           + (f"logits ok {r0['logits_ok']}; "
                              if dtype == "float32" else "")
-                          + f"streams held {r0['streams_held']['held']}",
+                          + f"streams held {r0['streams_held']['held']}; "
+                          f"the step's collectives "
+                          f"{r0['step_collectives']['count']} of "
+                          f"{r0['step_collectives']['bytes']} B",
                           flush=True)
-            if not long:
+            if not long and sell == "acdc":
                 served[-1]["card_cell"] = card_record(
                     serve_spec(arch, world, mp))
         for spec in args.pod_train:

@@ -44,9 +44,9 @@ rows, so the gradient is reduce-scattered (summed) and divided by the
 data size; over "model" the ranks of one data row compute the same loss,
 so the gradient is sliced, never summed.
 
-Tensor-parallel compute (:class:`TensorSplit`, the placed train and
-prefill steps of every family: the decoders, ssm, hybrid and the
-encoder-decoder): a leaf the model computes on its "model" block (heads,
+Tensor-parallel compute (:class:`TensorSplit`, the placed train,
+prefill and decode steps of every family: the decoders, ssm, hybrid and
+the encoder-decoder): a leaf the model computes on its "model" block (heads,
 KV heads, the encoder's and the cross-attention's heads, ffn columns,
 experts, SSM heads' ``out_proj`` rows, vocabulary) is gathered over the
 row axes only and keeps that block (the model-local view,
@@ -736,11 +736,16 @@ class Rows(Blocks):
 
 
 class TensorSplit:
-    """Tensor-parallel compute over "model" for the placed train and
-    prefill steps of every family (the decoders, ssm, hybrid and the
-    encoder-decoder), as the reference's jit computes them on
+    """Tensor-parallel compute over "model" for the placed train,
+    prefill and decode steps of every family (the decoders, ssm, hybrid
+    and the encoder-decoder), as the reference's jit computes them on
     ``param_specs``' blocks: query heads, KV heads, ffn columns, experts,
-    SSM heads and the vocabulary on this rank's "model" block.
+    SSM heads and the vocabulary on this rank's "model" block.  A placed
+    decode's heads are the block its cache holds
+    (:class:`DecodeSplit`): ``cache_specs`` splits KV heads over "model"
+    where they divide it, as :attr:`kv_heads` does, and SSM heads where
+    they divide it, as :attr:`ssm_split` does; the models check that the
+    two blocks agree.
 
     :meth:`keeps` says which leaves the model-local view
     (``Placement.view(params, split)``) keeps as their block, by path:

@@ -26,7 +26,8 @@ each, the model gathers a stacked layer where it slices it, and AdamW
 updates the blocks in place (:mod:`repro_torch.dist.sharding`).  The
 serving steps take a mesh too (``make_prefill_step(..., mesh=)``,
 ``make_serve_step(..., mesh=)``): params placed the same way, read
-without autograd, and a decode cache placed at rest by
+without autograd through the model-local view (each rank computing its
+"model" blocks), and a decode cache placed at rest by
 :func:`~repro_torch.dist.sharding.cache_specs`
 (:class:`~repro_torch.dist.sharding.PlacedCache`).
 """
@@ -113,9 +114,9 @@ def loss_and_grads(model, cfg, params: dict, batch: dict,
 
 
 def tensor_split(cfg, mesh) -> sharding.TensorSplit:
-    """The placed train and prefill steps' tensor-parallel compute on
-    ``mesh`` (:class:`~repro_torch.dist.sharding.TensorSplit`): every
-    family computes on its "model" blocks."""
+    """The placed train, prefill and decode steps' tensor-parallel
+    compute on ``mesh`` (:class:`~repro_torch.dist.sharding.TensorSplit`):
+    every family computes on its "model" blocks."""
     return sharding.TensorSplit(mesh, cfg)
 
 
@@ -457,6 +458,36 @@ def make_prefill_step(model, cfg, full_logits: bool = False,
     return step
 
 
+def make_placed_decode(model, cfg, mesh) -> Callable:
+    """``decode(params, cache, tokens, position) -> (logits, blocks)``:
+    one placed decode step's logits, before any sample.  ``params`` are
+    this rank's blocks by ``param_specs``, read through the model-local
+    view (:meth:`~repro_torch.dist.sharding.Placement.view` with the
+    step's :class:`~repro_torch.dist.sharding.TensorSplit`) without
+    autograd; ``cache`` a :class:`~repro_torch.dist.sharding.PlacedCache`,
+    updated in place; ``tokens`` and ``position`` every row's (B,),
+    replicated.  Each rank decodes its rows on its block of the cache
+    (:class:`~repro_torch.dist.sharding.DecodeSplit`) and its "model"
+    blocks of the weights; ``logits`` are this rank's rows (B / rows, V)
+    with the vocabulary gathered over "model" (:func:`gather_vocab`),
+    ``blocks`` its new cache blocks (a dict)."""
+    placement = _serving_placement(model, cfg, mesh)
+    tp = tensor_split(cfg, mesh)
+
+    def decode(params, cache, tokens, position):
+        cache = _placed_cache(cache)
+        spec = sharding.rows_spec(mesh, tokens.shape[0])
+        with torch.no_grad():
+            logits, new = model.decode_step(
+                placement.view(params, tp), cache,
+                sharding.local_shard(tokens, spec, mesh),
+                sharding.local_shard(position, spec, mesh), cfg,
+                split=cache.placement.split(), tp=tp)
+            return gather_vocab(logits, tp), new
+
+    return decode
+
+
 def make_serve_step(model, cfg, sample: str = "greedy",
                     temperature: float = 1.0, top_k: int = 0,
                     top_p: float = 0.0, paged: bool = False,
@@ -471,11 +502,17 @@ def make_serve_step(model, cfg, sample: str = "greedy",
     :func:`~repro_torch.dist.sharding.cache_specs`, ``tokens`` and
     ``position`` every row's, replicated.  Each rank decodes its rows on
     its block of the cache
-    (:class:`~repro_torch.dist.sharding.DecodeSplit`): its K/V and SSM
-    heads where they split over "model" (the heads' outputs gathered
-    over "model" a layer), its block of a sequence split over the row
-    axes (the blocks' softmax terms combined over them); the next tokens
-    are gathered to every row's.  A placement that no step reads raises
+    (:class:`~repro_torch.dist.sharding.DecodeSplit`: its K/V and SSM
+    heads where they split over "model", its block of a sequence split
+    over the row axes, the blocks' softmax terms combined over them) and
+    computes on its "model" blocks of the weights, as the reference's
+    jit computes on ``param_specs``' blocks
+    (:class:`~repro_torch.dist.sharding.TensorSplit`: query and KV heads,
+    ffn columns, experts, SSM heads, the vocabulary; ``wo``'s, ``wd``'s
+    and ``out_proj``'s rows complete a layer over "model"); the logits'
+    vocabulary blocks are gathered before the sample
+    (:func:`make_placed_decode`), and the next tokens are gathered to
+    every row's.  A placement that no step reads raises
     :class:`~repro_torch.dist.sharding.CacheSplitError`, naming the
     leaf.  A sampled (``temp``) placed step draws a row's token once, on
     the first rank of its "model" group from that rank's ``generator``,
@@ -493,25 +530,17 @@ def make_serve_step(model, cfg, sample: str = "greedy",
         if paged:
             raise ValueError("a placed paged decode is not supported: the "
                              "page pool is not placed")
-        placement = _serving_placement(model, cfg, mesh)
+        decode = make_placed_decode(model, cfg, mesh)
         one_draw = (sample == "temp"
                     and sharding._axis_sizes(mesh).get("model", 1) > 1)
 
         def placed_step(params, cache, tokens, position, generator=None):
-            cache = _placed_cache(cache)
-            split = cache.placement.split()
-            spec = sharding.rows_spec(mesh, tokens.shape[0])
-            with torch.no_grad():
-                logits, new = model.decode_step(
-                    placement.view(params), cache,
-                    sharding.local_shard(tokens, spec, mesh),
-                    sharding.local_shard(position, spec, mesh), cfg,
-                    split=split)
-                nxt = _sample(logits, generator)
-                if one_draw:    # the first model rank's draw, everywhere
-                    nxt = sharding._all_gather(nxt[None], ("model",),
-                                               mesh)[0]
-                nxt = sharding._all_gather(nxt, spec, mesh)
+            logits, new = decode(params, cache, tokens, position)
+            nxt = _sample(logits, generator)
+            if one_draw:    # the first model rank's draw, everywhere
+                nxt = sharding._all_gather(nxt[None], ("model",), mesh)[0]
+            nxt = sharding._all_gather(
+                nxt, sharding.rows_spec(mesh, tokens.shape[0]), mesh)
             return nxt, sharding.PlacedCache(new, cache.placement)
 
         return placed_step

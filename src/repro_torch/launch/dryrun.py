@@ -413,9 +413,15 @@ def cell_id(arch: str, shape: str, multi_pod: bool,
 def trace_cell(arch: str, shape_name, mesh, sell: str = "dense",
                **build) -> dict:
     """The record of one cell on ``mesh`` (status and, when ``ok``, the
-    counters of :func:`measure`); never raises for a cell's own fault."""
+    counters of :func:`measure`); never raises for a cell's own fault.
+    A cell with SELL projections is measured after one warm-up call, as
+    :func:`measure_on_device` measures it on the card: its transforms'
+    matrices are made once a process and cached, so without it the peak
+    would hold them or not by what the process traced before."""
     try:
         fn, args = build_cell(arch, shape_name, mesh, sell, **build)
+        if sell != "dense":
+            fn(*args)
         _, rec = measure(fn, args)
         del fn, args
         return {"status": "ok", **rec}

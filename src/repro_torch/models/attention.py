@@ -382,9 +382,20 @@ def _set_rows(caches, pos: torch.Tensor, news) -> None:
         cache[rows, idx] = vals
 
 
+def _check_kv_block(split, tp, n_local: int, cfg: ModelConfig) -> None:
+    """Raise unless the ``n_local`` KV heads projected on this rank's
+    "model" block under ``tp`` are the heads ``split`` (its block of a
+    placed cache) holds: the two splits must be one block."""
+    mine = tp.block(cfg.n_kv_heads, n_local)
+    if mine != split.heads:
+        raise ValueError(f"this rank projects KV heads {mine} and its "
+                         f"cache block holds {split.heads}: the two must "
+                         f"be one block")
+
+
 def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, position: torch.Tensor,
-                     window: int, cfg: ModelConfig, split=None
+                     window: int, cfg: ModelConfig, split=None, tp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Append-and-score T tokens against the dense cache in one pass (the
     speculative verify; decode is T = 1).
@@ -397,39 +408,51 @@ def attention_verify(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     parked rows leave the cache alone.  Returns (out (B, T, D), cache_k,
     cache_v).
 
-    ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit`; a placed
-    decode, T = 1) says which block of the cache this rank holds: the
-    projections still compute every head, the rank writes and attends its
-    KV heads and the query heads of their groups, the position's K/V is
-    written by the rank whose sequence block holds it, and the heads'
-    outputs are gathered before ``wo`` (:func:`attend_split`)."""
+    A placed decode (T = 1) passes ``split`` (a
+    :class:`repro_torch.dist.sharding.LeafSplit`: which block of the
+    cache this rank holds, or None for every head and position) and
+    ``tp`` (its :class:`repro_torch.dist.sharding.TensorSplit`).  With
+    ``wq`` on its "model" block the rank projects its query heads and
+    their KV heads (``wk`` / ``wv`` on their block: the block the cache
+    holds), or every KV head where they do not split with the queries
+    (then the cache holds every head, each model rank writes them all
+    and its queries read their groups'), attends them
+    (:func:`attend_local`), and ``wo``'s rows complete the output over
+    "model" (a SELL ``wo`` gathers the heads first).  Where the queries
+    are whole (heads that do not divide "model", SELL ``wq``) the rank
+    writes and attends the KV heads of its cache block and the query
+    heads of their groups, and the heads' outputs are gathered before
+    ``wo`` (:func:`attend_split`).  The position's K/V is written by the
+    rank whose sequence block holds it."""
     b, t, _ = x.shape
     smax = cache_k.shape[1]
-    q, k, v = _project_qkv(params, x, x, cfg)
+    q, k, v = _project_qkv(params, x, x, cfg, tp)
     pos = position[:, None]                                 # (B, T)
     if t > 1:
         pos = pos + torch.arange(t, device=x.device)[None, :]
     q = apply_rope(q, pos, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_fraction, cfg.rope_theta)
-    if split is None:
-        _set_rows((cache_k, cache_v), pos, (k, v))
-        k_pos = torch.arange(smax, device=x.device)[None, :]
-        mask = causal_window_mask(pos, k_pos, window)       # (B, T, Smax)
-        out = _sdpa(q, cache_k, cache_v, mask, cfg)
-    else:
+    k_pos = key_positions(split, smax, x.device)
+    local = pos
+    if split is not None:
         if t != 1:
             raise ValueError("a placed cache is written one token a step")
-        k_pos = key_positions(split, smax, x.device)
         local = pos - k_pos[0]          # outside the block: dropped
         local = torch.where(local >= 0, local, torch.full_like(local, smax))
-        _set_rows((cache_k, cache_v), local,
-                  (_rank_heads(k, split), _rank_heads(v, split)))
-        mask = causal_window_mask(pos, k_pos[None, :], window)
+        if k.shape[-2] < cfg.n_kv_heads:
+            _check_kv_block(split, tp, k.shape[-2], cfg)
+        else:
+            k, v = _rank_heads(k, split), _rank_heads(v, split)
+    _set_rows((cache_k, cache_v), local, (k, v))
+    mask = causal_window_mask(pos, k_pos[None, :], window)  # (B, T, Smax)
+    if split is not None and q.shape[-2] == cfg.n_heads:
         out = attend_split(q, cache_k, cache_v, mask, cfg, split)
+    else:
+        out = attend_local(q, cache_k, cache_v, mask, cfg, tp, split)
     dh = cfg.head_dim_
-    out = out.reshape(b, t, cfg.n_heads * dh)
+    out = out.reshape(b, t, out.shape[-2] * dh)
     out = linear.linear_apply(params["wo"], out, cfg.n_heads * dh,
-                              cfg.d_model, cfg, "attn_out")
+                              cfg.d_model, cfg, "attn_out", tp)
     return out, cache_k, cache_v
 
 

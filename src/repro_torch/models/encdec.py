@@ -26,17 +26,18 @@ the cache, set at prefill, and :func:`_cross_attend` masks the keys at
 and beyond it.  When the frames fill the cache the mask is all true and
 the function is the reference's.
 
-**Tensor parallelism.**  Under ``tp`` (a placed train or prefill step's
-:class:`repro_torch.dist.sharding.TensorSplit`) every attention, the
-encoder's, the decoder's self- and cross-attention, projects and attends
-this rank's query and KV heads and completes its output over "model"
-through ``wo``'s rows; the GeGLU MLP computes its ffn columns; the
-embedding and the logits are this rank's block of the vocabulary where
-it splits.  The encoder states feed every decoder layer's cross K/V,
-whose columns split, so they pass through ``tp.copy``: their gradient
-is summed over "model" (each rank computes the whole encoder).  A
-prefill's cross K/V are this rank's KV heads, the block the placed
-cache holds.
+**Tensor parallelism.**  Under ``tp`` (a placed train, prefill or
+decode step's :class:`repro_torch.dist.sharding.TensorSplit`) every
+attention, the encoder's, the decoder's self- and cross-attention,
+projects and attends this rank's query and KV heads and completes its
+output over "model" through ``wo``'s rows; the GeGLU MLP computes its
+ffn columns; the embedding and the logits are this rank's block of the
+vocabulary where it splits.  The encoder states feed every decoder
+layer's cross K/V, whose columns split, so they pass through
+``tp.copy``: their gradient is summed over "model" (each rank computes
+the whole encoder).  A prefill's cross K/V are this rank's KV heads, the
+block the placed cache holds, and a decode's cross-attention reads them
+there.
 """
 
 from __future__ import annotations
@@ -350,25 +351,30 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict, None]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict, None]:
     """Speculative append-and-score of tokens (B, T) at ``position ..
     position + T - 1`` -> (logits (B, T, V), cache, None): the decoder's
     self-attention K/V set-written in place, the cross K/V read only.
-    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
-    placed decode's: both attentions run on this rank's block."""
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) and
+    ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`) are a placed
+    decode's: both attentions run this rank's query heads on its block
+    of the cache (the cross-attention's on the rank's block of ``xk`` /
+    ``xv``, ``xlen`` masking kept), the MLP its ffn columns, and the
+    logits are this rank's block of the vocabulary where it splits."""
     kv_split, x_split = leaf_split(split, "k"), leaf_split(split, "xk")
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     for i in range(cfg.n_layers):
         layer = layer_params(params["decoder"], i)
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, _, _ = attn_mod.attention_verify(
             layer["attn"], h, cache["k"][i], cache["v"][i], position, 0, cfg,
-            kv_split)
+            kv_split, tp)
         x = _cross_and_mlp(layer, x + out, cache["xk"][i], cache["xv"][i],
-                           cache["xlen"], cfg, x_split)
+                           cache["xlen"], cfg, x_split, tp)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x), cache, None
+    return unembed(params["embed"], x, tp), cache, None
 
 
 def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
@@ -390,12 +396,12 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode step -> (logits (B, V), cache): the verify at T = 1
-    (``split`` a placed decode's, as there)."""
+    (``split`` and ``tp`` a placed decode's, as there)."""
     logits, cache, _ = verify_step(params, cache, tokens[:, None], position,
-                                   cfg, split)
+                                   cfg, split, tp)
     return logits[:, 0], cache
 
 

@@ -18,20 +18,23 @@ reference pytree (``layers/mixer/in_proj/sell/a`` is ``(L, K, N)``).
 state tensors and per-position snapshots (the recurrence cannot rewind,
 so a rollback re-selects the state at the accepted length).
 
-Under tensor parallelism (``tp``, a placed train or prefill step's
-:class:`repro_torch.dist.sharding.TensorSplit`) a mamba layer computes
-this rank's block of SSM heads, as the reference's jit computes them on
-``param_specs``' blocks: its heads' ``z``, ``x`` and ``dt`` columns of
-``in_proj`` and ``B``, ``C`` whole (ngroups = 1: every head reads them),
-the conv on those channels, the SSD on those heads (heads are independent
-given ``B`` and ``C``), the gated norm's mean completed over "model" and
-``out_proj``'s rows of those heads reduced over "model".  Every leaf it
-reads in part (the gathered ``in_proj``, the conv, ``dt_bias``,
-``a_log``, ``d_skip``, the norm's scale) goes through ``tp.copy`` whole
-before its slice, so its gradient is summed over "model" and every rank
-holds the whole one.  A SELL ``in_proj`` runs whole and its output goes
-through ``tp.copy``; before a SELL ``out_proj`` the heads' outputs are
-gathered over "model" and normed whole.
+Under tensor parallelism (``tp``, a placed train, prefill or decode
+step's :class:`repro_torch.dist.sharding.TensorSplit`) a mamba layer
+computes this rank's block of SSM heads, as the reference's jit computes
+them on ``param_specs``' blocks: its heads' ``z``, ``x`` and ``dt``
+columns of ``in_proj`` and ``B``, ``C`` whole (ngroups = 1: every head
+reads them), the conv on those channels, the SSD on those heads (heads
+are independent given ``B`` and ``C``), the gated norm's mean completed
+over "model" and ``out_proj``'s rows of those heads reduced over
+"model".  Every leaf it reads in part (the gathered ``in_proj``, the
+conv, ``dt_bias``, ``a_log``, ``d_skip``, the norm's scale) goes through
+``tp.copy`` whole before its slice, so its gradient is summed over
+"model" and every rank holds the whole one.  A SELL ``in_proj`` runs
+whole and its output goes through ``tp.copy``; before a SELL
+``out_proj`` the heads' outputs are gathered over "model" and normed
+whole.  A decode step keeps the whole conv window on every model rank: it
+projects every channel of the window's input, the heads' ``z`` and
+``dt`` only (:func:`_decode_proj`).
 """
 
 from __future__ import annotations
@@ -447,29 +450,30 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
 def _recur(params: dict, xbc: torch.Tensor, dt: torch.Tensor,
            ssm: torch.Tensor, conv: torch.Tensor, cfg: ModelConfig,
            ssm_steps: Optional[torch.Tensor] = None,
-           conv_steps: Optional[torch.Tensor] = None, split=None):
+           conv_steps: Optional[torch.Tensor] = None,
+           heads: Optional[slice] = None):
     """Consume T positions one at a time: the conv window and the SSM
     state, as T single-token decode steps.  xbc (B, T, C) raw conv input
-    and dt (B, T, H) raw in_proj output; ``ssm_steps``/``conv_steps``
-    (B, T+1, ...), when given, receive the state after each position.
-    Returns (y (B, T, d_inner) in xbc's dtype, ssm, conv).
+    (every channel) and dt (B, T, H) raw in_proj output, of every head or
+    of ``heads``; ``ssm_steps``/``conv_steps`` (B, T+1, ...), when given,
+    receive the state after each position.  Returns (y (B, T, H' * P) in
+    xbc's dtype, ssm, conv).
 
-    ``split`` (a :class:`repro_torch.dist.sharding.LeafSplit` of the SSM
-    state; a placed decode) holds this rank's heads of ``ssm``: the conv
-    runs whole (every model rank updates the same window), the state
-    update runs on the rank's heads, and ``y`` is gathered over "model"
-    to every head."""
+    ``heads`` (a slice of the SSM heads; a placed decode's) are the heads
+    ``ssm`` holds: the conv runs whole (every model rank updates the same
+    window), the state update and ``y`` on those heads."""
     b, t, _ = xbc.shape
     d_in, n_heads, n_state, _ = _dims(cfg)
-    hs = None if split is None else split.heads
     w = params["conv_w"].to(xbc.dtype)                             # (W, C)
     conv_b = params["conv_b"].to(xbc.dtype)
-    dt, a = _dt_a(params, dt)                                      # (B,T,H)
-    d_skip = params["d_skip"].float()
-    if hs is not None:
-        dt, a, d_skip = dt[..., hs], a[hs], d_skip[hs]
+    mine = params
+    if heads is not None:
+        mine = {k: params[k][heads] for k in ("dt_bias", "a_log", "d_skip")}
+        if dt.shape[-1] == n_heads:
+            dt = dt[..., heads]
+    dt, a = _dt_a(mine, dt)                                        # (B,T,H)
     decay = torch.exp(dt * a)
-    d_skip = d_skip[None, :, None]
+    d_skip = mine["d_skip"].float()[None, :, None]
     ys = []
     for i in range(t):
         window = torch.cat([conv.to(xbc.dtype), xbc[:, i:i + 1]], dim=1)
@@ -478,8 +482,8 @@ def _recur(params: dict, xbc: torch.Tensor, dt: torch.Tensor,
         xs, bmat, cmat = torch.split(F.silu(cv), [d_in, n_state, n_state],
                                      dim=-1)
         xs = xs.reshape(b, n_heads, cfg.ssm_head_dim)
-        if hs is not None:
-            xs = xs[:, hs]
+        if heads is not None:
+            xs = xs[:, heads]
         xs = xs.float()
         # h <- decay * h + dt * x B^T ; y = h C
         dx = xs * dt[:, i, :, None]                                # (B,H,P)
@@ -490,24 +494,55 @@ def _recur(params: dict, xbc: torch.Tensor, dt: torch.Tensor,
         if ssm_steps is not None:
             ssm_steps[:, i + 1] = ssm
             conv_steps[:, i + 1] = conv
-    y = torch.stack(ys, dim=1)
-    if hs is not None:
-        y = split.gather_heads(y.reshape(b, t, -1, cfg.ssm_head_dim),
-                               2).flatten(2)
-    return y, ssm, conv
+    return torch.stack(ys, dim=1), ssm, conv
+
+
+def _decode_proj(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 hs: Optional[slice]):
+    """A placed decode's in_proj -> (z, xBC, dt): ``z`` and ``dt`` of the
+    SSM heads ``hs`` and the raw conv input ``xBC`` of every channel, so
+    every model rank keeps the same whole conv window (``cache_specs``
+    splits ``conv`` by rows only).  A dense ``in_proj`` (gathered whole)
+    projects the window's channels in a product of their own, the same
+    on every model rank, and the heads' ``z`` / ``dt`` in another; a
+    SELL one runs whole.  No gradient: decode only."""
+    if hs is None:
+        return _split_proj(params, x, cfg)
+    proj = params["in_proj"]
+    if "w" not in proj:
+        z, xbc, dt = _split_proj(params, x, cfg)
+        p = cfg.ssm_head_dim
+        return z[..., hs.start * p:hs.stop * p], xbc, dt[..., hs]
+    d_in, _, _, conv_dim = _dims(cfg)
+    w = proj["w"].to(x.dtype)
+    xbc = torch.matmul(x, w[..., d_in:d_in + conv_dim])
+    z, _, dt = _proj_cols(w, cfg, hs)
+    zdt = torch.matmul(x, torch.cat([z, dt], dim=-1))
+    return zdt[..., :z.shape[-1]], xbc, zdt[..., z.shape[-1]:]
 
 
 def mamba_block_decode(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
                        conv_state: torch.Tensor, cfg: ModelConfig,
-                       split=None
+                       split=None, tp=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, 1, D) against (ssm (B,H,P,N) fp32, conv (B,W-1,C)) ->
-    (out (B, 1, D), new ssm, new conv); with ``split`` (a placed
-    decode's, :func:`_recur`) ``ssm`` holds this rank's heads only."""
-    z, xbc, dt = _split_proj(params, x, cfg)
+    (out (B, 1, D), new ssm, new conv).  A placed decode passes ``split``
+    (a :class:`repro_torch.dist.sharding.LeafSplit` of the SSM state, or
+    None where it holds every head) and ``tp`` (its
+    :class:`repro_torch.dist.sharding.TensorSplit`): the layer computes
+    this rank's SSM heads (:func:`heads_of`), the block ``ssm`` holds,
+    with the whole conv window (:func:`_decode_proj`), and ``out_proj``'s
+    rows complete the output over "model" (:func:`_gate_out`)."""
+    hs = heads_of(tp)
+    held = None if split is None else split.heads
+    if hs != held:
+        raise ValueError(f"this rank computes SSM heads {hs} and its "
+                         f"cache block holds {held}: the two must be one "
+                         f"block")
+    z, xbc, dt = _decode_proj(params, x, cfg, hs)
     y, ssm, conv = _recur(params, xbc, dt, ssm_state, conv_state, cfg,
-                          split=split)
-    return _gate_out(params, y, z, cfg), ssm, conv
+                          heads=hs)
+    return _gate_out(params, y, z, cfg, tp), ssm, conv
 
 
 def mamba_block_verify(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
@@ -648,22 +683,27 @@ def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode step -> (logits (B, V), cache updated in place);
-    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
-    placed decode's, whose SSM state may hold this rank's heads only."""
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) and
+    ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`) are a placed
+    decode's: each layer computes this rank's SSM heads, the block its
+    SSM state holds (:func:`mamba_block_decode`), and the logits are this
+    rank's block of the vocabulary where it splits."""
     del position  # the state carries time
     ssm_split = leaf_split(split, "ssm")
-    x = embed_lookup(params["embed"], tokens[:, None], cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens[:, None], cfg.compute_dtype,
+                     tp)
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["norm"]["scale"], cfg.norm_eps)
         out, ssm, conv = mamba_block_decode(
             layer["mixer"], h, cache["ssm"][i], cache["conv"][i], cfg,
-            ssm_split)
+            ssm_split, tp)
         cache["ssm"][i] = ssm
         cache["conv"][i] = conv
         x = x + out
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)[:, 0], cache
+    return unembed(params["embed"], x, tp)[:, 0], cache

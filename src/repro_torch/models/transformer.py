@@ -257,18 +257,22 @@ def prefill(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict, None]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict, None]:
     """Speculative append-and-score: tokens (B, T) at positions
     ``position .. position + T - 1`` in one pass -> (logits (B, T, V),
     cache set-written in place, None).  Logits at ``i`` score the token
     after ``tokens[:, i]``, as ``decode_step`` fed one token at a time
     would; the KV cache needs no state selection (trailing ``None``).
-    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
-    placed decode's: each layer attends this rank's block of the cache
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) and
+    ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`) are a placed
+    decode's: each layer computes on its "model" blocks and attends this
+    rank's block of the cache
     (:func:`repro_torch.models.attention.attention_verify`), an MoE
-    layer queues the whole batch's tokens."""
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    layer queues the whole batch's tokens, and the logits are this
+    rank's block of the vocabulary (B, T, V / model) where it splits."""
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     windows = cfg.layer_windows()
     kv_split = leaf_split(split, "k")
     rows = None if split is None else split.rows
@@ -277,10 +281,10 @@ def verify_step(params: dict, cache: dict, tokens: torch.Tensor,
         h = rms_norm(x, layer["norm1"]["scale"], cfg.norm_eps)
         out, _, _ = attn_mod.attention_verify(
             layer["attn"], h, cache["k"][i], cache["v"][i], position,
-            int(windows[i]), cfg, kv_split)
-        x = _ffn(layer, x + out, cfg, rows)
+            int(windows[i]), cfg, kv_split, tp)
+        x = _ffn(layer, x + out, cfg, rows, tp)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x), cache, None
+    return unembed(params["embed"], x, tp), cache, None
 
 
 def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
@@ -302,12 +306,13 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode step -> (logits (B, V), cache updated in place): the
-    verify step at T = 1 (``split`` a placed decode's, as there)."""
+    verify step at T = 1 (``split`` and ``tp`` a placed decode's, as
+    there)."""
     logits, cache, _ = verify_step(params, cache, tokens[:, None], position,
-                                   cfg, split)
+                                   cfg, split, tp)
     return logits[:, 0], cache
 
 

@@ -10,9 +10,9 @@ holds ``attn_k``/``attn_v`` (n_apps, B, Smax, Hkv, Dh), the paged one
 ``attn_k_pages``/``attn_v_pages`` (n_apps, n_blocks, bs, Hkv, Dh); the
 SSM and conv states stay dense in both (they are O(1) a slot).
 
-Under tensor parallelism (``tp``, a placed train or prefill step's
-:class:`repro_torch.dist.sharding.TensorSplit`) the mamba layers compute
-this rank's SSM heads (:mod:`repro_torch.models.mamba2`), the shared
+Under tensor parallelism (``tp``, a placed train, prefill or decode
+step's :class:`repro_torch.dist.sharding.TensorSplit`) the mamba layers
+compute this rank's SSM heads (:mod:`repro_torch.models.mamba2`), the shared
 block its attention heads and ffn columns as a decoder layer does (its
 ``in_proj`` whole: its output is the residual stream), and the
 embedding and logits this rank's block of the vocabulary.
@@ -230,7 +230,8 @@ def init_cache_paged(cfg: ModelConfig, batch: int, n_blocks: int,
 
 def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
           attend: Callable, states: Optional[dict] = None,
-          frozen: Optional[torch.Tensor] = None, split=None) -> torch.Tensor:
+          frozen: Optional[torch.Tensor] = None, split=None,
+          tp=None) -> torch.Tensor:
     """The decode (T = 1) or verify (T tokens) pass over ``tokens`` (B, T)
     -> logits (B, T, V).  ``attend(app, a)`` runs shared-block application
     ``app`` on its input ``a`` (writing its K/V in place).  With
@@ -239,9 +240,12 @@ def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     without, the state is updated in place, except on the rows where
     ``frozen`` (B,) is set.  ``split`` (a placed decode's
     :class:`repro_torch.dist.sharding.DecodeSplit`) gives the mamba
-    layers this rank's heads of the SSM state."""
+    layers this rank's heads of the SSM state; ``tp`` (its
+    :class:`repro_torch.dist.sharding.TensorSplit`) computes them, the
+    shared block's MLP columns (``attend`` its heads) and this rank's
+    block of the vocabulary (B, T, V / model) where it splits."""
     ssm_split = leaf_split(split, "ssm")
-    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    emb = embed_lookup(params["embed"], tokens, cfg.compute_dtype, tp)
     shared = params["shared"]
     x, start = emb, 0
     for app, size in enumerate(_n_groups(cfg)):
@@ -255,7 +259,7 @@ def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
             else:
                 out, ssm, conv = mamba_mod.mamba_block_decode(
                     layer["mixer"], h, cache["ssm"][i], cache["conv"][i],
-                    cfg, ssm_split)
+                    cfg, ssm_split, tp)
                 if frozen is not None:
                     ssm = torch.where(frozen[:, None, None, None],
                                       cache["ssm"][i], ssm)
@@ -265,19 +269,19 @@ def _step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
                 cache["conv"][i] = conv
             x = x + out
         h, a = _shared_in(shared, x, emb, cfg)
-        x = _shared_out(shared, x, h, attend(app, a), cfg)
+        x = _shared_out(shared, x, h, attend(app, a), cfg, tp)
         start += size
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params["embed"], x)
+    return unembed(params["embed"], x, tp)
 
 
-def _dense_attend(params, cache, position, cfg, split=None):
+def _dense_attend(params, cache, position, cfg, split=None, tp=None):
     kv_split = leaf_split(split, "attn_k")
 
     def attend(app, a):
         out, _, _ = attn_mod.attention_verify(
             params["shared"]["attn"], a, cache["attn_k"][app],
-            cache["attn_v"][app], position, 0, cfg, kv_split)
+            cache["attn_v"][app], position, 0, cfg, kv_split, tp)
         return out
     return attend
 
@@ -327,15 +331,20 @@ def verify_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                position: torch.Tensor, cfg: ModelConfig, split=None
-                ) -> Tuple[torch.Tensor, dict]:
+                position: torch.Tensor, cfg: ModelConfig, split=None,
+                tp=None) -> Tuple[torch.Tensor, dict]:
     """One decode step -> (logits (B, V), cache updated in place);
-    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) is a
-    placed decode's: the mamba layers run on this rank's SSM heads, the
-    shared attention on its block of each application's K/V."""
+    ``split`` (a :class:`repro_torch.dist.sharding.DecodeSplit`) and
+    ``tp`` (the model-local view's
+    :class:`repro_torch.dist.sharding.TensorSplit`) are a placed
+    decode's: the mamba layers compute this rank's SSM heads, the shared
+    block its attention heads on its block of each application's K/V
+    (:func:`repro_torch.models.attention.attention_verify`) and its ffn
+    columns (its ``in_proj`` whole), and the logits are this rank's block
+    of the vocabulary where it splits."""
     logits = _step(params, cache, tokens[:, None], cfg,
-                   _dense_attend(params, cache, position, cfg, split),
-                   split=split)
+                   _dense_attend(params, cache, position, cfg, split, tp),
+                   split=split, tp=tp)
     return logits[:, 0], cache
 
 

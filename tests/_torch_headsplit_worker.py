@@ -1,25 +1,35 @@
-"""One of four gloo ranks of the port's head-parallel and
-sequence-parallel decode, for ``test_torch_headsplit.py``.
+"""One of four gloo ranks of the port's head-parallel, sequence-parallel
+and tensor-parallel decode, for ``test_torch_headsplit.py`` and
+``test_torch_tensor_parallel_decode.py``.
 
     RANK=r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/_torch_headsplit_worker.py IN.npz OUT_DIR
 
 ``IN.npz`` is what the test drew (``_jax_headsplit_ref.py`` reads the
-same file).  On the mesh ("data", "model") = (2, 2) every rank runs, for
-each case: params placed by ``param_specs``, a fresh cache placed by
-``cache_specs``, ``make_prefill_step(full_logits=True, mesh=)`` on this
-rank's rows (and frames), then greedy ``make_serve_step(mesh=)`` steps
-from ``first``; it keeps the logits rows, the next tokens, its final
-cache blocks with the slices of the full leaves they are, and for the
-encoder-decoder a second prefill without frames (``again``), which reads
-its block of the cache's cross K/V.  Then ``sampled``: smoke Gemma3-27B's
-decode with ``temp`` sampling, each rank drawing from a generator of its
-own seed, its streams and the largest difference of its final blocks from
-the port's unplaced steps fed the same tokens.
+same file).  On the case's mesh ("data", "model") (``mesh``, e.g.
+``"1x4"``; (2, 2) without one) every rank runs, for each case: params
+placed by ``param_specs``, a fresh cache placed by ``cache_specs``,
+``make_prefill_step(full_logits=True, mesh=)`` on this rank's rows (and
+frames), then greedy ``make_serve_step(mesh=)`` steps from ``first``
+(tensor-parallel: every rank computes its "model" blocks); it keeps the
+logits rows, the next tokens, its final cache blocks with the slices of
+the full leaves they are, and for the encoder-decoder a second prefill
+without frames (``again``), which reads its block of the cache's cross
+K/V.  A case with ``decode_logits`` also keeps each decode step's logits
+of its rows, whole over the vocabulary, as ``steps.make_placed_decode``
+gives them to the serve step's sampler (taken on a copy of the cache
+before the step).  A case's config is the arch's SMOKE one, with
+``acdc`` on ``pallas`` where ``sell`` says so and its ``overrides``
+(JSON) applied.  Then, unless ``IN.npz``'s ``sampled`` is false,
+``sampled``: smoke Gemma3-27B's decode at (2, 2) with ``temp``
+sampling, each rank drawing from a generator of its own seed, its
+streams and the largest difference of its final blocks from the port's
+unplaced steps fed the same tokens.
 
 Writes ``OUT_DIR/rank<r>.npz`` and ``OUT_DIR/rank<r>.json``.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -58,9 +68,19 @@ def rows_of(mesh, b: int) -> slice:
         {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names})[0]
 
 
+def config(src, pre: str):
+    cfg = registry.get_smoke_config(str(src[pre + "arch"]))
+    if pre + "sell" in src.files and str(src[pre + "sell"]) == "acdc":
+        cfg = registry.with_sell(cfg, "acdc", method="pallas")
+    if pre + "overrides" in src.files:
+        cfg = dataclasses.replace(
+            cfg, **json.loads(str(src[pre + "overrides"])))
+    return cfg
+
+
 def serve(src, case: str, mesh, arrays: dict, facts: dict) -> None:
     pre = f"{case}/"
-    cfg = registry.get_smoke_config(str(src[pre + "arch"]))
+    cfg = config(src, pre)
     model = get_model(cfg)
     params = sharding.place_params(
         bridge.to_torch(under(src, pre + "params/"), "cpu"), mesh)
@@ -80,12 +100,19 @@ def serve(src, case: str, mesh, arrays: dict, facts: dict) -> None:
     logits = steps.gather_vocab(logits, steps.tensor_split(cfg, mesh))
     arrays[pre + "logits"] = logits.numpy().copy()
     step = steps.make_serve_step(model, cfg, mesh=mesh)
+    decode = steps.make_placed_decode(model, cfg, mesh)
     tok, pos = torch.from_numpy(src[pre + "first"]), lengths.clone()
-    nxt = []
+    nxt, step_logits = [], []
     for _ in range(int(src[pre + "steps"])):
+        if pre + "decode_logits" in src.files:
+            copy = sharding.PlacedCache(
+                {k: v.clone() for k, v in cache.items()}, cache.placement)
+            step_logits.append(decode(params, copy, tok, pos)[0].numpy())
         tok, cache = step(params, cache, tok, pos)
         nxt.append(tok.tolist())
         pos = pos + 1
+    if step_logits:
+        arrays[pre + "decode_logits"] = np.stack(step_logits)
     arrays.update({f"{pre}final/{k}": v.numpy().copy()
                    for k, v in cache.items()})
     if cfg.family == "encdec":
@@ -95,7 +122,9 @@ def serve(src, case: str, mesh, arrays: dict, facts: dict) -> None:
     facts[case] = dict(rows=[rows.start, rows.stop], next=nxt,
                        final_slices=block_slices(cache),
                        specs={k: list(s) for k, s in
-                              cache.placement.specs.items()})
+                              cache.placement.specs.items()},
+                       coord=[mesh.get_local_rank(a)
+                              for a in ("data", "model")])
 
 
 def sampled(mesh, facts: dict) -> None:
@@ -151,11 +180,22 @@ def main(src: str, out: str) -> None:
     mesh_mod.init_process_group("cpu")
     src = np.load(src)
     arrays, facts = {}, {}
+    meshes: dict = {}
+
+    def mesh_of(tag: str):
+        if tag not in meshes:
+            meshes[tag] = dryrun.mesh_of(
+                tuple(int(d) for d in tag.split("x")), "cpu")
+        return meshes[tag]
+
     try:
-        mesh = dryrun.mesh_of((2, 2), "cpu")
-        for case in sorted({k.split("/")[0] for k in src.files}):
-            serve(src, case, mesh, arrays, facts)
-        sampled(mesh, facts)
+        for case in sorted({k.split("/")[0] for k in src.files
+                            if "/" in k}):
+            tag = (str(src[f"{case}/mesh"]) if f"{case}/mesh" in src.files
+                   else "2x2")
+            serve(src, case, mesh_of(tag), arrays, facts)
+        if "sampled" not in src.files or bool(src["sampled"]):
+            sampled(mesh_of("2x2"), facts)
         np.savez(out / f"rank{rank}.npz", **arrays)
         (out / f"rank{rank}.json").write_text(json.dumps(facts))
     finally:

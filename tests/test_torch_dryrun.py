@@ -502,3 +502,22 @@ def test_production_mesh_needs_its_world():
         tmesh.make_production_mesh(False)
     with pytest.raises(RuntimeError, match="512 ranks"):
         tmesh.make_production_mesh(True)
+
+
+def test_reckoned_sell_cell_does_not_depend_on_earlier_traces(tmp_path):
+    """A SELL cell's reckoning (``acdc`` on ``auto``) is the same traced
+    first in its process or after another: the transforms' matrices,
+    cached once a process, are made in a warm-up call, as the card's
+    measurement makes them before it counts (a fresh process counted
+    them in its first cell's peak: Zamba2's fp32 decode cell at (1, 4)
+    reckoned 258 MB above its arguments against the card's 131 MB)."""
+    cell = "zamba2_1_2b:decode:16:4:1x4:float32"
+    before = "mamba2_1_3b:decode:16:4:1x4:float32"
+    procs = [(tdry.start_reckoning(specs, "acdc", tmp_path / f"{i}.json"),
+              tmp_path / f"{i}.json")
+             for i, specs in enumerate(([cell], [before, cell]))]
+    alone, after = (tdry.reckoned(p, out, timeout=300)[cell]
+                    for p, out in procs)
+    assert alone["status"] == "ok", alone
+    assert alone["memory"] == after["memory"]
+    assert alone["collectives"] == after["collectives"]

@@ -273,6 +273,15 @@ M. the dry run and placed serving (right after path L, on its group):
    above the arguments within ``dryrun.PEAK_REL`` of
    ``torch.cuda.max_memory_allocated``'s.
 
+N. the PyTorch examples (last): each ``examples/*_torch.py`` ``main`` in
+   this process -- the quickstart whole (its one ``acdc_fused`` launch,
+   section [4], counted exactly and held against the plain version),
+   linear recovery at K = 1, 4, 16 with both inits, the convnet on
+   ``acdc`` and ``dense`` (each loss must fall), the ~100M LM 20 steps
+   (finite losses, a checkpoint written) and serving at the example's
+   default argv and on ``--sell acdc --sell-method pallas``;
+   ``scripts/chip_examples.py`` runs it alone.
+
 Phase 9 profiles 4 requests (was 8) and path A no longer profiles: both
 cut to keep the whole run within its time with paths G - I added.  For
 the same reason phase 9's windows hold 2 decode ticks and 1 speculative
@@ -5170,6 +5179,125 @@ def rows_cut_wrong():
         sharding.LayerCut.__call__ = real
 
 
+#: path N: the flags each torch example runs with on the card
+EXAMPLE_RECOVERY = ["--ks", "1,4,16", "--steps", "300", "--init", "both"]
+EXAMPLE_CONVNET_STEPS = 300
+EXAMPLE_LM_STEPS = 20
+
+
+def _example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib
+
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(f"{name}_torch")
+
+
+def examples_path(dev, totals) -> dict:
+    """Path N: each PyTorch example's ``main`` in this process on the card
+    -- the quickstart whole (its one ``acdc_fused`` launch counted exactly
+    and held against the plain version), linear recovery at K = 1, 4, 16
+    and both inits, the convnet on ``acdc`` and ``dense`` (each loss must
+    fall), the ~100M LM trained 20 steps (finite losses, a checkpoint
+    written), and serving at the example's default argv and on the
+    kernels (``--sell acdc --sell-method pallas``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    out, dev_arg = {}, ["--device", str(dev)]
+
+    def run(key, fn, *args):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        launched = read_counts()
+        for k, v in launched.items():
+            totals[k] += v
+        out[key] = dict(seconds=time.perf_counter() - t0,
+                        launches={k: v for k, v in launched.items() if v})
+        return res, out[key]
+
+    qs = _example("quickstart")
+    res, info = run("quickstart", qs.main, dev_arg)
+    xk, a, d, yk, err = res["fused"]
+    with plain_kernels():
+        plain = ops.acdc_fused_op(xk, a, d, None)
+    info.update(kernel_vs_plain=max_err(yk, plain), kernel_vs_matmul=err,
+                logits_finite=bool(torch.isfinite(res["logits"]).all()),
+                params=res["params"])
+    if info["launches"] != {"acdc_fused": 1}:
+        _fail(f"[N] quickstart launched {info['launches']}, want exactly "
+              f"one acdc_fused ([4]; [1] - [3] and [5] run on auto)")
+    if not rel_close(yk, plain, rtol=1e-3, atol=2e-4):
+        _fail(f"[N] quickstart [4]: acdc_fused vs its plain version "
+              f"{info['kernel_vs_plain']:.3g}")
+    if not info["logits_finite"]:
+        _fail("[N] quickstart [5]: logits not finite")
+
+    rec = _example("linear_recovery")
+    res, info = run("linear_recovery", rec.main, EXAMPLE_RECOVERY + dev_arg)
+    info["final_mse"] = {f"K={k} {init}": v for (k, init), v in
+                         ((key, v) for key, v in res.items()
+                          if key != "floor")}
+    info["noise_floor"] = res["floor"]
+    if not all(math.isfinite(v) for v in info["final_mse"].values()):
+        _fail(f"[N] linear recovery: {info['final_mse']}")
+
+    conv = _example("convnet_acdc")
+    for fc in ("acdc", "dense"):
+        res, info = run(f"convnet_{fc}", conv.main, [
+            "--fc", fc, "--steps", str(EXAMPLE_CONVNET_STEPS)] + dev_arg)
+        losses = res["losses"]
+        first, last = (sum(losses[:20]) / 20, sum(losses[-20:]) / 20)
+        info.update(eval_acc=res["eval_acc"], loss_first20=first,
+                    loss_last20=last, n_params=res["n_params"])
+        if not last < first:
+            _fail(f"[N] convnet {fc}: loss did not fall ({first:.4f} -> "
+                  f"{last:.4f})")
+
+    lm = _example("train_lm")
+    ckpt = ROOT / "build" / "chip_examples_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    (state, history), info = run("train_lm", lm.main, [
+        "--steps", str(EXAMPLE_LM_STEPS), "--ckpt-dir", str(ckpt)] + dev_arg)
+    del state
+    ms = [h["ms"] for h in history[1:]]
+    info.update(s_per_step=sum(ms) / len(ms) / 1e3,
+                losses=[h["loss"] for h in history],
+                checkpoint=sorted(p.name for p in ckpt.iterdir())
+                if ckpt.exists() else [])
+    if not all(math.isfinite(v) for v in info["losses"]) \
+            or not info["checkpoint"]:
+        _fail(f"[N] train_lm: losses {info['losses']}, checkpoint "
+              f"{info['checkpoint']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    sl = _example("serve_lm")
+    for key, extra in (("serve_lm", []),
+                       ("serve_lm_pallas", ["--sell", "acdc",
+                                            "--sell-method", "pallas"])):
+        (eng, reqs), info = run(key, sl.main, sl.DEFAULT_ARGV + extra
+                                + dev_arg)
+        info.update(finished=sum(r.done for r in reqs), requests=len(reqs),
+                    tokens=sum(len(r.generated) for r in reqs),
+                    decode_s=eng.stats["decode_s"],
+                    decode_ticks=eng.stats["decode_ticks"])
+        if info["finished"] != len(reqs):
+            _fail(f"[N] {key}: {info['finished']} of {len(reqs)} finished")
+        if extra and not info["launches"].get("acdc_cascade"):
+            _fail(f"[N] {key}: no acdc_cascade launch ({info['launches']})")
+        del eng, reqs
+    torch.cuda.empty_cache()
+    for key, info in out.items():
+        print(f"[N] {key}: " + ", ".join(
+            f"{k} {v}" for k, v in info.items()), flush=True)
+    return out
+
+
 def placed_serving(dev, totals) -> dict:
     """Path M: placed serving beside the unplaced steps, then the dry
     run's reckoning against the card (see the module docstring)."""
@@ -5705,6 +5833,7 @@ def run_paths(report: dict, dev) -> None:
               totals)
     timed(report, "seamless_smoke", smoke_configs, totals,
           ("seamless_m4t_large_v2",), 3, True)
+    timed(report, "examples", examples_path, dev, totals)
     report["launches"] = totals
 
 

@@ -47,15 +47,32 @@ way on an 8192-position cache (its sequence split over "data"): a
 the blocks' boundary at 4096 for two data ranks.  The placed decode
 step after the streams is counted by the dry run's ``Collectives``
 (``step_collectives``).  Held: the fp32 logits
-of every row, at the prefill's last token and at one more decode step
-after the streams, within ``SERVE_FP32_ATOL`` of one card's; the streams
-(both dtypes) equal or departing first at a near-tie (the two tokens'
-one-card fp32 logits apart by no more than the two sides' largest logit
-difference at the prefill; what follows a near-tie is reported, not
-held).  Controls beside the decode step's: one card's step taken again
-on each row alone (its sums in another order) and, for Mamba2, the
-whole decode on one card with each layer's recurrence in MODEL_PARALLEL
-head blocks (the placed steps' sums without their collectives).  ``--pod-train
+of every row, at the prefill's last token and every real position and
+at one more decode step after the streams, within ``SERVE_FP32_ATOL`` of
+one card's, or else within ``SETTLE_CEIL`` times that limit and settled
+by the placed-block control; the streams (both dtypes) equal or
+departing first at a near-tie (the two tokens' one-card fp32 logits
+apart by no more than the drift of the step that chose them: the
+largest difference of that row's logits, placed against one card's, at
+that context; what follows a near-tie is reported, not held), or else
+with gaps within ``SETTLE_CEIL`` times their drift and settled by the
+control.  The placed-block control (``block_control``) runs the placed
+steps on rank 0's card by one thread a rank (:class:`VirtualMesh`),
+with rank 0's plans: bitwise equal to the placed run, or first parting
+at an all-reduce within the rounding of reordering its terms, settles
+the excess as summation order.  It runs the placed steps' own code and
+so copies a fault of theirs: the ceiling, which it cannot override, is
+what tells a fault apart.  For Mamba2 the head-blocks control, built
+from the unplaced model (``_ssm_blocks_step``: each model rank's SSM
+heads run one after another on one card, joined in head order), must
+equal the placed step bitwise too where the step makes no partial-sum
+all-reduce.  Held in every run: each rank's digest of its launch plans
+(the placed steps run inside ``autotune.agreeing()``: every rank takes
+rank 0's plan for a key) equal, and the final hidden state bitwise
+equal over each "model" group after the placed prefill, the step after
+the streams and a ``--train`` run's first step.  Reported
+beside them: one card's prefill and step taken again on each row alone
+(its sums in another order).  ``--pod-train
 ARCH:STEPS`` trains ARCH with its state placed at (pod 2, data world/2,
 model 1), the rows split over ("pod", "data") as (world, 1) splits them,
 beside the same steps at (world, 1): losses within ``POD_LOSS_RTOL``.
@@ -77,7 +94,9 @@ arguments within ``dryrun.PEAK_REL`` of
 ``torch.cuda.max_memory_allocated``'s.  ``--cell
 ARCH:KIND:SEQ:BATCH:MESH[:DTYPE]`` (after the rest) builds that dry-run
 cell on the cards the same way and holds it against its reckoning: a
-train cell's step or a prefill cell's at any mesh of the world.
+train cell's step or a prefill cell's at any mesh of the world.  The
+exit status is 1 when a held check failed (``failed_checks`` in the JSON
+and the ``[checks]`` line name each), 0 when none did.
 """
 
 from __future__ import annotations
@@ -85,11 +104,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -99,11 +121,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.dist import sharding  # noqa: E402
 from repro_torch.dist import steps as steps_mod  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import autotune, build  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    common, encdec, get_model, mamba2, transformer, zamba2)
 from repro_torch.optim.optimizers import tree_map  # noqa: E402
 
 #: the device the ranks train on (a rehearsal on the CPU sets "cpu")
@@ -111,6 +134,16 @@ DEVICE = "cuda"
 #: placed fp32 logits against one card's (PERF.md §2, stated before the
 #: first four-card run)
 SERVE_FP32_ATOL = 1e-4
+#: an excess the placed-block control settles stays within SETTLE_CEIL
+#: times its limit: fp32 logits within SETTLE_CEIL * SERVE_FP32_ATOL of
+#: one card's, a bf16 departure's gap within SETTLE_CEIL times its
+#: step's drift.  The control runs the placed steps' own code, so it
+#: copies a fault of theirs bit for bit; a fault of a block (a wrong
+#: head or vocabulary block, a gather out of order) moves the logits by
+#: O(1), orders of magnitude above this ceiling.  Chosen after the
+#: four-card serve runs on H100s read excesses of at most 2.69e-4 in
+#: fp32 and gaps of at most 1.17 times their step's drift in bf16.
+SETTLE_CEIL = 4
 #: pod-placed losses against (world, 1) data parallelism, relative
 POD_LOSS_RTOL = 1e-4
 #: the serving cells: rows, prompt positions, cache length, decode steps
@@ -152,16 +185,62 @@ def train_spec(spec: str) -> dict:
     return out
 
 
-def train_steps(step_fn, state, batch_at, n: int) -> tuple:
-    """(state, losses, seconds a step) of n synchronised steps."""
+#: the models' modules that call ``common.unembed`` by name
+_UNEMBED_CALLERS = (transformer, encdec, mamba2, zamba2)
+#: ``calls``: where the tapped ``unembed`` records on this thread
+_TAP = threading.local()
+_TAP_LOCK = threading.Lock()
+_TAP_OPEN = [0]
+
+
+def _tapped_unembed(params, x, tp=None):
+    logits = common.unembed(params, x, tp)
+    calls = getattr(_TAP, "calls", None)
+    if calls is not None:
+        calls.append((x.detach(), logits.detach()))
+    return logits
+
+
+@contextlib.contextmanager
+def tap_unembed():
+    """Every vocabulary projection (``common.unembed``) this thread makes
+    inside the block: yields a list that gets ``(x, logits)`` of each,
+    detached -- the final hidden state and what the projection made of
+    it (under ``tp`` this rank's block of the vocabulary).  The models'
+    modules call the tapped function while any block is open."""
+    with _TAP_LOCK:
+        if _TAP_OPEN[0] == 0:
+            for m in _UNEMBED_CALLERS:
+                m.unembed = _tapped_unembed
+        _TAP_OPEN[0] += 1
+    outer = getattr(_TAP, "calls", None)
+    _TAP.calls = []
+    try:
+        yield _TAP.calls
+    finally:
+        _TAP.calls = outer
+        with _TAP_LOCK:
+            _TAP_OPEN[0] -= 1
+            if _TAP_OPEN[0] == 0:
+                for m in _UNEMBED_CALLERS:
+                    m.unembed = common.unembed
+
+
+def train_steps(step_fn, state, batch_at, n: int, hidden=None) -> tuple:
+    """(state, losses, seconds a step) of n synchronised steps; the first
+    step's final hidden state (the input of the vocabulary projection)
+    appended to ``hidden`` when given."""
     losses, secs = [], []
     for s in range(n):
         batch = {k: t.to(DEVICE) for k, t in batch_at(s).items()}
         t0 = time.perf_counter()
-        state, met = step_fn(state, batch)
-        torch.cuda.synchronize()
+        with tap_unembed() as tap:
+            state, met = step_fn(state, batch)
+        _sync()
         secs.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
+        if s == 0 and hidden is not None:
+            hidden.append(tap[0][0])
     return state, losses, secs
 
 
@@ -191,11 +270,15 @@ def placed_run(arch: str, model_parallel: int, steps: int,
                init_peak=init_peak)
     del at_rest
     torch.cuda.reset_peak_memory_stats()
-    state, losses, secs = train_steps(step_fn, state, pipeline.batch_at,
-                                      steps)
+    hidden = []
+    with autotune.agreeing():
+        state, losses, secs = train_steps(step_fn, state, pipeline.batch_at,
+                                          steps, hidden)
     out.update(step_peak=torch.cuda.max_memory_allocated(), losses=losses,
                s_per_step=sum(secs[1:]) / max(len(secs) - 1, 1),
-               step_s=secs)
+               step_s=secs,
+               hidden_across_model=[model_gap(h, dp.mesh) for h in hidden],
+               memo_digests=memo_digests(dist.get_world_size()))
     del state
     torch.cuda.empty_cache()
     return out, (cfg, model, opt, pipeline)
@@ -278,10 +361,10 @@ def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
     each layer's recurrence run on ``n_blocks`` contiguous head blocks of
     the state one after another, their outputs and states joined in head
     order: the head-blocked recurrence of a placed step at model =
-    ``n_blocks``, without its collectives (and with the gated norm and
-    ``out_proj`` whole).  Updates ``cache`` in place; returns the logits."""
-    from repro_torch.models import mamba2
-    from repro_torch.models.common import embed_lookup, rms_norm, unembed
+    ``n_blocks``, built from the unplaced model's pieces, without its
+    collectives (and with the gated norm and ``out_proj`` whole).
+    Updates ``cache`` in place; returns the logits."""
+    from repro_torch.models.common import embed_lookup, rms_norm
     from repro_torch.models.transformer import layer_params
     size = cfg.d_inner_ // cfg.ssm_head_dim // n_blocks
     x = embed_lookup(params["embed"], tok[:, None], cfg.compute_dtype)
@@ -304,181 +387,564 @@ def _ssm_blocks_step(cfg, params, cache, tok, n_blocks: int):
             y = torch.cat(ys, dim=2).flatten(2)
             x = x + mamba2._gate_out(layer["mixer"], y, z, cfg)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        return unembed(params["embed"], x)[:, 0]
+        return common.unembed(params["embed"], x)[:, 0]
+
+
+def head_blocks(cfg, params, cache, first, n_blocks: int, n_steps: int,
+                placed: dict) -> dict:
+    """The control of a Mamba2 step built from the unplaced model
+    (:func:`_ssm_blocks_step`): greedy from ``first`` on a copy of one
+    card's prefilled ``cache``, ``n_steps`` steps and one more; its
+    streams and last logits against the placed steps'."""
+    ctl = {k: v.clone() for k, v in cache.items()}
+    tok, stream = first, []
+    for _ in range(n_steps + 1):
+        stream.append(tok)
+        logits = _ssm_blocks_step(cfg, params, ctl, tok, n_blocks).float()
+        tok = logits.argmax(-1)
+    equal = torch.stack(stream, 1).cpu().tolist() == \
+        placed["streams"].tolist()
+    return dict(streams_equal=equal,
+                vs_placed=(float((logits - placed["step_logits"]).abs().max())
+                           if equal else None))
+
+
+# ---------------------------------------------------------------------------
+# Checks of replicated values, and the collectives the controls stand in for
+# ---------------------------------------------------------------------------
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
+def model_gap(h: torch.Tensor, mesh) -> dict:
+    """``h``, a value every rank of a "model" group computes (the rows'
+    final hidden state), against the copy of its group's first rank: the
+    largest |h - h0| and the count of elements whose bits differ, each the
+    largest over the world.  Every rank calls it."""
+    h = h.detach().contiguous()
+    got = torch.zeros(2, dtype=torch.float64, device=h.device)
+    if sharding._axis_sizes(mesh).get("model", 1) > 1:
+        group = mesh.get_group("model")
+        h0 = h.clone()
+        dist.broadcast(h0, dist.get_global_rank(group, 0), group=group)
+        got[0] = (h.double() - h0.double()).abs().max()
+        got[1] = (_bits(h) != _bits(h0)).sum()
+    dist.all_reduce(got, op=dist.ReduceOp.MAX)
+    return dict(max_abs=float(got[0]), differing=int(got[1]))
+
+
+def memo_digests(world: int) -> list:
+    """Every rank's digest of the launch plans its group agreed on
+    (``autotune.digest``); every rank calls it."""
+    out = [None] * world
+    dist.all_gather_object(out, autotune.digest())
+    return out
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(_bits(t).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+class _Recorded:
+    """``torch.distributed`` as the placed steps call it
+    (``sharding.dist``, ``steps.dist``), each all-reduce's input and
+    output kept: ``calls`` of (input, output)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(dist, name)
+
+    def all_reduce(self, x, op=dist.ReduceOp.SUM, group=None, **kw):
+        before = x.detach().clone()
+        work = dist.all_reduce(x, op=op, group=group, **kw)
+        self.calls.append((before, x.detach().clone()))
+        return work
+
+
+@contextlib.contextmanager
+def _collectives(shim):
+    """The placed steps' collectives through ``shim`` inside the block."""
+    old = sharding.dist, steps_mod.dist
+    sharding.dist = steps_mod.dist = shim
+    try:
+        yield shim
+    finally:
+        sharding.dist, steps_mod.dist = old
+
+
+class _Line:
+    """One line of a :class:`VirtualMesh` along an axis: its ranks (global
+    virtual ranks, in group order) exchange tensors through a barrier."""
+
+    def __init__(self, ranks: list):
+        self.ranks, self.slots = ranks, {}
+        self.barrier = threading.Barrier(len(ranks), timeout=600)
+
+    def exchange(self, x: torch.Tensor) -> list:
+        """Every rank's ``x`` of this call, in group order."""
+        self.slots[_VIRTUAL.rank] = x
+        self.barrier.wait()
+        got = [self.slots[r] for r in self.ranks]
+        self.barrier.wait()
+        return got
+
+
+#: ``rank``: the virtual rank a control's thread runs
+_VIRTUAL = threading.local()
+
+
+class VirtualMesh:
+    """A ("data", "model") mesh of threads on one card, as the placed
+    steps read a ``DeviceMesh``: virtual rank r at the coordinate
+    ``mesh_of(shape)`` gives global rank r."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape: tuple, rank: int, lines: dict):
+        self.shape, self.rank, self._lines = tuple(shape), rank, lines
+        self._coord = divmod(rank, shape[1])
+
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    def get_coordinate(self) -> list:
+        return list(self._coord)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coord[self.mesh_dim_names.index(axis)]
+
+    def get_group(self, axis: str) -> _Line:
+        d, m = self._coord
+        return self._lines[(axis, m if axis == "data" else d)]
+
+
+class _ThreadDist:
+    """The collectives the placed serving steps make, over a
+    :class:`VirtualMesh`'s lines: all-gathers copy, all-reduces sum in
+    rank order; each all-reduce recorded on its thread as (input,
+    output, the sum of its line's inputs in fp64, the sum of their
+    magnitudes, the count of terms)."""
+
+    ReduceOp = dist.ReduceOp
+
+    def __init__(self, n: int):
+        self.calls = [[] for _ in range(n)]
+
+    def get_world_size(self, group=None) -> int:
+        return len(group.ranks)
+
+    def all_gather(self, parts, x, group=None, **kw):
+        for p, v in zip(parts, group.exchange(x)):
+            p.copy_(v)
+
+    def all_reduce(self, x, op=dist.ReduceOp.SUM, group=None, **kw):
+        vals = group.exchange(x)
+        out = vals[0].clone()
+        for v in vals[1:]:
+            out = out + v if op == dist.ReduceOp.SUM else torch.maximum(
+                out, v)
+        exact = sum(v.double() for v in vals)
+        size = sum(v.double().abs() for v in vals)
+        before = x.detach().clone()
+        group.barrier.wait()            # every rank has read every input
+        x.copy_(out)
+        self.calls[_VIRTUAL.rank].append((before, out, exact, size,
+                                          len(vals)))
+
+
+def virtual_run(shape: tuple, fn: Callable) -> tuple:
+    """``fn(mesh)`` on a :class:`VirtualMesh` of ``shape``, one thread a
+    virtual rank on this card, this process's own plans: (each rank's
+    result, each rank's recorded all-reduces)."""
+    n = shape[0] * shape[1]
+    ranks = torch.arange(n).reshape(shape)
+    lines = {("data", m): _Line(ranks[:, m].tolist())
+             for m in range(shape[1])}
+    lines.update({("model", d): _Line(ranks[d].tolist())
+                  for d in range(shape[0])})
+    shim, results, errors = _ThreadDist(n), [None] * n, []
+    device = torch.cuda.current_device() if DEVICE == "cuda" else None
+
+    def run(r: int) -> None:
+        _VIRTUAL.rank = r
+        if device is not None:
+            torch.cuda.set_device(device)
+        try:
+            with torch.no_grad():
+                results[r] = fn(VirtualMesh(shape, r, lines))
+        except BaseException as e:      # noqa: BLE001 -- reraised below
+            errors.append(e)
+            for line in lines.values():
+                line.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    with _collectives(shim):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return results, shim.calls
+
+
+def first_difference(placed: list, placed_inputs: list, control: list
+                     ) -> Optional[dict]:
+    """Where the placed steps' all-reduces and the control's first part:
+    ``placed`` rank 0's (input, output) of each all-reduce,
+    ``placed_inputs`` every rank's input digests, ``control`` every
+    virtual rank's records (:class:`_ThreadDist`).  Kind ``input``: an
+    all-reduce's inputs differ (the difference arose before it, in a
+    computation); ``all_reduce``: the inputs are equal and the outputs
+    not, each held within the rounding of summing its n terms in some
+    order: |out - sum p_r| <= gamma_(n-1) sum |p_r| elementwise, gamma_k =
+    k u / (1 - k u) (u the unit roundoff of the sum's dtype: 2^-24 in
+    fp32, 2^-8 in bf16; for four terms ~3 u sum |p_r|); ``count``: the
+    calls differ in number.  None: every all-reduce bitwise equal."""
+    for i, (inp, out) in enumerate(placed):
+        if i >= len(control[0]):
+            break
+        if any(placed_inputs[r][i] != _sha(control[r][i][0])
+               for r in range(len(control))):
+            return dict(kind="input", call=i, of=len(placed))
+        _, c_out, exact, size, n = control[0][i]
+        if not torch.equal(out, c_out):
+            k = (n - 1) * torch.finfo(out.dtype).eps / 2
+            bound = (k / (1 - k) * size).clamp_min(1e-300)
+            placed_over = ((out.double() - exact).abs() / bound).max()
+            control_over = ((c_out.double() - exact).abs() / bound).max()
+            return dict(kind="all_reduce", call=i, of=len(placed), terms=n,
+                        max_abs=float((out.double() - c_out.double())
+                                      .abs().max()),
+                        placed_over_bound=float(placed_over),
+                        control_over_bound=float(control_over),
+                        within=bool(placed_over <= 1
+                                    and control_over <= 1))
+    if len(placed) != len(control[0]):
+        return dict(kind="count", placed=len(placed),
+                    control=len(control[0]))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Prompts:
+    """A ``--serve`` run's inputs: every row's prompt, its real length,
+    an encoder-decoder's frames, the cache's length and the decode
+    steps."""
+    tokens: torch.Tensor
+    lengths: torch.Tensor
+    frames: Optional[torch.Tensor]
+    cache_len: int
+    n_steps: int
+
+    def frames_of(self, rows):
+        return None if self.frames is None else self.frames[rows]
+
+
+def _greedy(serve, params, cache, first, p: Prompts) -> tuple:
+    """``p.n_steps`` decode steps from ``first``: (streams on the host,
+    seconds a step, cache, last token, next position, each step's
+    ``unembed`` calls)."""
+    pos, tok, stream, secs = p.lengths.clone(), first, [first], []
+    with tap_unembed() as tap:
+        for _ in range(p.n_steps):
+            t0 = time.perf_counter()
+            tok, cache = serve(params, cache, tok, pos)
+            _sync()
+            secs.append(time.perf_counter() - t0)
+            pos = pos + 1
+            stream.append(tok)
+    return torch.stack(stream, 1).cpu(), secs, cache, tok, pos, tap
+
+
+def _step_logits(tap: list, tp, spec, mesh) -> list:
+    """Every row's whole-vocabulary logits of each recorded decode step
+    (this rank's rows and vocabulary block gathered)."""
+    out = []
+    for _, logits in tap:
+        rows = logits.reshape(logits.shape[0], -1)
+        if mesh is not None:
+            rows = steps_mod.gather_vocab(rows, tp)
+            rows = sharding._all_gather(rows.float().contiguous(),
+                                        tuple(spec) + (None,), mesh)
+        out.append(rows.float())
+    return out
+
+
+def placed_serve(model, cfg, params, mesh, p: Prompts, long: bool) -> dict:
+    """The placed steps on ``mesh`` (a ``DeviceMesh``, or a
+    :class:`VirtualMesh` for the control): a ``full_logits`` prefill of
+    every row, ``p.n_steps`` greedy steps through
+    ``make_serve_step(mesh=)`` and one more decode step's logits.  Every
+    rank calls it; logits come back whole (every row, the vocabulary)."""
+    b = p.tokens.shape[0]
+    prefill = steps_mod.make_prefill_step(model, cfg, full_logits=True,
+                                          mesh=mesh)
+    serve = steps_mod.make_serve_step(model, cfg, mesh=mesh)
+    tp = steps_mod.tensor_split(cfg, mesh)
+    placed_p = sharding.place_params(tree_map(lambda t: t, params), mesh)
+    cache = sharding.place_cache(model.init_cache(cfg, b, p.cache_len,
+                                                  device=DEVICE), mesh)
+    spec = sharding.rows_spec(mesh, b)
+    rows = sharding.local_shard(torch.arange(b), spec, mesh).to(DEVICE)
+    if DEVICE == "cuda" and not isinstance(mesh, VirtualMesh):
+        torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    with tap_unembed() as tap:
+        logits, cache = prefill(placed_p, cache, p.tokens[rows], p.lengths,
+                                p.frames_of(rows))
+    _sync()
+    prefill_s = time.perf_counter() - t0
+    hidden = [tap[-1][0]]
+    # a tensor-parallel prefill's full logits are this rank's block of
+    # the vocabulary
+    logits = steps_mod.gather_vocab(logits, tp)
+    last = logits[torch.arange(len(rows)), p.lengths[rows].long()
+                  - 1].float()
+    full_last = sharding._all_gather(last.contiguous(), spec, mesh)
+    full_logits = (None if long else sharding._all_gather(
+        logits.float().contiguous(), tuple(spec) + (None, None), mesh))
+    del logits
+    streams, secs, cache, tok, pos, tap = _greedy(
+        serve, placed_p, cache, full_last.argmax(-1), p)
+    stream_logits = [full_last] + _step_logits(tap, tp, spec, mesh)
+    coll = None if isinstance(mesh, VirtualMesh) else dryrun.Collectives()
+    with tap_unembed() as tap:
+        step_logits = _decode_logits(model, cfg, placed_p, cache, tok, pos,
+                                     mesh, coll)
+    hidden.append(tap[-1][0])
+    return dict(full_last=full_last, full_logits=full_logits,
+                streams=streams, stream_logits=stream_logits,
+                step_logits=step_logits, hidden=hidden, secs=secs,
+                prefill_s=prefill_s, rows=rows.tolist(),
+                specs={k: list(v)
+                       for k, v in cache.placement.specs.items()},
+                collectives=None if coll is None else coll.record())
+
+
+def _max_abs(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    return None if a is None or b is None else float((a - b).abs().max())
+
+
+def block_control(model, cfg, params, shape: tuple, p: Prompts, long: bool,
+                  placed: dict, recorded: list, placed_inputs: list,
+                  one: dict) -> dict:
+    """The placed blocks on one card: every model rank's blocks computed
+    with the shapes that rank computes, this card's plans (rank 0's: the
+    ranks agree on each key), joined in the placed steps' order
+    (:func:`virtual_run` of :func:`placed_serve`).  Bitwise equal to the
+    placed logits: the placed steps' difference from one card's is the
+    order of the blocks' sums, ``settled``.  Where the steps all-reduce
+    partial sums, NCCL's order is not this card's: the first difference
+    must sit at an all-reduce, within its reordering bound
+    (:func:`first_difference`).  The same code as the placed steps: a
+    fault of theirs is settled too, and the caller's ceiling
+    (``SETTLE_CEIL``) is what holds it."""
+    results, calls = virtual_run(
+        shape, lambda mesh: placed_serve(model, cfg, params, mesh, p, long))
+    ctl = results[0]
+    out = dict(
+        full_last_vs_placed=_max_abs(ctl["full_last"], placed["full_last"]),
+        full_logits_vs_placed=_max_abs(ctl["full_logits"],
+                                       placed["full_logits"]),
+        streams_equal=ctl["streams"].tolist() == placed["streams"].tolist(),
+        step_logits_vs_placed=_max_abs(ctl["step_logits"],
+                                       placed["step_logits"]),
+        full_logits_vs_one_card=_max_abs(ctl["full_logits"],
+                                         one["full_logits"]),
+        step_logits_vs_one_card=(
+            _max_abs(ctl["step_logits"], one["step_logits"])
+            if ctl["streams"].tolist() == one["streams"].tolist() else None),
+        all_reduces=len(recorded))
+    diff = first_difference(recorded, placed_inputs, calls)
+    bitwise = (out["streams_equal"] and out["full_last_vs_placed"] == 0.0
+               and out["full_logits_vs_placed"] in (None, 0.0)
+               and out["step_logits_vs_placed"] == 0.0)
+    out.update(bitwise=bitwise, first_difference=diff,
+               settled=(bitwise and diff is None) or (
+                   diff is not None and diff["kind"] == "all_reduce"
+                   and diff["within"]))
+    del results, calls
+    return out
 
 
 def serve_run(arch: str, dtype: str, model_parallel: int = 1,
               long: bool = False, sell: str = "acdc") -> dict:
     """Placed serving at (world / model_parallel, model_parallel) and, on
-    rank 0, the unplaced steps; rank 0 gets the comparison."""
+    rank 0, the unplaced steps, the controls and the comparison."""
     cfg = registry.get_config(arch)
     if sell == "acdc":
         cfg = registry.with_sell(cfg, "acdc", method="pallas")
     cfg = dataclasses.replace(cfg, dtype=dtype)
     model = get_model(cfg)
     world, rank = dist.get_world_size(), dist.get_rank()
-    mesh = dryrun.mesh_of((world // model_parallel, model_parallel), DEVICE)
+    shape = (world // model_parallel, model_parallel)
+    mesh = dryrun.mesh_of(shape, DEVICE)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                         DEVICE)
     gen = torch.Generator().manual_seed(1)
     if long:
-        b, plen, cache_len, n_steps = 1, LONG_LEN, LONG_CACHE, LONG_STEPS
-        lengths = torch.tensor([plen], dtype=torch.int32, device=DEVICE)
+        b, plen = 1, LONG_LEN
+        p = Prompts(None, torch.tensor([plen], dtype=torch.int32,
+                                       device=DEVICE), None, LONG_CACHE,
+                    LONG_STEPS)
     else:
-        b, plen, cache_len, n_steps = (SERVE_ROWS, SERVE_LEN, SERVE_CACHE,
-                                       SERVE_STEPS)
-        lengths = torch.tensor([64, 50, 64, 37][:b], dtype=torch.int32,
-                               device=DEVICE)
-    tokens = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
-                           dtype=torch.int32).to(DEVICE)
-    frames = (torch.randn(b, SERVE_FRAMES, cfg.d_model, generator=gen)
-              .to(DEVICE) if cfg.frontend == "audio" else None)
-
-    def frames_of(rows):
-        return None if frames is None else frames[rows]
-
-    def steps_of(m):
-        return (steps_mod.make_prefill_step(model, cfg, full_logits=True,
-                                            mesh=m),
-                steps_mod.make_serve_step(model, cfg, mesh=m))
-
-    def decode(serve, p, cache, first):
-        pos, tok, stream, secs = lengths.clone(), first, [first], []
-        for _ in range(n_steps):
-            t0 = time.perf_counter()
-            tok, cache = serve(p, cache, tok, pos)
-            _sync()
-            secs.append(time.perf_counter() - t0)
-            pos = pos + 1
-            stream.append(tok)
-        return torch.stack(stream, 1).cpu(), secs, cache, tok, pos
-
-    prefill, serve = steps_of(mesh)
-    placed_p = sharding.place_params(tree_map(torch.clone, params), mesh)
-    cache = sharding.place_cache(model.init_cache(cfg, b, cache_len,
-                                                  device=DEVICE), mesh)
-    spec = sharding.rows_spec(mesh, b)
-    rows = sharding.local_shard(torch.arange(b), spec, mesh)
-    if DEVICE == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    _sync()
-    t0 = time.perf_counter()
-    logits, cache = prefill(placed_p, cache, tokens[rows.to(DEVICE)],
-                            lengths, frames_of(rows.to(DEVICE)))
-    _sync()
-    prefill_s = time.perf_counter() - t0
-    # a tensor-parallel prefill's full logits are this rank's block of
-    # the vocabulary
-    logits = steps_mod.gather_vocab(logits,
-                                    steps_mod.tensor_split(cfg, mesh))
-    last = logits[torch.arange(len(rows)), lengths[rows.to(DEVICE)].long()
-                  - 1].float()
-    full_last = sharding._all_gather(last.contiguous(), spec, mesh)
-    full_logits = (None if long else sharding._all_gather(
-        logits.float().contiguous(), tuple(spec) + (None, None), mesh))
-    first = full_last.argmax(-1)
-    del logits
-    streams, secs, cache, tok, pos = decode(serve, placed_p, cache, first)
-    coll = dryrun.Collectives()
-    step_logits = _decode_logits(model, cfg, placed_p, cache, tok, pos,
-                                 mesh, coll)
-    out = dict(mesh=list(mesh.shape), rows=rows.tolist(),
-               specs={k: list(v) for k, v in cache.placement.specs.items()},
-               prefill_s=prefill_s,
+        b, plen = SERVE_ROWS, SERVE_LEN
+        p = Prompts(None, torch.tensor([64, 50, 64, 37][:b],
+                                       dtype=torch.int32, device=DEVICE),
+                    None, SERVE_CACHE, SERVE_STEPS)
+    p.tokens = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                             dtype=torch.int32).to(DEVICE)
+    p.frames = (torch.randn(b, SERVE_FRAMES, cfg.d_model, generator=gen)
+                .to(DEVICE) if cfg.frontend == "audio" else None)
+    # every all-reduce kept, for the placed-block control
+    recorder = _Recorded()
+    with _collectives(recorder), autotune.agreeing():
+        placed = placed_serve(model, cfg, params, mesh, p, long)
+    secs = placed["secs"]
+    out = dict(mesh=list(mesh.shape), rows=placed["rows"],
+               specs=placed["specs"], prefill_s=placed["prefill_s"],
                decode_s=sum(secs[1:]) / max(len(secs) - 1, 1),
                peak=(torch.cuda.max_memory_allocated()
                      if DEVICE == "cuda" else 0),
-               streams=streams.tolist(), step_collectives=coll.record())
-    del placed_p, cache
+               streams=placed["streams"].tolist(),
+               step_collectives=placed["collectives"],
+               hidden_across_model=[model_gap(h, mesh)
+                                    for h in placed["hidden"]])
+    out["memo_digests"] = memo_digests(world)
+    inputs = [None] * world
+    dist.all_gather_object(inputs, [_sha(i) for i, _ in recorder.calls])
+    del placed["hidden"]
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     if rank == 0:
-        prefill, serve = steps_of(None)
-        cache = model.init_cache(cfg, b, cache_len, device=DEVICE)
-        with torch.no_grad():
-            one_logits, cache = prefill(params, cache, tokens, lengths,
-                                        frames)
-            one_last = one_logits[torch.arange(b), lengths.long()
-                                  - 1].float()
-            one_full = None if long else one_logits.float()
-            del one_logits
-            if one_full is not None:
-                # control: one card's prefill of each row alone (its sums
-                # in another order), at every real position
-                out["prefill_rows_alone_max_abs"] = max(
-                    float((prefill(params, model.init_cache(
-                        cfg, 1, cache_len, device=DEVICE),
-                        tokens[r:r + 1], lengths[r:r + 1],
-                        frames_of(slice(r, r + 1)))[0][0, :n]
-                        .float() - one_full[r, :n]).abs().max())
-                    for r, n in enumerate(lengths.tolist()))
-            blocks = None
-            if cfg.family == "ssm" and model_parallel > 1:
-                # control: the whole decode in head blocks on one card
-                ctl = {k: v.clone() for k, v in cache.items()}
-                tok, ctl_stream = one_last.argmax(-1), []
-                for _ in range(n_steps + 1):
-                    ctl_stream.append(tok)
-                    blocks = _ssm_blocks_step(cfg, params, ctl, tok,
-                                              model_parallel).float()
-                    tok = blocks.argmax(-1)
-                ctl_stream = torch.stack(ctl_stream, 1).cpu().tolist()
-                del ctl
-            one_streams, one_secs, cache, one_tok, one_pos = decode(
-                serve, params, cache, one_last.argmax(-1))
-            alone = [{k: (v[r:r + 1] if v.dim() == 1 else v[:, r:r + 1])
-                      .clone() for k, v in cache.items()} for r in range(b)]
-            one_step = _decode_logits(model, cfg, params, cache, one_tok,
-                                      one_pos).float()
-            # control: the same step on each row alone (one card's sums
-            # in another order)
-            one_rows = torch.cat([_decode_logits(
-                model, cfg, params, c, one_tok[r:r + 1],
-                one_pos[r:r + 1]).float() for r, c in enumerate(alone)])
-            del alone
-        out["one_card"] = dict(streams=one_streams.tolist(),
-                               decode_s=sum(one_secs[1:])
-                               / max(len(one_secs) - 1, 1))
-        diff = (full_last - one_last).abs()
-        out["last_logits_max_abs"] = float(diff.max())
-        if full_logits is not None:     # every real position's
-            real = (torch.arange(plen, device=DEVICE)[None, :]
-                    < lengths[:, None])
-            gap = (full_logits - one_full).abs().amax(-1) * real
-            worst = int(gap.argmax())
-            out["full_logits_max_abs"] = float(gap.max())
-            out["full_logits_worst"] = [worst // plen, worst % plen]
-        same = streams.tolist() == one_streams.tolist()
-        out["step_logits_max_abs"] = (float((step_logits - one_step).abs()
-                                            .max()) if same else None)
-        out["rows_alone_max_abs"] = float((one_rows - one_step).abs().max())
-        if blocks is not None:      # Mamba2: the placed steps' sums
-            out["head_blocks"] = dict(
-                streams_equal=ctl_stream == streams.tolist(),
-                vs_one_card=float((blocks - one_step).abs().max()),
-                vs_placed=(float((blocks - step_logits).abs().max())
-                           if same else None))
-        if dtype == "float32":
-            out["logits_ok"] = bool(
-                diff.max() <= SERVE_FP32_ATOL
-                and out.get("full_logits_max_abs", 0.0) <= SERVE_FP32_ATOL
-                and (not same or out["step_logits_max_abs"]
-                     <= SERVE_FP32_ATOL))
-        out["streams_held"] = hold_streams(
-            model, cfg, params, tokens, lengths, streams, one_streams,
-            float(diff.max()), frames)
-        del cache
-    del params
+        out.update(one_card(model, cfg, params, p, long, dtype, placed,
+                            recorder, inputs, shape))
+    del params, placed, recorder
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def hold_streams(model, cfg, params, tokens, lengths, placed, one,
-                 drift: float, frames=None) -> dict:
-    """The bf16 streams: equal, or a row's first difference a near-tie
-    (the two tokens' fp32 logits after that context, one card, apart by
-    at most ``drift``; an encoder-decoder's row with its ``frames``)."""
+def one_card(model, cfg, params, p: Prompts, long: bool, dtype: str,
+             placed: dict, recorder, inputs: list, shape: tuple) -> dict:
+    """Rank 0 alone: the unplaced steps, the controls and what is held."""
+    b = p.tokens.shape[0]
+    prefill = steps_mod.make_prefill_step(model, cfg, full_logits=True)
+    serve = steps_mod.make_serve_step(model, cfg)
+    res = {}
+    cache = model.init_cache(cfg, b, p.cache_len, device=DEVICE)
+    with torch.no_grad():
+        one_logits, cache = prefill(params, cache, p.tokens, p.lengths,
+                                    p.frames)
+        one_last = one_logits[torch.arange(b), p.lengths.long()
+                              - 1].float()
+        one_full = None if long else one_logits.float()
+        del one_logits
+        if one_full is not None:
+            # control: one card's prefill of each row alone (its sums
+            # in another order), at every real position
+            res["prefill_rows_alone_max_abs"] = max(
+                float((prefill(params, model.init_cache(
+                    cfg, 1, p.cache_len, device=DEVICE),
+                    p.tokens[r:r + 1], p.lengths[r:r + 1],
+                    p.frames_of(slice(r, r + 1)))[0][0, :n]
+                    .float() - one_full[r, :n]).abs().max())
+                for r, n in enumerate(p.lengths.tolist()))
+        if cfg.family == "ssm" and shape[1] > 1:
+            res["head_blocks"] = head_blocks(cfg, params, cache,
+                                             one_last.argmax(-1), shape[1],
+                                             p.n_steps, placed)
+        one_streams, one_secs, cache, one_tok, one_pos, tap = _greedy(
+            serve, params, cache, one_last.argmax(-1), p)
+        one_stream_logits = [one_last] + _step_logits(tap, None, None,
+                                                      None)
+        del tap
+        alone = [{k: (v[r:r + 1] if v.dim() == 1 else v[:, r:r + 1])
+                  .clone() for k, v in cache.items()} for r in range(b)]
+        one_step = _decode_logits(model, cfg, params, cache, one_tok,
+                                  one_pos).float()
+        # control: the same step on each row alone (one card's sums in
+        # another order)
+        one_rows = torch.cat([_decode_logits(
+            model, cfg, params, c, one_tok[r:r + 1],
+            one_pos[r:r + 1]).float() for r, c in enumerate(alone)])
+        del alone, cache
+    res["one_card"] = dict(streams=one_streams.tolist(),
+                           decode_s=sum(one_secs[1:])
+                           / max(len(one_secs) - 1, 1))
+    diff = (placed["full_last"] - one_last).abs()
+    res["last_logits_max_abs"] = float(diff.max())
+    if one_full is not None:     # every real position's
+        plen = p.tokens.shape[1]
+        real = (torch.arange(plen, device=DEVICE)[None, :]
+                < p.lengths[:, None])
+        gap = (placed["full_logits"] - one_full).abs().amax(-1) * real
+        worst = int(gap.argmax())
+        res["full_logits_max_abs"] = float(gap.max())
+        res["full_logits_worst"] = [worst // plen, worst % plen]
+    streams = placed["streams"]
+    same = streams.tolist() == one_streams.tolist()
+    res["step_logits_max_abs"] = (float((placed["step_logits"] - one_step)
+                                        .abs().max()) if same else None)
+    res["rows_alone_max_abs"] = float((one_rows - one_step).abs().max())
+    def settled() -> bool:
+        """The placed-block control, run once, settles the excess: it
+        reproduces the placed steps, and where the step makes no
+        partial-sum all-reduce the head-blocks control built from the
+        unplaced model (Mamba2) equals them bitwise too."""
+        if "block_control" not in res:
+            res["block_control"] = block_control(
+                model, cfg, params, shape, p, long, placed,
+                recorder.calls, inputs, dict(full_logits=one_full,
+                                             step_logits=one_step,
+                                             streams=one_streams))
+        ctl, blocks = res["block_control"], res.get("head_blocks")
+        return ctl["settled"] and (
+            blocks is None or ctl["first_difference"] is not None
+            or blocks["vs_placed"] == 0.0)
+
+    if dtype == "float32":
+        worst = max(float(diff.max()), res.get("full_logits_max_abs", 0.0),
+                    res["step_logits_max_abs"] or 0.0)
+        res["logits_ok"] = worst <= SERVE_FP32_ATOL
+        # over the limit: held only under the ceiling, and where the
+        # placed blocks on one card differ the same way (summation order)
+        res["logits_held"] = res["logits_ok"] or (
+            settled() and worst <= SETTLE_CEIL * SERVE_FP32_ATOL)
+    res["streams_held"] = hold_streams(
+        model, cfg, params, p, streams, one_streams,
+        placed["stream_logits"], one_stream_logits, float(diff.max()))
+    if not res["streams_held"]["held"]:
+        # a departure over its step's drift: held only under the ceiling,
+        # and where the placed blocks on one card depart the same way
+        res["streams_held"]["held"] = settled() and all(
+            r["equal"] or r["gap"] <= SETTLE_CEIL * r["drift"]
+            for r in res["streams_held"]["rows"])
+        res["streams_held"]["by_block_control"] = True
+    return res
+
+
+def hold_streams(model, cfg, params, p: Prompts, placed, one,
+                 placed_logits: list, one_logits: list,
+                 prefill_drift: float) -> dict:
+    """The bf16 streams: equal, or a row's first difference a near-tie:
+    the two tokens' fp32 logits after that context, one card, apart by at
+    most the drift of the step that chose them -- the largest difference
+    of that row's logits, placed against one card's, at that context (the
+    prefill's last logits for the first token, else the decode step's).
+    ``prefill_drift`` (the largest difference of the prefill's last
+    logits over every row, the rule's drift before) is reported beside
+    it.  An encoder-decoder's row with its frames."""
     f32 = dataclasses.replace(cfg, dtype="float32")
     rows = []
     for r in range(placed.shape[0]):
@@ -487,8 +953,8 @@ def hold_streams(model, cfg, params, tokens, lengths, placed, one,
             rows.append(dict(equal=True))
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        n = int(lengths[r])
-        ctx = tokens[r, :n].tolist() + b[:j]
+        n = int(p.lengths[r])
+        ctx = p.tokens[r, :n].tolist() + b[:j]
         toks = torch.tensor([ctx], dtype=torch.int32, device=DEVICE)
         cache = model.init_cache(f32, 1, len(ctx), device=DEVICE)
         with torch.no_grad():
@@ -496,12 +962,13 @@ def hold_streams(model, cfg, params, tokens, lengths, placed, one,
                                       torch.tensor([len(ctx)],
                                                    dtype=torch.int32,
                                                    device=DEVICE),
-                                      None if frames is None
-                                      else frames[r:r + 1])
+                                      p.frames_of(slice(r, r + 1)))
         gap = abs(float(logits[0, -1, a[j]] - logits[0, -1, b[j]]))
+        drift = float((placed_logits[j][r] - one_logits[j][r]).abs().max())
         rows.append(dict(equal=False, first_difference=j, tokens=[a[j],
                                                                   b[j]],
-                         gap=gap, drift=drift, near_tie=gap <= drift))
+                         gap=gap, drift=drift, prefill_drift=prefill_drift,
+                         near_tie=gap <= drift))
     return dict(rows=rows, held=all(r["equal"] or r["near_tie"]
                                     for r in rows))
 
@@ -563,6 +1030,58 @@ def pod_train(arch: str, n_steps: int) -> dict:
     return out
 
 
+def _rank_checks(where: str, ranks: list) -> list:
+    """The checks every rank's record of a run carries: the plans its
+    group agreed on, and the final hidden state bitwise equal over each
+    "model" group."""
+    bad = []
+    if any(r["memo_digests"] != ranks[0]["memo_digests"] for r in ranks) \
+            or len(set(ranks[0]["memo_digests"])) != 1:
+        bad.append(f"{where}: the ranks' launch plans differ "
+                   f"({ranks[0]['memo_digests']})")
+    for i, gap in enumerate(ranks[0]["hidden_across_model"]):
+        if gap["differing"]:
+            bad.append(f"{where}: hidden state {i} differs over \"model\" "
+                       f"({gap})")
+    return bad
+
+
+def failed_checks(report: dict) -> list:
+    """Every held check of a finished run that failed, named: the losses,
+    the launch plans and the replicated hidden state of each ``--train``
+    run; of each ``--serve`` run those two, the fp32 logits (within
+    ``SERVE_FP32_ATOL`` of one card's, or settled by the placed-block
+    control) and the streams; each reckoning's mismatches (the peak
+    within ``dryrun.PEAK_REL`` among them)."""
+    bad = []
+    for run in report["runs"]:
+        where = f"train {run['arch']} {run['sell']} {run['dtype']} " \
+                f"model {run['model_parallel']}"
+        bad += _rank_checks(where, run["ranks"])
+        if run.get("losses_ok") is False:
+            bad.append(f"{where}: losses {run['loss_rel']:.3g} apart")
+    for run in report["served"]:
+        where = f"serve {run['arch']} {run['sell']} {run['dtype']} " \
+                f"model {run['model_parallel']}"
+        r0 = run["ranks"][0]
+        bad += _rank_checks(where, run["ranks"])
+        if r0.get("logits_held") is False:
+            bad.append(f"{where}: fp32 logits over {SERVE_FP32_ATOL}, over "
+                       f"{SETTLE_CEIL} x that or not settled by the "
+                       f"control")
+        if not r0["streams_held"]["held"]:
+            bad.append(f"{where}: streams not held")
+    for run in report["pod_train"]:
+        if not run["ranks"][0]["losses_ok"]:
+            bad.append(f"pod {run['arch']}: losses apart")
+    for run in (report["served"] + report["pod_train"] + report["cells"]):
+        rec = run.get("reckoned")
+        if rec is not None and rec["mismatches"]:
+            bad.append(f"reckoning {rec.get('spec', run.get('spec'))}: "
+                       f"{rec['mismatches']}")
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="append", default=[],
@@ -609,7 +1128,8 @@ def main() -> int:
                        seq_len=kw.get("seq_len", 128))
             if arch in args.replicated:
                 group = pieces[3].dp.group
-                run["data_parallel"] = replicated_run(pieces, n, group)
+                with autotune.agreeing():
+                    run["data_parallel"] = replicated_run(pieces, n, group)
                 if rank == 0:
                     if dist.get_world_size(group) > 1:
                         run["replicated"] = replicated_run(pieces, n)
@@ -629,7 +1149,9 @@ def main() -> int:
                       f"{[round(r['init_peak'] / gb, 2) for r in ranks]}, "
                       f"steps {[round(r['step_peak'] / gb, 2) for r in ranks]}"
                       f" GB; s/step {[round(r['s_per_step'], 4) for r in ranks]}"
-                      f"; losses {ranks[0]['losses']}"
+                      f"; losses {ranks[0]['losses']}; hidden state over "
+                      f"\"model\" {ranks[0]['hidden_across_model']}, plans "
+                      f"{ranks[0]['memo_digests']}"
                       + (f"; replicated data-parallel "
                          f"{run['data_parallel']}, on one card "
                          f"{run.get('replicated', 'as data-parallel')} "
@@ -676,12 +1198,16 @@ def main() -> int:
                           f"{r0.get('prefill_rows_alone_max_abs')}), "
                           f"after the "
                           f"streams {r0['step_logits_max_abs']} (one card, "
-                          f"each row alone: {r0['rows_alone_max_abs']:.3g}"
-                          + (f"; in head blocks: {r0['head_blocks']}"
-                             if "head_blocks" in r0 else "") + "); "
-                          + (f"logits ok {r0['logits_ok']}; "
+                          f"each row alone: {r0['rows_alone_max_abs']:.3g}); "
+                          + (f"logits ok {r0['logits_ok']} (placed-block "
+                             f"control {r0.get('block_control')}; head "
+                             f"blocks {r0.get('head_blocks')}; held "
+                             f"{r0['logits_held']}); "
                              if dtype == "float32" else "")
-                          + f"streams held {r0['streams_held']['held']}; "
+                          + f"streams held {r0['streams_held']} ; "
+                          f"hidden state over \"model\" "
+                          f"{r0['hidden_across_model']}; plans "
+                          f"{r0['memo_digests']}; "
                           f"the step's collectives "
                           f"{r0['step_collectives']['count']} of "
                           f"{r0['step_collectives']['bytes']} B",
@@ -691,7 +1217,8 @@ def main() -> int:
                     serve_spec(arch, world, mp))
         for spec in args.pod_train:
             arch, n = spec.split(":")
-            mine = pod_train(arch, int(n))
+            with autotune.agreeing():
+                mine = pod_train(arch, int(n))
             ranks = [None] * world
             dist.all_gather_object(ranks, mine)
             pods.append(dict(arch=arch, ranks=ranks))
@@ -751,11 +1278,16 @@ def main() -> int:
                       f"collectives and argument bytes against the dry "
                       f"run: mismatches {held['mismatches']}", flush=True)
             report.update(served=served, pod_train=pods, cells=cells)
+            report["failed_checks"] = failed_checks(report)
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
+            print(f"[checks] failed: {report['failed_checks'] or 'none'}",
+                  flush=True)
+        verdict = [bool(report.get("failed_checks"))]
+        dist.broadcast_object_list(verdict, src=0)
     finally:
         mesh_mod.shutdown()
-    return 0
+    return 1 if verdict[0] else 0
 
 
 if __name__ == "__main__":

@@ -58,13 +58,34 @@ entries.  ``REPRO_AUTOTUNE_CACHE=0`` disables the file;
 ``autotune_sweeps_total{direction}`` (and its seconds in
 ``autotune_sweep_seconds_total``) of the process registry, is appended
 to :data:`SWEEPS` and emits ``instant_global("autotune", "sweep", ...)``.
+
+One plan a key across ranks, where the caller asks for it.  Inside
+:func:`agreeing` (``group``: a process group, the default group when
+None), every rank of the group takes the group's first rank's plan for a
+key: at the key's first request in the block on each rank, that rank
+resolves it (its memo, the file, or a sweep) and broadcasts the plan
+with the key over the group; the others take it into their memos and
+sweep nothing.  A rank whose memo or file already holds the key still
+enters the broadcast, and a rank whose key differs from the first
+rank's raises.  Without it the ranks of a placed step may sweep or load
+their plans apart and run the same replicated cascade in different
+summation orders.  The broadcast is a collective, and so a deadlock
+risk: every rank of the group must enter the block and ask for the same
+keys in the same order (SPMD), and a rank of the group that asks for a
+key the others never ask for waits in the broadcast until the group's
+timeout.  Outside the block (code one rank runs alone, ranks outside
+the group, an elastic run's ranks left out of its mesh) nothing changes:
+each process's own plans, no collective.  CPU tensors take the cost
+model's plan with no collective, inside the block too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import fcntl
 import functools
+import hashlib
 import json
 import math
 import os
@@ -73,6 +94,7 @@ import warnings
 from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import families as families_mod
 from repro_torch.kernels import acdc_cascade_bwd as cascade_bwd_mod
@@ -133,6 +155,10 @@ _CACHE: Dict[Tuple[str, Tuple], Plan] = {}
 _PERSIST_LOADED: Set[str] = set()
 #: every sweep this process ran, in order
 SWEEPS: List[Sweep] = []
+#: (group's ranks, backend, key) of the plans a group agreed on
+_AGREED: Set[Tuple[Tuple, str, Tuple]] = set()
+#: the groups of the :func:`agreeing` blocks open, innermost last
+_GROUPS: list = []
 
 #: on-card sweeps completed this process, by direction: memo and file
 #: hits and CPU answers do NOT count (a run that shows zero sweeps either
@@ -554,6 +580,70 @@ def _at_m(p: cascade_mod.Plan, m: int) -> cascade_mod.Plan:
         p, clusters=clusters)
 
 
+def _resolve(direction: str, key: Tuple, backend: str, device, dtype,
+             bias: bool, permute: bool, family: str) -> Plan:
+    """This process's plan of ``key`` at its dims: the memo, then the
+    persistent file, then a sweep (recorded and saved)."""
+    p = _CACHE.get((backend, key))
+    if p is not None:
+        return p
+    _load_persistent(backend)
+    p = _CACHE.get((backend, key))
+    if p is not None:
+        return p
+    rec = sweep(direction, *_dims_of(key), device=device, dtype=dtype,
+                bias=bias, permute=permute, family=family)
+    rec = dataclasses.replace(rec, key=key)
+    _save_persistent(backend, key, rec.winner)
+    SWEEPS.append(rec)
+    _SWEEPS.labels(direction=direction).inc()
+    _SWEEP_SECONDS.labels(direction=direction).inc(rec.seconds)
+    obs_trace.instant_global("autotune", "sweep", direction=direction,
+                             key=_key_str(key), winner=describe(rec.winner))
+    return rec.winner
+
+
+def _agreeing() -> Optional[Tuple]:
+    """The ranks (global, in group order) that must agree on each key
+    here: those of the innermost :func:`agreeing` block's group, where
+    it holds more than one rank; else None."""
+    if not (_GROUPS and dist.is_available() and dist.is_initialized()) \
+            or dist.get_backend() == "fake":
+        return None
+    ranks = tuple(dist.get_process_group_ranks(_GROUPS[-1])
+                  if _GROUPS[-1] is not None
+                  else range(dist.get_world_size()))
+    return ranks if len(ranks) > 1 else None
+
+
+def _agree(key: Tuple, plan: Optional[Plan], ranks: Tuple) -> Plan:
+    """The group's first rank's ``plan`` of ``key`` on every rank of the
+    innermost :func:`agreeing` group (the other ranks pass None)."""
+    box = [(key, plan)]
+    dist.broadcast_object_list(box, src=ranks[0], group=_GROUPS[-1])
+    got, plan = box[0]
+    if got != key:
+        raise RuntimeError(
+            f"autotune: rank {dist.get_rank()} asks for {_key_str(key)} "
+            f"where rank {ranks[0]} asks for {_key_str(got)}: the ranks of "
+            f"an agreeing() block must request the same keys in the same "
+            f"order")
+    return plan
+
+
+@contextlib.contextmanager
+def agreeing(group=None):
+    """Inside the block every rank of ``group`` (a process group; the
+    default group when None) takes the group's first rank's plan for
+    each key (see the module doc: every rank of the group must enter the
+    block and ask for the same keys in the same order)."""
+    _GROUPS.append(group)
+    try:
+        yield
+    finally:
+        _GROUPS.pop()
+
+
 def autotuned_plan(direction: str, *dims: int, device,
                    dtype: torch.dtype = torch.float32, bias: bool = False,
                    permute: bool = False, family: str = "acdc") -> Plan:
@@ -561,33 +651,36 @@ def autotuned_plan(direction: str, *dims: int, device,
     for ``fwd`` / ``bwd`` (K = 1), ``cascade`` and ``cascade_bwd``, and
     :func:`.paged_attn.plan`'s (B, Hkv, MB, bs, group, T, Dh, item) for
     ``paged_attn``.  On the card the first call of a key sweeps (see the
-    module doc); off it the cost model answers.  ACDC plans come back at
-    the call's own M."""
+    module doc), and inside :func:`agreeing` every rank of its group
+    takes the group's first rank's plan; off it the cost model answers.
+    ACDC plans come back at the call's own M."""
     key = key_of(direction, dims, dtype, bias, permute, family)
     backend = _backend(torch.device(device))
     p = _CACHE.get((backend, key))
-    if p is None:
-        at = _dims_of(key)
-        if backend == "cpu":
-            p = cost_model(direction, *at, permute=permute)
-        else:
-            _load_persistent(backend)
-            p = _CACHE.get((backend, key))
-            if p is None:
-                rec = sweep(direction, *at, device=device, dtype=dtype,
-                            bias=bias, permute=permute, family=family)
-                rec = dataclasses.replace(rec, key=key)
-                p = rec.winner
-                _save_persistent(backend, key, p)
-                SWEEPS.append(rec)
-                _SWEEPS.labels(direction=direction).inc()
-                _SWEEP_SECONDS.labels(direction=direction).inc(rec.seconds)
-                obs_trace.instant_global("autotune", "sweep",
-                                         direction=direction,
-                                         key=_key_str(key),
-                                         winner=describe(p))
-        _CACHE[(backend, key)] = p
+    if backend == "cpu":
+        if p is None:
+            p = cost_model(direction, *_dims_of(key), permute=permute)
+    elif (ranks := _agreeing()) and (ranks, backend, key) not in _AGREED:
+        mine = (_resolve(direction, key, backend, device, dtype, bias,
+                         permute, family)
+                if dist.get_rank() == ranks[0] else None)
+        p = _agree(key, mine, ranks)
+        _AGREED.add((ranks, backend, key))
+    elif p is None:
+        p = _resolve(direction, key, backend, device, dtype, bias, permute,
+                     family)
+    _CACHE[(backend, key)] = p
     return p if direction == "paged_attn" else _at_m(p, dims[0])
+
+
+def digest() -> str:
+    """A short digest of the plans of the keys this process agreed on
+    with its groups: equal on two ranks exactly when they hold the same
+    plans for the same keys."""
+    entries = sorted((_key_str(key), _plan_to_json(_CACHE[(b, key)]))
+                     for _, b, key in _AGREED)
+    text = json.dumps(entries, sort_keys=True)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def memo(backend: Optional[str] = None) -> Dict[Tuple, Plan]:

@@ -5,7 +5,9 @@ import ``jax`` or the JAX package ``repro``.
   ``chip_smoke`` and must end with neither ``jax`` nor ``repro`` (nor a
   ``repro.*`` module) in ``sys.modules``;
 * an AST scan of every source finds no such import statement, including
-  imports inside functions (which the first check cannot reach).
+  imports inside functions (which the first check cannot reach); the
+  scan covers the PyTorch examples (``examples/*_torch.py``) too, which
+  import neither the reference's ``benchmarks``.
 """
 
 import ast
@@ -65,13 +67,20 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+EXAMPLES = ("quickstart", "linear_recovery", "convnet_acdc", "train_lm",
+            "serve_lm")
+
+
 def test_no_jax_or_reference_imports_in_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == sorted(
+        f"{name}_torch.py" for name in EXAMPLES)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     bad = []
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "repro", "benchmarks"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
